@@ -1,0 +1,235 @@
+"""Wrappers of the CUDA LUT and int8 kernels (``csrc/lutmul.cu``,
+``csrc/int_matmul.cu``).
+
+Four entry points, each with a plain launch counter in ``LAUNCHES``:
+
+* ``lutmul`` / ``lutmul_fused`` replace ``lutmul_pallas(impl="onehot")``
+  and ``lutmul_fused_pallas`` (``repro/kernels/lutmul/kernel.py:178`` and
+  ``:380``): ``acc[m,n] = sum_k T[w[k,n], a[m,k]]`` through the [16, 16]
+  product table in shared memory, int32 out or the fused
+  ``(acc.f32 * a_scale) * w_scale`` epilogue.
+* ``int_matmul`` / ``int_matmul_fused`` replace ``int_matmul_pallas`` and
+  ``int_matmul_fused_pallas`` (``:332`` and ``:483``): int8 x int8 -> int32,
+  with the same optional epilogue.
+
+Bound on the H100 at decode (M = 8): the weight bytes over 3.35 TB/s for the
+int8 kernel (the 545 MB qwen2-7b head: 0.16 ms); for the LUT kernel the
+M*K*N shared-memory lookups weigh more than its K*N/2 weight bytes (the
+source notes in ``csrc/`` say what each design does about its bound).
+
+A tensor on the CPU takes the plain version from ``ref.py``; a CUDA tensor
+launches the kernel on the current stream or raises — there is no fallback.
+The wrappers check device, dtype, shape and contiguity, allocate the output
+with ``torch.empty`` and raise when the launch reports a CUDA error.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.lut import contraction_table
+from repro_torch.kernels import build
+from repro_torch.kernels.lutmul import ref
+
+LAUNCHES = {"lutmul": 0, "lutmul_fused": 0, "int_matmul": 0,
+            "int_matmul_fused": 0}
+
+_EPILOGUE = {torch.int32: 0, torch.bfloat16: 1, torch.float32: 2}
+_TABLES: dict[tuple, torch.Tensor] = {}
+_WORKSPACES: dict[tuple, torch.Tensor] = {}
+_ENTRIES: dict[str, object] = {}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def product_table(a_signed: bool, device) -> torch.Tensor:
+    """[16, 16] int32 product table on ``device`` (cached)."""
+    key = (a_signed, str(device))
+    t = _TABLES.get(key)
+    if t is None:
+        t = torch.as_tensor(contraction_table(a_signed=a_signed),
+                            dtype=torch.int32, device=device).contiguous()
+        _TABLES[key] = t
+    return t
+
+
+def _entry(lib_name: str, fn_name: str, argtypes: list,
+           restype=ctypes.c_int):
+    fn = _ENTRIES.get(fn_name)
+    if fn is None:
+        fn = getattr(build.load(lib_name), fn_name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+        _ENTRIES[fn_name] = fn
+    return fn
+
+
+def _launch_args(n_ptr: int) -> list:
+    """ctypes signature of a launch entry: pointers, M K N epilogue, stream."""
+    return [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def _lut_workspace(M: int, N: int, device, stream: int) -> torch.Tensor:
+    """The LUT kernel's int32 scratch (split sums + per-tile arrival
+    counters), one per (device, stream).  Allocated zeroed and grown, never
+    cleared: every launch leaves it zero again."""
+    words = _entry("lutmul", "lutmul_workspace_words",
+                   [ctypes.c_int, ctypes.c_int], ctypes.c_longlong)(M, N)
+    key = (device, stream)
+    ws = _WORKSPACES.get(key)
+    if ws is None or ws.numel() < words:
+        ws = torch.zeros((words,), dtype=torch.int32, device=device)
+        _WORKSPACES[key] = ws
+    return ws
+
+
+def _check(name: str, t: torch.Tensor, dtype, ndim: int, device) -> None:
+    if device.type != "cuda":
+        raise ValueError(f"{name} is on {device}: the kernels run on cuda "
+                         "(CPU tensors take the plain version)")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must be {ndim}D, got shape "
+                         f"{tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_scales(a_scale, w_scale, M: int, N: int, device) -> None:
+    _check("a_scale", a_scale, torch.float32, 2, device)
+    _check("w_scale", w_scale, torch.float32, 2, device)
+    if tuple(a_scale.shape) != (M, 1) or tuple(w_scale.shape) != (1, N):
+        raise ValueError(
+            f"scales must be a_scale [M, 1] = [{M}, 1] and w_scale [1, N] = "
+            f"[1, {N}], got {tuple(a_scale.shape)} and "
+            f"{tuple(w_scale.shape)}")
+
+
+def _out_dtype(dtype) -> int:
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"fused epilogue writes bfloat16 or float32, got "
+                        f"{dtype}")
+    return _EPILOGUE[dtype]
+
+
+def _raise_on(code: int, name: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error "
+                           f"{code}")
+
+
+def _lut_shapes(a_codes, w_packed) -> tuple[int, int, int]:
+    M, K = a_codes.shape
+    if K % 2 or w_packed.shape[0] * 2 != K:
+        raise ValueError(
+            f"w_packed [K//2, N] = {tuple(w_packed.shape)} does not match "
+            f"activation K = {K} (K must be even)")
+    return M, K, w_packed.shape[1]
+
+
+def _lut_launch(a_codes, w_packed, a_scale, w_scale, out, epi: int,
+                a_signed: bool, name: str) -> None:
+    M, K, N = _lut_shapes(a_codes, w_packed)
+    if M == 0 or N == 0:
+        return
+    table = product_table(a_signed, a_codes.device)
+    stream = torch.cuda.current_stream(a_codes.device).cuda_stream
+    work = _lut_workspace(M, N, a_codes.device, stream)
+    fn = _entry("lutmul", "lutmul_launch", _launch_args(7))
+    code = fn(a_codes.data_ptr(), w_packed.data_ptr(), table.data_ptr(),
+              a_scale.data_ptr() if a_scale is not None else None,
+              w_scale.data_ptr() if w_scale is not None else None,
+              out.data_ptr(), work.data_ptr(), M, K, N, epi, stream)
+    _raise_on(code, name)
+    LAUNCHES[name] += 1
+
+
+def _int_launch(a, w, a_scale, w_scale, out, epi: int, name: str) -> None:
+    M, K = a.shape
+    if w.shape[0] != K:
+        raise ValueError(f"w [K, N] = {tuple(w.shape)} does not match "
+                         f"activation K = {K}")
+    N = w.shape[1]
+    if M == 0 or N == 0:
+        return
+    fn = _entry("int_matmul", "int_matmul_launch", _launch_args(5))
+    code = fn(a.data_ptr(), w.data_ptr(),
+              a_scale.data_ptr() if a_scale is not None else None,
+              w_scale.data_ptr() if w_scale is not None else None,
+              out.data_ptr(), M, K, N, epi,
+              torch.cuda.current_stream(a.device).cuda_stream)
+    _raise_on(code, name)
+    LAUNCHES[name] += 1
+
+
+def lutmul(a_codes: torch.Tensor, w_packed: torch.Tensor, *,
+           a_signed: bool = True) -> torch.Tensor:
+    """a_codes [M, K] uint8 4-bit codes, w_packed [K//2, N] uint8 ->
+    int32 [M, N]."""
+    if a_codes.device.type == "cpu":
+        return ref.lutmul_ref(a_codes, w_packed, a_signed)
+    dev = a_codes.device
+    _check("a_codes", a_codes, torch.uint8, 2, dev)
+    _check("w_packed", w_packed, torch.uint8, 2, dev)
+    M, _, N = _lut_shapes(a_codes, w_packed)
+    out = torch.empty((M, N), dtype=torch.int32, device=dev)
+    _lut_launch(a_codes, w_packed, None, None, out, 0, a_signed, "lutmul")
+    return out
+
+
+def lutmul_fused(a_codes: torch.Tensor, w_packed: torch.Tensor,
+                 a_scale: torch.Tensor, w_scale: torch.Tensor, *,
+                 a_signed: bool = True,
+                 out_dtype=torch.bfloat16) -> torch.Tensor:
+    """LUT multiply + dequant: a_scale [M, 1], w_scale [1, N] float32 ->
+    [M, N] ``out_dtype``."""
+    if a_codes.device.type == "cpu":
+        return ref.scaled_lutmul_ref(a_codes, w_packed, a_scale, w_scale,
+                                     a_signed, out_dtype)
+    dev = a_codes.device
+    _check("a_codes", a_codes, torch.uint8, 2, dev)
+    _check("w_packed", w_packed, torch.uint8, 2, dev)
+    M, _, N = _lut_shapes(a_codes, w_packed)
+    _check_scales(a_scale, w_scale, M, N, dev)
+    epi = _out_dtype(out_dtype)
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    _lut_launch(a_codes, w_packed, a_scale, w_scale, out, epi, a_signed,
+                "lutmul_fused")
+    return out
+
+
+def int_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """int8 [M, K] x int8 [K, N] -> int32 [M, N]."""
+    if a.device.type == "cpu":
+        return ref.int_matmul_ref(a, w)
+    dev = a.device
+    _check("a", a, torch.int8, 2, dev)
+    _check("w", w, torch.int8, 2, dev)
+    out = torch.empty((a.shape[0], w.shape[1]), dtype=torch.int32,
+                      device=dev)
+    _int_launch(a, w, None, None, out, 0, "int_matmul")
+    return out
+
+
+def int_matmul_fused(a: torch.Tensor, w: torch.Tensor,
+                     a_scale: torch.Tensor, w_scale: torch.Tensor, *,
+                     out_dtype=torch.bfloat16) -> torch.Tensor:
+    """int8 matmul + dequant -> [M, N] ``out_dtype``."""
+    if a.device.type == "cpu":
+        return ref.scaled_int_matmul_ref(a, w, a_scale, w_scale, out_dtype)
+    dev = a.device
+    _check("a", a, torch.int8, 2, dev)
+    _check("w", w, torch.int8, 2, dev)
+    M, N = a.shape[0], w.shape[1]
+    _check_scales(a_scale, w_scale, M, N, dev)
+    epi = _out_dtype(out_dtype)
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    _int_launch(a, w, a_scale, w_scale, out, epi, "int_matmul_fused")
+    return out

@@ -1,0 +1,326 @@
+"""Dispatch around the LUT/int8 kernels + the quantized matmuls every model
+projection calls (port of ``repro.kernels.lutmul.ops``, w4a4/w8a8 part).
+
+Backends:
+  * ``"cuda"`` — the hand-written kernels (``kernel.py``); a tensor on the
+    CPU takes each kernel's plain version inside the wrapper
+  * ``"ref"``  — the plain PyTorch versions (``ref.py``), unfused epilogue
+Default: ``"cuda"`` when a GPU is present, else ``"ref"``; override with
+:func:`set_backend` or ``REPRO_TORCH_KERNEL_BACKEND``.
+
+On ``cuda`` the dequant epilogue is fused into the kernel (``pick_variant``
+default); :func:`set_variant` forces either variant, which is how the
+unfused entry points are driven end to end.  The activation quantizer stays
+plain PyTorch outside the kernels, as the reference leaves it to XLA: IEEE
+division by tensors (never by a Python scalar, which CUDA PyTorch turns
+into a reciprocal multiply) and round-half-to-even, like ``jnp.round``.
+"""
+from __future__ import annotations
+
+import os
+import re
+from typing import Optional
+
+import torch
+
+from repro_torch.core.lut import pack_int4, unpack_int4
+from repro_torch.kernels.lutmul import kernel, ref
+
+_BACKENDS = ("ref", "cuda")
+_BACKEND: Optional[str] = None
+_VARIANT: Optional[str] = None
+
+# bumped on every weight quantization event (cached layers must quantize
+# once at load, never per forward call)
+WEIGHT_QUANT_COUNT = 0
+
+
+def set_backend(name: Optional[str]) -> None:
+    if name is not None and name not in _BACKENDS:
+        raise ValueError(f"unknown backend {name!r}: expected one of "
+                         f"{_BACKENDS}")
+    global _BACKEND
+    _BACKEND = name
+
+
+def get_backend() -> str:
+    if _BACKEND is not None:
+        return _BACKEND
+    env = os.environ.get("REPRO_TORCH_KERNEL_BACKEND")
+    if env:
+        if env not in _BACKENDS:
+            raise ValueError(f"REPRO_TORCH_KERNEL_BACKEND={env!r}: expected "
+                             f"one of {_BACKENDS}")
+        return env
+    return "cuda" if torch.cuda.is_available() else "ref"
+
+
+# ---------------------------------------------------------------------------
+# quant-mode grammar
+# ---------------------------------------------------------------------------
+
+_WEIGHT_BITS_SPECS = (1, "ternary", 2, 3, 4)
+_TMAC_MODE = re.compile(r"^(?:w(\d+)|(ternary))_?a(\d+)(_tmac)?$")
+
+
+def _validate_weight_bits(spec) -> None:
+    if spec not in _WEIGHT_BITS_SPECS:
+        raise ValueError(
+            f"unsupported weight bit width {spec!r}: the tmac formulation "
+            f"supports {_WEIGHT_BITS_SPECS} (ints are two's-complement widths;"
+            " 'ternary' is the BitNet-b1.58 {-1,0,+1} coding at ~1.58 bits)")
+
+
+def parse_mode(mode: str) -> tuple[str, object, int]:
+    """Parse a quant-mode string -> (formulation, wbits_spec, abits).
+
+    "w4a4_mxu"/""/"none" -> ("int", 4, 4); "w8a8" -> ("int", 8, 8);
+    "w4a4_lut" -> ("onehot", 4, 4); "w{1,2,3,4}a{4,8}_tmac" and
+    "ternary_a{4,8}_tmac" -> ("tmac", spec, abits); suffix-free sub-4-bit
+    modes -> ("auto", spec, abits).  The grammar is the reference's in full;
+    this slice serves the "int" and "onehot" formulations.
+    """
+    if mode in ("", "none", "w4a4_mxu"):
+        return ("int", 4, 4)
+    if mode == "w8a8":
+        return ("int", 8, 8)
+    if mode == "w4a4_lut":
+        return ("onehot", 4, 4)
+    m = _TMAC_MODE.match(mode)
+    if m:
+        spec = "ternary" if m.group(2) else int(m.group(1))
+        _validate_weight_bits(spec)
+        abits = int(m.group(3))
+        if abits not in (4, 8):
+            raise ValueError(
+                f"unsupported activation bit width a{abits} in {mode!r}: "
+                "the quantizers support a4 and a8")
+        return ("tmac" if m.group(4) else "auto", spec, abits)
+    raise ValueError(
+        f"unknown quant mode {mode!r}: expected one of w4a4_mxu | w4a4_lut | "
+        "w8a8 | w{{1,2,3,4}}a{{4,8}}[_tmac] | ternary_a{{4,8}}[_tmac]")
+
+
+def _check_lut_shapes(a_codes: torch.Tensor, w_packed: torch.Tensor) -> None:
+    K = a_codes.shape[1]
+    if K % 2:
+        raise ValueError(
+            f"lutmul requires even K for nibble-packed weights, got K={K}; "
+            "pad the contraction dim to a multiple of 2 (models do this by "
+            "construction)")
+    if w_packed.dim() != 2:
+        raise ValueError(
+            f"w_packed must be 2D [K//2, N], got shape "
+            f"{tuple(w_packed.shape)}; 3D [P, K//8, N] bitplane leaves "
+            "belong to the tmac formulation")
+    if w_packed.shape[0] * 2 != K:
+        raise ValueError(
+            f"w_packed rows ({w_packed.shape[0]}) must be K//2 = {K // 2} "
+            f"for activation K={K}: the weight was packed for "
+            f"K={w_packed.shape[0] * 2} (mismatched quantize/packing?)")
+
+
+# ---------------------------------------------------------------------------
+# raw integer matmuls (int32 out, no scales)
+# ---------------------------------------------------------------------------
+
+def lutmul(a_codes: torch.Tensor, w_packed: torch.Tensor, *,
+           a_signed: bool = True,
+           backend: Optional[str] = None) -> torch.Tensor:
+    """LUT matmul on 4-bit codes. a_codes [M, K] u8; w_packed [K//2, N] u8."""
+    _check_lut_shapes(a_codes, w_packed)
+    be = backend or get_backend()
+    if be == "ref":
+        return ref.lutmul_ref(a_codes, w_packed, a_signed)
+    return kernel.lutmul(a_codes.contiguous(), w_packed.contiguous(),
+                         a_signed=a_signed)
+
+
+def int_matmul(a: torch.Tensor, w: torch.Tensor,
+               backend: Optional[str] = None) -> torch.Tensor:
+    """int8 x int8 -> int32."""
+    be = backend or get_backend()
+    if be == "ref":
+        return ref.int_matmul_ref(a, w)
+    return kernel.int_matmul(a.contiguous(), w.contiguous())
+
+
+def _fused_lut(a_codes, w_packed, a_scale, w_scale, *, a_signed: bool,
+               out_dtype) -> torch.Tensor:
+    _check_lut_shapes(a_codes, w_packed)
+    return kernel.lutmul_fused(
+        a_codes.contiguous(), w_packed.contiguous(),
+        a_scale.to(torch.float32).contiguous(),
+        w_scale.to(torch.float32).contiguous(), a_signed=a_signed,
+        out_dtype=out_dtype)
+
+
+def _fused_int(a_q, w_int, a_scale, w_scale, *, out_dtype) -> torch.Tensor:
+    return kernel.int_matmul_fused(
+        a_q.contiguous(), w_int.contiguous(),
+        a_scale.to(torch.float32).contiguous(),
+        w_scale.to(torch.float32).contiguous(), out_dtype=out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# epilogue-variant selection (fused vs unfused dequant)
+# ---------------------------------------------------------------------------
+
+def set_variant(name: Optional[str]) -> None:
+    """Force "fused" | "unfused" on every kernel call (None: the backend's
+    default, see :func:`pick_variant`)."""
+    if name not in (None, "fused", "unfused"):
+        raise ValueError(f"unknown variant {name!r}: expected 'fused', "
+                         "'unfused' or None")
+    global _VARIANT
+    _VARIANT = name
+
+
+def pick_variant(backend: str) -> str:
+    """"fused" on ``cuda`` (the kernel writes the compute dtype directly),
+    "unfused" on ``ref``, unless :func:`set_variant` forced one.  The
+    reference's per-shape autotune is not ported."""
+    if _VARIANT is not None:
+        return _VARIANT
+    return "fused" if backend == "cuda" else "unfused"
+
+
+# ---------------------------------------------------------------------------
+# quantizers
+# ---------------------------------------------------------------------------
+
+def _divide(x: torch.Tensor, q: int) -> torch.Tensor:
+    """``x / q`` as an IEEE division on every device."""
+    return x / torch.full((), float(q), dtype=x.dtype, device=x.device)
+
+
+def _quantize_with_scale(x2: torch.Tensor, a_scale: torch.Tensor,
+                         qmax: int) -> torch.Tensor:
+    """Symmetric round/clip to int8 codes under a precomputed scale."""
+    return torch.clamp(torch.round(x2 / a_scale), -qmax - 1,
+                       qmax).to(torch.int8)
+
+
+def quantize_activations(x2: torch.Tensor, bits: int):
+    """Per-token symmetric quant: [M, K] f32 -> (int8 codes, [M, 1] scale)."""
+    if bits not in (4, 8):
+        raise ValueError(
+            f"unsupported activation bit width {bits!r}: activations "
+            "quantize to a4 or a8 (sub-4-bit widths apply to *weights* — "
+            "see quantize_weights_planes)")
+    qmax = 2 ** (bits - 1) - 1
+    amax = torch.amax(torch.abs(x2), dim=1, keepdim=True)
+    a_scale = _divide(torch.clamp_min(amax, 1e-8), qmax)
+    return _quantize_with_scale(x2, a_scale, qmax), a_scale
+
+
+def quantize_weights(wf: torch.Tensor, bits: int, pack: bool = False):
+    """Per-output-channel symmetric quant: [..., K, N] f32 -> (codes,
+    [..., 1, N] scale); ``pack`` nibble-packs 4-bit codes along K.  Every
+    weight quantization of the port (serving leaves included) is a call of
+    this function, so it alone bumps ``WEIGHT_QUANT_COUNT``."""
+    if bits not in (4, 8):
+        raise ValueError(
+            f"unsupported weight bit width {bits!r} for the nibble/int8 "
+            "format: use 4 or 8, or quantize_weights_planes for the tmac "
+            "bitplane family (1, 2, 3, 4, 'ternary')")
+    if pack and bits != 4:
+        raise ValueError("nibble packing (pack=True) is a 4-bit format; "
+                         f"got bits={bits}")
+    global WEIGHT_QUANT_COUNT
+    WEIGHT_QUANT_COUNT += 1
+    qmax = 2 ** (bits - 1) - 1
+    w_scale = _divide(torch.amax(torch.abs(wf), dim=-2, keepdim=True), qmax)
+    w_scale = torch.clamp_min(w_scale, 1e-8)
+    w_q = torch.clamp(torch.round(wf / w_scale), -qmax - 1,
+                      qmax).to(torch.int8)
+    if pack:
+        if wf.shape[-2] % 2:
+            raise ValueError(
+                f"nibble packing needs even K, got K={wf.shape[-2]}")
+        w_q = pack_int4(w_q.transpose(-1, -2)).transpose(-1, -2) \
+            .contiguous()
+    return w_q, w_scale
+
+
+# ---------------------------------------------------------------------------
+# pre-quantized (serving) matmul: weights are integer codes on the device
+# ---------------------------------------------------------------------------
+
+def _unpack_w(w_q: torch.Tensor) -> torch.Tensor:
+    """Packed-int4 uint8 [..., K//2, N] -> int8 [..., K, N]."""
+    return unpack_int4(w_q.transpose(-1, -2), signed=True) \
+        .transpose(-1, -2).contiguous()
+
+
+def _dispatch(a_q, a_scale, w_q, ws_row, mode: str, be: str, lead,
+              compute_dtype) -> torch.Tensor:
+    """Fused or unfused kernel call on quantized activations."""
+    N = w_q.shape[-1]
+    packed = w_q.dtype == torch.uint8
+    lut = packed and mode == "w4a4_lut"
+    if pick_variant(be) == "fused":
+        if lut:
+            y = _fused_lut(a_q.to(torch.uint8) & 0xF, w_q, a_scale, ws_row,
+                           a_signed=True, out_dtype=compute_dtype)
+        else:
+            y = _fused_int(a_q, _unpack_w(w_q) if packed else w_q, a_scale,
+                           ws_row, out_dtype=compute_dtype)
+        return y.reshape(*lead, N)
+    if lut:
+        acc = lutmul(a_q.to(torch.uint8) & 0xF, w_q, a_signed=True,
+                     backend=be)
+    else:
+        acc = int_matmul(a_q, _unpack_w(w_q) if packed else w_q, backend=be)
+    return ref.dequant_epilogue(acc, a_scale, ws_row,
+                                compute_dtype).reshape(*lead, N)
+
+
+def prequant_matmul(x: torch.Tensor, w_q: torch.Tensor,
+                    w_scale: torch.Tensor, mode: str = "",
+                    compute_dtype=torch.bfloat16,
+                    backend: Optional[str] = None) -> torch.Tensor:
+    """x [..., K] float; w_q packed-int4 uint8 [K//2, N] or int8 [K, N].
+
+    The weights live on the device as integer codes; the int8 ``[K, N]``
+    leaf (the w8a8 head) takes the int8 kernel, the packed leaf the LUT
+    kernel under ``w4a4_lut`` (the int8 kernel on unpacked nibbles
+    otherwise).
+    """
+    lead = x.shape[:-1]
+    K = x.shape[-1]
+    N = w_q.shape[-1]
+    if w_q.dim() != 2:
+        raise NotImplementedError(
+            f"weight leaf of shape {tuple(w_q.shape)}: only 2D nibble/int8 "
+            "leaves are served (tmac bitplane leaves are not ported yet)")
+    packed = w_q.dtype == torch.uint8
+    x2 = x.reshape(-1, K).to(torch.float32)
+    if packed:
+        _check_lut_shapes(x2, w_q)
+    a_q, a_scale = quantize_activations(x2, 4 if packed else 8)
+    be = backend or get_backend()
+    return _dispatch(a_q, a_scale, w_q, w_scale.reshape(1, N), mode, be,
+                     lead, compute_dtype)
+
+
+def quantized_matmul(x: torch.Tensor, w: torch.Tensor,
+                     mode: str = "w4a4_mxu", compute_dtype=torch.bfloat16,
+                     backend: Optional[str] = None) -> torch.Tensor:
+    """Dynamic-quant matmul on a float weight ``w [K, N]``: re-quantizes
+    the weight on every call (serving quantizes once, see serve.quantize)."""
+    form, _, _ = parse_mode(mode)
+    if form not in ("int", "onehot"):
+        raise NotImplementedError(
+            f"quant mode {mode!r} ({form}) is not ported yet: this slice "
+            "serves w4a4_lut, w4a4_mxu and w8a8")
+    lead = x.shape[:-1]
+    K = x.shape[-1]
+    x2 = x.reshape(-1, K).to(torch.float32)
+    bits = 4 if mode.startswith("w4") else 8
+    a_q, a_scale = quantize_activations(x2, bits)
+    w_q, w_scale = quantize_weights(w.to(torch.float32), bits,
+                                    pack=(mode == "w4a4_lut"))
+    be = backend or get_backend()
+    return _dispatch(a_q, a_scale, w_q, w_scale, mode, be, lead,
+                     compute_dtype)

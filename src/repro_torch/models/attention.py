@@ -1,0 +1,142 @@
+"""Attention (port of ``repro.models.attention``, dense part): GQA with the
+reference's boolean position mask and ``NEG_INF`` fill, full-sequence
+prefill and single-token decode over a dense per-slot KV cache.
+
+Plain PyTorch ops throughout (the reference has no Pallas kernel here).
+Scores and the probability-value product accumulate in float32 on float32
+copies of K/V, the analogue of the reference's
+``preferred_element_type=float32``.  Decode writes the new K/V row into the
+cache IN PLACE (the reference returns an updated copy; the engine donates
+it, so the two are the same data flow) and returns the same tensors.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.models.layers import Params, apply_rope, init_linear, linear
+
+NEG_INF = -1e30
+
+
+def init_attention(gen: torch.Generator, d_model: int, n_heads: int,
+                   n_kv: int, head_dim: int, qkv_bias: bool = False,
+                   dtype=torch.float32, device=None) -> Params:
+    kw = dict(dtype=dtype, device=device)
+    return {
+        "wq": init_linear(gen, d_model, n_heads * head_dim, bias=qkv_bias,
+                          **kw),
+        "wk": init_linear(gen, d_model, n_kv * head_dim, bias=qkv_bias, **kw),
+        "wv": init_linear(gen, d_model, n_kv * head_dim, bias=qkv_bias, **kw),
+        "wo": init_linear(gen, n_heads * head_dim, d_model, **kw),
+    }
+
+
+def _proj_qkv(p: Params, name: str, x: torch.Tensor, B: int, S: int,
+              D: int, quant: str, cd) -> torch.Tensor:
+    """Project to [B, S, h, D]."""
+    return linear(p[name], x, quant, cd).reshape(B, S, -1, D)
+
+
+def _proj_out(p: Params, out: torch.Tensor, B: int, S: int, quant: str,
+              cd) -> torch.Tensor:
+    return linear(p["wo"], out.reshape(B, S, -1).to(cd), quant, cd)
+
+
+def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
+    """[..., q, k] causal boolean keep-mask from absolute positions; negative
+    key positions (padding / unwritten cache slots) are always masked."""
+    m = (k_pos >= 0)[..., None, :]
+    d = q_pos[..., :, None] - k_pos[..., None, :]
+    return m & (d >= 0)
+
+
+def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
+    """Causal attention: q [B, S, Hq, D], k/v [B, T, Hkv, D] -> float32
+    [B, S, Hq, D]."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    scale = torch.tensor(1.0 / math.sqrt(D), dtype=q.dtype)
+    qg = q.reshape(B, S, Hkv, G, D) * scale
+    s = torch.einsum("bshgd,bkhd->bshgk", qg.to(torch.float32),
+                     k.to(torch.float32))
+    keep = _mask(q_pos, k_pos)
+    s = s.masked_fill(~keep[:, :, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bshgk,bkhd->bshgd",
+                       p.to(v.dtype).to(torch.float32), v.to(torch.float32))
+    return out.reshape(B, S, Hq, D)
+
+
+def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, *,
+              n_heads: int, n_kv: int, head_dim: int,
+              rope_theta: float = 10000.0, quant: str = "none",
+              compute_dtype=torch.bfloat16, return_kv: bool = False):
+    """Causal self-attention over a full sequence (prefill).  Unblocked: the
+    score tensor is [B, S, H, S] (the reference switches to a blocked scan
+    above 2 * kv_block tokens, with the same result up to float summation
+    order)."""
+    B, S, _ = x.shape
+    q = _proj_qkv(p, "wq", x, B, S, head_dim, quant, compute_dtype)
+    k = _proj_qkv(p, "wk", x, B, S, head_dim, quant, compute_dtype)
+    v = _proj_qkv(p, "wv", x, B, S, head_dim, quant, compute_dtype)
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+    out = full_attention(q, k, v, positions, positions)
+    y = _proj_out(p, out.to(compute_dtype), B, S, quant, compute_dtype)
+    if return_kv:
+        return y, (k, v)
+    return y
+
+
+def _pos_vec(pos, B: int, device) -> torch.Tensor:
+    """Decode positions as per-sequence [B] int32 (a scalar broadcasts;
+    negative = free-slot sentinel, its keys never unmask)."""
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=device)
+    return pos.reshape(-1).expand(B) if pos.numel() == 1 else pos
+
+
+def _write_kv_slot(cache: torch.Tensor, new: torch.Tensor,
+                   slot: torch.Tensor) -> torch.Tensor:
+    """Per-sequence in-place write: cache [B, T, ...], new [B, 1, ...],
+    slot [B] — row b's token lands at ``cache[b, slot[b]]`` only."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    cache[rows, slot.long()] = new[:, 0].to(cache.dtype)
+    return cache
+
+
+def decode_kv_positions(pos: torch.Tensor, T: int) -> torch.Tensor:
+    """[B, T] absolute position of each cache slot (negative sentinel on
+    unwritten slots) for per-sequence decode at ``pos``."""
+    idx = torch.arange(T, dtype=torch.int32, device=pos.device)[None]
+    posb = pos[:, None]
+    return torch.where((idx <= posb) & (posb >= 0), idx, -(10 ** 9))
+
+
+def decode_attention(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, pos, *, n_heads: int, n_kv: int,
+                     head_dim: int, rope_theta: float = 10000.0,
+                     quant: str = "none", compute_dtype=torch.bfloat16):
+    """One decode step.  x [B, 1, d]; cache [B, T, Hkv, D]; pos scalar or
+    [B] int32.  Returns (y, cache_k, cache_v) with the caches updated in
+    place.  A negative ``pos[b]`` marks a free slot: its write lands inside
+    its own row (slot 0) and every key of that row stays masked."""
+    B = x.shape[0]
+    T = cache_k.shape[1]
+    q = _proj_qkv(p, "wq", x, B, 1, head_dim, quant, compute_dtype)
+    k = _proj_qkv(p, "wk", x, B, 1, head_dim, quant, compute_dtype)
+    v = _proj_qkv(p, "wv", x, B, 1, head_dim, quant, compute_dtype)
+    posv = _pos_vec(pos, B, x.device)
+    posb = posv[:, None]
+    q = apply_rope(q, posb, rope_theta)
+    k = apply_rope(k, posb, rope_theta)
+    slot = torch.clamp(posv, 0, T - 1)
+    _write_kv_slot(cache_k, k, slot)
+    _write_kv_slot(cache_v, v, slot)
+    k_pos = decode_kv_positions(posv, T)
+    out = full_attention(q, cache_k, cache_v, posb, k_pos)
+    y = _proj_out(p, out.to(compute_dtype), B, 1, quant, compute_dtype)
+    return y, cache_k, cache_v

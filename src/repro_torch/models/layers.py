@@ -1,0 +1,164 @@
+"""Layer primitives (port of ``repro.models.layers``): quantizable linears,
+RMS norm, rotary embeddings, the SwiGLU MLP and the weight-code cache.
+
+Parameters are plain dicts of tensors in the reference layout: a linear is
+``{"w": [d_in, d_out]}`` (``x @ w``) with an optional ``"b"``, or its
+serving form ``{"w_q", "w_scale"[, "b"]}`` produced by
+``serve.quantize``; ``linear`` dispatches on the presence of ``w_q``.
+Initializers take an explicit ``torch.Generator`` and device.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+Params = dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# initializers
+# ---------------------------------------------------------------------------
+
+def init_linear(gen: torch.Generator, d_in: int, d_out: int,
+                bias: bool = False, dtype=torch.float32,
+                device=None) -> Params:
+    w = torch.randn((d_in, d_out), generator=gen, dtype=dtype,
+                    device=device)
+    p = {"w": w.mul_(1.0 / math.sqrt(d_in))}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
+    return p
+
+
+def init_norm(d: int, dtype=torch.float32, device=None) -> Params:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def init_embedding(gen: torch.Generator, vocab: int, d: int,
+                   dtype=torch.float32, device=None) -> Params:
+    emb = torch.randn((vocab, d), generator=gen, dtype=dtype, device=device)
+    return {"emb": emb.mul_(0.02)}
+
+
+# ---------------------------------------------------------------------------
+# quantizable linear
+# ---------------------------------------------------------------------------
+
+def linear(p: Params, x: torch.Tensor, quant: str = "none",
+           compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Dense projection with a selectable quantization mode.
+
+    A leaf carrying serving codes (``w_q`` + ``w_scale``) always takes the
+    integer path — weights are read from device memory as codes.
+    """
+    from repro_torch.kernels.lutmul import ops as lut_ops
+    if "w_q" in p:
+        y = lut_ops.prequant_matmul(x, p["w_q"], p["w_scale"], mode=quant,
+                                    compute_dtype=compute_dtype)
+    elif quant == "none":
+        y = x.to(compute_dtype) @ p["w"].to(compute_dtype)
+    else:
+        lut_ops.parse_mode(quant)   # raises with the mode grammar on typos
+        y = lut_ops.quantized_matmul(x, p["w"], mode=quant,
+                                     compute_dtype=compute_dtype)
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# norm + rotary embeddings
+# ---------------------------------------------------------------------------
+
+def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    xf = xf * torch.rsqrt(var + eps)
+    return (xf * p["scale"].to(torch.float32)).to(x.dtype)
+
+
+_FREQS: dict[tuple, torch.Tensor] = {}
+
+
+def rope_freqs(head_dim: int, theta: float = 10000.0,
+               device=None) -> torch.Tensor:
+    """[head_dim/2] float32 inverse frequencies (computed on the CPU, so
+    every device sees the same values)."""
+    key = (head_dim, float(theta), str(device))
+    f = _FREQS.get(key)
+    if f is None:
+        f = 1.0 / (theta ** (torch.arange(0, head_dim, 2,
+                                          dtype=torch.float32) / head_dim))
+        f = f.to(device) if device is not None else f
+        _FREQS[key] = f
+    return f
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x [B, S, H, D]; positions [B, S] int32."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    angles = positions[..., None].to(torch.float32) * freqs     # [B, S, D/2]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def init_mlp(gen: torch.Generator, d: int, d_ff: int, dtype=torch.float32,
+             device=None) -> Params:
+    """SwiGLU weights (the only MLP kind this slice serves)."""
+    return {"wi": init_linear(gen, d, d_ff, dtype=dtype, device=device),
+            "wg": init_linear(gen, d, d_ff, dtype=dtype, device=device),
+            "wo": init_linear(gen, d_ff, d, dtype=dtype, device=device)}
+
+
+def mlp(p: Params, x: torch.Tensor, quant: str = "none",
+        compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """SwiGLU: ``wo(silu(wg x) * wi x)``."""
+    h = F.silu(linear(p["wg"], x, quant, compute_dtype)) \
+        * linear(p["wi"], x, quant, compute_dtype)
+    return linear(p["wo"], h, quant, compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# weight-code caching
+# ---------------------------------------------------------------------------
+
+class QuantizedLinear:
+    """A linear layer that quantizes + packs its weight codes ONCE at
+    construction; every call then takes ``prequant_matmul`` and performs no
+    weight quantization (``ops.WEIGHT_QUANT_COUNT`` stays put)."""
+
+    def __init__(self, p: Params, mode: str = "w4a4_mxu"):
+        from repro_torch.kernels.lutmul import ops as lut_ops
+        if mode in ("none", "qat"):
+            raise ValueError(
+                f"unsupported quant mode {mode!r}: QuantizedLinear caches "
+                "integer serving codes; float/QAT paths use layers.linear")
+        lut_ops.parse_mode(mode)             # raises on unknown modes
+        self.mode = mode
+        if "w_q" in p:                       # already serving codes
+            self.p = dict(p)
+        else:
+            from repro_torch.serve.quantize import quantize_leaf_mode
+            self.p = quantize_leaf_mode(p["w"], mode)
+            if "b" in p:
+                self.p["b"] = p["b"]
+
+    @property
+    def params(self) -> Params:
+        return self.p
+
+    def __call__(self, x: torch.Tensor,
+                 compute_dtype=torch.bfloat16) -> torch.Tensor:
+        return linear(self.p, x, quant=self.mode,
+                      compute_dtype=compute_dtype)

@@ -1,0 +1,181 @@
+"""Dense decoder LM (port of ``repro.models.transformer``, attention-only
+patterns): ``embed -> layers -> final_norm -> lm_head``.
+
+Layers are a per-layer list (``params["blocks"][i]``), not the reference's
+``[G, ...]`` stacks; layer ``g * len(pattern) + j`` is group ``g``'s pattern
+position ``j`` (``convert.params_from_jax`` unstacks in that order).  The
+decode cache is a list of per-layer ``{"k", "v"}`` buffers
+``[B, max_len, n_kv, head_dim]`` that ``decode_step`` updates in place.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs import ModelConfig
+from repro_torch.core.device import resolve_device
+from repro_torch.models import attention as attn_lib
+from repro_torch.models.layers import (init_embedding, init_linear, init_mlp,
+                                       init_norm, mlp, rms_norm)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for configuration features this slice does not port."""
+    bad = []
+    for spec in cfg.pattern:
+        if spec.kind != "attn" or spec.shared_attn:
+            bad.append(f"block kind {spec.kind!r}")
+        if spec.attn_type != "global" or cfg.window:
+            bad.append("sliding-window attention")
+        if spec.mlp != "swiglu":
+            bad.append(f"mlp {spec.mlp!r}")
+    for name, ok in (("attn_softcap", cfg.attn_softcap is None),
+                     ("final_softcap", cfg.final_softcap is None),
+                     ("rope_mode", cfg.rope_mode == "rope"),
+                     ("norm", cfg.norm == "rmsnorm"),
+                     ("gemma_norms", not cfg.gemma_norms),
+                     ("embed_scale", not cfg.embed_scale),
+                     ("moe", cfg.moe is None),
+                     ("enc_dec", not cfg.enc_dec),
+                     ("kv_quant", cfg.kv_quant == "none"),
+                     ("split_head_params", not cfg.split_head_params)):
+        if not ok:
+            bad.append(name)
+    if bad:
+        raise NotImplementedError(
+            f"{cfg.name}: not ported yet: {', '.join(sorted(set(bad)))}")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
+    """Random parameters from a seeded ``torch.Generator`` on ``device``."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = cfg.pdtype
+    kw = dict(dtype=dt, device=dev)
+    blocks = []
+    for _ in range(cfg.n_layers):
+        blocks.append({
+            "ln1": init_norm(cfg.d_model, **kw),
+            "attn": attn_lib.init_attention(
+                gen, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim,
+                cfg.qkv_bias, **kw),
+            "ln2": init_norm(cfg.d_model, **kw),
+            "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, **kw),
+        })
+    params = {"embed": init_embedding(gen, cfg.vocab, cfg.d_model, **kw),
+              "blocks": blocks,
+              "final_norm": init_norm(cfg.d_model, **kw)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = init_linear(gen, cfg.d_model, cfg.vocab, **kw)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# forward / prefill
+# ---------------------------------------------------------------------------
+
+def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
+    # gather, then cast: the same values as the reference's cast-then-gather
+    # without converting the whole table every call
+    return params["embed"]["emb"][tokens.long()].to(cfg.cdtype)
+
+
+def _lm_head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Final projection; tied embeddings or the (pre-quantized) head."""
+    if cfg.tie_embeddings:
+        return x @ params["embed"]["emb"].T.to(x.dtype)
+    lh = params["lm_head"]
+    if "w_q" in lh:
+        from repro_torch.kernels.lutmul import ops as lut_ops
+        return lut_ops.prequant_matmul(x, lh["w_q"], lh["w_scale"],
+                                       mode=cfg.quant, compute_dtype=x.dtype)
+    return x @ lh["w"].to(x.dtype)
+
+
+def _block(bp: dict, cfg: ModelConfig, x: torch.Tensor,
+           positions: torch.Tensor):
+    cd = cfg.cdtype
+    h = rms_norm(bp["ln1"], x)
+    y, (k, v) = attn_lib.attention(
+        bp["attn"], h, positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
+        head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+        quant=cfg.quant, compute_dtype=cd, return_kv=True)
+    x = x + y
+    h = rms_norm(bp["ln2"], x)
+    x = x + mlp(bp["mlp"], h, quant=cfg.quant, compute_dtype=cd)
+    return x, {"k": k.to(cd), "v": v.to(cd)}
+
+
+def _positions(B: int, S: int, device) -> torch.Tensor:
+    return torch.arange(S, dtype=torch.int32,
+                        device=device)[None].expand(B, S)
+
+
+def forward(params: dict, cfg: ModelConfig,
+            tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward: (logits [B, S, V] compute dtype, aux 0.0)."""
+    check_supported(cfg)
+    B, S = tokens.shape
+    x = _embed(params, cfg, tokens)
+    positions = _positions(B, S, x.device)
+    for bp in params["blocks"]:
+        x, _ = _block(bp, cfg, x, positions)
+    x = rms_norm(params["final_norm"], x)
+    logits = _lm_head(params, cfg, x.to(cfg.cdtype))
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
+    """Forward that also returns the decode cache: (logits [B, V] float32
+    at the last position, per-layer {"k", "v"} of length S)."""
+    check_supported(cfg)
+    B, S = tokens.shape
+    x = _embed(params, cfg, tokens)
+    positions = _positions(B, S, x.device)
+    cache = []
+    for bp in params["blocks"]:
+        x, c = _block(bp, cfg, x, positions)
+        cache.append(c)
+    x = rms_norm(params["final_norm"], x)
+    logits = _lm_head(params, cfg, x[:, -1].to(cfg.cdtype)).to(torch.float32)
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device=None) -> list:
+    """Zero per-layer dense K/V buffers [batch, max_len, n_kv, head_dim]."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    shape = (batch, max_len, cfg.n_kv, cfg.head_dim)
+    return [{"k": torch.zeros(shape, dtype=cfg.cdtype, device=dev),
+             "v": torch.zeros(shape, dtype=cfg.cdtype, device=dev)}
+            for _ in range(cfg.n_layers)]
+
+
+def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
+                cache: list, pos) -> tuple[torch.Tensor, list]:
+    """One token for the whole batch.  token [B] int; pos scalar or [B]
+    int32 (each slot at its own depth; negative = free slot).  Returns
+    (logits [B, V] float32, cache) with the cache updated in place."""
+    cd = cfg.cdtype
+    x = _embed(params, cfg, token)[:, None, :]                   # [B, 1, d]
+    for bp, c in zip(params["blocks"], cache):
+        h = rms_norm(bp["ln1"], x)
+        y, _, _ = attn_lib.decode_attention(
+            bp["attn"], h, c["k"], c["v"], pos, n_heads=cfg.n_heads,
+            n_kv=cfg.n_kv, head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+            quant=cfg.quant, compute_dtype=cd)
+        x = x + y
+        h = rms_norm(bp["ln2"], x)
+        x = x + mlp(bp["mlp"], h, quant=cfg.quant, compute_dtype=cd)
+    x = rms_norm(params["final_norm"], x)
+    logits = _lm_head(params, cfg, x[:, 0].to(cd)).to(torch.float32)
+    return logits, cache

@@ -1,0 +1,23 @@
+"""Serving: continuous batching over static-shape decode buffers (port of
+``repro.serve``, single-device dense-KV part).
+
+    Request -> Scheduler (FIFO queue, slot map) -> Engine.step
+                   one round = chunk lane of prompt tokens + `chunk` decode
+                   tokens for every slot, each a transformer.decode_step
+                   whose projections run the LUT / int8 kernels
+"""
+from repro_torch.serve.engine import Engine, ServeConfig, sample_logits
+from repro_torch.serve.request import Request, RequestStatus
+from repro_torch.serve.scheduler import Scheduler
+
+
+def make_engine(params, cfg, scfg: ServeConfig = ServeConfig(), *,
+                device=None) -> Engine:
+    """Build the serving engine on ``device`` (default ``cuda``; raises when
+    no GPU is present and no device is named).  ``scfg.quant`` quantizes the
+    weights to integer codes once, here."""
+    return Engine(cfg, params, scfg, device=device)
+
+
+__all__ = ["Engine", "ServeConfig", "Request", "RequestStatus", "Scheduler",
+           "make_engine", "sample_logits"]

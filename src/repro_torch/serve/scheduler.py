@@ -1,0 +1,269 @@
+"""Continuous-batching scheduler with chunked prefill (port of
+``repro.serve.scheduler`` without deadlines, shedding, snapshots,
+save/load, paging and speculation).
+
+A fixed pool of ``slots`` decode lanes over one set of live cache buffers.
+Requests queue FIFO; every round runs ONE ``Engine.step`` carrying up to
+``prefill_chunk`` prompt tokens (mid-prefill slots first, then new
+admissions from the queue head) followed by ``chunk`` decode tokens for
+every slot.  A prompt's last chunk entry samples its first output token in
+the same round and the slot joins the decode lane immediately.  Free slots
+carry the negative-position sentinel; mid-prefill slots park done=True on
+their latest (token, position), so iterations that do not target them
+rewrite the same KV bits.
+"""
+from __future__ import annotations
+
+import collections
+from typing import Deque, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.serve.engine import Engine
+from repro_torch.serve.request import Request, RequestStatus
+
+
+class Scheduler:
+    """FIFO admission over a fixed slot map; ``Engine`` executes the batch."""
+
+    def __init__(self, engine: Engine, slots: int = 4, chunk: int = 8):
+        if slots < 1 or chunk < 1:
+            raise ValueError(f"slots and chunk must be >= 1, got slots="
+                             f"{slots}, chunk={chunk}")
+        self.engine = engine
+        self.n_slots = slots
+        self.chunk = chunk
+        dev = engine.device
+        self.cache = engine.init_cache(slots)
+        # per-slot device state ([slots] vectors; free slot: pos=-1, done)
+        self.tok = torch.zeros((slots,), dtype=torch.int32, device=dev)
+        self.pos = torch.full((slots,), -1, dtype=torch.int32, device=dev)
+        self.done = torch.ones((slots,), dtype=torch.bool, device=dev)
+        # per-slot EOS ids mirrored host-side (admission rebuilds the device
+        # vector without device reads); -1 = none
+        self._eos_h = [-1] * slots
+        self._push_eos()
+        self.queue: Deque[Request] = collections.deque()
+        self.slots: List[Optional[Request]] = [None] * slots
+        self.finished: List[Request] = []
+        self._admit_seq = [0] * slots
+        self._admit_counter = 0
+        # chunked-prefill cursors: tokens fed so far / tokens to feed
+        self._progress = [0] * slots
+        self._target = [0] * slots
+        self.stats = {"rounds": 0, "prefill_tokens": 0,
+                      "admitted_tokens": 0, "emitted_tokens": 0,
+                      "failed": 0}
+
+    # -- admission -----------------------------------------------------------
+
+    def submit(self, request: Request) -> Request:
+        """Validate and queue a request (malformed ones raise here)."""
+        L = len(request.prompt)
+        max_len = self.engine.scfg.max_len
+        if request.max_new_tokens < 0:
+            raise ValueError(
+                f"max_new_tokens must be >= 0, got {request.max_new_tokens}")
+        if L > max_len:
+            raise ValueError(
+                f"prompt length ({L}) exceeds max_len ({max_len})")
+        if L + request.max_new_tokens > max_len:
+            raise ValueError(
+                f"prompt ({L}) + max_new_tokens ({request.max_new_tokens}) "
+                f"exceeds max_len ({max_len})")
+        request.status = RequestStatus.QUEUED
+        self.queue.append(request)
+        return request
+
+    def _push_eos(self) -> None:
+        self.eos = torch.as_tensor(self._eos_h, dtype=torch.int32,
+                                   device=self.engine.device)
+
+    def _free_on_device(self, freed: List[int]) -> None:
+        """Mark freed slots done with the negative-position sentinel."""
+        fm = np.zeros((self.n_slots,), bool)
+        fm[freed] = True
+        fm = torch.as_tensor(fm, device=self.engine.device)
+        self.done = self.done | fm
+        self.pos = torch.where(fm, -1, self.pos)
+
+    # -- the scheduling loop -------------------------------------------------
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.queue) or any(r is not None for r in self.slots)
+
+    @property
+    def padding_waste(self) -> float:
+        """prefill_tokens / admitted_tokens (1.0 = every chunk-lane entry
+        carried a real prompt token)."""
+        a = self.stats["admitted_tokens"]
+        return self.stats["prefill_tokens"] / a if a else 0.0
+
+    def _assemble_chunk(self):
+        """This round's chunk-lane entries: continue mid-prefill slots in
+        admission order, then admit from the queue head (no skip-ahead)
+        while budget and free slots last.  Returns (entries | None, plan
+        {slot: new progress}, fresh [(slot, req)], completing {slots whose
+        last prompt token lands this round}, parks {slot: (tok, pos)})."""
+        C = self.engine.prefill_chunk
+        e_slot: List[int] = []
+        e_tok: List[int] = []
+        e_pos: List[int] = []
+        e_first: List[bool] = []
+        e_b1: List[bool] = []
+        plan: dict = {}
+        fresh: List[tuple] = []
+        completing: set = set()
+        parks: dict = {}
+
+        def feed(slot, req, p0):
+            seq, L = list(req.prompt), self._target[slot]
+            take = min(C - len(e_slot), L - p0)
+            for p in range(p0, p0 + take):
+                last = p == L - 1
+                e_slot.append(slot)
+                e_tok.append(int(seq[p]))
+                e_pos.append(p)
+                e_first.append(last)
+                e_b1.append(last and req.remaining <= 1)
+                if last:
+                    completing.add(slot)
+            plan[slot] = p0 + take
+
+        for slot in sorted(
+                (s for s in range(self.n_slots)
+                 if self.slots[s] is not None
+                 and self._progress[s] < self._target[s]),
+                key=lambda s: self._admit_seq[s]):
+            if len(e_slot) >= C:
+                break
+            feed(slot, self.slots[slot], self._progress[slot])
+        while len(e_slot) < C and self.queue:
+            req = self.queue[0]
+            slot = next((s for s in range(self.n_slots)
+                         if self.slots[s] is None), None)
+            if slot is None:
+                break
+            self.queue.popleft()
+            req.status = RequestStatus.RUNNING
+            req.slot = slot
+            self.slots[slot] = req
+            self._target[slot] = len(req.prompt)
+            self._progress[slot] = 0
+            self._eos_h[slot] = -1 if req.eos_id is None else int(req.eos_id)
+            fresh.append((slot, req))
+            parks[slot] = (int(req.prompt[0]), 0)
+            feed(slot, req, 0)
+        if not e_slot:
+            return None, plan, fresh, completing, parks
+        if fresh:
+            self._push_eos()
+        pad = C - len(e_slot)
+        entries = {"slot": e_slot + [-1] * pad,
+                   "tok": e_tok + [0] * pad,
+                   "pos": e_pos + [0] * pad,
+                   "first": e_first + [False] * pad,
+                   "budget_one": e_b1 + [False] * pad}
+        return entries, plan, fresh, completing, parks
+
+    def step(self) -> int:
+        """One round: admit into free slots through the chunk lane, decode
+        one chunk, retire finished sequences.  Returns the tokens emitted."""
+        entries, plan, fresh, completing, parks = self._assemble_chunk()
+        if not any(r is not None for r in self.slots):
+            return 0
+        C = self.engine.prefill_chunk if entries is not None else 0
+        if parks:
+            # fresh rows park at their first entry BEFORE the dispatch, so
+            # chunk iterations ahead of their first target re-run the same
+            # write the entry itself makes
+            tok_h, pos_h = self.tok.cpu().numpy().copy(), \
+                self.pos.cpu().numpy().copy()
+            for s, (t, p) in parks.items():
+                tok_h[s], pos_h[s] = t, p
+            self.tok = torch.as_tensor(tok_h, device=self.engine.device)
+            self.pos = torch.as_tensor(pos_h, device=self.engine.device)
+        (self.cache, self.tok, self.pos, self.done, tok0, done0, toks,
+         dones, ok) = self.engine.step(
+            self.cache, entries, self.tok, self.pos, self.done, self.eos,
+            self.chunk)
+        ok_h = ok.cpu().numpy()
+        if not ok_h.all():
+            raise RuntimeError("non-finite logits in decode for slots "
+                               f"{np.flatnonzero(~ok_h).tolist()}")
+        for slot, p in plan.items():
+            self._progress[slot] = p
+        for slot, req in fresh:
+            self._admit_counter += 1
+            self._admit_seq[slot] = self._admit_counter
+        if entries is not None:
+            self.stats["prefill_tokens"] += C
+            self.stats["admitted_tokens"] += sum(
+                1 for s in entries["slot"] if s >= 0)
+        self.stats["rounds"] += 1
+        toks_h, dones_h = toks.cpu().numpy(), dones.cpu().numpy()
+        tok0_h, done0_h = tok0.cpu().numpy(), done0.cpu().numpy()
+        emitted, freed = 0, []
+        for slot, req in enumerate(self.slots):
+            if req is None or self._progress[slot] < self._target[slot]:
+                continue            # free, or still mid-prefill
+            cb_ok = True
+            if slot in completing:
+                # the first output token was sampled in this same round
+                if req.remaining >= 1:
+                    cb_ok = self._deliver(req, int(tok0_h[slot]))
+                    emitted += 1 if cb_ok else 0
+                if cb_ok and done0_h[slot]:
+                    eos = self._eos_h[slot]
+                    req.finish("eos" if eos >= 0 and req.tokens
+                               and req.tokens[-1] == eos else "length")
+            if cb_ok and not req.done:
+                for j in range(toks_h.shape[1]):
+                    cb_ok = self._deliver(req, int(toks_h[slot, j]))
+                    if not cb_ok:
+                        break
+                    emitted += 1
+                    if dones_h[slot, j]:
+                        req.finish("eos")
+                        break
+                    if req.remaining <= 0:
+                        req.finish("length")
+                        break
+            if not cb_ok:
+                req.finish("failed")
+                self.stats["failed"] += 1
+            if req.done:
+                self.finished.append(req)
+                self.slots[slot] = None
+                self._eos_h[slot] = -1
+                self._progress[slot] = self._target[slot] = 0
+                freed.append(slot)
+        if freed:
+            self._free_on_device(freed)
+        self.stats["emitted_tokens"] += emitted
+        return emitted
+
+    @staticmethod
+    def _deliver(req: Request, token: int) -> bool:
+        """Emit one token; False when the streaming callback raised."""
+        try:
+            req.emit(token)
+            return True
+        except Exception:
+            return False
+
+    def run(self, requests: Sequence[Request] = (),
+            max_rounds: int = 100_000) -> List[Request]:
+        """Submit ``requests`` and drive rounds until everything finishes."""
+        for r in requests:
+            self.submit(r)
+        rounds = 0
+        while self.has_work:
+            self.step()
+            rounds += 1
+            if rounds > max_rounds:
+                raise RuntimeError("scheduler failed to drain "
+                                   f"({len(self.queue)} queued)")
+        return self.finished

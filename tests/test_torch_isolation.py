@@ -1,0 +1,68 @@
+"""The port stands alone: no module of ``src/repro_torch`` nor
+``chip_smoke.py`` imports JAX or the reference package, and the port's
+model configurations equal the reference's field for field."""
+import ast
+import dataclasses
+import pathlib
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+def _imports(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module:
+                yield node.lineno, node.module
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                "import_module", "__import__") and node.args and isinstance(
+                node.args[0], ast.Constant) and isinstance(
+                node.args[0].value, str):
+            yield node.lineno, node.args[0].value
+
+
+def test_port_has_modules():
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for mod in ("core/lut.py", "kernels/lutmul/ops.py",
+                "kernels/lutmul/kernel.py", "models/transformer.py",
+                "serve/engine.py", "serve/scheduler.py", "convert.py"):
+        assert f"src/repro_torch/{mod}" in names, mod
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_port_never_imports_jax_or_reference(path):
+    bad = [(line, name) for line, name in _imports(path) if _forbidden(name)]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_forbidden_import_detector():
+    src = ("import jax.numpy as jnp\nfrom repro.core import lut\n"
+           "import repro_torch\nfrom jax import lax\n")
+    tree = ast.parse(src)
+    names = [n.names[0].name if isinstance(n, ast.Import) else n.module
+             for n in tree.body]
+    assert [_forbidden(n) for n in names] == [True, True, False, True]
+
+
+@pytest.mark.parametrize("fn", ["config", "smoke_config"])
+@pytest.mark.parametrize("quant", ["none", "w4a4_lut"])
+def test_qwen2_7b_config_fields_match_reference(fn, quant):
+    from repro.configs import qwen2_7b as jcfg
+    from repro_torch.configs import qwen2_7b as tcfg
+    want = dataclasses.asdict(getattr(jcfg, fn)(quant=quant))
+    got = dataclasses.asdict(getattr(tcfg, fn)(quant=quant))
+    assert got == want
