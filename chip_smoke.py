@@ -5,28 +5,37 @@
 
 Phases (any failure raises and exits non-zero):
 
-1. device + build: the ``nvidia-smi`` name/power-limit line, then the two
+1. device + build: the ``nvidia-smi`` name/power-limit line, then the three
    CUDA sources compiled for sm_90a (one ``nvcc`` each, in parallel).
-2. kernels: the four entry points at the serving shapes (M = 8 slots; the
-   qwen2-7b inner projections and the int8 head) held against their plain
-   versions on the card — int32 outputs exactly, fused bf16 outputs
-   bitwise — and timed with CUDA events (median; L2 flushed before each
-   launch, as a decode step finds the weights cold), beside one library
-   call on the same codes where one computes the same sums exactly
-   (``torch._int_mm``, else the float32 cuBLAS GEMM with TF32 off).
-3. serving: full-width qwen2-7b (28 layers, random weights from a seeded
-   generator) through ``make_engine(..., ServeConfig(quant="w4a4_lut"))``
-   and ``Scheduler(slots=8, chunk=8)`` on 8 requests; every request must
-   finish with its budget and the launch counters must show 7 * 28 LUT
-   launches and 1 int8 launch per ``decode_step``.  The first four
-   requests are served again through the unfused epilogue (the int32 entry
-   points), and all eight with the plain backend; the transcripts must be
-   identical.  A short torch.profiler window gives the device-busy share.
-4. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last the
-   ``{"ok": true, ...}`` line.
+2. kernels: the six entry points at the shapes the served models give them
+   (M = 8 decode slots; M = 32 for the speculative verify forward), held
+   against their plain versions on the card — int32 outputs exactly, fused
+   bf16 outputs bitwise — and timed with CUDA events (median; L2 flushed
+   before each launch, as a decode step finds the weights cold), beside one
+   library call on the same codes where one computes the same sums exactly
+   (``torch._int_mm`` where M > 16, else the float32 cuBLAS GEMM with TF32
+   off).  Shape groups: qwen2-7b's 7 inner projections through the LUT
+   kernel and through the T-MAC kernel (target P = 4, drafter P = 2, verify
+   M = 32), bitnet-3b's through the T-MAC kernel (ternary, g = 1), and both
+   models' int8 heads.
+3. serving qwen2-7b (28 layers, full width, random weights from a seeded
+   generator) through ``make_engine`` + ``Scheduler(slots=8, chunk=8)``:
+   w4a4_lut fused (8 requests), unfused (first 4), plain backend (first 4);
+   then the SAME float weights quantized to w4a4_tmac: fused (8, transcripts
+   equal to the LUT run's: w4 bitplanes decode to the nibble codes), unfused
+   (4), plain (2), bitplane self-speculative decoding on the same codes (8,
+   equal to the plain tmac run's), and speculation after zeroing the low two
+   planes in place (4; every draft accepted).  Each run's launch counters
+   must be exactly 7 per layer per forward for the inner kernel and 1 head
+   launch per forward, by lane.  Short profiles give the device-busy share
+   of a decode step, a drafter step and a verify forward.
+4. serving bitnet-3b (26 layers, full width) in ternary_a8_tmac: fused (8
+   requests) and plain (first 4), equal transcripts.
+5. the script's total time, the ``kernels`` JSON line, the ``nvidia-smi``
+   line, and last the ``{"ok": true, ...}`` line.
 
-Options cut the run for debugging (``--layers``, ``--reps``, ``--profile``);
-the contract run takes none.
+Options cut the run for debugging (``--layers`` cuts both models' depth,
+``--reps``, ``--profile``); the contract run takes none.
 """
 from __future__ import annotations
 
@@ -43,18 +52,35 @@ sys.path.insert(0, os.path.join(REPO, "src"))
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory
 INT8_OPS_PER_S = 1979e12          # H100 SXM dense int8 tensor-core peak
 SLOTS = 8
-INNER = {"wq": (3584, 3584), "wk": (3584, 512), "wv": (3584, 512),
-         "wo": (3584, 3584), "wi": (3584, 18944), "wg": (3584, 18944),
-         "mlp.wo": (18944, 3584)}
-HEAD = (3584, 152064)
-SOURCES = {"lutmul": "src/repro_torch/csrc/lutmul.cu",
-           "int_matmul": "src/repro_torch/csrc/int_matmul.cu"}
-REPLACES = {
-    "lutmul_fused": "src/repro/kernels/lutmul/kernel.py:380",
-    "lutmul": "src/repro/kernels/lutmul/kernel.py:178",
-    "int_matmul_fused": "src/repro/kernels/lutmul/kernel.py:483",
-    "int_matmul": "src/repro/kernels/lutmul/kernel.py:332",
+VERIFY_M = SLOTS * 4              # draft_k + 1 = 4 tokens per slot
+QWEN_INNER = {"wq": (3584, 3584), "wk": (3584, 512), "wv": (3584, 512),
+              "wo": (3584, 3584), "wi": (3584, 18944), "wg": (3584, 18944),
+              "mlp.wo": (18944, 3584)}
+BITNET_INNER = {"wq": (3200, 3200), "wk": (3200, 3200), "wv": (3200, 3200),
+                "wo": (3200, 3200), "wi": (3200, 8640), "wg": (3200, 8640),
+                "mlp.wo": (8640, 3200)}
+QWEN_HEAD = (3584, 152064)
+BITNET_HEAD = (3200, 32000)
+CSRC = "src/repro_torch/csrc/"
+KPY = "src/repro/kernels/lutmul/kernel.py"
+# entry point: (source, TPU kernel it replaces, its main group)
+KERNELS = {
+    "lutmul_fused": ("lutmul.cu", f"{KPY}:380", "qwen2-7b layer, M=8"),
+    "lutmul": ("lutmul.cu", f"{KPY}:178", "qwen2-7b layer, M=8"),
+    "int_matmul_fused": ("int_matmul.cu", f"{KPY}:483",
+                         "qwen2-7b head, M=8"),
+    "int_matmul": ("int_matmul.cu", f"{KPY}:332", "qwen2-7b head, M=8"),
+    "lutmul_tmac_fused": ("lutmul_tmac.cu", f"{KPY}:430",
+                          "qwen2-7b target layer, P=4 g=2 M=8"),
+    "lutmul_tmac": ("lutmul_tmac.cu", f"{KPY}:289",
+                    "qwen2-7b target layer, P=4 g=2 M=8"),
 }
+# the run whose launch count each entry point reports
+MAIN_RUN = {"lutmul_fused": "qwen lut fused", "lutmul": "qwen lut unfused",
+            "int_matmul_fused": "qwen lut fused",
+            "int_matmul": "qwen lut unfused",
+            "lutmul_tmac_fused": "qwen tmac spec",
+            "lutmul_tmac": "qwen tmac unfused"}
 
 
 def log(msg: str) -> None:
@@ -124,115 +150,171 @@ def _library_ms(a8, w8, want, flush, reps):
 
 def check_kernels(reps: int) -> dict:
     import torch
+    from repro_torch.core.lut import plane_decomposition, unpack_bitplanes
     from repro_torch.kernels.lutmul import kernel, ref
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1234)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    M = SLOTS
-    recs = {name: {"name": name, "route": "cuda",
-                   "source": SOURCES["lutmul" if "lut" in name
-                                     else "int_matmul"],
-                   "replaces": REPLACES[name], "shapes": []}
-            for name in REPLACES}
+    recs = {name: {"name": name, "route": "cuda", "source": CSRC + src,
+                   "replaces": rep, "main_group": group, "groups": {}}
+            for name, (src, rep, group) in KERNELS.items()}
 
-    def scales(K, N):
+    def scales(M, N):
         a_s = torch.rand((M, 1), generator=gen, device=dev) * 0.1 + 1e-3
         w_s = torch.rand((1, N), generator=gen, device=dev) * 0.1 + 1e-3
         return a_s, w_s
 
-    def one(name, fn, plain, lib, K, N, nbytes_in, out_bytes):
+    def one(name, group, fn, plain, lib, M, K, N, nbytes_in, out_bytes):
         got = fn()
         want = plain()
         torch.cuda.synchronize()
         if got.dtype != want.dtype or got.shape != want.shape:
-            raise AssertionError(f"{name} {K}x{N}: {got.dtype}{tuple(got.shape)}"
-                                 f" vs plain {want.dtype}{tuple(want.shape)}")
+            raise AssertionError(f"{name} {M}x{K}x{N}: {got.dtype}"
+                                 f"{tuple(got.shape)} vs plain {want.dtype}"
+                                 f"{tuple(want.shape)}")
         # int32 exactly; fused outputs bitwise (compare the raw bits)
-        same = torch.equal(got.view(torch.int16) if got.dtype == torch.bfloat16
-                           else got,
-                           want.view(torch.int16) if want.dtype == torch.bfloat16
-                           else want)
+        bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+        same = torch.equal(got.view(bits.get(got.dtype, got.dtype)),
+                           want.view(bits.get(want.dtype, want.dtype)))
         err = float((got.to(torch.float64) - want.to(torch.float64))
                     .abs().max())
         if not same:
-            raise AssertionError(f"{name} {K}x{N} disagrees with its plain "
-                                 f"version: max |diff| = {err}")
+            raise AssertionError(f"{name} [{group}] {M}x{K}x{N} disagrees "
+                                 f"with its plain version: max |diff| = "
+                                 f"{err}")
         nbytes = nbytes_in + out_bytes
         ops = 2.0 * M * K * N
-        bound = max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3
         lib_ms, why = lib
-        recs[name]["shapes"].append({
-            "K": K, "N": N, "max_abs_err": err,
-            "ms": _time(fn, reps, flush),
-            "plain_ms": _time(plain, max(3, reps // 8), flush),
-            "bound_ms": bound,
-            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
-            >= ops / INT8_OPS_PER_S else "operations",
-            "library_ms": lib_ms, "library_note": why})
+        recs[name]["groups"].setdefault(group, {"shapes": []})[
+            "shapes"].append({
+                "M": M, "K": K, "N": N, "max_abs_err": err,
+                "ms": _time(fn, reps, flush),
+                "plain_ms": _time(plain, max(3, reps // 8), flush),
+                "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                                ops / INT8_OPS_PER_S) * 1e3,
+                "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+                >= ops / INT8_OPS_PER_S else "operations",
+                "library_ms": lib_ms, "library_note": why})
 
-    for K, N in INNER.values():
+    # the LUT kernels: qwen2-7b's inner projections at M = 8
+    M = SLOTS
+    for K, N in QWEN_INNER.values():
         a = torch.randint(0, 16, (M, K), generator=gen, device=dev,
                           dtype=torch.uint8)
         w = torch.randint(0, 256, (K // 2, N), generator=gen, device=dev,
                           dtype=torch.uint8)
-        a_s, w_s = scales(K, N)
-        # the library yardstick: _int_mm on the decoded signed codes
+        a_s, w_s = scales(M, N)
         a8 = ref.decode_codes(a).to(torch.int8)
         w8 = ref.decode_codes(ref.unpack_int4(w.T).T, 4).to(torch.int8) \
             .contiguous()
         lib = _library_ms(a8, w8, ref.lutmul_ref(a, w), flush, reps)
         in_bytes = M * K + K * N // 2 + 256 * 4
-        one("lutmul", lambda: kernel.lutmul(a, w),
-            lambda: ref.lutmul_ref(a, w), lib, K, N, in_bytes, M * N * 4)
-        one("lutmul_fused",
+        group = KERNELS["lutmul"][2]
+        one("lutmul", group, lambda: kernel.lutmul(a, w),
+            lambda: ref.lutmul_ref(a, w), lib, M, K, N, in_bytes, M * N * 4)
+        one("lutmul_fused", group,
             lambda: kernel.lutmul_fused(a, w, a_s, w_s,
                                         out_dtype=torch.bfloat16),
             lambda: ref.scaled_lutmul_ref(a, w, a_s, w_s,
                                           out_dtype=torch.bfloat16),
-            lib, K, N, in_bytes + 4 * (M + N), M * N * 2)
+            lib, M, K, N, in_bytes + 4 * (M + N), M * N * 2)
         del a, w, a8, w8
-    K, N = HEAD
-    a = torch.randint(-128, 128, (M, K), generator=gen, device=dev,
-                      dtype=torch.int8)
-    w = torch.randint(-128, 128, (K, N), generator=gen, device=dev,
-                      dtype=torch.int8)
-    a_s, w_s = scales(K, N)
-    lib = _library_ms(a, w, ref.int_matmul_ref(a, w), flush, reps)
-    one("int_matmul", lambda: kernel.int_matmul(a, w),
-        lambda: ref.int_matmul_ref(a, w), lib, K, N, M * K + K * N,
-        M * N * 4)
-    one("int_matmul_fused",
-        lambda: kernel.int_matmul_fused(a, w, a_s, w_s,
-                                        out_dtype=torch.bfloat16),
-        lambda: ref.scaled_int_matmul_ref(a, w, a_s, w_s,
-                                          out_dtype=torch.bfloat16),
-        lib, K, N, M * K + K * N + 4 * (M + N), M * N * 2)
-    del a, w, flush
+
+    # the T-MAC kernel: target, drafter and verify of qwen2-7b in
+    # w4a4_tmac, and bitnet-3b's ternary_a8_tmac projections
+    tmac_groups = [
+        ("qwen2-7b target layer, P=4 g=2 M=8", QWEN_INNER, 4, 4, SLOTS),
+        ("qwen2-7b drafter layer, P=2 g=2 M=8", QWEN_INNER, 2, 4, SLOTS),
+        ("qwen2-7b verify layer, P=4 g=2 M=32", QWEN_INNER, 4, 4, VERIFY_M),
+        ("bitnet-3b layer, ternary g=1 M=8", BITNET_INNER, "ternary", 8,
+         SLOTS)]
+    for group, shapes, spec, abits, M in tmac_groups:
+        P = plane_decomposition(spec)[0]
+        g = 1 if abits == 8 else 2
+        for K, N in shapes.values():
+            lo = -(1 << (abits - 1))
+            a = torch.randint(lo, -lo, (M, K), generator=gen, device=dev,
+                              dtype=torch.int8)
+            if spec == "ternary":      # valid ternary: no code is +1 and -1
+                pos = torch.randint(0, 256, (K // 8, N), generator=gen,
+                                    device=dev, dtype=torch.uint8)
+                neg = torch.randint(0, 256, (K // 8, N), generator=gen,
+                                    device=dev, dtype=torch.uint8) & ~pos
+                planes = torch.stack([pos, neg])
+            else:
+                planes = torch.randint(0, 256, (P, K // 8, N), generator=gen,
+                                       device=dev, dtype=torch.uint8)
+            a_s, w_s = scales(M, N)
+            w8 = ref.decode_planes(unpack_bitplanes(planes), spec) \
+                .to(torch.int8).contiguous()
+            lib = _library_ms(a, w8, ref.tmac_ref(a, planes, spec), flush,
+                              reps)
+            in_bytes = M * K + P * K * N // 8
+            one("lutmul_tmac", group,
+                lambda: kernel.lutmul_tmac(a, planes, spec, g=g),
+                lambda: ref.tmac_ref(a, planes, spec), lib, M, K, N,
+                in_bytes, M * N * 4)
+            one("lutmul_tmac_fused", group,
+                lambda: kernel.lutmul_tmac_fused(a, planes, spec, a_s, w_s,
+                                                 g=g),
+                lambda: ref.scaled_tmac_ref(a, planes, spec, a_s, w_s,
+                                            out_dtype=torch.bfloat16),
+                lib, M, K, N, in_bytes + 4 * (M + N), M * N * 2)
+            del a, planes, w8
+
+    # the int8 heads: qwen2-7b at M = 8 and at M = 32 (verify), bitnet-3b
+    for group, (K, N), M in (("qwen2-7b head, M=8", QWEN_HEAD, SLOTS),
+                             ("qwen2-7b verify head, M=32", QWEN_HEAD,
+                              VERIFY_M),
+                             ("bitnet-3b head, M=8", BITNET_HEAD, SLOTS)):
+        a = torch.randint(-128, 128, (M, K), generator=gen, device=dev,
+                          dtype=torch.int8)
+        w = torch.randint(-128, 128, (K, N), generator=gen, device=dev,
+                          dtype=torch.int8)
+        a_s, w_s = scales(M, N)
+        lib = _library_ms(a, w, ref.int_matmul_ref(a, w), flush, reps)
+        one("int_matmul", group, lambda: kernel.int_matmul(a, w),
+            lambda: ref.int_matmul_ref(a, w), lib, M, K, N, M * K + K * N,
+            M * N * 4)
+        one("int_matmul_fused", group,
+            lambda: kernel.int_matmul_fused(a, w, a_s, w_s,
+                                            out_dtype=torch.bfloat16),
+            lambda: ref.scaled_int_matmul_ref(a, w, a_s, w_s,
+                                              out_dtype=torch.bfloat16),
+            lib, M, K, N, M * K + K * N + 4 * (M + N), M * N * 2)
+        del a, w
+    del flush
     torch.cuda.empty_cache()
-    # one record per kernel: the LUT kernels summed over the 7 projections
-    # of one layer (one measured launch each), the int8 kernels per head call
+    # each group sums its measured launches: the 7 projections of one layer
+    # (one launch each) or one head call; the main group is the record's
     for r in recs.values():
-        sh = r["shapes"]
-        r["per"] = ("one layer: 7 launches at M=8" if "lut" in r["name"]
-                    else "one lm_head launch at M=8")
-        r["max_abs_err"] = max(s["max_abs_err"] for s in sh)
-        for key in ("ms", "plain_ms", "bound_ms"):
-            r[key] = sum(s[key] for s in sh)
-        libs = [s["library_ms"] for s in sh]
-        r["library_ms"] = None if None in libs else sum(libs)
-        r["library_note"] = next((s["library_note"] for s in sh
-                                  if s["library_note"]), None)
-        r["bound_by"] = "bytes" if all(s["bound_by"] == "bytes"
-                                       for s in sh) else "operations"
-        log(f"kernel {r['name']}: max|diff| {r['max_abs_err']} ms "
-            f"{r['ms']:.4f} plain {r['plain_ms']:.3f} bound "
-            f"{r['bound_ms']:.4f} library {r['library_ms']}")
+        for group, gr in r["groups"].items():
+            sh = gr["shapes"]
+            gr["max_abs_err"] = max(s["max_abs_err"] for s in sh)
+            for key in ("ms", "plain_ms", "bound_ms"):
+                gr[key] = sum(s[key] for s in sh)
+            libs = [s["library_ms"] for s in sh]
+            gr["library_ms"] = None if None in libs else sum(libs)
+            gr["library_note"] = next((s["library_note"] for s in sh
+                                       if s["library_note"]), None)
+            gr["bound_by"] = "bytes" if all(s["bound_by"] == "bytes"
+                                            for s in sh) else "operations"
+            log(f"kernel {r['name']} [{group}]: max|diff| "
+                f"{gr['max_abs_err']} ms {gr['ms']:.4f} plain "
+                f"{gr['plain_ms']:.3f} bound {gr['bound_ms']:.4f} library "
+                f"{gr['library_ms']}")
+        main = r["groups"][r["main_group"]]
+        for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "library_note"):
+            r[key] = main[key]
+        r["max_abs_err"] = max(gr["max_abs_err"]
+                               for gr in r["groups"].values())
     return recs
 
 
 # ---------------------------------------------------------------------------
-# phase 3: serving
+# phases 3 and 4: serving
 # ---------------------------------------------------------------------------
 
 def make_requests(vocab: int, seed: int = 0):
@@ -240,59 +322,94 @@ def make_requests(vocab: int, seed: int = 0):
     from repro_torch.serve import Request
     rng = np.random.default_rng(seed)
     out = []
-    for i, L in enumerate(range(8, 65, 8)):
+    for L in range(8, 65, 8):
         out.append(Request(prompt=rng.integers(0, vocab, L).tolist(),
                            max_new_tokens=int(rng.integers(16, 33))))
     return out
 
 
-def serve(engine, vocab: int, label: str,
-          n_requests: int = 8) -> tuple[list, dict]:
+RUNS: dict = {}
+
+
+def serve(engine, vocab: int, label: str, n_requests: int,
+          inner: str = None, fused: bool = True) -> list:
+    """Drain ``n_requests`` requests through a fresh Scheduler, with the
+    launch counters zeroed just before and read just after; ``inner`` names
+    the projection kernel every forward must launch 7 times per layer (the
+    head kernel once), None for the plain backend (no launches at all)."""
     import torch
     from repro_torch.kernels.lutmul import kernel
     from repro_torch.serve import Scheduler
     reqs = make_requests(vocab)[:n_requests]
     sched = Scheduler(engine, slots=SLOTS, chunk=8)
-    kernel.reset_launches()
     engine.decode_steps = 0
+    engine.lane_steps = dict.fromkeys(engine.lane_steps, 0)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernel.reset_launches()
     t0 = time.perf_counter()
     sched.run(reqs)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    launches = dict(kernel.LAUNCHES)
     for r in reqs:
         if not (r.finish_reason == "length"
                 and len(r.tokens) == r.max_new_tokens):
             raise AssertionError(f"{label}: request ended {r.finish_reason} "
                                  f"with {len(r.tokens)}/{r.max_new_tokens}")
+    lanes = dict(engine.lane_steps)
+    forwards = sum(lanes.values())
+    want = dict.fromkeys(launches, 0)
+    if inner is not None:
+        sfx = "_fused" if fused else ""
+        want[inner + sfx] = 7 * engine.cfg.n_layers * forwards
+        want["int_matmul" + sfx] = forwards
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches} != {want} for "
+                             f"forwards by lane {lanes}")
     emitted = sum(len(r.tokens) for r in reqs)
-    stats = {"label": label, "seconds": dt,
-             "decode_steps": engine.decode_steps,
-             "rounds": sched.stats["rounds"], "emitted_tokens": emitted,
-             "tokens_per_s": emitted / dt,
-             "ms_per_decode_step": 1e3 * dt / engine.decode_steps,
-             "launches": dict(kernel.LAUNCHES)}
-    log(f"serving[{label}]: {json.dumps(stats)}")
-    return [list(r.tokens) for r in reqs], stats
+    st = {"label": label, "requests": n_requests, "seconds": dt,
+          "rounds": sched.stats["rounds"], "emitted_tokens": emitted,
+          "tokens_per_s": emitted / dt, "forwards_by_lane": lanes,
+          "ms_per_decode_step": 1e3 * dt / engine.decode_steps,
+          "ms_per_forward": 1e3 * dt / forwards,
+          "launches": launches,
+          "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if engine.scfg.spec_decode:
+        st["ms_per_round"] = 1e3 * dt / sched.stats["rounds"]
+        for k in ("spec_rounds", "spec_drafted", "spec_accepted"):
+            st[k] = sched.stats[k]
+        st["accept_rate"] = (st["spec_accepted"] / st["spec_drafted"]
+                             if st["spec_drafted"] else None)
+    log(f"serving[{label}]: {json.dumps(st)}")
+    RUNS[label] = st
+    return [list(r.tokens) for r in reqs]
 
 
-def profile_decode(engine, steps: int = 8) -> dict:
-    """Device time by kernel over ``steps`` full-batch decode steps
-    (torch.profiler) against their host wall time: the device-busy share."""
+def same(a: list, b: list, what: str) -> None:
+    if a != b[:len(a)]:
+        diff = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+        raise AssertionError(f"{what}: transcripts differ for requests "
+                             f"{diff}")
+    log(f"transcripts identical: {what} ({sum(map(len, a))} tokens)")
+
+
+PROFILES: dict = {}
+
+
+def profile(label: str, fn, steps: int) -> None:
+    """Device time by kernel over ``steps`` calls of ``fn`` (torch.profiler)
+    against their host wall time: the device-busy share."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    B = SLOTS
-    cache = engine.init_cache(B)
-    tok = torch.zeros((B,), dtype=torch.int32, device="cuda")
-    pos = torch.arange(B, dtype=torch.int32, device="cuda") + 16
-    engine._decode(tok, cache, pos)                      # warm
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    fn()                                                 # warm
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            engine._decode(tok, cache, pos)
+            fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device-side events only (kernels, memsets, copies): the CPU ops that
@@ -301,16 +418,55 @@ def profile_decode(engine, steps: int = 8) -> dict:
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA), reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
-    out = {"steps": steps, "wall_ms_per_step": 1e3 * wall / steps,
-           "device_ms_per_step": busy_ms / steps,
+    out = {"calls": steps, "wall_ms_per_call": 1e3 * wall / steps,
+           "device_ms_per_call": busy_ms / steps,
            "device_busy_share": busy_ms / (1e3 * wall),
-           "top": [{"kernel": k[:60], "ms_per_step": us / 1e3 / steps,
-                    "calls_per_step": n / steps} for us, k, n in rows[:8]]}
-    log("profile: " + json.dumps(out))
-    return out
+           "top": [{"kernel": k[:60], "ms_per_call": us / 1e3 / steps,
+                    "launches_per_call": n / steps}
+                   for us, k, n in rows[:6]]}
+    log(f"profile[{label}]: " + json.dumps(out))
+    PROFILES[label] = out
 
 
-def run_serving(n_layers: int, profile_steps: int = 0) -> dict:
+def profile_engine(engine, label: str, steps: int, spec: bool) -> None:
+    """A full-batch decode step (and, for a spec engine, a drafter step and
+    a verify forward) at 8 slots, positions 16..23."""
+    import torch
+    if not steps:
+        return
+    cache = engine.init_cache(SLOTS)
+    tok = torch.zeros((SLOTS,), dtype=torch.int32, device="cuda")
+    pos = torch.arange(SLOTS, dtype=torch.int32, device="cuda") + 16
+    profile(f"{label} decode step",
+            lambda: engine._decode(tok, cache, pos), steps)
+    if spec:
+        toks = torch.zeros((SLOTS, engine.scfg.draft_k + 1),
+                           dtype=torch.int32, device="cuda")
+        profile(f"{label} drafter step",
+                lambda: engine._decode(tok, cache, pos, "draft"), steps)
+        profile(f"{label} verify forward",
+                lambda: engine._verify(toks, cache, pos), steps)
+    del cache
+
+
+def zero_low_planes(params, draft_planes: int = 2) -> int:
+    """Zero the low planes of every draftable leaf IN PLACE: a leaf whose
+    low planes are zero decodes to exactly 2^(B-p) x its top-plane code,
+    so the drafter's logits equal the target's."""
+    n = 0
+    if isinstance(params, dict):
+        q = params.get("w_q")
+        if ("w_tmac" in params and "w_tern" not in params and q.dim() >= 3
+                and q.shape[-3] > draft_planes):
+            q[..., :q.shape[-3] - draft_planes, :, :].zero_()
+            return 1
+        return sum(zero_low_planes(v, draft_planes) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(zero_low_planes(v, draft_planes) for v in params)
+    return 0
+
+
+def run_qwen(n_layers: int, profile_steps: int) -> None:
     import dataclasses
     import torch
     from repro_torch.configs import qwen2_7b
@@ -321,72 +477,115 @@ def run_serving(n_layers: int, profile_steps: int = 0) -> dict:
     cfg = qwen2_7b.config(quant="w4a4_lut")
     if n_layers != cfg.n_layers:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    V = cfg.vocab
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = transformer.init_params(cfg, seed=0, device="cuda")
     engine = make_engine(params, cfg,
                          ServeConfig(quant="w4a4_lut", max_len=256))
-    del params            # the float master weights go; codes stay
     torch.cuda.synchronize()
-    torch.cuda.empty_cache()
     log(f"model: {cfg.name} {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.compute_dtype}; init + "
         f"quantize {time.perf_counter() - t0:.1f}s, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
 
-    # the main path: fused epilogue on every projection
+    # PR 11's path: w4a4_lut, fused, unfused (int32 entry points), plain
     ops.set_backend("cuda")
     ops.set_variant(None)
-    fused, st_fused = serve(engine, cfg.vocab, "fused")
-    prof = profile_decode(engine, profile_steps) if profile_steps else None
-    steps = st_fused["decode_steps"]
-    want = {"lutmul_fused": 7 * cfg.n_layers * steps,
-            "int_matmul_fused": steps, "lutmul": 0, "int_matmul": 0}
-    if st_fused["launches"] != want:
-        raise AssertionError(f"fused launches {st_fused['launches']} != "
-                             f"{want}")
-    # the unfused entry points (int32 out, epilogue in PyTorch) on the
-    # first four requests: they take the same slots and rounds as in the
-    # full run, and every op of a decode step is row-independent at the
-    # fixed batch of SLOTS rows, so their transcripts must not change
+    lut = serve(engine, V, "qwen lut fused", 8, "lutmul")
+    profile_engine(engine, "qwen lut", profile_steps, spec=False)
     ops.set_variant("unfused")
-    unfused, st_unfused = serve(engine, cfg.vocab, "unfused", n_requests=4)
+    same(serve(engine, V, "qwen lut unfused", 4, "lutmul", fused=False),
+         lut, "lut unfused == lut fused")
     ops.set_variant(None)
-    steps = st_unfused["decode_steps"]
-    want = {"lutmul": 7 * cfg.n_layers * steps, "int_matmul": steps,
-            "lutmul_fused": 0, "int_matmul_fused": 0}
-    if st_unfused["launches"] != want:
-        raise AssertionError(f"unfused launches {st_unfused['launches']} "
-                             f"!= {want}")
-    if unfused != fused[:len(unfused)]:
-        raise AssertionError("unfused transcripts differ from fused")
-    # the plain versions on the card
     ops.set_backend("ref")
-    plain, st_plain = serve(engine, cfg.vocab, "plain")
+    same(serve(engine, V, "qwen lut plain", 4), lut,
+         "lut plain == lut fused")
+    ops.set_backend("cuda")
+    del engine
+
+    # this slice: the same float weights as w4a4_tmac bitplanes
+    tcfg = dataclasses.replace(cfg, quant="w4a4_tmac")
+    t0 = time.perf_counter()
+    engine = make_engine(params, tcfg,
+                         ServeConfig(quant="w4a4_tmac", max_len=256))
+    del params            # the float master weights go; codes stay
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"model: {tcfg.name} quantized to w4a4_tmac in "
+        f"{time.perf_counter() - t0:.1f}s")
+    tmac = serve(engine, V, "qwen tmac fused", 8, "lutmul_tmac")
+    same(tmac, lut, "tmac fused == lut fused")
+    ops.set_variant("unfused")
+    same(serve(engine, V, "qwen tmac unfused", 4, "lutmul_tmac",
+               fused=False), tmac, "tmac unfused == tmac fused")
+    ops.set_variant(None)
+    ops.set_backend("ref")
+    same(serve(engine, V, "qwen tmac plain", 2), tmac,
+         "tmac plain == tmac fused")
+    ops.set_backend("cuda")
+
+    # bitplane self-speculative decoding on the same codes
+    spec = make_engine(engine.params, tcfg, ServeConfig(
+        max_len=256, spec_decode=True, draft_planes=2, draft_k=3))
+    log(f"spec engine: {spec.n_draftable_leaves} draftable leaves")
+    same(serve(spec, V, "qwen tmac spec", 8, "lutmul_tmac"), tmac,
+         "tmac spec == tmac fused")
+    if RUNS["qwen tmac spec"]["spec_rounds"] < 1:
+        raise AssertionError("the spec run made no speculative round")
+    profile_engine(spec, "qwen tmac", profile_steps, spec=True)
+    n = zero_low_planes(engine.params)
+    log(f"zeroed the low 2 planes of {n} leaves in place")
+    serve(spec, V, "qwen tmac spec, low planes zeroed", 4, "lutmul_tmac")
+    st = RUNS["qwen tmac spec, low planes zeroed"]
+    if not st["spec_drafted"] or st["spec_accepted"] != st["spec_drafted"]:
+        raise AssertionError(f"low planes zeroed: accepted "
+                             f"{st['spec_accepted']} of {st['spec_drafted']}"
+                             " drafts, expected all")
+    del spec, engine
+    torch.cuda.empty_cache()
+
+
+def run_bitnet(n_layers: int) -> None:
+    import dataclasses
+    import torch
+    from repro_torch.configs import bitnet_3b
+    from repro_torch.kernels.lutmul import ops
+    from repro_torch.models import transformer
+    from repro_torch.serve import ServeConfig, make_engine
+
+    cfg = bitnet_3b.config()
+    if n_layers < cfg.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    engine = make_engine(params, cfg,
+                         ServeConfig(quant="ternary_a8_tmac", max_len=256))
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"model: {cfg.name} {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.quant}; init + quantize "
+        f"{time.perf_counter() - t0:.1f}s")
+    fused = serve(engine, cfg.vocab, "bitnet tmac fused", 8, "lutmul_tmac")
+    ops.set_backend("ref")
+    same(serve(engine, cfg.vocab, "bitnet tmac plain", 4), fused,
+         "bitnet plain == bitnet fused")
     ops.set_backend(None)
-    if any(st_plain["launches"].values()):
-        raise AssertionError(f"plain run launched kernels: "
-                             f"{st_plain['launches']}")
-    if plain != fused:
-        diff = [i for i, (a, b) in enumerate(zip(plain, fused)) if a != b]
-        raise AssertionError(f"plain transcripts differ from the kernels' "
-                             f"for requests {diff}")
-    log(f"transcripts identical: fused / plain ({sum(map(len, fused))} "
-        f"tokens), unfused ({sum(map(len, unfused))} tokens)")
-    return {"fused": st_fused, "unfused": st_unfused, "plain": st_plain,
-            "profile": prof,
-            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del engine
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--layers", type=int, default=28,
-                   help="model depth (full width always); default 28")
+                   help="model depth of both models (full width always); "
+                        "default 28 for qwen2-7b, bitnet-3b's 26 at most")
     p.add_argument("--reps", type=int, default=50,
                    help="timed launches per kernel and shape")
     p.add_argument("--profile", type=int, default=4, metavar="STEPS",
-                   help="decode steps profiled after the fused run "
-                        "(0: none)")
+                   help="calls profiled per forward kind (0: none)")
     args = p.parse_args()
 
     import torch
@@ -408,20 +607,29 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
+    t0 = time.perf_counter()
     recs = check_kernels(args.reps)
-    serving = run_serving(args.layers, args.profile)
+    log(f"kernels phase: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    run_qwen(args.layers, args.profile)
+    log(f"qwen2-7b serving phase: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    run_bitnet(args.layers)
+    log(f"bitnet-3b serving phase: {time.perf_counter() - t0:.1f}s")
     for name, r in recs.items():
-        run = "unfused" if name in ("lutmul", "int_matmul") else "fused"
-        r["launches"] = serving[run]["launches"][name]
-        r["launches_per_decode_step"] = (
-            r["launches"] / serving[run]["decode_steps"])
-    log("serving: " + json.dumps(
-        {k: v for k, v in serving.items() if k not in ("plain", "profile")}))
-    for r in recs.values():
+        run = RUNS[MAIN_RUN[name]]
+        r["launches"] = run["launches"][name]
+        r["launches_run"] = MAIN_RUN[name]
+        r["launches_by_run"] = {label: st["launches"][name]
+                                for label, st in RUNS.items()}
+        r["forwards_by_lane"] = run["forwards_by_lane"]
+        if not r["launches"]:
+            raise AssertionError(f"{name} never launched in {MAIN_RUN[name]}")
         r["kernel_ms"] = r["ms"]
         r["max_abs_diff"] = r["max_abs_err"]
-    kernels = {"kernels": list(recs.values())}
-    print(json.dumps(kernels))
+    log("profiles: " + json.dumps(PROFILES))
+    log(f"total: {time.perf_counter() - t_start:.1f}s")
+    print(json.dumps({"kernels": list(recs.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -50,7 +50,7 @@ class ModelConfig:
     n_enc_layers: int = 0
     enc_seq: int = 1500
     frontend: str = "none"
-    quant: str = "none"             # none | w4a4_lut | w4a4_mxu | w8a8
+    quant: str = "none"             # none | w4a4_lut | w4a4_mxu | w8a8 | tmac
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"
     remat: str = "full"
@@ -75,7 +75,7 @@ class ModelConfig:
         return getattr(torch, self.param_dtype)
 
 
-ALIASES = {"qwen2-7b": "qwen2_7b"}
+ALIASES = {"qwen2-7b": "qwen2_7b", "bitnet-3b": "bitnet_3b"}
 
 
 def get_config(arch: str, smoke: bool = False, **kw) -> ModelConfig:

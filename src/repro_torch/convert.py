@@ -5,8 +5,10 @@
 by ``repro.serve.quantize`` — and returns the port's dict-of-tensors:
 the ``[G, ...]`` block stacks of each pattern position are unstacked into a
 per-layer list (layer ``g * len(pattern) + j``), every leaf keeps its
-``[K, N]`` / ``[K//2, N]`` layout and dtype, so both packages compute the
-same function from the same weights.
+``[K, N]`` / ``[K//2, N]`` / ``[P, K//8, N]`` layout and dtype (the
+zero-size ``w_tmac`` / ``w_tern`` markers become shape-``(0,)`` tensors),
+so both packages compute the same function from the same weights and
+codes.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
-"""Wrappers of the CUDA LUT and int8 kernels (``csrc/lutmul.cu``,
-``csrc/int_matmul.cu``).
+"""Wrappers of the CUDA LUT, int8 and T-MAC kernels (``csrc/lutmul.cu``,
+``csrc/int_matmul.cu``, ``csrc/lutmul_tmac.cu``).
 
-Four entry points, each with a plain launch counter in ``LAUNCHES``:
+Six entry points, each with a plain launch counter in ``LAUNCHES``:
 
 * ``lutmul`` / ``lutmul_fused`` replace ``lutmul_pallas(impl="onehot")``
   and ``lutmul_fused_pallas`` (``repro/kernels/lutmul/kernel.py:178`` and
@@ -11,6 +11,11 @@ Four entry points, each with a plain launch counter in ``LAUNCHES``:
 * ``int_matmul`` / ``int_matmul_fused`` replace ``int_matmul_pallas`` and
   ``int_matmul_fused_pallas`` (``:332`` and ``:483``): int8 x int8 -> int32,
   with the same optional epilogue.
+* ``lutmul_tmac`` / ``lutmul_tmac_fused`` replace ``lutmul_tmac_pallas``
+  and ``lutmul_tmac_fused_pallas`` (``:289`` and ``:430``): int8 activation
+  codes against packed weight bitplanes ``[P, K//8, N]``,
+  ``sum_b coeff_b * (a . plane_b) + const * sum_k a``, with g = 2
+  partial-sum tables for a4 activations and g = 1 for a8.
 
 Bound on the H100 at decode (M = 8): the weight bytes over 3.35 TB/s for the
 int8 kernel (the 545 MB qwen2-7b head: 0.16 ms); for the LUT kernel the
@@ -28,12 +33,12 @@ import ctypes
 
 import torch
 
-from repro_torch.core.lut import contraction_table
+from repro_torch.core.lut import contraction_table, plane_decomposition
 from repro_torch.kernels import build
 from repro_torch.kernels.lutmul import ref
 
 LAUNCHES = {"lutmul": 0, "lutmul_fused": 0, "int_matmul": 0,
-            "int_matmul_fused": 0}
+            "int_matmul_fused": 0, "lutmul_tmac": 0, "lutmul_tmac_fused": 0}
 
 _EPILOGUE = {torch.int32: 0, torch.bfloat16: 1, torch.float32: 2}
 _TABLES: dict[tuple, torch.Tensor] = {}
@@ -73,13 +78,13 @@ def _launch_args(n_ptr: int) -> list:
     return [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
-def _lut_workspace(M: int, N: int, device, stream: int) -> torch.Tensor:
-    """The LUT kernel's int32 scratch (split sums + per-tile arrival
-    counters), one per (device, stream).  Allocated zeroed and grown, never
-    cleared: every launch leaves it zero again."""
-    words = _entry("lutmul", "lutmul_workspace_words",
+def _workspace(lib: str, M: int, N: int, device, stream: int) -> torch.Tensor:
+    """A K-split kernel's int32 scratch (split sums + per-tile arrival
+    counters), one per (kernel, device, stream).  Allocated zeroed and
+    grown, never cleared: every launch leaves it zero again."""
+    words = _entry(lib, f"{lib}_workspace_words",
                    [ctypes.c_int, ctypes.c_int], ctypes.c_longlong)(M, N)
-    key = (device, stream)
+    key = (lib, device, stream)
     ws = _WORKSPACES.get(key)
     if ws is None or ws.numel() < words:
         ws = torch.zeros((words,), dtype=torch.int32, device=device)
@@ -141,7 +146,7 @@ def _lut_launch(a_codes, w_packed, a_scale, w_scale, out, epi: int,
         return
     table = product_table(a_signed, a_codes.device)
     stream = torch.cuda.current_stream(a_codes.device).cuda_stream
-    work = _lut_workspace(M, N, a_codes.device, stream)
+    work = _workspace("lutmul", M, N, a_codes.device, stream)
     fn = _entry("lutmul", "lutmul_launch", _launch_args(7))
     code = fn(a_codes.data_ptr(), w_packed.data_ptr(), table.data_ptr(),
               a_scale.data_ptr() if a_scale is not None else None,
@@ -167,6 +172,85 @@ def _int_launch(a, w, a_scale, w_scale, out, epi: int, name: str) -> None:
               torch.cuda.current_stream(a.device).cuda_stream)
     _raise_on(code, name)
     LAUNCHES[name] += 1
+
+
+def _tmac_shapes(a_q, w_planes) -> tuple[int, int, int, int]:
+    M, K = a_q.shape
+    P, rows, N = w_planes.shape
+    if K % 8 or rows * 8 != K:
+        raise ValueError(
+            f"w_planes [P, K//8, N] = {tuple(w_planes.shape)} does not match "
+            f"activation K = {K} (K must be a multiple of 8)")
+    return M, K, N, P
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """The tmac kernel reads 8 and 4 bytes at a time: a tensor whose data
+    does not start on a 16-byte boundary (a view at an offset) is copied."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _tmac_launch(a_q, w_planes, wbits, g: int, a_scale, w_scale, out,
+                 epi: int, name: str) -> None:
+    M, K, N, P = _tmac_shapes(a_q, w_planes)
+    n_planes, coeffs, const = plane_decomposition(wbits)
+    if P != n_planes:
+        raise ValueError(f"w_planes has {P} planes, wbits={wbits!r} has "
+                         f"{n_planes}")
+    if g not in (1, 2):
+        raise ValueError(f"tmac group size g must be 1 or 2, got {g}")
+    if M == 0 or N == 0:
+        return
+    a_q, w_planes = _aligned(a_q), _aligned(w_planes)
+    stream = torch.cuda.current_stream(a_q.device).cuda_stream
+    work = _workspace("lutmul_tmac", M, N, a_q.device, stream)
+    fn = _entry("lutmul_tmac", "lutmul_tmac_launch",
+                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
+                + [ctypes.c_void_p])
+    co = list(coeffs) + [0] * (4 - len(coeffs))
+    code = fn(a_q.data_ptr(), w_planes.data_ptr(),
+              a_scale.data_ptr() if a_scale is not None else None,
+              w_scale.data_ptr() if w_scale is not None else None,
+              out.data_ptr(), work.data_ptr(), M, K, N, P, g, *co, const,
+              epi, stream)
+    _raise_on(code, name)
+    LAUNCHES[name] += 1
+
+
+def lutmul_tmac(a_q: torch.Tensor, w_planes: torch.Tensor, wbits, *,
+                g: int = 2) -> torch.Tensor:
+    """a_q [M, K] int8 signed codes, w_planes [P, K//8, N] uint8 packed
+    bitplanes of spec ``wbits`` -> int32 [M, N].  ``g = 2`` (the a4 tables)
+    needs codes in [-8, 7]: its pair sums are int8."""
+    if a_q.device.type == "cpu":
+        return ref.tmac_ref(a_q, w_planes, wbits)
+    dev = a_q.device
+    _check("a_q", a_q, torch.int8, 2, dev)
+    _check("w_planes", w_planes, torch.uint8, 3, dev)
+    M, _, N, _ = _tmac_shapes(a_q, w_planes)
+    out = torch.empty((M, N), dtype=torch.int32, device=dev)
+    _tmac_launch(a_q, w_planes, wbits, g, None, None, out, 0, "lutmul_tmac")
+    return out
+
+
+def lutmul_tmac_fused(a_q: torch.Tensor, w_planes: torch.Tensor, wbits,
+                      a_scale: torch.Tensor, w_scale: torch.Tensor, *,
+                      g: int = 2, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """T-MAC multiply + dequant: a_scale [M, 1], w_scale [1, N] float32 ->
+    [M, N] ``out_dtype``."""
+    if a_q.device.type == "cpu":
+        return ref.scaled_tmac_ref(a_q, w_planes, wbits, a_scale, w_scale,
+                                   out_dtype)
+    dev = a_q.device
+    _check("a_q", a_q, torch.int8, 2, dev)
+    _check("w_planes", w_planes, torch.uint8, 3, dev)
+    M, _, N, _ = _tmac_shapes(a_q, w_planes)
+    _check_scales(a_scale, w_scale, M, N, dev)
+    epi = _out_dtype(out_dtype)
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    _tmac_launch(a_q, w_planes, wbits, g, a_scale, w_scale, out, epi,
+                 "lutmul_tmac_fused")
+    return out
 
 
 def lutmul(a_codes: torch.Tensor, w_packed: torch.Tensor, *,

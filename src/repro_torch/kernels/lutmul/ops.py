@@ -1,5 +1,5 @@
-"""Dispatch around the LUT/int8 kernels + the quantized matmuls every model
-projection calls (port of ``repro.kernels.lutmul.ops``, w4a4/w8a8 part).
+"""Dispatch around the LUT/int8/T-MAC kernels + the quantized matmuls every
+model projection calls (port of ``repro.kernels.lutmul.ops``).
 
 Backends:
   * ``"cuda"`` — the hand-written kernels (``kernel.py``); a tensor on the
@@ -23,7 +23,10 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.lut import pack_int4, unpack_int4
+from repro_torch.core.lut import (pack_bitplanes, pack_int4,
+                                  plane_decomposition, planes_from_codes,
+                                  truncate_plane_spec, unpack_int4,
+                                  validate_weight_bits, weight_bits)
 from repro_torch.kernels.lutmul import kernel, ref
 
 _BACKENDS = ("ref", "cuda")
@@ -59,16 +62,7 @@ def get_backend() -> str:
 # quant-mode grammar
 # ---------------------------------------------------------------------------
 
-_WEIGHT_BITS_SPECS = (1, "ternary", 2, 3, 4)
 _TMAC_MODE = re.compile(r"^(?:w(\d+)|(ternary))_?a(\d+)(_tmac)?$")
-
-
-def _validate_weight_bits(spec) -> None:
-    if spec not in _WEIGHT_BITS_SPECS:
-        raise ValueError(
-            f"unsupported weight bit width {spec!r}: the tmac formulation "
-            f"supports {_WEIGHT_BITS_SPECS} (ints are two's-complement widths;"
-            " 'ternary' is the BitNet-b1.58 {-1,0,+1} coding at ~1.58 bits)")
 
 
 def parse_mode(mode: str) -> tuple[str, object, int]:
@@ -77,8 +71,7 @@ def parse_mode(mode: str) -> tuple[str, object, int]:
     "w4a4_mxu"/""/"none" -> ("int", 4, 4); "w8a8" -> ("int", 8, 8);
     "w4a4_lut" -> ("onehot", 4, 4); "w{1,2,3,4}a{4,8}_tmac" and
     "ternary_a{4,8}_tmac" -> ("tmac", spec, abits); suffix-free sub-4-bit
-    modes -> ("auto", spec, abits).  The grammar is the reference's in full;
-    this slice serves the "int" and "onehot" formulations.
+    modes -> ("auto", spec, abits).  The grammar is the reference's in full.
     """
     if mode in ("", "none", "w4a4_mxu"):
         return ("int", 4, 4)
@@ -89,7 +82,7 @@ def parse_mode(mode: str) -> tuple[str, object, int]:
     m = _TMAC_MODE.match(mode)
     if m:
         spec = "ternary" if m.group(2) else int(m.group(1))
-        _validate_weight_bits(spec)
+        validate_weight_bits(spec)
         abits = int(m.group(3))
         if abits not in (4, 8):
             raise ValueError(
@@ -99,6 +92,13 @@ def parse_mode(mode: str) -> tuple[str, object, int]:
     raise ValueError(
         f"unknown quant mode {mode!r}: expected one of w4a4_mxu | w4a4_lut | "
         "w8a8 | w{{1,2,3,4}}a{{4,8}}[_tmac] | ternary_a{{4,8}}[_tmac]")
+
+
+def tmac_group_size(abits: int) -> int:
+    """Activation-group width g: a4 uses g=2 (partial-sum tables whose
+    entries are int8 pair sums); a8 uses g=1 (the table degenerates to the
+    activation itself)."""
+    return 1 if abits >= 8 else 2
 
 
 def _check_lut_shapes(a_codes: torch.Tensor, w_packed: torch.Tensor) -> None:
@@ -118,6 +118,45 @@ def _check_lut_shapes(a_codes: torch.Tensor, w_packed: torch.Tensor) -> None:
             f"w_packed rows ({w_packed.shape[0]}) must be K//2 = {K // 2} "
             f"for activation K={K}: the weight was packed for "
             f"K={w_packed.shape[0] * 2} (mismatched quantize/packing?)")
+
+
+def _check_tmac_shapes(a_q: torch.Tensor, w_planes: torch.Tensor,
+                       wbits) -> None:
+    validate_weight_bits(wbits)
+    n_planes = plane_decomposition(wbits)[0]
+    K = a_q.shape[1]
+    if w_planes.dim() != 3:
+        raise ValueError(
+            f"tmac weights must be 3D [P, K//8, N] packed bitplanes, got "
+            f"shape {tuple(w_planes.shape)} (2D leaves belong to the "
+            "one-hot/int formulations)")
+    if w_planes.shape[0] != n_planes:
+        raise ValueError(
+            f"tmac weight has {w_planes.shape[0]} bitplanes but wbits="
+            f"{wbits!r} decomposes into {n_planes} planes (was the leaf "
+            "quantized at a different width?)")
+    if K % 8:
+        raise ValueError(
+            f"tmac requires K % 8 == 0 for byte-packed bitplanes, got K={K}")
+    if w_planes.shape[1] * 8 != K:
+        raise ValueError(
+            f"tmac w_planes rows ({w_planes.shape[1]}) must be K//8 = "
+            f"{K // 8} for activation K={K}: the weight was packed for "
+            f"K={w_planes.shape[1] * 8}")
+
+
+def truncate_planes(w_planes: torch.Tensor, wbits, keep: int
+                    ) -> tuple[torch.Tensor, int, int]:
+    """Top-``keep`` plane suffix of a packed w{wbits} stack (plane axis -3):
+    ``(draft_planes, draft_wbits, scale_mult)``.  A view of the target's
+    bytes, no copy; ``scale_mult = 2^(wbits-keep)`` folds into the scale."""
+    kept, mult = truncate_plane_spec(wbits, keep)
+    n_planes = plane_decomposition(wbits)[0]
+    if w_planes.dim() < 3 or w_planes.shape[-3] != n_planes:
+        raise ValueError(
+            f"cannot truncate: leaf has plane axis {tuple(w_planes.shape)} "
+            f"but wbits={wbits!r} decomposes into {n_planes} planes")
+    return w_planes[..., n_planes - kept:, :, :], kept, mult
 
 
 # ---------------------------------------------------------------------------
@@ -145,6 +184,24 @@ def int_matmul(a: torch.Tensor, w: torch.Tensor,
     return kernel.int_matmul(a.contiguous(), w.contiguous())
 
 
+def lutmul_tmac(a_q: torch.Tensor, w_planes: torch.Tensor, wbits, *,
+                g: Optional[int] = None, abits: int = 4,
+                backend: Optional[str] = None) -> torch.Tensor:
+    """T-MAC matmul: a_q [M, K] int8 codes x w_planes [P, K//8, N] packed
+    bitplanes of spec ``wbits`` -> int32 [M, N]."""
+    _check_tmac_shapes(a_q, w_planes, wbits)
+    g = tmac_group_size(abits) if g is None else g
+    if g == 2 and abits > 4:
+        raise ValueError(
+            f"tmac g=2 tables hold int8 pair sums of a4 codes; a{abits} "
+            "activations take g=1")
+    be = backend or get_backend()
+    if be == "ref":
+        return ref.tmac_ref(a_q, w_planes, wbits)
+    return kernel.lutmul_tmac(a_q.contiguous(), w_planes.contiguous(), wbits,
+                              g=g)
+
+
 def _fused_lut(a_codes, w_packed, a_scale, w_scale, *, a_signed: bool,
                out_dtype) -> torch.Tensor:
     _check_lut_shapes(a_codes, w_packed)
@@ -160,6 +217,15 @@ def _fused_int(a_q, w_int, a_scale, w_scale, *, out_dtype) -> torch.Tensor:
         a_q.contiguous(), w_int.contiguous(),
         a_scale.to(torch.float32).contiguous(),
         w_scale.to(torch.float32).contiguous(), out_dtype=out_dtype)
+
+
+def _fused_tmac(a_q, w_planes, a_scale, w_scale, *, wbits, g: int,
+                out_dtype) -> torch.Tensor:
+    _check_tmac_shapes(a_q, w_planes, wbits)
+    return kernel.lutmul_tmac_fused(
+        a_q.contiguous(), w_planes.contiguous(), wbits,
+        a_scale.to(torch.float32).contiguous(),
+        w_scale.to(torch.float32).contiguous(), g=g, out_dtype=out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -243,6 +309,59 @@ def quantize_weights(wf: torch.Tensor, bits: int, pack: bool = False):
     return w_q, w_scale
 
 
+def quantize_weights_planes(wf: torch.Tensor, wbits):
+    """Per-output-channel quant to the tmac bitplane format: [..., K, N] f32
+    -> ([..., P, K//8, N] uint8 packed bitplanes, [..., 1, N] f32 scale).
+
+    Integer widths use :func:`quantize_weights`' absmax/round/clip formula
+    (so w4 planes decode to exactly the w4 nibble codes); ternary and w1
+    follow BitNet-b1.58: per-channel mean-|w| scale, codes in {-1, 0, +1}
+    (ternary) / sign in {-1, +1} (w1).  Counted by ``WEIGHT_QUANT_COUNT``.
+    """
+    validate_weight_bits(wbits)
+    if wf.shape[-2] % 8:
+        raise ValueError(
+            f"tmac bitplane packing needs K % 8 == 0, got K={wf.shape[-2]}; "
+            "pad the contraction dim before quantizing")
+    global WEIGHT_QUANT_COUNT
+    WEIGHT_QUANT_COUNT += 1
+    wf = wf.to(torch.float32)
+    if wbits in ("ternary", 1):
+        # the mean over K is taken in float64 and rounded once, so every
+        # device gets the same scale (a float32 mean's value depends on its
+        # summation order: XLA's and ATen's differ by a few ulp)
+        w_scale = torch.clamp_min(
+            torch.mean(torch.abs(wf), dim=-2, keepdim=True,
+                       dtype=torch.float64).to(torch.float32), 1e-8)
+        if wbits == "ternary":
+            codes = torch.clamp(torch.round(wf / w_scale), -1, 1)
+        else:
+            codes = torch.where(wf >= 0, 1, -1)
+    else:
+        qmax = 2 ** (int(wbits) - 1) - 1
+        w_scale = torch.clamp_min(
+            _divide(torch.amax(torch.abs(wf), dim=-2, keepdim=True), qmax),
+            1e-8)
+        codes = torch.clamp(torch.round(wf / w_scale), -qmax - 1, qmax)
+    planes = planes_from_codes(codes.to(torch.int32), wbits)
+    return pack_bitplanes(planes), w_scale
+
+
+# ---------------------------------------------------------------------------
+# formulation selection: tmac vs one-hot per (bits, shape)
+# ---------------------------------------------------------------------------
+
+def pick_formulation(wbits, abits: int) -> str:
+    """"tmac" | "onehot" for a leaf: tmac below 4 weight bits (its work is
+    linear in the plane count) and for every a8 mode (the one-hot product
+    table is 4-bit x 4-bit), one-hot at w4a4.  The reference's heuristic
+    default; its per-shape timed autotune is not ported."""
+    validate_weight_bits(wbits)
+    if abits >= 8:
+        return "tmac"
+    return "tmac" if weight_bits(wbits) < 4 else "onehot"
+
+
 # ---------------------------------------------------------------------------
 # pre-quantized (serving) matmul: weights are integer codes on the device
 # ---------------------------------------------------------------------------
@@ -276,30 +395,48 @@ def _dispatch(a_q, a_scale, w_q, ws_row, mode: str, be: str, lead,
                                 compute_dtype).reshape(*lead, N)
 
 
+def _dispatch_tmac(a_q, a_scale, w_planes, ws_row, wspec, abits: int,
+                   be: str, lead, compute_dtype) -> torch.Tensor:
+    """Fused or unfused tmac kernel call on quantized activations."""
+    N = w_planes.shape[-1]
+    if pick_variant(be) == "fused":
+        y = _fused_tmac(a_q, w_planes, a_scale, ws_row, wbits=wspec,
+                        g=tmac_group_size(abits), out_dtype=compute_dtype)
+        return y.reshape(*lead, N)
+    acc = lutmul_tmac(a_q, w_planes, wspec, abits=abits, backend=be)
+    return ref.dequant_epilogue(acc, a_scale, ws_row,
+                                compute_dtype).reshape(*lead, N)
+
+
 def prequant_matmul(x: torch.Tensor, w_q: torch.Tensor,
                     w_scale: torch.Tensor, mode: str = "",
                     compute_dtype=torch.bfloat16,
                     backend: Optional[str] = None) -> torch.Tensor:
-    """x [..., K] float; w_q packed-int4 uint8 [K//2, N] or int8 [K, N].
+    """x [..., K] float; w_q packed-int4 uint8 [K//2, N], int8 [K, N] or
+    packed bitplanes uint8 [P, K//8, N].
 
     The weights live on the device as integer codes; the int8 ``[K, N]``
     leaf (the w8a8 head) takes the int8 kernel, the packed leaf the LUT
     kernel under ``w4a4_lut`` (the int8 kernel on unpacked nibbles
-    otherwise).
+    otherwise), the bitplane leaf the T-MAC kernel with the weight spec and
+    activation bits of ``mode`` (``models.layers.linear`` derives it from
+    the leaf).
     """
     lead = x.shape[:-1]
     K = x.shape[-1]
     N = w_q.shape[-1]
-    if w_q.dim() != 2:
-        raise NotImplementedError(
-            f"weight leaf of shape {tuple(w_q.shape)}: only 2D nibble/int8 "
-            "leaves are served (tmac bitplane leaves are not ported yet)")
-    packed = w_q.dtype == torch.uint8
     x2 = x.reshape(-1, K).to(torch.float32)
+    be = backend or get_backend()
+    if w_q.dim() == 3:                       # bitplane leaf -> tmac kernel
+        _, wspec, bits = parse_mode(mode)
+        _check_tmac_shapes(x2, w_q, wspec)
+        a_q, a_scale = quantize_activations(x2, bits)
+        return _dispatch_tmac(a_q, a_scale, w_q, w_scale.reshape(1, N),
+                              wspec, bits, be, lead, compute_dtype)
+    packed = w_q.dtype == torch.uint8
     if packed:
         _check_lut_shapes(x2, w_q)
     a_q, a_scale = quantize_activations(x2, 4 if packed else 8)
-    be = backend or get_backend()
     return _dispatch(a_q, a_scale, w_q, w_scale.reshape(1, N), mode, be,
                      lead, compute_dtype)
 
@@ -309,18 +446,22 @@ def quantized_matmul(x: torch.Tensor, w: torch.Tensor,
                      backend: Optional[str] = None) -> torch.Tensor:
     """Dynamic-quant matmul on a float weight ``w [K, N]``: re-quantizes
     the weight on every call (serving quantizes once, see serve.quantize)."""
-    form, _, _ = parse_mode(mode)
-    if form not in ("int", "onehot"):
-        raise NotImplementedError(
-            f"quant mode {mode!r} ({form}) is not ported yet: this slice "
-            "serves w4a4_lut, w4a4_mxu and w8a8")
+    form, wspec, abits = parse_mode(mode)
+    if form in ("tmac", "auto") and weight_bits(wspec) < 4:
+        form = "tmac"          # sub-4-bit auto: tmac is the only exact fit
     lead = x.shape[:-1]
     K = x.shape[-1]
     x2 = x.reshape(-1, K).to(torch.float32)
+    be = backend or get_backend()
+    if form == "tmac":
+        w_planes, w_scale = quantize_weights_planes(w.to(torch.float32),
+                                                    wspec)
+        a_q, a_scale = quantize_activations(x2, abits)
+        return _dispatch_tmac(a_q, a_scale, w_planes, w_scale, wspec, abits,
+                              be, lead, compute_dtype)
     bits = 4 if mode.startswith("w4") else 8
     a_q, a_scale = quantize_activations(x2, bits)
     w_q, w_scale = quantize_weights(w.to(torch.float32), bits,
                                     pack=(mode == "w4a4_lut"))
-    be = backend or get_backend()
     return _dispatch(a_q, a_scale, w_q, w_scale, mode, be, lead,
                      compute_dtype)

@@ -4,12 +4,19 @@ They define what the CUDA kernels must reproduce exactly.  CUDA has no
 int32 matmul, so the integer products are taken in float64 and cast back:
 exact while ``|acc| < 2^53`` (float32 is not: the int8 head reaches
 ``128 * 128 * 3584 > 2^24``).
+
+The T-MAC bitplane product has two plain forms: ``lutmul_tmac_ref``, the
+faithful group-table gather (the paper's and T-MAC's lookup, as the
+reference's oracle builds it), and ``tmac_ref``, the decoded-plane
+contraction (the reference's ``ref`` backend), which the kernel wrappers
+and the serving path use.  They give the same integers.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.lut import unpack_int4
+from repro_torch.core.lut import (decode_planes, plane_decomposition,
+                                  unpack_bitplanes, unpack_int4)
 
 
 def decode_codes(codes: torch.Tensor, bits: int = 4,
@@ -32,6 +39,48 @@ def lutmul_ref(a_codes: torch.Tensor, w_packed: torch.Tensor,
     a = decode_codes(a_codes, 4, a_signed)
     w = unpack_int4(w_packed.T, signed=True).T
     return _exact_matmul(a, w)
+
+
+def lutmul_tmac_ref(a_q: torch.Tensor, w_planes: torch.Tensor, wbits,
+                    g: int = 2) -> torch.Tensor:
+    """The faithful T-MAC group-table semantics: a_q [M, K] int8, w_planes
+    [P, K//8, N] packed bitplanes.  Builds ``T[m, kg, c] = sum_i bit_i(c) *
+    a[m, kg*g + i]`` and gathers it with each plane's g-bit group codes,
+    ``acc = sum_b coeff_b * sum_kg T[m, kg, gcode_b(kg, n)] + const *
+    sum_k a[m, k]``.  Returns int32 [M, N]."""
+    n_planes, coeffs, const = plane_decomposition(wbits)
+    a = a_q.to(torch.int32)
+    w = unpack_bitplanes(w_planes).to(torch.int32)               # [P, K, N]
+    M, K = a.shape
+    if K % g:
+        raise ValueError(f"tmac ref needs K % g == 0, got K={K} g={g}")
+    kg, c = K // g, 1 << g
+    dev = a.device
+    bitsel = (torch.arange(c, device=dev)[None, :]
+              >> torch.arange(g, device=dev)[:, None]) & 1      # [g, c]
+    table = torch.sum(a.reshape(M, kg, g, 1) * bitsel.to(torch.int32),
+                      dim=2, dtype=torch.int32)                 # [M, kg, c]
+    gsh = torch.arange(g, dtype=torch.int32, device=dev).reshape(1, 1, g, 1)
+    gcodes = torch.sum(w.reshape(n_planes, kg, g, -1) << gsh, dim=2,
+                       dtype=torch.int32)                       # [P, kg, N]
+    N = w.shape[-1]
+    acc = torch.zeros((M, N), dtype=torch.int32, device=dev)
+    for p in range(n_planes):
+        looked = torch.gather(table, 2, gcodes[p][None].expand(M, kg, N)
+                              .to(torch.int64))                 # [M, kg, N]
+        acc = acc + coeffs[p] * torch.sum(looked, dim=1, dtype=torch.int32)
+    if const:
+        acc = acc + const * torch.sum(a, dim=1, keepdim=True,
+                                      dtype=torch.int32)
+    return acc
+
+
+def tmac_ref(a_q: torch.Tensor, w_planes: torch.Tensor,
+             wbits) -> torch.Tensor:
+    """Decoded-plane contraction: ``a_q @ decode_planes(planes)``, int32
+    [M, N] — the same integers as :func:`lutmul_tmac_ref` for any g."""
+    return _exact_matmul(a_q, decode_planes(unpack_bitplanes(w_planes),
+                                            wbits))
 
 
 def int_matmul_ref(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -62,3 +111,11 @@ def scaled_int_matmul_ref(a: torch.Tensor, w: torch.Tensor,
     """Plain version of the fused int8 kernel."""
     return dequant_epilogue(int_matmul_ref(a, w), a_scale, w_scale,
                             out_dtype)
+
+
+def scaled_tmac_ref(a_q: torch.Tensor, w_planes: torch.Tensor, wbits,
+                    a_scale: torch.Tensor, w_scale: torch.Tensor,
+                    out_dtype=torch.float32) -> torch.Tensor:
+    """Plain version of the fused tmac kernel."""
+    return dequant_epilogue(tmac_ref(a_q, w_planes, wbits), a_scale,
+                            w_scale, out_dtype)

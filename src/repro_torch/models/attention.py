@@ -1,6 +1,7 @@
 """Attention (port of ``repro.models.attention``, dense part): GQA with the
 reference's boolean position mask and ``NEG_INF`` fill, full-sequence
-prefill and single-token decode over a dense per-slot KV cache.
+prefill, single-token decode and the S-token speculative-verify block over
+a dense per-slot KV cache.
 
 Plain PyTorch ops throughout (the reference has no Pallas kernel here).
 Scores and the probability-value product accumulate in float32 on float32
@@ -139,4 +140,63 @@ def decode_attention(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
     k_pos = decode_kv_positions(posv, T)
     out = full_attention(q, cache_k, cache_v, posb, k_pos)
     y = _proj_out(p, out.to(compute_dtype), B, 1, quant, compute_dtype)
+    return y, cache_k, cache_v
+
+
+def _write_kv_block(cache: torch.Tensor, new: torch.Tensor,
+                    start: torch.Tensor) -> torch.Tensor:
+    """Contiguous in-place S-token write: cache [B, T, ...], new [B, S, ...],
+    row b's tokens land at ``cache[b, start[b] : start[b] + S]``."""
+    B, S = new.shape[:2]
+    rows = torch.arange(B, device=cache.device)[:, None]
+    idx = start.long()[:, None] + torch.arange(S, device=cache.device)[None]
+    cache[rows, idx] = new.to(cache.dtype)
+    return cache
+
+
+def decode_attention_multi(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
+                           cache_v: torch.Tensor, pos, *, n_heads: int,
+                           n_kv: int, head_dim: int,
+                           rope_theta: float = 10000.0, quant: str = "none",
+                           compute_dtype=torch.bfloat16):
+    """A contiguous S-token decode block (speculative verify).  x [B, S, d];
+    pos [B] int32 start positions, token i of a row at ``pos + i``.
+
+    The projections run once at M = B*S (the integer kernels are exact per
+    row).  Rope and attention run per position i on [B, 1, ...] slices,
+    with the shapes :func:`decode_attention` gives them, after all S K/V
+    rows are written: query i masks every key past ``pos + i``, and a
+    masked key adds an exact zero, so position i gets the bits S sequential
+    decode calls would give it (CUDA picks reduction strategies by shape).
+    Block starts clamp into [0, T - S] like the reference's
+    ``dynamic_update_slice``: live rows need ``pos <= T - S`` (the
+    scheduler's headroom guard); a free row (negative ``pos``) writes the
+    tail of its own row and keeps every key masked.
+    """
+    B, S = x.shape[:2]
+    T = cache_k.shape[1]
+    q = _proj_qkv(p, "wq", x, B, S, head_dim, quant, compute_dtype)
+    k = _proj_qkv(p, "wk", x, B, S, head_dim, quant, compute_dtype)
+    v = _proj_qkv(p, "wv", x, B, S, head_dim, quant, compute_dtype)
+    posv = _pos_vec(pos, B, x.device)
+    q_pos = posv[:, None] + torch.arange(S, dtype=torch.int32,
+                                         device=x.device)[None]   # [B, S]
+    qs = [apply_rope(q[:, i:i + 1].contiguous(), q_pos[:, i:i + 1],
+                     rope_theta) for i in range(S)]
+    k = torch.cat([apply_rope(k[:, i:i + 1].contiguous(), q_pos[:, i:i + 1],
+                              rope_theta) for i in range(S)], dim=1)
+    # the reference's dynamic_update_slice: a negative start wraps (+T),
+    # then every start clamps into [0, T - S]
+    start = torch.clamp(torch.where(posv < 0, posv + T, posv), 0, T - S)
+    _write_kv_block(cache_k, k, start)
+    _write_kv_block(cache_v, v, start)
+    outs = []
+    for i in range(S):
+        # free rows stay negative: every key of theirs stays masked
+        pos_i = torch.where(posv >= 0, posv + i, posv)
+        outs.append(full_attention(qs[i], cache_k, cache_v,
+                                   q_pos[:, i:i + 1],
+                                   decode_kv_positions(pos_i, T)))
+    out = torch.cat(outs, dim=1)
+    y = _proj_out(p, out.to(compute_dtype), B, S, quant, compute_dtype)
     return y, cache_k, cache_v

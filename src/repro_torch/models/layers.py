@@ -3,8 +3,8 @@ RMS norm, rotary embeddings, the SwiGLU MLP and the weight-code cache.
 
 Parameters are plain dicts of tensors in the reference layout: a linear is
 ``{"w": [d_in, d_out]}`` (``x @ w``) with an optional ``"b"``, or its
-serving form ``{"w_q", "w_scale"[, "b"]}`` produced by
-``serve.quantize``; ``linear`` dispatches on the presence of ``w_q``.
+serving form ``{"w_q", "w_scale"[, "w_tmac", "w_tern"][, "b"]}`` produced
+by ``serve.quantize``; ``linear`` dispatches on the presence of ``w_q``.
 Initializers take an explicit ``torch.Generator`` and device.
 """
 from __future__ import annotations
@@ -52,11 +52,23 @@ def linear(p: Params, x: torch.Tensor, quant: str = "none",
     """Dense projection with a selectable quantization mode.
 
     A leaf carrying serving codes (``w_q`` + ``w_scale``) always takes the
-    integer path — weights are read from device memory as codes.
+    integer path — weights are read from device memory as codes.  A tmac
+    bitplane leaf (``w_tmac`` marker) takes its weight spec from itself —
+    its plane count, or ternary when it carries ``w_tern`` — and only the
+    activation bits from ``quant``, so a drafter's truncated view of a
+    ``w4a4_tmac`` leaf runs as ``w2a4_tmac``.
     """
     from repro_torch.kernels.lutmul import ops as lut_ops
     if "w_q" in p:
-        y = lut_ops.prequant_matmul(x, p["w_q"], p["w_scale"], mode=quant,
+        mode = quant
+        if "w_tmac" in p:
+            try:
+                abits = lut_ops.parse_mode(quant)[2]
+            except ValueError:
+                abits = 4
+            mode = (f"ternary_a{abits}_tmac" if "w_tern" in p
+                    else f"w{p['w_q'].shape[0]}a{abits}_tmac")
+        y = lut_ops.prequant_matmul(x, p["w_q"], p["w_scale"], mode=mode,
                                     compute_dtype=compute_dtype)
     elif quant == "none":
         y = x.to(compute_dtype) @ p["w"].to(compute_dtype)

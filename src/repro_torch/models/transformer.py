@@ -5,7 +5,8 @@ Layers are a per-layer list (``params["blocks"][i]``), not the reference's
 ``[G, ...]`` stacks; layer ``g * len(pattern) + j`` is group ``g``'s pattern
 position ``j`` (``convert.params_from_jax`` unstacks in that order).  The
 decode cache is a list of per-layer ``{"k", "v"}`` buffers
-``[B, max_len, n_kv, head_dim]`` that ``decode_step`` updates in place.
+``[B, max_len, n_kv, head_dim]`` that ``decode_step`` and ``verify_step``
+update in place.
 """
 from __future__ import annotations
 
@@ -178,4 +179,39 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
         x = x + mlp(bp["mlp"], h, quant=cfg.quant, compute_dtype=cd)
     x = rms_norm(params["final_norm"], x)
     logits = _lm_head(params, cfg, x[:, 0].to(cd)).to(torch.float32)
+    return logits, cache
+
+
+def _norm_rows(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """rms_norm of each position of x [B, S, d] on its own [B, 1, d] slice,
+    the shape ``decode_step`` normalizes (the reduction strategy of a CUDA
+    kernel depends on the shape, and verify must reproduce decode's bits)."""
+    return torch.cat([rms_norm(p, x[:, i:i + 1].contiguous())
+                      for i in range(x.shape[1])], dim=1)
+
+
+def verify_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                cache: list, pos) -> tuple[torch.Tensor, list]:
+    """S tokens for the whole batch in one forward (speculative verify).
+
+    tokens [B, S] int, token i of a row at ``pos + i``; pos [B] int32 start
+    positions (negative = free slot; live rows need ``pos <= max_len -
+    S``).  Returns (logits [B, S, V] float32, cache) with every K/V write
+    landed in place: ``logits[:, i]`` has the bits of the i-th of S
+    sequential :func:`decode_step` calls.  The projections and the head run
+    once at M = B*S; norms, rope and attention run per position."""
+    check_supported(cfg)
+    cd = cfg.cdtype
+    x = _embed(params, cfg, tokens)                              # [B, S, d]
+    for bp, c in zip(params["blocks"], cache):
+        h = _norm_rows(bp["ln1"], x)
+        y, _, _ = attn_lib.decode_attention_multi(
+            bp["attn"], h, c["k"], c["v"], pos, n_heads=cfg.n_heads,
+            n_kv=cfg.n_kv, head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+            quant=cfg.quant, compute_dtype=cd)
+        x = x + y
+        h = _norm_rows(bp["ln2"], x)
+        x = x + mlp(bp["mlp"], h, quant=cfg.quant, compute_dtype=cd)
+    x = _norm_rows(params["final_norm"], x)
+    logits = _lm_head(params, cfg, x.to(cd)).to(torch.float32)
     return logits, cache

@@ -1,5 +1,6 @@
 """Batched serving engine (port of ``repro.serve.engine``: dense KV, one
-device, chunked prefill; no paging, speculation or fault injection).
+device, chunked prefill, greedy bitplane self-speculative decoding; no
+paging, sampling or fault injection).
 
 ``Engine.step`` is one unified serving round: a chunk lane of prompt-token
 iterations (each a full-batch ``decode_step`` with the target slot's
@@ -8,7 +9,10 @@ when its last prompt token lands) followed by ``chunk`` decode iterations
 over every slot.  The reference compiles both lanes into one ``lax.scan``
 dispatch; here they are a Python loop over ``decode_step``, and the pad
 entries of a short chunk lane — full-batch no-ops whose only effect is
-rewriting every row's held KV with the same bits — are skipped.
+rewriting every row's held KV with the same bits — are skipped.  With
+``spec_decode`` a round's decode lane can instead be a speculative one:
+``draft_k`` drafter steps on the top-plane view of the tmac weights, one
+``verify_step`` over the drafts, the longest matching prefix accepted.
 
 ``generate`` is the static-batch oracle: prefill, then a per-token loop.
 Positions are per-sequence ``pos: [B]`` int32; a negative position is the
@@ -31,6 +35,14 @@ class ServeConfig:
     quant: Optional[str] = None   # convert weights to serving codes at load
     # prompt tokens processed per unified round (None = 8)
     prefill_chunk: Optional[int] = None
+    # bitplane-truncated self-speculative decoding (greedy): draft
+    # ``draft_k`` tokens per round with the top-``draft_planes``-plane view
+    # of the tmac weight codes (no extra weight memory), verify them in one
+    # (draft_k+1)-token target forward, accept the longest matching prefix.
+    # Transcripts equal the non-speculative engine's.
+    spec_decode: bool = False
+    draft_planes: int = 2         # top planes the drafter keeps (>= 2)
+    draft_k: int = 3              # tokens drafted per verify round
 
     def __post_init__(self):
         if self.max_len < 1:
@@ -43,6 +55,19 @@ class ServeConfig:
                 raise ValueError(
                     f"prefill_chunk ({self.prefill_chunk}) cannot exceed "
                     f"max_len ({self.max_len}) — no prompt is longer")
+        if self.spec_decode:
+            if self.draft_k < 1:
+                raise ValueError(
+                    f"draft_k must be >= 1, got {self.draft_k}")
+            if self.draft_planes < 2:
+                raise ValueError(
+                    f"draft_planes must be >= 2 (the drafter keeps the sign "
+                    f"plane plus at least one magnitude plane), got "
+                    f"{self.draft_planes}")
+            if self.draft_k + 1 > self.max_len:
+                raise ValueError(
+                    f"draft_k ({self.draft_k}) needs max_len >= draft_k + 1 "
+                    f"({self.draft_k + 1}), got {self.max_len}")
 
     @property
     def chunk_tokens(self) -> int:
@@ -83,7 +108,27 @@ class Engine:
             params = quantize_params_for_serving(params, mode=scfg.quant)
         self.params = params
         self.scfg = scfg
-        self.decode_steps = 0         # decode_step calls (both lanes)
+        self.decode_steps = 0         # decode_step calls (every lane)
+        # forward calls by lane: chunk-lane and decode-lane decode_steps,
+        # drafter decode_steps and verify_steps
+        self.lane_steps = dict.fromkeys(("chunk", "decode", "draft",
+                                         "verify"), 0)
+        self.n_draftable_leaves = 0
+        self.draft_params = None
+        if scfg.spec_decode:
+            from repro_torch.serve.quantize import (count_draftable_leaves,
+                                                    draft_params_view)
+            self.n_draftable_leaves = count_draftable_leaves(
+                params, scfg.draft_planes)
+            if self.n_draftable_leaves == 0:
+                raise ValueError(
+                    f"spec_decode found no draftable weight leaves: the "
+                    f"drafter truncates tmac bitplane stacks wider than "
+                    f"draft_planes={scfg.draft_planes} — quantize with a "
+                    f"w3/w4 tmac mode (e.g. quant='w4a4_tmac')")
+            # views of the target's plane bytes (a zeroing of the target's
+            # planes in place shows through)
+            self.draft_params = draft_params_view(params, scfg.draft_planes)
 
     # -- scheduler-facing API ------------------------------------------------
 
@@ -96,13 +141,25 @@ class Engine:
         return transformer.init_cache(self.cfg, batch, self.scfg.max_len,
                                       self.device)
 
-    def _decode(self, tok, cache, pos):
+    def _decode(self, tok, cache, pos, lane: str = "decode"):
         self.decode_steps += 1
-        return transformer.decode_step(self.params, self.cfg, tok, cache, pos)
+        self.lane_steps[lane] += 1
+        params = self.draft_params if lane == "draft" else self.params
+        return transformer.decode_step(params, self.cfg, tok, cache, pos)
 
-    def step(self, cache, entries, tok, pos, done, eos, chunk: int):
+    def _verify(self, toks, cache, pos):
+        self.lane_steps["verify"] += 1
+        return transformer.verify_step(self.params, self.cfg, toks, cache,
+                                       pos)
+
+    def step(self, cache, entries, tok, pos, done, eos, chunk: int,
+             spec: bool = False):
         """ONE unified serving round: the chunk lane (when ``entries`` is
-        not None) then ``chunk`` (>= 1) decode iterations over every slot.
+        not None) then ``chunk`` (>= 1) decode iterations over every slot,
+        or with ``spec`` (needs ``scfg.spec_decode``) one speculative
+        round: ``draft_k`` drafter steps, one verify over ``[tok, d_1 ..
+        d_K]``, the longest prefix where the target reproduces the drafts
+        accepted (up to ``draft_k + 1`` tokens per slot, cut after an EOS).
 
         ``entries``: dict of [prefill_chunk] host lists — ``slot`` (target
         row, -1 = pad), ``tok``/``pos`` (prompt token and its position),
@@ -111,11 +168,22 @@ class Engine:
         Non-target rows re-run their held (token, position); finished and
         free slots (done=True) hold token and position throughout.
 
-        Returns (cache, tok, pos, done, tok0, done0, tokens [B, chunk],
-        dones [B, chunk], ok [B]) — tok0/done0 are the first tokens and
-        immediately-finished flags of rows whose ``first`` entry fired; ok
-        is the per-slot finite-logits guard.
+        Precondition of ``spec``: every occupied slot holds a position
+        ``<= max_len - (draft_k + 1)`` (the scheduler's headroom guard).
+        Rows done at round entry (parked mid-prefill, free) hold token and
+        position; the drafter's write at their held slot is rewritten with
+        the target's bits by the verify.
+
+        Returns (cache, tok, pos, done, tok0, done0, tokens [B, W],
+        dones [B, W], ok [B], n_valid [B]) with W = chunk (draft_k + 1 under
+        ``spec``) — tok0/done0 are the first tokens and immediately-finished
+        flags of rows whose ``first`` entry fired; ok is the per-slot
+        finite-logits guard; only the first ``n_valid[b]`` columns of row b
+        are real (all W on a plain round).
         """
+        if spec and not self.scfg.spec_decode:
+            raise ValueError(
+                "spec=True requires ServeConfig(spec_decode=True)")
         C = self.prefill_chunk if entries is not None else 0
         ok = torch.ones_like(done)
         tok0, done0 = tok, done
@@ -132,7 +200,7 @@ class Engine:
                 target = rows == s
                 tok_in = torch.where(target, t, tok)
                 pos_in = torch.where(target, p, pos)
-                logits, cache = self._decode(tok_in, cache, pos_in)
+                logits, cache = self._decode(tok_in, cache, pos_in, "chunk")
                 if first:
                     fire = target
                     ok = ok & (torch.isfinite(logits).all(-1) | ~fire)
@@ -145,6 +213,11 @@ class Engine:
                     done0 = torch.where(fire, nd, done0)
                 else:                     # the target parks on (t, p)
                     tok, pos = tok_in, pos_in
+        if spec:
+            cache, tok, pos, done, toks, dones, ok, n_valid = \
+                self._spec_lane(cache, tok, pos, done, eos, ok)
+            return (cache, tok, pos, done, tok0, done0, toks, dones, ok,
+                    n_valid)
         toks, dones = [], []
         for j in range(chunk):
             logits, cache = self._decode(tok, cache, pos)
@@ -157,8 +230,44 @@ class Engine:
             tok = nxt
             toks.append(nxt)
             dones.append(done)
+        n_valid = torch.full_like(tok, chunk)
         return (cache, tok, pos, done, tok0, done0, torch.stack(toks, 1),
-                torch.stack(dones, 1), ok)
+                torch.stack(dones, 1), ok, n_valid)
+
+    def _spec_lane(self, cache, tok, pos, done, eos, ok):
+        """Draft ``draft_k`` / verify once / accept the longest prefix."""
+        K = self.scfg.draft_k
+        S = K + 1
+        dtok, dpos, drafts = tok, pos, []
+        for _ in range(K):
+            logits, cache = self._decode(dtok, cache, dpos, "draft")
+            nxt = torch.where(done, dtok, sample_logits(logits))
+            dpos = torch.where(done, dpos, dpos + 1)
+            dtok = nxt
+            drafts.append(nxt)
+        drafts = torch.stack(drafts, 1)                            # [B, K]
+        logits, cache = self._verify(torch.cat([tok[:, None], drafts], 1),
+                                     cache, pos)
+        ok = ok & (torch.isfinite(logits).all(-1).all(-1) | done)
+        v = sample_logits(logits)                                  # [B, S]
+        # accept the longest prefix where the target reproduces the draft;
+        # the target's token after it (correction or bonus) comes free
+        match = (v[:, :K] == drafts).to(torch.int32)
+        m = torch.cumprod(match, dim=1).sum(dim=1)                 # 0..K
+        cols = torch.arange(S, device=v.device)[None]
+        is_eos = (eos[:, None] >= 0) & (v == eos[:, None])
+        eos_in = is_eos & (cols <= m[:, None])
+        any_eos = eos_in.any(dim=1)
+        first_eos = torch.argmax(eos_in.to(torch.int32), dim=1)
+        n_valid = torch.where(any_eos, first_eos + 1, m + 1)
+        n_valid = torch.where(done, 0, n_valid).to(torch.int32)
+        newtok = torch.gather(
+            v, 1, torch.clamp_min(n_valid - 1, 0)[:, None].long())[:, 0]
+        tok = torch.where(done, tok, newtok)
+        pos = pos + n_valid
+        done = done | (any_eos & (n_valid > 0))
+        dones = is_eos & (cols < n_valid[:, None])
+        return cache, tok, pos, done, v, dones, ok, n_valid
 
     # -- static-batch oracle -------------------------------------------------
 

@@ -1,12 +1,20 @@
-"""Offline weight quantization for serving (port of ``repro.serve.quantize``,
-nibble/int8 part): projection weights become integer codes + per-channel
-scales, exactly what the kernels consume::
+"""Offline weight quantization for serving (port of ``repro.serve.quantize``):
+projection weights become integer codes + per-channel scales, exactly what
+the kernels consume::
 
     {"w_q": uint8 [K//2, N] (packed int4)  or  int8 [K, N],
      "w_scale": float32 [1, N]}
 
+or, for the T-MAC bitplane family (w1/w2/w3/w4/ternary weights)::
+
+    {"w_q": uint8 [P, K//8, N] (packed bitplanes, P = plane count),
+     "w_scale": float32 [1, N],
+     "w_tmac": uint8 [0],          # zero-size formulation marker
+     "w_tern": uint8 [0]}          # present iff ternary (P = 2 is ambiguous)
+
 Inner projections take the mode's codes; the untied lm_head is always w8a8
-(the paper's first/last-layer rule).
+(the paper's first/last-layer rule).  ``draft_params_view`` is the
+self-speculative drafter: the top planes of every draftable bitplane leaf.
 """
 from __future__ import annotations
 
@@ -14,7 +22,7 @@ import re
 
 import torch
 
-from repro_torch.core.lut import unpack_int4
+from repro_torch.core.lut import decode_planes, unpack_bitplanes, unpack_int4
 from repro_torch.kernels.lutmul import ops as lut_ops
 
 # projection leaves eligible for low-bit quantization (trailing ['w'])
@@ -33,23 +41,34 @@ def quantize_leaf(w: torch.Tensor, bits: int) -> dict:
 
 
 def quantize_leaf_mode(w: torch.Tensor, mode: str) -> dict:
-    """Mode-aware leaf quantizer: the nibble leaf for w4a4 modes, the int8
-    leaf for a8 modes (tmac bitplane leaves are not ported yet)."""
+    """Mode-aware leaf quantizer: the nibble/int8 leaf for the legacy modes,
+    the bitplane leaf with its markers for the tmac family.  A suffix-free
+    mode ("w2a4") takes ``ops.pick_formulation``'s choice and stores that
+    formulation's format."""
     form, wspec, abits = lut_ops.parse_mode(mode)
     if form == "int":
         return quantize_leaf(w, 8 if abits >= 8 else 4)
-    if form == "onehot" and wspec == 4:
+    if form == "auto":
+        form = lut_ops.pick_formulation(wspec, abits)
+    if form == "onehot":           # w4a4 only: sub-4-bit auto picks tmac
         return quantize_leaf(w, 4)
-    raise NotImplementedError(
-        f"quant mode {mode!r} needs the tmac bitplane format, which is not "
-        "ported yet")
+    planes, scale = lut_ops.quantize_weights_planes(w, wspec)
+    marker = torch.zeros(planes.shape[:-3] + (0,), dtype=torch.uint8,
+                         device=planes.device)
+    leaf = {"w_q": planes.contiguous(), "w_scale": scale.to(torch.float32),
+            "w_tmac": marker}
+    if wspec == "ternary":
+        leaf["w_tern"] = marker
+    return leaf
 
 
 def quantize_params_for_serving(params, mode: str = "w4a4_mxu"):
     """Replace eligible projection weights with integer codes + scales
     (through ``models.layers.QuantizedLinear``: quantize + pack once).
 
-    mode: w4a4_lut | w4a4_mxu -> int4 inner, int8 head; w8a8 -> int8 all.
+    mode: w4a4_lut | w4a4_mxu -> int4 inner, int8 head; w8a8 -> int8 all;
+    tmac family (``w{1,2,3,4}a{4,8}[_tmac]``, ``ternary_a{4,8}[_tmac]``) ->
+    bitplane leaves, int8 head.
     Walk paths are the reference's ``"['blocks'][i]['attn']['wq']['w']"``
     strings, so the same rules pick the same leaves.
     """
@@ -80,9 +99,56 @@ def quantize_params_for_serving(params, mode: str = "w4a4_mxu"):
     return walk(params)
 
 
+def _draftable(leaf, draft_planes: int) -> bool:
+    """True for tmac leaves whose positional int planes truncate to
+    ``draft_planes`` (not ternary or w1, not leaves at or below the draft
+    width, not nibble/int8 leaves)."""
+    return (isinstance(leaf, dict) and "w_tmac" in leaf
+            and "w_tern" not in leaf and leaf["w_q"].dim() >= 3
+            and leaf["w_q"].shape[-3] > draft_planes >= 2)
+
+
+def draft_params_view(params, draft_planes: int):
+    """Truncated-plane drafter view of quantized serving params: every
+    draftable leaf keeps its top ``draft_planes`` planes (a view of the
+    target's bytes) with ``2^(B - draft_planes)`` folded into ``w_scale``
+    (exact: a power of two); every other leaf is the target's own object."""
+    def walk(tree):
+        if isinstance(tree, dict):
+            if _draftable(tree, draft_planes):
+                wbits = int(tree["w_q"].shape[-3])
+                sliced, _, mult = lut_ops.truncate_planes(
+                    tree["w_q"], wbits, draft_planes)
+                out = dict(tree)
+                out["w_q"] = sliced
+                out["w_scale"] = tree["w_scale"] * float(mult)
+                return out
+            return {k: walk(v) for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(walk(v) for v in tree)
+        return tree
+
+    return walk(params)
+
+
+def count_draftable_leaves(params, draft_planes: int) -> int:
+    """How many leaves :func:`draft_params_view` would truncate."""
+    if isinstance(params, dict):
+        if _draftable(params, draft_planes):
+            return 1
+        return sum(count_draftable_leaves(v, draft_planes)
+                   for v in params.values())
+    if isinstance(params, (tuple, list)):
+        return sum(count_draftable_leaves(v, draft_planes) for v in params)
+    return 0
+
+
 def dequantize_weight(p: dict, dtype=torch.bfloat16) -> torch.Tensor:
     """Reassemble a float weight from codes (tests)."""
     q = p["w_q"]
-    if q.dtype == torch.uint8:                     # packed int4
+    if "w_tmac" in p:                              # packed bitplanes
+        spec = "ternary" if "w_tern" in p else int(q.shape[-3])
+        q = decode_planes(unpack_bitplanes(q), spec)
+    elif q.dtype == torch.uint8:                   # packed int4
         q = unpack_int4(q.transpose(-1, -2), signed=True).transpose(-1, -2)
     return (q.to(torch.float32) * p["w_scale"]).to(dtype)

@@ -1,6 +1,6 @@
-"""Continuous-batching scheduler with chunked prefill (port of
-``repro.serve.scheduler`` without deadlines, shedding, snapshots,
-save/load, paging and speculation).
+"""Continuous-batching scheduler with chunked prefill and greedy
+self-speculative rounds (port of ``repro.serve.scheduler`` without
+deadlines, shedding, snapshots, save/load and paging).
 
 A fixed pool of ``slots`` decode lanes over one set of live cache buffers.
 Requests queue FIFO; every round runs ONE ``Engine.step`` carrying up to
@@ -10,7 +10,10 @@ every slot.  A prompt's last chunk entry samples its first output token in
 the same round and the slot joins the decode lane immediately.  Free slots
 carry the negative-position sentinel; mid-prefill slots park done=True on
 their latest (token, position), so iterations that do not target them
-rewrite the same KV bits.
+rewrite the same KV bits.  On a ``spec_decode`` engine the decode lane is a
+speculative round whenever every occupied slot has the headroom for its
+``draft_k + 1``-token block, else a plain round; a row emits only the
+first ``n_valid`` tokens of its round.
 """
 from __future__ import annotations
 
@@ -54,7 +57,8 @@ class Scheduler:
         self._target = [0] * slots
         self.stats = {"rounds": 0, "prefill_tokens": 0,
                       "admitted_tokens": 0, "emitted_tokens": 0,
-                      "failed": 0}
+                      "failed": 0, "spec_rounds": 0, "spec_drafted": 0,
+                      "spec_accepted": 0}
 
     # -- admission -----------------------------------------------------------
 
@@ -185,10 +189,31 @@ class Scheduler:
                 tok_h[s], pos_h[s] = t, p
             self.tok = torch.as_tensor(tok_h, device=self.engine.device)
             self.pos = torch.as_tensor(pos_h, device=self.engine.device)
+        scfg = self.engine.scfg
+        use_spec = scfg.spec_decode
+        if use_spec:
+            # a speculative block writes draft_k+1 positions from every
+            # occupied row's post-chunk-lane held position: fall back to a
+            # plain round when any row sits too close to max_len for the
+            # block to land unclamped
+            lim = scfg.max_len - (scfg.draft_k + 1)
+            for slot, req in enumerate(self.slots):
+                if req is None:
+                    continue
+                p = plan.get(slot, self._progress[slot])
+                if p < self._target[slot]:
+                    held = p - 1                  # parks on its latest entry
+                elif slot in completing:
+                    held = self._target[slot]     # becomes a decoder at L
+                else:
+                    held = len(req.prompt) + len(req.tokens) - 1
+                if held > lim:
+                    use_spec = False
+                    break
         (self.cache, self.tok, self.pos, self.done, tok0, done0, toks,
-         dones, ok) = self.engine.step(
+         dones, ok, n_valid) = self.engine.step(
             self.cache, entries, self.tok, self.pos, self.done, self.eos,
-            self.chunk)
+            self.chunk, spec=use_spec)
         ok_h = ok.cpu().numpy()
         if not ok_h.all():
             raise RuntimeError("non-finite logits in decode for slots "
@@ -205,6 +230,14 @@ class Scheduler:
         self.stats["rounds"] += 1
         toks_h, dones_h = toks.cpu().numpy(), dones.cpu().numpy()
         tok0_h, done0_h = tok0.cpu().numpy(), done0.cpu().numpy()
+        nv_h = n_valid.cpu().numpy()
+        if use_spec:
+            # every live decode row drafted draft_k tokens and committed
+            # n_valid - 1 of them (the last is the verifier's own token)
+            self.stats["spec_rounds"] += 1
+            self.stats["spec_drafted"] += int((nv_h > 0).sum()) * \
+                scfg.draft_k
+            self.stats["spec_accepted"] += int(np.maximum(nv_h - 1, 0).sum())
         emitted, freed = 0, []
         for slot, req in enumerate(self.slots):
             if req is None or self._progress[slot] < self._target[slot]:
@@ -220,7 +253,8 @@ class Scheduler:
                     req.finish("eos" if eos >= 0 and req.tokens
                                and req.tokens[-1] == eos else "length")
             if cb_ok and not req.done:
-                for j in range(toks_h.shape[1]):
+                # only the first n_valid columns of the row are real
+                for j in range(int(nv_h[slot])):
                     cb_ok = self._deliver(req, int(toks_h[slot, j]))
                     if not cb_ok:
                         break

@@ -66,3 +66,16 @@ def test_qwen2_7b_config_fields_match_reference(fn, quant):
     want = dataclasses.asdict(getattr(jcfg, fn)(quant=quant))
     got = dataclasses.asdict(getattr(tcfg, fn)(quant=quant))
     assert got == want
+
+
+@pytest.mark.parametrize("fn", ["config", "smoke_config"])
+def test_bitnet_3b_config_fields_match_reference(fn):
+    from repro.configs import bitnet_3b as jcfg
+    from repro_torch.configs import bitnet_3b as tcfg
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import check_supported
+    want = dataclasses.asdict(getattr(jcfg, fn)())
+    got = getattr(tcfg, fn)()
+    assert dataclasses.asdict(got) == want
+    assert get_config("bitnet-3b", smoke=fn == "smoke_config") == got
+    check_supported(got)

@@ -78,3 +78,86 @@ def test_decode_codes_matches(bits, signed):
     got = tref.decode_codes(torch.from_numpy(c), bits, signed)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# the T-MAC bitplane format
+# ---------------------------------------------------------------------------
+
+SPECS = [1, "ternary", 2, 3, 4]
+
+
+@pytest.mark.parametrize("spec", SPECS)
+def test_plane_decomposition_matches(spec):
+    assert tlut.plane_decomposition(spec) == jlut.plane_decomposition(spec)
+    assert tlut.weight_bits(spec) == jlut.weight_bits(spec)
+
+
+@pytest.mark.parametrize("bad", [0, 5, 8, 1.58, "binary", None])
+def test_validate_weight_bits_same_errors(bad):
+    with pytest.raises(ValueError) as want:
+        jlut.validate_weight_bits(bad)
+    with pytest.raises(ValueError) as got:
+        tlut.validate_weight_bits(bad)
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("spec,keep", [(4, 2), (4, 3), (3, 2), (2, 2),
+                                       (4, 4), (4, 1), ("ternary", 2),
+                                       (1, 1)])
+def test_truncate_plane_spec_matches(spec, keep):
+    try:
+        want = jlut.truncate_plane_spec(spec, keep)
+    except ValueError as err:
+        with pytest.raises(ValueError) as got:
+            tlut.truncate_plane_spec(spec, keep)
+        assert str(got.value) == str(err)
+        return
+    assert tlut.truncate_plane_spec(spec, keep) == want
+
+
+def _codes(spec, shape, seed=0):
+    rng = np.random.default_rng(seed)
+    if spec == "ternary":
+        return rng.integers(-1, 2, size=shape)
+    if spec == 1:
+        return rng.choice([-1, 1], size=shape)
+    return rng.integers(-(1 << (spec - 1)), 1 << (spec - 1), size=shape)
+
+
+@pytest.mark.parametrize("spec", SPECS)
+@pytest.mark.parametrize("shape", [(8, 3), (2, 16, 5)])
+def test_planes_from_codes_and_back_match(spec, shape):
+    codes = _codes(spec, shape).astype(np.int32)
+    want = np.asarray(jlut.planes_from_codes(jnp.asarray(codes), spec))
+    got = tlut.planes_from_codes(torch.from_numpy(codes), spec)
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), want)
+    dec = tlut.decode_planes(got, spec)
+    assert dec.dtype == torch.int32
+    np.testing.assert_array_equal(dec.numpy(), codes)
+    np.testing.assert_array_equal(
+        dec.numpy(), np.asarray(jlut.decode_planes(jnp.asarray(want), spec)))
+
+
+@pytest.mark.parametrize("shape", [(8, 1), (24, 7), (3, 16, 9)])
+def test_pack_unpack_bitplanes_match(shape):
+    bits = np.random.default_rng(2).integers(0, 2, size=shape).astype(
+        np.uint8)
+    want = np.asarray(jlut.pack_bitplanes(jnp.asarray(bits)))
+    got = tlut.pack_bitplanes(torch.from_numpy(bits))
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(tlut.unpack_bitplanes(got).numpy(), bits)
+    np.testing.assert_array_equal(
+        tlut.unpack_bitplanes(got).numpy(),
+        np.asarray(jlut.unpack_bitplanes(jnp.asarray(want))))
+
+
+def test_bitplane_layout_bit_i_of_byte_j_is_row_8j_plus_i():
+    bits = torch.zeros((16, 2), dtype=torch.uint8)
+    bits[11, 1] = 1                                  # byte 1, bit 3
+    packed = tlut.pack_bitplanes(bits)
+    assert packed.tolist() == [[0, 0], [0, 8]]
+    with pytest.raises(ValueError, match="K % 8"):
+        tlut.pack_bitplanes(torch.zeros((12, 2), dtype=torch.uint8))

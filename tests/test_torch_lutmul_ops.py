@@ -238,9 +238,23 @@ def test_prequant_matmul_shape_errors():
     with pytest.raises(ValueError, match="even K"):
         ops.lutmul(torch.zeros((2, 5), dtype=torch.uint8),
                    torch.zeros((2, 3), dtype=torch.uint8))
-    with pytest.raises(NotImplementedError, match="tmac"):
+    # a bitplane leaf packed for another K, and a well-formed one
+    with pytest.raises(ValueError, match="K % 8"):
         ops.prequant_matmul(x, torch.zeros((2, 1, 3), dtype=torch.uint8),
                             torch.ones((1, 3)), mode="w2a4_tmac")
+    with pytest.raises(ValueError, match="must be K//8"):
+        ops.prequant_matmul(torch.zeros((2, 16)),
+                            torch.zeros((2, 1, 3), dtype=torch.uint8),
+                            torch.ones((1, 3)), mode="w2a4_tmac")
+    planes = np.full((2, 1, 3), 255, np.uint8)         # every code -1
+    y = ops.prequant_matmul(torch.ones((2, 8)), torch.from_numpy(planes),
+                            torch.ones((1, 3)), mode="w2a4_tmac",
+                            compute_dtype=torch.float32)
+    want = jops.prequant_matmul(jnp.ones((2, 8)), jnp.asarray(planes),
+                                jnp.ones((1, 3)), mode="w2a4_tmac",
+                                compute_dtype=jnp.float32, backend="ref")
+    np.testing.assert_array_equal(_bits(y), _bits(want))
+    np.testing.assert_allclose(y.numpy(), -8.0, rtol=1e-6)
 
 
 # ---------------------------------------------------------------------------

@@ -117,8 +117,15 @@ def test_dequantize_weight_matches(bits):
 
 
 def test_quantize_leaf_mode_tmac_not_ported():
-    with pytest.raises(NotImplementedError, match="tmac"):
-        tquant.quantize_leaf_mode(torch.zeros((8, 4)), "w2a4_tmac")
+    """The tmac modes now quantize to bitplane leaves with their markers,
+    the same leaves as the reference's."""
+    w = np.random.default_rng(3).standard_normal((16, 4)).astype(np.float32)
+    got = tquant.quantize_leaf_mode(torch.from_numpy(w), "w2a4_tmac")
+    want = jquant.quantize_leaf_mode(jnp.asarray(w), "w2a4_tmac")
+    assert sorted(got) == sorted(want) == ["w_q", "w_scale", "w_tmac"]
+    assert got["w_q"].shape == (2, 2, 4) and got["w_tmac"].shape == (0,)
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
 
 
 # ---------------------------------------------------------------------------
