@@ -5,19 +5,20 @@
 
 Phases (any failure raises and exits non-zero):
 
-1. device + build: the ``nvidia-smi`` name/power-limit line, then the three
+1. device + build: the ``nvidia-smi`` name/power-limit line, then the five
    CUDA sources compiled for sm_90a (one ``nvcc`` each, in parallel).
-2. kernels: the six entry points at the shapes the served models give them
+2. kernels: the entry points at the shapes the served models give them
    (M = 8 decode slots; M = 32 for the speculative verify forward), held
    against their plain versions on the card — int32 outputs exactly, fused
    bf16 outputs bitwise — and timed with CUDA events (median; L2 flushed
    before each launch, as a decode step finds the weights cold), beside one
    library call on the same codes where one computes the same sums exactly
-   (``torch._int_mm`` where M > 16, else the float32 cuBLAS GEMM with TF32
-   off).  Shape groups: qwen2-7b's 7 inner projections through the LUT
-   kernel and through the T-MAC kernel (target P = 4, drafter P = 2, verify
-   M = 32), bitnet-3b's through the T-MAC kernel (ternary, g = 1), and both
-   models' int8 heads.
+   (``torch._int_mm`` where M > 16; else the float32 cuBLAS GEMM with TF32
+   off where float32 is exact; else ``torch._int_mm`` on the rows
+   zero-padded to 32).  Shape groups: qwen2-7b's 7 inner projections through
+   the LUT kernel, the gather baseline and the T-MAC kernel (target P = 4,
+   drafter P = 2, verify M = 32), bitnet-3b's through the T-MAC kernel
+   (ternary, g = 1), and both models' int8 heads.
 3. serving qwen2-7b (28 layers, full width, random weights from a seeded
    generator) through ``make_engine`` + ``Scheduler(slots=8, chunk=8)``:
    w4a4_lut fused (8 requests), unfused (first 4), plain backend (first 4);
@@ -31,11 +32,21 @@ Phases (any failure raises and exits non-zero):
    of a decode step, a drafter step and a verify forward.
 4. serving bitnet-3b (26 layers, full width) in ternary_a8_tmac: fused (8
    requests) and plain (first 4), equal transcripts.
-5. the script's total time, the ``kernels`` JSON line, the ``nvidia-smi``
+5. the paper's CNN: full-width MobileNetV2 (224x224, width 1.0, 1000
+   classes, random weights from seed 0) at batch 32 in float and QAT mode
+   (cuDNN, TF32 off), the float logits of the first 4 images held against
+   the port's CPU forward; then its 34 pointwise convolutions streamlined
+   into integer stages (``core.streamline``) on the uint4 codes of their
+   float inputs: an integer pass through the LUT kernel and the threshold
+   kernel (34 + 34 launches), codes equal to the plain versions and within
+   one code of the float reference, and a gather pass through the gather
+   baseline (34 launches, the same codes); the threshold, gather and LUT
+   kernels timed at every stage's shape.
+6. the script's total time, the ``kernels`` JSON line, the ``nvidia-smi``
    line, and last the ``{"ok": true, ...}`` line.
 
-Options cut the run for debugging (``--layers`` cuts both models' depth,
-``--reps``, ``--profile``); the contract run takes none.
+Options cut the run for debugging (``--layers`` cuts both LMs' depth,
+``--reps``, ``--profile``, ``--phases``); the contract run takes none.
 """
 from __future__ import annotations
 
@@ -61,6 +72,12 @@ BITNET_INNER = {"wq": (3200, 3200), "wk": (3200, 3200), "wv": (3200, 3200),
                 "mlp.wo": (8640, 3200)}
 QWEN_HEAD = (3584, 152064)
 BITNET_HEAD = (3200, 32000)
+F32_OPS_PER_S = 67e12             # H100 SXM float32 outside the tensor cores
+MB_BATCH = 32
+MB_CHECK = 4                      # images held against the CPU forward
+MB_FLOAT_RTOL = 1e-3              # of max |logit|; see run_mobilenet
+MB_GROUP = "mobilenetv2 34 pointwise stages, batch 32"
+PHASES = ("kernels", "qwen", "bitnet", "mobilenetv2")
 CSRC = "src/repro_torch/csrc/"
 KPY = "src/repro/kernels/lutmul/kernel.py"
 # entry point: (source, TPU kernel it replaces, its main group)
@@ -74,13 +91,18 @@ KERNELS = {
                           "qwen2-7b target layer, P=4 g=2 M=8"),
     "lutmul_tmac": ("lutmul_tmac.cu", f"{KPY}:289",
                     "qwen2-7b target layer, P=4 g=2 M=8"),
+    "lutmul_gather": ("lutmul_gather.cu", f"{KPY}:153", MB_GROUP),
+    "threshold": ("thresholds.cu", "src/repro/kernels/thresholds/kernel.py:31",
+                  MB_GROUP),
 }
 # the run whose launch count each entry point reports
 MAIN_RUN = {"lutmul_fused": "qwen lut fused", "lutmul": "qwen lut unfused",
             "int_matmul_fused": "qwen lut fused",
             "int_matmul": "qwen lut unfused",
             "lutmul_tmac_fused": "qwen tmac spec",
-            "lutmul_tmac": "qwen tmac unfused"}
+            "lutmul_tmac": "qwen tmac unfused",
+            "lutmul_gather": "mobilenetv2 gather pass",
+            "threshold": "mobilenetv2 integer pass"}
 
 
 def log(msg: str) -> None:
@@ -121,26 +143,37 @@ def _time(fn, reps: int, flush) -> float:
 
 def _library_ms(a8, w8, want, flush, reps):
     """The library yardstick on the same int8 operands, held to the plain
-    int32 result ``want``: torch._int_mm, or, where it refuses the shape
-    and float32 sums are exact (|acc| < 2^24), the float32 cuBLAS GEMM of
-    the same codes (TF32 is off).  Returns (ms or None, note)."""
+    int32 result ``want``: torch._int_mm; where it refuses the shape, the
+    float32 cuBLAS GEMM of the same codes (TF32 is off) if float32 sums
+    are exact (|acc| < 2^24), else torch._int_mm on the rows zero-padded to
+    32 (it takes M > 16), checked on the real rows.  Returns (ms or None,
+    note)."""
     import torch
-    K = a8.shape[1]
+    M, K = a8.shape
     try:
         got = torch._int_mm(a8, w8)
         fn, note = (lambda: torch._int_mm(a8, w8)), "torch._int_mm"
     except RuntimeError as err:
         why = str(err).splitlines()[0][:160]
         bound = int(a8.abs().max()) * int(w8.abs().max()) * K
-        if bound >= 2 ** 24:
+        if bound < 2 ** 24:
+            af, wf = a8.float(), w8.float()
+            fn = lambda: torch.matmul(af, wf)               # noqa: E731
+            got = fn().to(torch.int32)
+            note = ("float32 cuBLAS GEMM of the decoded codes, TF32 off, "
+                    f"exact (|acc| <= {bound} < 2^24), no epilogue; "
+                    f"torch._int_mm refuses ({why})")
+        elif M < 32:
+            ap = torch.zeros((32, K), dtype=a8.dtype, device=a8.device)
+            ap[:M] = a8
+            fn = lambda: torch._int_mm(ap, w8)              # noqa: E731
+            got = fn()[:M]
+            note = (f"torch._int_mm (rows padded to 32): its M > 16 rule "
+                    f"refuses M = {M} ({why}), float32 is inexact here "
+                    f"(|acc| up to {bound} >= 2^24)")
+        else:
             return None, (f"torch._int_mm refuses ({why}); float32 is not "
                           f"exact here (|acc| up to {bound} >= 2^24)")
-        af, wf = a8.float(), w8.float()
-        fn = lambda: torch.matmul(af, wf)               # noqa: E731
-        got = fn().to(torch.int32)
-        note = ("float32 cuBLAS GEMM of the decoded codes, TF32 off, exact "
-                f"(|acc| <= {bound} < 2^24), no epilogue; torch._int_mm "
-                f"refuses ({why})")
     torch.cuda.synchronize()
     if not torch.equal(got.to(torch.int32), want):
         raise AssertionError(f"library yardstick ({note}) disagrees with "
@@ -148,29 +181,29 @@ def _library_ms(a8, w8, want, flush, reps):
     return _time(fn, reps, flush), note
 
 
-def check_kernels(reps: int) -> dict:
-    import torch
-    from repro_torch.core.lut import plane_decomposition, unpack_bitplanes
-    from repro_torch.kernels.lutmul import kernel, ref
+class Bench:
+    """Kernel records: each entry point's shape groups, every shape held
+    against its plain version (int32 exactly, floats bitwise) and timed."""
 
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(1234)
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    recs = {name: {"name": name, "route": "cuda", "source": CSRC + src,
-                   "replaces": rep, "main_group": group, "groups": {}}
-            for name, (src, rep, group) in KERNELS.items()}
+    def __init__(self, reps: int):
+        import torch
+        self.reps = reps
+        self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+        self.recs = {name: {"name": name, "route": "cuda",
+                            "source": CSRC + src, "replaces": rep,
+                            "main_group": group, "groups": {}}
+                     for name, (src, rep, group) in KERNELS.items()}
 
-    def scales(M, N):
-        a_s = torch.rand((M, 1), generator=gen, device=dev) * 0.1 + 1e-3
-        w_s = torch.rand((1, N), generator=gen, device=dev) * 0.1 + 1e-3
-        return a_s, w_s
-
-    def one(name, group, fn, plain, lib, M, K, N, nbytes_in, out_bytes):
+    def one(self, name, group, fn, plain, lib, shape: dict, nbytes: float,
+            ops: float, ops_rate: float = INT8_OPS_PER_S) -> None:
+        """``nbytes`` (each input read once, each output written once) and
+        ``ops`` at ``ops_rate`` give the bound."""
+        import torch
         got = fn()
         want = plain()
         torch.cuda.synchronize()
         if got.dtype != want.dtype or got.shape != want.shape:
-            raise AssertionError(f"{name} {M}x{K}x{N}: {got.dtype}"
+            raise AssertionError(f"{name} {shape}: {got.dtype}"
                                  f"{tuple(got.shape)} vs plain {want.dtype}"
                                  f"{tuple(want.shape)}")
         # int32 exactly; fused outputs bitwise (compare the raw bits)
@@ -180,25 +213,77 @@ def check_kernels(reps: int) -> dict:
         err = float((got.to(torch.float64) - want.to(torch.float64))
                     .abs().max())
         if not same:
-            raise AssertionError(f"{name} [{group}] {M}x{K}x{N} disagrees "
-                                 f"with its plain version: max |diff| = "
-                                 f"{err}")
-        nbytes = nbytes_in + out_bytes
-        ops = 2.0 * M * K * N
+            raise AssertionError(f"{name} [{group}] {shape} disagrees with "
+                                 f"its plain version: max |diff| = {err}")
         lib_ms, why = lib
-        recs[name]["groups"].setdefault(group, {"shapes": []})[
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_rate
+        self.recs[name]["groups"].setdefault(group, {"shapes": []})[
             "shapes"].append({
-                "M": M, "K": K, "N": N, "max_abs_err": err,
-                "ms": _time(fn, reps, flush),
-                "plain_ms": _time(plain, max(3, reps // 8), flush),
-                "bound_ms": max(nbytes / HBM_BYTES_PER_S,
-                                ops / INT8_OPS_PER_S) * 1e3,
-                "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
-                >= ops / INT8_OPS_PER_S else "operations",
+                **shape, "max_abs_err": err,
+                "ms": _time(fn, self.reps, self.flush),
+                "plain_ms": _time(plain, max(3, self.reps // 8), self.flush),
+                "bound_ms": max(t_bytes, t_ops) * 1e3,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": lib_ms, "library_note": why})
 
-    # the LUT kernels: qwen2-7b's inner projections at M = 8
+    def lut(self, name, group, fn, plain, lib, M, K, N, extra_in=0,
+            out_bytes=None) -> None:
+        """A LUT-kernel shape: 4-bit codes, nibble-packed weights, the
+        1 KB table; int32 out unless ``out_bytes`` says otherwise."""
+        self.one(name, group, fn, plain, lib, {"M": M, "K": K, "N": N},
+                 M * K + K * N // 2 + 256 * 4 + extra_in
+                 + (M * N * 4 if out_bytes is None else out_bytes),
+                 2.0 * M * K * N)
+
+    def summarize(self) -> dict:
+        """Sum each group over its shapes (the 7 projections of one layer,
+        one head call, or the 34 stages of one CNN pass); the main group is
+        the record's.  Records never measured (a cut debugging run) go."""
+        for r in self.recs.values():
+            for group, gr in r["groups"].items():
+                sh = gr["shapes"]
+                gr["max_abs_err"] = max(s["max_abs_err"] for s in sh)
+                for key in ("ms", "plain_ms", "bound_ms"):
+                    gr[key] = sum(s[key] for s in sh)
+                libs = [s["library_ms"] for s in sh]
+                gr["library_ms"] = None if None in libs else sum(libs)
+                gr["library_note"] = next((s["library_note"] for s in sh
+                                           if s["library_note"]), None)
+                gr["bound_by"] = "bytes" if all(s["bound_by"] == "bytes"
+                                                for s in sh) else "operations"
+                log(f"kernel {r['name']} [{group}]: max|diff| "
+                    f"{gr['max_abs_err']} ms {gr['ms']:.4f} plain "
+                    f"{gr['plain_ms']:.3f} bound {gr['bound_ms']:.4f} "
+                    f"library {gr['library_ms']}")
+            main = r["groups"].get(r["main_group"])
+            if main is None:
+                continue
+            for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms", "library_note"):
+                r[key] = main[key]
+            r["max_abs_err"] = max(gr["max_abs_err"]
+                                   for gr in r["groups"].values())
+        return {n: r for n, r in self.recs.items() if "ms" in r}
+
+
+def check_kernels(bench: Bench) -> None:
+    import torch
+    from repro_torch.core.lut import plane_decomposition, unpack_bitplanes
+    from repro_torch.kernels.lutmul import kernel, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    reps, flush = bench.reps, bench.flush
+
+    def scales(M, N):
+        a_s = torch.rand((M, 1), generator=gen, device=dev) * 0.1 + 1e-3
+        w_s = torch.rand((1, N), generator=gen, device=dev) * 0.1 + 1e-3
+        return a_s, w_s
+
+    # the LUT kernels and the gather baseline: qwen2-7b's inner
+    # projections at M = 8
     M = SLOTS
+    group = KERNELS["lutmul"][2]
     for K, N in QWEN_INNER.values():
         a = torch.randint(0, 16, (M, K), generator=gen, device=dev,
                           dtype=torch.uint8)
@@ -209,16 +294,16 @@ def check_kernels(reps: int) -> dict:
         w8 = ref.decode_codes(ref.unpack_int4(w.T).T, 4).to(torch.int8) \
             .contiguous()
         lib = _library_ms(a8, w8, ref.lutmul_ref(a, w), flush, reps)
-        in_bytes = M * K + K * N // 2 + 256 * 4
-        group = KERNELS["lutmul"][2]
-        one("lutmul", group, lambda: kernel.lutmul(a, w),
-            lambda: ref.lutmul_ref(a, w), lib, M, K, N, in_bytes, M * N * 4)
-        one("lutmul_fused", group,
-            lambda: kernel.lutmul_fused(a, w, a_s, w_s,
-                                        out_dtype=torch.bfloat16),
-            lambda: ref.scaled_lutmul_ref(a, w, a_s, w_s,
-                                          out_dtype=torch.bfloat16),
-            lib, M, K, N, in_bytes + 4 * (M + N), M * N * 2)
+        bench.lut("lutmul", group, lambda: kernel.lutmul(a, w),
+                  lambda: ref.lutmul_ref(a, w), lib, M, K, N)
+        bench.lut("lutmul_gather", group, lambda: kernel.lutmul_gather(a, w),
+                  lambda: ref.lutmul_ref(a, w), lib, M, K, N)
+        bench.lut("lutmul_fused", group,
+                  lambda: kernel.lutmul_fused(a, w, a_s, w_s,
+                                              out_dtype=torch.bfloat16),
+                  lambda: ref.scaled_lutmul_ref(a, w, a_s, w_s,
+                                                out_dtype=torch.bfloat16),
+                  lib, M, K, N, extra_in=4 * (M + N), out_bytes=M * N * 2)
         del a, w, a8, w8
 
     # the T-MAC kernel: target, drafter and verify of qwen2-7b in
@@ -251,16 +336,18 @@ def check_kernels(reps: int) -> dict:
             lib = _library_ms(a, w8, ref.tmac_ref(a, planes, spec), flush,
                               reps)
             in_bytes = M * K + P * K * N // 8
-            one("lutmul_tmac", group,
-                lambda: kernel.lutmul_tmac(a, planes, spec, g=g),
-                lambda: ref.tmac_ref(a, planes, spec), lib, M, K, N,
-                in_bytes, M * N * 4)
-            one("lutmul_tmac_fused", group,
-                lambda: kernel.lutmul_tmac_fused(a, planes, spec, a_s, w_s,
-                                                 g=g),
-                lambda: ref.scaled_tmac_ref(a, planes, spec, a_s, w_s,
-                                            out_dtype=torch.bfloat16),
-                lib, M, K, N, in_bytes + 4 * (M + N), M * N * 2)
+            shape = {"M": M, "K": K, "N": N}
+            bench.one("lutmul_tmac", group,
+                      lambda: kernel.lutmul_tmac(a, planes, spec, g=g),
+                      lambda: ref.tmac_ref(a, planes, spec), lib, shape,
+                      in_bytes + M * N * 4, 2.0 * M * K * N)
+            bench.one("lutmul_tmac_fused", group,
+                      lambda: kernel.lutmul_tmac_fused(a, planes, spec, a_s,
+                                                       w_s, g=g),
+                      lambda: ref.scaled_tmac_ref(a, planes, spec, a_s, w_s,
+                                                  out_dtype=torch.bfloat16),
+                      lib, shape, in_bytes + 4 * (M + N) + M * N * 2,
+                      2.0 * M * K * N)
             del a, planes, w8
 
     # the int8 heads: qwen2-7b at M = 8 and at M = 32 (verify), bitnet-3b
@@ -274,43 +361,19 @@ def check_kernels(reps: int) -> dict:
                           dtype=torch.int8)
         a_s, w_s = scales(M, N)
         lib = _library_ms(a, w, ref.int_matmul_ref(a, w), flush, reps)
-        one("int_matmul", group, lambda: kernel.int_matmul(a, w),
-            lambda: ref.int_matmul_ref(a, w), lib, M, K, N, M * K + K * N,
-            M * N * 4)
-        one("int_matmul_fused", group,
-            lambda: kernel.int_matmul_fused(a, w, a_s, w_s,
-                                            out_dtype=torch.bfloat16),
-            lambda: ref.scaled_int_matmul_ref(a, w, a_s, w_s,
-                                              out_dtype=torch.bfloat16),
-            lib, M, K, N, M * K + K * N + 4 * (M + N), M * N * 2)
+        shape = {"M": M, "K": K, "N": N}
+        bench.one("int_matmul", group, lambda: kernel.int_matmul(a, w),
+                  lambda: ref.int_matmul_ref(a, w), lib, shape,
+                  M * K + K * N + M * N * 4, 2.0 * M * K * N)
+        bench.one("int_matmul_fused", group,
+                  lambda: kernel.int_matmul_fused(a, w, a_s, w_s,
+                                                  out_dtype=torch.bfloat16),
+                  lambda: ref.scaled_int_matmul_ref(
+                      a, w, a_s, w_s, out_dtype=torch.bfloat16),
+                  lib, shape, M * K + K * N + 4 * (M + N) + M * N * 2,
+                  2.0 * M * K * N)
         del a, w
-    del flush
     torch.cuda.empty_cache()
-    # each group sums its measured launches: the 7 projections of one layer
-    # (one launch each) or one head call; the main group is the record's
-    for r in recs.values():
-        for group, gr in r["groups"].items():
-            sh = gr["shapes"]
-            gr["max_abs_err"] = max(s["max_abs_err"] for s in sh)
-            for key in ("ms", "plain_ms", "bound_ms"):
-                gr[key] = sum(s[key] for s in sh)
-            libs = [s["library_ms"] for s in sh]
-            gr["library_ms"] = None if None in libs else sum(libs)
-            gr["library_note"] = next((s["library_note"] for s in sh
-                                       if s["library_note"]), None)
-            gr["bound_by"] = "bytes" if all(s["bound_by"] == "bytes"
-                                            for s in sh) else "operations"
-            log(f"kernel {r['name']} [{group}]: max|diff| "
-                f"{gr['max_abs_err']} ms {gr['ms']:.4f} plain "
-                f"{gr['plain_ms']:.3f} bound {gr['bound_ms']:.4f} library "
-                f"{gr['library_ms']}")
-        main = r["groups"][r["main_group"]]
-        for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms", "library_note"):
-            r[key] = main[key]
-        r["max_abs_err"] = max(gr["max_abs_err"]
-                               for gr in r["groups"].values())
-    return recs
 
 
 # ---------------------------------------------------------------------------
@@ -331,6 +394,20 @@ def make_requests(vocab: int, seed: int = 0):
 RUNS: dict = {}
 
 
+def reset_launches() -> None:
+    from repro_torch.kernels.lutmul import kernel
+    from repro_torch.kernels.thresholds import kernel as tkernel
+    kernel.reset_launches()
+    tkernel.reset_launches()
+
+
+def all_launches() -> dict:
+    """Every wrapper's launch count, by entry point."""
+    from repro_torch.kernels.lutmul import kernel
+    from repro_torch.kernels.thresholds import kernel as tkernel
+    return {**kernel.LAUNCHES, **tkernel.LAUNCHES}
+
+
 def serve(engine, vocab: int, label: str, n_requests: int,
           inner: str = None, fused: bool = True) -> list:
     """Drain ``n_requests`` requests through a fresh Scheduler, with the
@@ -338,7 +415,6 @@ def serve(engine, vocab: int, label: str, n_requests: int,
     the projection kernel every forward must launch 7 times per layer (the
     head kernel once), None for the plain backend (no launches at all)."""
     import torch
-    from repro_torch.kernels.lutmul import kernel
     from repro_torch.serve import Scheduler
     reqs = make_requests(vocab)[:n_requests]
     sched = Scheduler(engine, slots=SLOTS, chunk=8)
@@ -346,12 +422,12 @@ def serve(engine, vocab: int, label: str, n_requests: int,
     engine.lane_steps = dict.fromkeys(engine.lane_steps, 0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernel.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     sched.run(reqs)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = dict(kernel.LAUNCHES)
+    launches = all_launches()
     for r in reqs:
         if not (r.finish_reason == "length"
                 and len(r.tokens) == r.max_new_tokens):
@@ -576,6 +652,253 @@ def run_bitnet(n_layers: int) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the paper's CNN
+# ---------------------------------------------------------------------------
+
+def pointwise_codes(params, cfg, x, scale):
+    """Walk ``_conv_shapes`` with the port's own layer functions in float
+    mode: the uint4 codes (``quantize(h, scale, 0, A4)``, int8 [rows, C])
+    of the activation entering each 1x1 convolution, and the logits."""
+    import torch
+    from repro_torch.core.quantization import A4, quantize
+    from repro_torch.models.mobilenet import (_bn_only, _bn_relu6, _conv,
+                                              _conv_shapes)
+    codes = {}
+    h, inp, block = x, None, None
+    for name, _, _, k, s, dw, _ in _conv_shapes(cfg)[0]:
+        p = params[name]
+        if name not in ("stem", "head") and name.rsplit("_", 1)[0] != block:
+            block, inp = name.rsplit("_", 1)[0], h      # a block's input
+        if k == 1:
+            codes[name] = quantize(h.reshape(-1, h.shape[-1]), scale, 0, A4)
+        y = _conv(p, h, k, s, dw, None, False)
+        if name.endswith("project"):
+            y = _bn_only(p, y)
+            if inp.shape == y.shape:                    # inverted residual
+                y = y + inp
+        else:
+            y = _bn_relu6(p, y, None, False)
+        h = y
+    return codes, torch.mean(h, dim=(1, 2)) @ params["fc"]["w"] \
+        + params["fc"]["b"]
+
+
+def run_mobilenet(bench: Bench) -> None:
+    """Full-width MobileNetV2 at batch 32: float and QAT forwards, then its
+    34 pointwise convolutions as integer stages (LUT + threshold kernels,
+    then the gather baseline + threshold kernel)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.lut import pack_int4
+    from repro_torch.core.streamline import (float_stage_reference,
+                                             integer_stage_forward,
+                                             streamline_stage)
+    from repro_torch.core.thresholds import BNParams
+    from repro_torch.kernels.lutmul import kernel, ops, ref
+    from repro_torch.kernels.thresholds import kernel as tkernel
+    from repro_torch.kernels.thresholds import ops as tops
+    from repro_torch.kernels.thresholds import ref as tref
+    from repro_torch.models import mobilenet
+
+    cfg = get_config("mobilenetv2")
+    params = mobilenet.init_params(cfg, torch.Generator().manual_seed(0),
+                                   device="cuda")
+    images = np.random.default_rng(0).standard_normal(
+        (MB_BATCH, cfg.resolution, cfg.resolution, 3)).astype(np.float32)
+    x = torch.from_numpy(images).cuda()
+    log(f"model: {cfg.name} width {cfg.width}, {cfg.resolution}x"
+        f"{cfg.resolution}, {cfg.n_classes} classes, "
+        f"{len(mobilenet._conv_shapes(cfg)[0])} convolutions, batch "
+        f"{MB_BATCH}")
+
+    # float and QAT forwards on the card; the first MB_CHECK images again
+    # on the CPU.  Float logits are held to MB_FLOAT_RTOL of their largest
+    # magnitude: 52 float32 convolutions sum in other orders on cuDNN
+    # (which may pick Winograd or FFT algorithms) than on the CPU.
+    cpu_params = {k: {n: v.cpu() for n, v in p.items()}
+                  for k, p in params.items()}
+    xc = torch.from_numpy(images[:MB_CHECK])
+    st = {"batch": MB_BATCH}
+    with torch.no_grad():
+        for mode, qat in (("float", False), ("qat", True)):
+            ms = _time(lambda: mobilenet.forward(params, cfg, x,
+                                                 train_qat=qat), 5,
+                       bench.flush)
+            out = mobilenet.forward(params, cfg, x, train_qat=qat)
+            if out.shape != (MB_BATCH, cfg.n_classes) \
+                    or not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"mobilenetv2 {mode}: logits "
+                                     f"{tuple(out.shape)} not all finite")
+            small = out[:MB_CHECK] if not qat else mobilenet.forward(
+                params, cfg, x[:MB_CHECK], train_qat=True)
+            cpu = mobilenet.forward(cpu_params, cfg, xc, train_qat=qat)
+            err = float((small.cpu() - cpu).abs().max())
+            amax = float(cpu.abs().max())
+            top1 = float((small.cpu().argmax(-1) == cpu.argmax(-1))
+                         .float().mean())
+            st[mode] = {"ms_per_batch": ms,
+                        "images_per_s": MB_BATCH / ms * 1e3,
+                        "max_abs_dlogit_vs_cpu": err,
+                        "max_abs_logit": amax, "top1_agree_vs_cpu": top1}
+            if mode == "float":
+                float_logits = out
+                if err > MB_FLOAT_RTOL * amax:
+                    raise AssertionError(
+                        f"mobilenetv2 float: |dlogit| {err} > "
+                        f"{MB_FLOAT_RTOL} x {amax} against the CPU")
+        log(f"mobilenetv2 forwards: {json.dumps(st)}")
+
+        # the integer pass: the 34 pointwise convolutions as streamlined
+        # stages on the uint4 codes of their float inputs
+        scale = torch.tensor(6.0 / 15, device="cuda")
+        codes, walk = pointwise_codes(params, cfg, x, scale)
+        werr = float((walk - float_logits).abs().max())
+        if werr > MB_FLOAT_RTOL * float(float_logits.abs().max()):
+            raise AssertionError(f"the pointwise walk's logits differ from "
+                                 f"the forward's by {werr}")
+        stages = {}
+        for name, a in codes.items():
+            p = params[name]
+            bn = BNParams(p["bn_gamma"], p["bn_beta"], p["bn_mean"],
+                          p["bn_var"])
+            stages[name] = (streamline_stage(p["w"][0, 0], bn, scale), bn)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        outs = {name: integer_stage_forward(stages[name][0], a)
+                for name, a in codes.items()}
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = len(codes)
+        want = dict.fromkeys(all_launches(), 0)
+        want.update(lutmul=n, threshold=n)
+        RUNS["mobilenetv2 integer pass"] = {
+            "seconds": dt, "stages": n, "launches": all_launches(),
+            "forwards_by_lane": None}
+        if all_launches() != want:
+            raise AssertionError(f"integer pass: launches {all_launches()} "
+                                 f"!= {want}")
+
+        # every stage against its plain versions, the direct kernel stage
+        # and the float reference (none of these launches count)
+        equal = total = 0
+        inputs = {}
+        for name, a in codes.items():
+            stage, bn = stages[name]
+            au = a.to(torch.uint8) & 0xF
+            wp = pack_int4(stage.w_codes.T).T.contiguous()
+            inputs[name] = (au, wp)
+            cap = stage.relu6_cap_code[None, :]
+            q = tref.threshold_ref(ref.lutmul_ref(au, wp, a_signed=False),
+                                   stage.thresholds, stage.sign)
+            if not torch.equal(torch.minimum(q.clamp_min(0), cap),
+                               outs[name]):
+                raise AssertionError(f"{name}: integer stage != plain")
+            direct = tops.lutmul_threshold_stage(au, wp, stage.thresholds,
+                                                 stage.sign)
+            if not torch.equal(direct, q):
+                raise AssertionError(f"{name}: lutmul_threshold_stage != "
+                                     "plain")
+            fref = float_stage_reference(params[name]["w"][0, 0], bn, scale,
+                                         a)
+            d = (outs[name] - fref).abs()
+            if int(d.max()) > 1:
+                raise AssertionError(f"{name}: integer codes differ from "
+                                     f"the float reference by {int(d.max())}")
+            equal += int((d == 0).sum())
+            total += d.numel()
+        log(f"integer pass: {n} stages, {total} codes, {dt * 1e3:.1f} ms "
+            f"(host clock), launches "
+            f"{json.dumps(RUNS['mobilenetv2 integer pass']['launches'])}; "
+            f"equal to "
+            f"the plain versions; share equal to the float reference "
+            f"{equal / total:.9f} ({total - equal} codes off by one)")
+
+        # the gather pass: the same stages through the serial baseline
+        reset_launches()
+        t0 = time.perf_counter()
+        gathered = {}
+        for name, (au, wp) in inputs.items():
+            stage = stages[name][0]
+            acc = ops.lutmul_gather(au, wp, a_signed=False)
+            q = tops.threshold(acc, stage.thresholds, stage.sign)
+            gathered[name] = torch.minimum(q.clamp_min(0),
+                                           stage.relu6_cap_code[None, :])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        want = dict.fromkeys(all_launches(), 0)
+        want.update(lutmul_gather=n, threshold=n)
+        RUNS["mobilenetv2 gather pass"] = {
+            "seconds": dt, "stages": n, "launches": all_launches(),
+            "forwards_by_lane": None}
+        if all_launches() != want:
+            raise AssertionError(f"gather pass: launches {all_launches()} "
+                                 f"!= {want}")
+        for name in inputs:
+            if not torch.equal(gathered[name], outs[name]):
+                raise AssertionError(f"{name}: gather codes != integer "
+                                     "pass codes")
+        log(f"gather pass: {n} stages, {dt * 1e3:.1f} ms (host clock), "
+            f"codes identical to the integer pass")
+        del gathered, outs
+
+        # the kernels at every stage's shape
+        group = MB_GROUP
+        for name, (au, wp) in inputs.items():
+            stage = stages[name][0]
+            M, K = au.shape
+            N = wp.shape[1]
+            L = stage.thresholds.shape[1]
+            a8 = au.to(torch.int8)
+            w8 = stage.w_codes.contiguous()
+            acc = ref.lutmul_ref(au, wp, a_signed=False)
+            lib = _library_ms(a8, w8, acc, bench.flush, bench.reps)
+            bench.lut("lutmul", group,
+                      lambda: kernel.lutmul(au, wp, a_signed=False),
+                      lambda: ref.lutmul_ref(au, wp, a_signed=False), lib,
+                      M, K, N)
+            bench.lut("lutmul_gather", group,
+                      lambda: kernel.lutmul_gather(au, wp, a_signed=False),
+                      lambda: ref.lutmul_ref(au, wp, a_signed=False), lib,
+                      M, K, N)
+            thr, sign = stage.thresholds, stage.sign
+            want = tref.threshold_ref(acc, thr, sign)
+            lib = _searchsorted_ms(acc, thr, sign, want, bench)
+            bench.one("threshold", group,
+                      lambda: tkernel.threshold(acc, thr, sign),
+                      lambda: tref.threshold_ref(acc, thr, sign), lib,
+                      {"M": M, "N": N, "L": L},
+                      8 * M * N + 4 * N * (L + 1), M * N * (L + 1),
+                      F32_OPS_PER_S)
+            del acc, want
+    del params, codes, inputs
+    torch.cuda.empty_cache()
+
+
+def _searchsorted_ms(acc, thr, sign, want, bench: Bench):
+    """The library yardstick of the threshold kernel: ``torch.searchsorted``
+    of each channel's values into its threshold row, which counts the
+    levels at or below a value only because ``make_thresholds`` gives
+    sorted rows (checked here); the float conversion, sign and transposes
+    it needs are in the timed call."""
+    import torch
+    if not bool((thr[:, 1:] >= thr[:, :-1]).all()):
+        return None, "rows not sorted: no library call counts them"
+
+    def fn():
+        vals = (acc.to(torch.float32) * sign).T.contiguous()
+        return torch.searchsorted(thr, vals, right=True).T.to(torch.int32)
+
+    if not torch.equal(fn(), want):
+        raise AssertionError("searchsorted disagrees with the plain "
+                             "threshold version")
+    return _time(fn, bench.reps, bench.flush), (
+        "torch.searchsorted(thr, (acc.float() * sign).T, right=True): "
+        "valid on sorted rows, which make_thresholds gives")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -586,7 +909,12 @@ def main() -> int:
                    help="timed launches per kernel and shape")
     p.add_argument("--profile", type=int, default=4, metavar="STEPS",
                    help="calls profiled per forward kind (0: none)")
+    p.add_argument("--phases", default=",".join(PHASES),
+                   help="comma-separated subset of " + ",".join(PHASES))
     args = p.parse_args()
+    phases = args.phases.split(",")
+    if not set(phases) <= set(PHASES):
+        p.error(f"--phases: unknown {set(phases) - set(PHASES)}")
 
     import torch
     if not torch.cuda.is_available():
@@ -607,17 +935,24 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    t0 = time.perf_counter()
-    recs = check_kernels(args.reps)
-    log(f"kernels phase: {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    run_qwen(args.layers, args.profile)
-    log(f"qwen2-7b serving phase: {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    run_bitnet(args.layers)
-    log(f"bitnet-3b serving phase: {time.perf_counter() - t0:.1f}s")
-    for name, r in recs.items():
-        run = RUNS[MAIN_RUN[name]]
+    bench = Bench(args.reps)
+    for phase, fn in (("kernels", lambda: check_kernels(bench)),
+                      ("qwen", lambda: run_qwen(args.layers, args.profile)),
+                      ("bitnet", lambda: run_bitnet(args.layers)),
+                      ("mobilenetv2", lambda: run_mobilenet(bench))):
+        if phase in phases:
+            t0 = time.perf_counter()
+            fn()
+            log(f"{phase} phase: {time.perf_counter() - t0:.1f}s")
+    recs = bench.summarize()
+    if len(phases) == len(PHASES) and set(recs) != set(KERNELS):
+        raise AssertionError(f"kernels never measured: "
+                             f"{set(KERNELS) - set(recs)}")
+    for name, r in list(recs.items()):
+        run = RUNS.get(MAIN_RUN[name])
+        if run is None:                   # a cut run: its phase was skipped
+            del recs[name]
+            continue
         r["launches"] = run["launches"][name]
         r["launches_run"] = MAIN_RUN[name]
         r["launches_by_run"] = {label: st["launches"][name]

@@ -1,6 +1,7 @@
 """Model configuration (port-side copy of ``repro.models.transformer``'s
 ``ModelConfig``/``BlockSpec``, field for field) and the architectures the
-port serves so far."""
+port runs so far (``mobilenetv2`` returns ``models.mobilenet``'s
+``MobileNetConfig``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -75,10 +76,11 @@ class ModelConfig:
         return getattr(torch, self.param_dtype)
 
 
-ALIASES = {"qwen2-7b": "qwen2_7b", "bitnet-3b": "bitnet_3b"}
+ALIASES = {"qwen2-7b": "qwen2_7b", "bitnet-3b": "bitnet_3b",
+           "mobilenetv2": "mobilenetv2"}
 
 
-def get_config(arch: str, smoke: bool = False, **kw) -> ModelConfig:
+def get_config(arch: str, smoke: bool = False, **kw):
     mod = importlib.import_module(
         f"repro_torch.configs.{ALIASES.get(arch, arch)}")
     return mod.smoke_config(**kw) if smoke else mod.config(**kw)

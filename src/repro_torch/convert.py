@@ -8,7 +8,9 @@ per-layer list (layer ``g * len(pattern) + j``), every leaf keeps its
 ``[K, N]`` / ``[K//2, N]`` / ``[P, K//8, N]`` layout and dtype (the
 zero-size ``w_tmac`` / ``w_tern`` markers become shape-``(0,)`` tensors),
 so both packages compute the same function from the same weights and
-codes.
+codes.  ``mobilenet_params_from_jax`` does the same for the reference's
+MobileNetV2 tree (``{name: {"w", "bn_*"}, "fc": {"w", "b"}}``, HWIO
+weights).
 """
 from __future__ import annotations
 
@@ -46,3 +48,10 @@ def params_from_jax(tree: dict, cfg, device=None) -> dict:
            for k, v in tree.items() if k != "blocks"}
     out["blocks"] = blocks
     return out
+
+
+def mobilenet_params_from_jax(tree: dict, device=None) -> dict:
+    """The reference's MobileNetV2 parameters (numpy leaves) as tensors in
+    the same layout."""
+    dev = resolve_device(device)
+    return _map(tree, lambda a: _tensor(a, dev))

@@ -216,6 +216,7 @@ int launch(const uint8_t* a, const uint8_t* w, const int32_t* t,
            const float* as, const float* ws, void* out, int32_t* work,
            int M, int K, int N, cudaStream_t s) {
   const Geometry g = geometry(M, K, N);
+  if (g.grid.y > 65535u) return (int)cudaErrorInvalidValue;  // M > 524,280
   unsigned* count = reinterpret_cast<unsigned*>(work + (size_t)M * N);
   lutmul_kernel<EPI><<<g.grid, dim3(BN, KS), 0, s>>>(
       a, w, t, as, ws, out, work, count, M, K, N, g.k_chunk);

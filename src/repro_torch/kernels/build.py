@@ -23,7 +23,8 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("lutmul", "int_matmul", "lutmul_tmac")
+SOURCES = ("lutmul", "int_matmul", "lutmul_tmac", "thresholds",
+           "lutmul_gather")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

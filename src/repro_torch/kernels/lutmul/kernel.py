@@ -1,13 +1,16 @@
 """Wrappers of the CUDA LUT, int8 and T-MAC kernels (``csrc/lutmul.cu``,
-``csrc/int_matmul.cu``, ``csrc/lutmul_tmac.cu``).
+``csrc/lutmul_gather.cu``, ``csrc/int_matmul.cu``, ``csrc/lutmul_tmac.cu``).
 
-Six entry points, each with a plain launch counter in ``LAUNCHES``:
+Seven entry points, each with a plain launch counter in ``LAUNCHES``:
 
 * ``lutmul`` / ``lutmul_fused`` replace ``lutmul_pallas(impl="onehot")``
   and ``lutmul_fused_pallas`` (``repro/kernels/lutmul/kernel.py:178`` and
   ``:380``): ``acc[m,n] = sum_k T[w[k,n], a[m,k]]`` through the [16, 16]
   product table in shared memory, int32 out or the fused
   ``(acc.f32 * a_scale) * w_scale`` epilogue.
+* ``lutmul_gather`` replaces ``lutmul_pallas(impl="gather")``: the same
+  int32 sums, one serial gather per product from the flat 256-entry table
+  (the A/B baseline, not tuned).
 * ``int_matmul`` / ``int_matmul_fused`` replace ``int_matmul_pallas`` and
   ``int_matmul_fused_pallas`` (``:332`` and ``:483``): int8 x int8 -> int32,
   with the same optional epilogue.
@@ -37,8 +40,13 @@ from repro_torch.core.lut import contraction_table, plane_decomposition
 from repro_torch.kernels import build
 from repro_torch.kernels.lutmul import ref
 
-LAUNCHES = {"lutmul": 0, "lutmul_fused": 0, "int_matmul": 0,
-            "int_matmul_fused": 0, "lutmul_tmac": 0, "lutmul_tmac_fused": 0}
+LAUNCHES = {"lutmul": 0, "lutmul_fused": 0, "lutmul_gather": 0,
+            "int_matmul": 0, "int_matmul_fused": 0, "lutmul_tmac": 0,
+            "lutmul_tmac_fused": 0}
+
+# grid.y carries the row tiles (8 rows a block in lutmul.cu, 32 in
+# lutmul_gather.cu) and takes at most 65,535 of them
+_MAX_ROWS = {"lutmul": 8 * 65535, "lutmul_gather": 32 * 65535}
 
 _EPILOGUE = {torch.int32: 0, torch.bfloat16: 1, torch.float32: 2}
 _TABLES: dict[tuple, torch.Tensor] = {}
@@ -139,9 +147,18 @@ def _lut_shapes(a_codes, w_packed) -> tuple[int, int, int]:
     return M, K, w_packed.shape[1]
 
 
+def _check_rows(M: int, lib: str) -> None:
+    if M > _MAX_ROWS[lib]:
+        raise ValueError(
+            f"{lib}: M = {M} rows is more than one launch takes "
+            f"({_MAX_ROWS[lib]}: grid.y holds at most 65,535 row tiles); "
+            "split the rows into several calls")
+
+
 def _lut_launch(a_codes, w_packed, a_scale, w_scale, out, epi: int,
                 a_signed: bool, name: str) -> None:
     M, K, N = _lut_shapes(a_codes, w_packed)
+    _check_rows(M, "lutmul")
     if M == 0 or N == 0:
         return
     table = product_table(a_signed, a_codes.device)
@@ -265,6 +282,32 @@ def lutmul(a_codes: torch.Tensor, w_packed: torch.Tensor, *,
     M, _, N = _lut_shapes(a_codes, w_packed)
     out = torch.empty((M, N), dtype=torch.int32, device=dev)
     _lut_launch(a_codes, w_packed, None, None, out, 0, a_signed, "lutmul")
+    return out
+
+
+def lutmul_gather(a_codes: torch.Tensor, w_packed: torch.Tensor, *,
+                  a_signed: bool = True) -> torch.Tensor:
+    """The serial-gather baseline: the same int32 [M, N] as
+    :func:`lutmul`, one table gather per product."""
+    if a_codes.device.type == "cpu":
+        return ref.lutmul_ref(a_codes, w_packed, a_signed)
+    dev = a_codes.device
+    _check("a_codes", a_codes, torch.uint8, 2, dev)
+    _check("w_packed", w_packed, torch.uint8, 2, dev)
+    M, K, N = _lut_shapes(a_codes, w_packed)
+    _check_rows(M, "lutmul_gather")
+    out = torch.empty((M, N), dtype=torch.int32, device=dev)
+    if M == 0 or N == 0:
+        return out
+    table = product_table(a_signed, dev)
+    fn = _entry("lutmul_gather", "lutmul_gather_launch",
+                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                + [ctypes.c_void_p])
+    code = fn(a_codes.data_ptr(), w_packed.data_ptr(), table.data_ptr(),
+              out.data_ptr(), M, K, N,
+              torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(code, "lutmul_gather")
+    LAUNCHES["lutmul_gather"] += 1
     return out
 
 

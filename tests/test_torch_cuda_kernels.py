@@ -10,6 +10,8 @@ import torch
 
 from repro_torch.core.lut import plane_decomposition
 from repro_torch.kernels.lutmul import kernel, ops, ref
+from repro_torch.kernels.thresholds import kernel as tkernel
+from repro_torch.kernels.thresholds import ref as tref
 
 SHAPES = [(1, 2, 1), (5, 6, 3), (8, 128, 128), (13, 130, 70), (3, 258, 129),
           (8, 3584, 512), (20, 1030, 77), (64, 512, 96), (8, 18944, 64)]
@@ -56,8 +58,9 @@ def test_cuda_kernels_match_plain(cuda_device, M, K, N):
         want = ref.scaled_int_matmul_ref(a8, w8, a_s, w_s, out_dtype=dt)
         assert torch.equal(got, want)
     assert kernel.LAUNCHES == {"lutmul": 1, "lutmul_fused": 2,
-                               "int_matmul": 1, "int_matmul_fused": 2,
-                               "lutmul_tmac": 0, "lutmul_tmac_fused": 0}
+                               "lutmul_gather": 0, "int_matmul": 1,
+                               "int_matmul_fused": 2, "lutmul_tmac": 0,
+                               "lutmul_tmac_fused": 0}
 
 
 @pytest.mark.gpu
@@ -292,3 +295,192 @@ def test_cuda_verify_step_equals_sequential_decode(cuda_device):
     for a, b in zip(c1, c2):
         assert torch.equal(a["k"][live], b["k"][live])
         assert torch.equal(a["v"][live], b["v"][live])
+
+
+# ---------------------------------------------------------------------------
+# the CNN path: threshold kernel, gather kernel, unsigned LUT at large M
+# ---------------------------------------------------------------------------
+
+THRESHOLD_SHAPES = [(1, 1, 15), (8, 8, 15), (100, 24, 15), (33, 7, 15),
+                    (257, 129, 15), (5000, 96, 15), (64, 40, 0), (64, 40, 1),
+                    (31, 70, 255)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,N,L", THRESHOLD_SHAPES)
+def test_cuda_threshold_matches_plain(cuda_device, M, N, L):
+    """Ragged M and N, unsorted rows, signs +-1 and 0, +-inf and NaN
+    thresholds, |acc| past 2^24 (the float conversion rounds to nearest
+    even): the kernel's codes equal the plain version's exactly."""
+    rng = np.random.default_rng(M * 7 + N + L)
+    acc = rng.integers(-3000, 3000, (M, N)).astype(np.int32)
+    acc[::3, ::2] = rng.integers(-(2 ** 31), 2 ** 31 - 1,
+                                 acc[::3, ::2].shape)
+    thr = rng.normal(0, 1500, (N, L)).astype(np.float32)
+    if L:
+        thr[::4, 0] = np.inf
+        thr[1::5, -1] = -np.inf
+        thr[2::6, L // 2] = np.nan
+        big = np.float32(2 ** 24) + 2 * np.arange(L, dtype=np.float32)
+        thr[3::7] = big
+        acc[:, 3::7] = 2 ** 24 + 1 + 2 * rng.integers(0, L, (M, len(
+            range(3, N, 7))))
+    sign = rng.choice([-1.0, 1.0], N).astype(np.float32)
+    sign[5::9] = 0.0
+    a, t, sg = (torch.from_numpy(v).to(cuda_device) for v in (acc, thr, sign))
+    tkernel.reset_launches()
+    got = tkernel.threshold(a, t, sg)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, tref.threshold_ref(a, t, sg))
+    assert tkernel.LAUNCHES == {"threshold": 1}
+
+
+@pytest.mark.gpu
+def test_cuda_threshold_rejects_bad_inputs(cuda_device):
+    acc = torch.zeros((4, 6), dtype=torch.int32, device=cuda_device)
+    thr = torch.zeros((6, 15), device=cuda_device)
+    sign = torch.ones((6,), device=cuda_device)
+    with pytest.raises(TypeError):
+        tkernel.threshold(acc.float(), thr, sign)
+    with pytest.raises(ValueError, match="acc's N"):
+        tkernel.threshold(acc, thr[:5], sign)
+    with pytest.raises(ValueError, match="shared"):
+        tkernel.threshold(acc, torch.zeros((6, 1000), device=cuda_device),
+                          sign)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", SHAPES + [(40, 16, 96), (100, 960, 160)])
+@pytest.mark.parametrize("a_signed", [True, False])
+def test_cuda_gather_matches_plain(cuda_device, M, K, N, a_signed):
+    a, w, *_ = (torch.from_numpy(v).to(cuda_device)
+                for v in _inputs(M, K, N, seed=M + N))
+    kernel.reset_launches()
+    got = kernel.lutmul_gather(a, w, a_signed=a_signed)
+    assert torch.equal(got, ref.lutmul_ref(a, w, a_signed))
+    assert torch.equal(got, kernel.lutmul(a, w, a_signed=a_signed))
+    assert torch.equal(ops.lutmul(a, w, a_signed=a_signed, impl="gather"),
+                       got)
+    assert kernel.LAUNCHES["lutmul_gather"] == 2
+    assert kernel.LAUNCHES["lutmul"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(100_000, 16, 96), (401_408, 16, 16),
+                                   (524_280, 16, 24), (150_001, 96, 24)])
+def test_cuda_lutmul_unsigned_large_m(cuda_device, M, K, N):
+    """Unsigned activation codes at the CNN's row counts (M = 401,408 is
+    b1_0_expand at batch 32), up to grid.y's last row tile."""
+    g = torch.Generator(device=cuda_device).manual_seed(M)
+    a = torch.randint(0, 16, (M, K), generator=g, device=cuda_device,
+                      dtype=torch.uint8)
+    w = torch.randint(0, 256, (K // 2, N), generator=g, device=cuda_device,
+                      dtype=torch.uint8)
+    assert torch.equal(kernel.lutmul(a, w, a_signed=False),
+                       ref.lutmul_ref(a, w, a_signed=False))
+
+
+@pytest.mark.gpu
+def test_cuda_row_limits_raise(cuda_device):
+    w = torch.zeros((8, 16), dtype=torch.uint8, device=cuda_device)
+    a = torch.zeros((524_281, 16), dtype=torch.uint8, device=cuda_device)
+    kernel.reset_launches()
+    with pytest.raises(ValueError, match="524280"):
+        kernel.lutmul(a, w, a_signed=False)
+    assert kernel.lutmul_gather(a, w).shape == (524_281, 16)
+    a = torch.zeros((32 * 65535 + 1, 16), dtype=torch.uint8,
+                    device=cuda_device)
+    with pytest.raises(ValueError, match="2097120"):
+        kernel.lutmul_gather(a, w)
+    assert kernel.LAUNCHES["lutmul"] == 0
+    assert kernel.LAUNCHES["lutmul_gather"] == 1
+
+
+@pytest.mark.gpu
+def test_cuda_threshold_builders_match_cpu_bitwise(cuda_device):
+    """make_thresholds, compute_scale and fake_quant give the card the
+    CPU's bits (IEEE divisions by tensors, a correctly rounded sqrt)."""
+    from repro_torch.core import quantization as Q
+    from repro_torch.core.thresholds import BNParams, make_thresholds
+    g = torch.Generator().manual_seed(3)
+    C = 960
+    bn = dict(gamma=torch.rand(C, generator=g) * 4 - 2,
+              beta=torch.randn(C, generator=g) * 0.3,
+              mean=torch.randn(C, generator=g) * 0.2,
+              var=torch.rand(C, generator=g) + 0.5)
+    acc_scale = torch.rand(C, generator=g) * 0.05 + 1e-3
+    out_scale = torch.full((C,), 6.0 / 15)
+    t_cpu, s_cpu = make_thresholds(acc_scale, BNParams(**bn), Q.A4,
+                                   out_scale)
+    t_gpu, s_gpu = make_thresholds(
+        acc_scale.to(cuda_device),
+        BNParams(**{k: v.to(cuda_device) for k, v in bn.items()}), Q.A4,
+        out_scale.to(cuda_device))
+    assert torch.equal(t_gpu.cpu(), t_cpu)
+    assert torch.equal(s_gpu.cpu(), s_cpu)
+    x = torch.randn((4, 14, 14, 96), generator=g) * 3
+    for cfg in (Q.W4, Q.A4, Q.W8, Q.A8):
+        got = Q.compute_scale(x.to(cuda_device), cfg)
+        want = Q.compute_scale(x, cfg)
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32))
+        got = Q.fake_quant(x.to(cuda_device), cfg)
+        assert torch.equal(got.cpu().view(torch.int32),
+                           Q.fake_quant(x, cfg).view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_cuda_integer_stage_matches_cpu(cuda_device):
+    """A streamlined stage on the card (LUT kernel, unsigned codes, then
+    the threshold kernel: one launch each) gives the CPU's codes, and the
+    float reference's within one code."""
+    from repro_torch.core import streamline as S
+    from repro_torch.core.thresholds import BNParams
+    g = torch.Generator().manual_seed(11)
+    K, N, M = 144, 24, 3000
+    w = torch.randn((K, N), generator=g) * 0.2
+    bn = BNParams(torch.rand(N, generator=g) + 0.5,
+                  torch.randn(N, generator=g) * 0.3,
+                  torch.randn(N, generator=g) * 0.2,
+                  torch.rand(N, generator=g) + 0.5)
+    a = torch.randint(0, 16, (M, K), generator=g)
+    cpu = S.integer_stage_forward(S.streamline_stage(w, bn, 0.4), a)
+    gbn = BNParams(*(v.to(cuda_device) for v in
+                     (bn.gamma, bn.beta, bn.mean, bn.var)))
+    stage = S.streamline_stage(w.to(cuda_device), gbn, 0.4)
+    kernel.reset_launches()
+    tkernel.reset_launches()
+    got = S.integer_stage_forward(stage, a.to(cuda_device))
+    assert kernel.LAUNCHES["lutmul"] == 1
+    assert tkernel.LAUNCHES == {"threshold": 1}
+    assert torch.equal(got.cpu(), cpu)
+    fref = S.float_stage_reference(w.to(cuda_device), gbn, 0.4,
+                                   a.to(cuda_device))
+    assert int((got - fref).abs().max()) <= 1
+
+
+@pytest.mark.gpu
+def test_cuda_mobilenet_forward_matches_cpu(cuda_device):
+    """The smoke MobileNetV2 on the card (cuDNN, TF32 off) against the
+    CPU: float logits within 1e-4 of their largest magnitude (float32 sums
+    in other orders); QAT finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import mobilenet as MB
+    cfg = get_config("mobilenetv2", smoke=True)
+    params = MB.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (4, 32, 32, 3)).astype(np.float32))
+    gparams = {k: {n: v.to(cuda_device) for n, v in p.items()}
+               for k, p in params.items()}
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got = MB.forward(gparams, cfg, x.to(cuda_device), train_qat=False)
+        qat = MB.forward(gparams, cfg, x.to(cuda_device), train_qat=True)
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+    want = MB.forward(params, cfg, x, train_qat=False)
+    err = float((got.cpu() - want).abs().max())
+    assert err <= 1e-4 * float(want.abs().max())
+    assert bool(torch.isfinite(qat).all()) and qat.shape == (4, 10)

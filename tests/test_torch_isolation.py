@@ -38,8 +38,14 @@ def test_port_has_modules():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for mod in ("core/lut.py", "kernels/lutmul/ops.py",
                 "kernels/lutmul/kernel.py", "models/transformer.py",
-                "serve/engine.py", "serve/scheduler.py", "convert.py"):
+                "serve/engine.py", "serve/scheduler.py", "convert.py",
+                "core/quantization.py", "core/thresholds.py",
+                "core/streamline.py", "kernels/thresholds/ref.py",
+                "kernels/thresholds/kernel.py", "kernels/thresholds/ops.py",
+                "models/mobilenet.py", "configs/mobilenetv2.py"):
         assert f"src/repro_torch/{mod}" in names, mod
+    for src in ("thresholds.cu", "lutmul_gather.cu"):
+        assert (ROOT / "src" / "repro_torch" / "csrc" / src).is_file(), src
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -79,3 +85,19 @@ def test_bitnet_3b_config_fields_match_reference(fn):
     assert dataclasses.asdict(got) == want
     assert get_config("bitnet-3b", smoke=fn == "smoke_config") == got
     check_supported(got)
+
+
+@pytest.mark.parametrize("fn", ["config", "smoke_config"])
+@pytest.mark.parametrize("quant", ["qat", "none"])
+def test_mobilenetv2_config_fields_match_reference(fn, quant):
+    from repro.configs import get_config as jget_config
+    from repro.configs import mobilenetv2 as jcfg
+    from repro_torch.configs import get_config
+    from repro_torch.configs import mobilenetv2 as tcfg
+    want = dataclasses.asdict(getattr(jcfg, fn)(quant=quant))
+    got = getattr(tcfg, fn)(quant=quant)
+    assert dataclasses.asdict(got) == want
+    smoke = fn == "smoke_config"
+    assert get_config("mobilenetv2", smoke=smoke, quant=quant) == got
+    assert dataclasses.asdict(jget_config("mobilenetv2", smoke=smoke,
+                                          quant=quant)) == want

@@ -131,6 +131,37 @@ def test_lutmul_plain_matches_reference(M, K, N, a_signed):
 
 
 @pytest.mark.parametrize("M,K,N", SHAPES)
+@pytest.mark.parametrize("a_signed", [True, False])
+def test_lutmul_gather_matches_onehot_and_reference(M, K, N, a_signed):
+    """The gather formulation computes the onehot one's sums: both equal
+    the reference's gather body in interpret mode."""
+    a, w, *_ = _inputs(M, K, N, seed=2)
+    ja, jw = jnp.asarray(a), jnp.asarray(w)
+    want = np.asarray(jops.lutmul_gather(ja, jw, a_signed=a_signed,
+                                         backend="interpret"))
+    np.testing.assert_array_equal(
+        want, np.asarray(jops.lutmul(ja, jw, a_signed=a_signed,
+                                     backend="interpret", impl="onehot")))
+    ta, tw = torch.from_numpy(a), torch.from_numpy(w)
+    onehot = ops.lutmul(ta, tw, a_signed=a_signed, backend="cuda",
+                        impl="onehot")
+    for got in (kernel.lutmul_gather(ta, tw, a_signed=a_signed),
+                ops.lutmul_gather(ta, tw, a_signed=a_signed),
+                ops.lutmul_gather(ta, tw, a_signed=a_signed, backend="ref"),
+                ops.lutmul(ta, tw, a_signed=a_signed, backend="cuda",
+                           impl="gather")):
+        assert got.dtype == torch.int32 and got.shape == (M, N)
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert torch.equal(got, onehot)
+
+
+def test_lutmul_rejects_unknown_impl():
+    a, w, *_ = _inputs(2, 4, 3)
+    with pytest.raises(ValueError, match="impl"):
+        ops.lutmul(torch.from_numpy(a), torch.from_numpy(w), impl="mxu")
+
+
+@pytest.mark.parametrize("M,K,N", SHAPES)
 def test_int_matmul_plain_matches_reference(M, K, N):
     _, _, a8, w8, _, _ = _inputs(M, K, N, seed=1)
     want = np.asarray(jref.int_matmul_ref(jnp.asarray(a8), jnp.asarray(w8)))
@@ -308,7 +339,13 @@ def test_cpu_tensors_never_launch():
     kernel.lutmul_fused(a, w, a_s, w_s)
     kernel.int_matmul(a8, w8)
     kernel.int_matmul_fused(a8, w8, a_s, w_s)
+    kernel.lutmul_gather(a, w)
     assert set(kernel.LAUNCHES.values()) == {0}
+    from repro_torch.kernels.thresholds import kernel as tkernel
+    tkernel.reset_launches()
+    tkernel.threshold(a8.to(torch.int32), torch.zeros((8, 15)),
+                      torch.ones((8,)))
+    assert tkernel.LAUNCHES == {"threshold": 0}
 
 
 def test_product_table_cache_per_device():
