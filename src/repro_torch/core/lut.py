@@ -3,9 +3,12 @@
 
 ``product_table`` is the paper's LUT multiply as a ``[2^w, 2^a]`` table:
 ``T[w_code, a_code] == w * a`` for the two's-complement weight code and the
-(un)signed activation code.  The CUDA lutmul kernel takes it as an argument,
-so activation signedness lives in the table alone.  Packing is k-major: byte
-``i`` holds element ``2i`` in its low nibble and ``2i+1`` in its high one.
+(un)signed activation code.  ``contraction_words`` is its selection stage as
+the CUDA lutmul kernel takes it: per weight code the four power-of-two
+partial products ``T[w, 1], T[w, 2], T[w, 4], T[w, 8]`` packed as int8 bytes
+of one word, so activation signedness lives in the table alone.  Packing is
+k-major: byte ``i`` holds element ``2i`` in its low nibble and ``2i+1`` in
+its high one.
 
 The T-MAC formulation stores a weight as ``P`` binary planes with integer
 coefficients, ``w[k, n] = sum_b coeff_b * plane_b[k, n] + const``, packed
@@ -36,6 +39,22 @@ def contraction_table(a_signed: bool = False) -> np.ndarray:
     t = product_table(w_signed=True, a_signed=a_signed)
     assert t.min() >= -128 and t.max() <= 127, "table must fit int8"
     return t
+
+
+BITPLANE_COLUMNS = (1, 2, 4, 8)     # activation codes 2^b, b = 0..3
+
+
+def contraction_words(a_signed: bool = False) -> np.ndarray:
+    """The selection stage as 16 words (int32 [16]): byte ``b`` of word
+    ``w`` (bits ``8b .. 8b+7``) is ``T[w, 2^b]`` as int8.  ``T[w, 8]``
+    carries the sign of the activation's top bit (``-8w`` signed, ``+8w``
+    unsigned).  Contracting these bytes with the activation's 0/1 bitplanes
+    gives ``T[w, a]`` for every table linear in the activation bits, which
+    :func:`contraction_table` is."""
+    cols = contraction_table(a_signed)[:, BITPLANE_COLUMNS]
+    u = cols.astype(np.int64) & 0xFF
+    words = sum(u[:, b] << (8 * b) for b in range(4))
+    return words.astype(np.uint32).view(np.int32)
 
 
 def pack_int4(x: torch.Tensor) -> torch.Tensor:

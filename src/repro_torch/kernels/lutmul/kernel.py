@@ -36,7 +36,8 @@ import ctypes
 
 import torch
 
-from repro_torch.core.lut import contraction_table, plane_decomposition
+from repro_torch.core.lut import (contraction_table, contraction_words,
+                                  plane_decomposition)
 from repro_torch.kernels import build
 from repro_torch.kernels.lutmul import ref
 
@@ -65,6 +66,18 @@ def product_table(a_signed: bool, device) -> torch.Tensor:
     t = _TABLES.get(key)
     if t is None:
         t = torch.as_tensor(contraction_table(a_signed=a_signed),
+                            dtype=torch.int32, device=device).contiguous()
+        _TABLES[key] = t
+    return t
+
+
+def product_words(a_signed: bool, device) -> torch.Tensor:
+    """int32 [16] selection words of the bitplane contraction on ``device``
+    (cached): what ``csrc/lutmul.cu`` takes in place of the table."""
+    key = ("words", a_signed, str(device))
+    t = _TABLES.get(key)
+    if t is None:
+        t = torch.as_tensor(contraction_words(a_signed=a_signed),
                             dtype=torch.int32, device=device).contiguous()
         _TABLES[key] = t
     return t

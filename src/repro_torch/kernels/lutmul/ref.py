@@ -41,6 +41,27 @@ def lutmul_ref(a_codes: torch.Tensor, w_packed: torch.Tensor,
     return _exact_matmul(a, w)
 
 
+def lutmul_bitplane_ref(a_codes: torch.Tensor, w_packed: torch.Tensor,
+                        words: torch.Tensor) -> torch.Tensor:
+    """The CUDA LUT kernel's two stages, step by step.  Selection: each
+    weight nibble looks up its word in ``words`` (int32 [16],
+    ``core.lut.contraction_words``), unpacked into four int8 partial
+    products ``T[w, 2^b]``.  Contraction: the 0/1 bitplanes of the
+    activation codes against them over ``(k, b)``, in float64 (exact).
+    Returns int32 [M, N], equal to :func:`lutmul_ref` for the tables the
+    kernel is given."""
+    codes = unpack_int4(w_packed.T, signed=False).T.to(torch.int64)
+    sel = words.to(torch.int64)[codes] & 0xFFFFFFFF            # [K, N]
+    shifts = 8 * torch.arange(4, device=sel.device)
+    u8 = (sel[..., None] >> shifts) & 0xFF                     # [K, N, 4]
+    tw = u8 - ((u8 >= 128).to(torch.int64) << 8)               # int8 bytes
+    K, N = codes.shape
+    bits = (a_codes.to(torch.int64)[..., None]
+            >> torch.arange(4, device=sel.device)) & 1         # [M, K, 4]
+    return _exact_matmul(bits.reshape(-1, K * 4),
+                         tw.permute(0, 2, 1).reshape(K * 4, N))
+
+
 def lutmul_tmac_ref(a_q: torch.Tensor, w_planes: torch.Tensor, wbits,
                     g: int = 2) -> torch.Tensor:
     """The faithful T-MAC group-table semantics: a_q [M, K] int8, w_planes
