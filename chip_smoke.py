@@ -229,9 +229,11 @@ class Bench:
     def lut(self, name, group, fn, plain, lib, M, K, N, extra_in=0,
             out_bytes=None) -> None:
         """A LUT-kernel shape: 4-bit codes, nibble-packed weights, the
-        1 KB table; int32 out unless ``out_bytes`` says otherwise."""
+        table (lutmul.cu's 16 selection words, the gather kernel's [16, 16]
+        products); int32 out unless ``out_bytes`` says otherwise."""
+        table = 256 * 4 if name == "lutmul_gather" else 16 * 4
         self.one(name, group, fn, plain, lib, {"M": M, "K": K, "N": N},
-                 M * K + K * N // 2 + 256 * 4 + extra_in
+                 M * K + K * N // 2 + table + extra_in
                  + (M * N * 4 if out_bytes is None else out_bytes),
                  2.0 * M * K * N)
 
@@ -934,6 +936,12 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    imma = {f: n for f, n in build.sass_counts("lutmul", "IMMA").items()
+            if "lutmul_kernel" in f}
+    log(f"lutmul.cu SASS: IMMA instructions by kernel {json.dumps(imma)}")
+    if not imma or min(imma.values()) == 0:
+        raise AssertionError("a lutmul.cu kernel has no int8 tensor-core "
+                             "instruction (IMMA) in its SASS")
 
     bench = Bench(args.reps)
     for phase, fn in (("kernels", lambda: check_kernels(bench)),

@@ -1,40 +1,58 @@
-// LUT multiply on Hopper: acc[m, n] = sum_k T[w[k, n]][a[m, k]].
+// LUT multiply on Hopper's int8 tensor cores:
+//   acc[m, n] = sum_k T[w[k, n], a[m, k]]
+//             = sum_k sum_b bit_b(a[m, k]) * T[w[k, n], 2^b]      (b = 0..3)
 //
 // Replaces the Pallas kernels lutmul_pallas(impl="onehot") and
-// lutmul_fused_pallas (src/repro/kernels/lutmul/kernel.py:178 and :380).
-// The TPU version re-expresses the lookup as two one-hot int8 MXU dots;
-// here every product is a real lookup into the [16, 16] product table held
-// in shared memory, summed in int32 (the paper's semantics).  The table is
-// a kernel argument, so activation signedness lives in the table alone.
+// lutmul_fused_pallas (src/repro/kernels/lutmul/kernel.py:178 and :380),
+// as the TPU kernel's _onehot_contract (:98) computes them, in two stages.
+// Selection: each weight code looks up its word in a 16-word table,
+// word[w] = int8x4 (T[w, 1], T[w, 2], T[w, 4], T[w, 8]); T[w, 8] carries
+// the sign of the activation's top bit, so signedness lives in the table
+// alone (core/lut.py contraction_words).  Contraction: the 0/1 bitplanes of
+// the activation codes against those bytes, over k' = (k, b), with
+// mma.sync.m16n8k32 s8 x s8 -> s32 (exact integer sums).
 //
 // Layout: a [M, K] uint8 4-bit codes, w [K/2, N] uint8 nibble pairs (byte
-// k2 holds w[2*k2] in its low nibble), table [16, 16] int32 (row = weight
-// code), a_scale [M] and w_scale [N] float32 for the fused epilogue.
+// k2 holds w[2*k2] in its low nibble), words [16] int32, a_scale [M] and
+// w_scale [N] float32 for the fused epilogue.
 //
-// Bound: at decode (M = 8 slots) the weight bytes are read once, K*N/2
-// bytes over 3.35 TB/s; but the lookups, M*K*N of them, are the larger
-// cost on this card (32 shared-memory words per clock per SM), so the
-// kernel is bounded by the table reads rather than by HBM.  What the design
-// does about it: lanes map to columns, so the packed weight bytes of a warp
-// are one coalesced 32-byte sector per k2 row and each byte is unpacked
-// once for all BM rows; the table is stored column-transposed
-// (s_t[a * 16 + w]) so the 32 lanes of a warp, which share the activation
-// code and differ in the weight code, read 16 distinct banks without
-// conflict; activation codes are kept pre-shifted (a << 4) in shared memory
-// as a [k][m] tile so one 16-byte broadcast load feeds a k2 step; a warp
-// issues all its weight loads of a tile before its first lookup.
+// Bound on the H100: bytes.  The bitplane form does 4x the MACs of an int8
+// product, which the tensor cores still finish far under the time the
+// bytes take: at decode (M = 8) the K*N/2 weight bytes, at the CNN stages
+// the M*N*4 output bytes.  What the design does about it:
+//  * weight columns on the instruction's 16-row side and activation rows on
+//    its 8-column side (acc^T = TW^T . bits^T), so 8 decode rows fill the
+//    instruction;
+//  * each lane owns 4 adjacent columns (n = 32q + 4g + t for lane group g)
+//    and the k2 rows 4*tig + s of each 32-deep chunk (tig = lane % 4, step
+//    s = 0..3): one 4-byte load of the packed weights gives both nibbles
+//    of 4 columns, i.e. the A fragments of two m16 tiles for one step
+//    after 8 table lookups, and one 8-byte load of a row's codes gives its
+//    B fragments for all 4 steps ((x * 0x00204081) & 0x01010101 turns a
+//    nibble into its 4 bitplane bytes); the k order inside a chunk is the
+//    lanes', the same for both operands;
+//  * the lookups read the 16 words in shared memory: 16 distinct banks,
+//    no conflict; each one serves all the rows of the warp's tile;
+//  * the accumulator fragment holds, per row, the lane's 4 adjacent
+//    columns: one 16-byte store (8 for bf16) per row, 128 contiguous bytes
+//    per warp and row;
+//  * the weights go straight from device memory to registers (they are
+//    read once), the next chunk's loads issued before this one's math.
 //
-// Hopper blocks run in no order and nothing carries across them, so each
-// block loops over its own range of K.  At decode a column tile alone gives
-// too few blocks to fill 132 SMs (N = 512 is 16 tiles), so K is split over
-// grid.z: each split adds its partial sums into an int32 workspace with
-// atomicAdd (integer addition: order-free, exact), then counts itself in
-// the tile's arrival counter; the last block to arrive reads the sums back,
-// re-zeroes them and the counter, and writes the output through the
-// epilogue.  One launch per call, and the workspace is left zeroed for the
-// next one, so the caller allocates it once and never clears it.  Within a
-// block the KS warps take interleaved k2 rows of every tile and a
-// shared-memory reduction adds them.
+// Tiles by M: up to 16 rows (decode) a block is 8 warps over one 32-column,
+// 16-row tile, each warp a share of the K chunks, summed in shared memory;
+// above that (the CNN stages, M = 1,568 - 401,408 at K = 16 - 960) a block
+// is 4 warps of 32 rows x 64 columns.  Row tiles ride grid.x, so the rows
+// are not capped at 65,535 tiles.
+//
+// Hopper blocks run in no order and nothing carries across them.  When the
+// row and column tiles leave the card idle, K is split over grid.z: each
+// split adds its partial sums into an int32 workspace with atomicAdd
+// (integer addition: order-free, exact), then counts itself in the tile's
+// arrival counter; the last block to arrive reads the sums back, re-zeroes
+// them and the counter, and writes the output through the epilogue.  One
+// launch per call, and the workspace is left zeroed for the next one, so
+// the caller allocates it once and never clears it.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -43,133 +61,307 @@
 
 namespace {
 
-constexpr int BM = 8;          // activation rows per block (the slot count)
-constexpr int BN = 32;         // columns per block, one per lane
-constexpr int KS = 8;          // warps per block, each a slice of every tile
-constexpr int BK = 256;        // k per shared activation tile (split unit)
-constexpr int K2W = BK / 2 / KS;   // packed rows per warp per tile
-constexpr int THREADS = BN * KS;
-constexpr int TARGET_BLOCKS = 132 * 8;   // about 8 resident blocks per SM
-
-static_assert(BM == 8, "the 16-byte activation load assumes 8 rows");
-static_assert(K2W * KS * 2 == BK, "tile must split evenly over warps");
-
 enum Epilogue { kInt32 = 0, kBf16 = 1, kF32 = 2 };
+enum Flags { kWVec = 1, kAVec = 2, kOVec = 4 };
 
-__device__ __forceinline__ int32_t row_lookup(const int32_t* t_col,
-                                              uint32_t word, int byte) {
-  return t_col[(word >> (8 * byte)) & 0xFFu];
+constexpr int KC = 32;   // k per chunk: 4 mma steps of 8 k (32 deep in k')
+
+// NG 32-column groups (2 m16 tiles each) and TM 8-row tiles per warp; WM
+// warps along rows, WK along K; TARGET blocks wanted before K is split.
+template <int NG_, int TM_, int WM_, int WK_, int MINB_, int TARGET_>
+struct Tile {
+  static constexpr int NG = NG_, TM = TM_, WM = WM_, WK = WK_;
+  static constexpr int MINB = MINB_, TARGET = TARGET_;
+  static constexpr int BN = 32 * NG;
+  static constexpr int BM = 8 * TM * WM;
+  static constexpr int THREADS = 32 * WM * WK;
+  static constexpr int RED = WK > 1 ? WK * BM * BN : 4;
+};
+
+using Decode = Tile<1, 2, 1, 8, 4, 132 * 4>;   // M <= 16
+using Tall = Tile<2, 4, 4, 1, 4, 132>;         // M > 16
+
+__device__ __forceinline__ void mma_s8(int32_t (&d)[4], uint32_t a0,
+                                       uint32_t a1, uint32_t a2, uint32_t a3,
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
+// the 4 bitplane bytes (bit b in byte b) of the code in byte i of x
+__device__ __forceinline__ uint32_t planes(uint32_t x, int i) {
+  return (((x >> (8 * i)) & 0xFu) * 0x00204081u) & 0x01010101u;
+}
+
+// 4 output values of row m, columns n .. n+3, through the epilogue
 template <int EPI>
-__device__ __forceinline__ void store(void* out, size_t o, int32_t s,
-                                      float a_s, float w_s) {
+__device__ __forceinline__ void store4(void* out, const float* a_scale,
+                                       const float* w_scale, int m, int n,
+                                       int N, const int32_t (&v)[4],
+                                       bool vec) {
+  const size_t o = (size_t)m * N + n;
   if (EPI == kInt32) {
-    static_cast<int32_t*>(out)[o] = s;
-  } else {
-    const float y = ((float)s * a_s) * w_s;
-    if (EPI == kBf16) {
-      static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(y);
+    int32_t* p = static_cast<int32_t*>(out) + o;
+    if (vec) {
+      *reinterpret_cast<int4*>(p) = make_int4(v[0], v[1], v[2], v[3]);
     } else {
-      static_cast<float*>(out)[o] = y;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        if (n + t < N) p[t] = v[t];
+      }
     }
+    return;
+  }
+  const float a_s = a_scale[m];
+  float y[4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    y[t] = n + t < N ? ((float)v[t] * a_s) * w_scale[n + t] : 0.f;
+  }
+  if (EPI == kBf16) {
+    __nv_bfloat16* p = static_cast<__nv_bfloat16*>(out) + o;
+    if (vec) {
+      __nv_bfloat162 lo = __floats2bfloat162_rn(y[0], y[1]);
+      __nv_bfloat162 hi = __floats2bfloat162_rn(y[2], y[3]);
+      uint2 u;
+      u.x = *reinterpret_cast<uint32_t*>(&lo);
+      u.y = *reinterpret_cast<uint32_t*>(&hi);
+      *reinterpret_cast<uint2*>(p) = u;
+    } else {
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        if (n + t < N) p[t] = __float2bfloat16_rn(y[t]);
+      }
+    }
+  } else {
+    float* p = static_cast<float*>(out) + o;
+    if (vec) {
+      *reinterpret_cast<float4*>(p) = make_float4(y[0], y[1], y[2], y[3]);
+    } else {
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        if (n + t < N) p[t] = y[t];
+      }
+    }
+  }
+}
+
+// row m, columns n .. n+3: into the split workspace or through the epilogue
+template <int EPI>
+__device__ __forceinline__ void put4(void* out, int32_t* acc_ws,
+                                     const float* a_scale,
+                                     const float* w_scale, int m, int n,
+                                     int M, int N, const int32_t (&v)[4],
+                                     bool split, bool vec) {
+  if (m >= M || n >= N) return;
+  if (split) {
+    const size_t o = (size_t)m * N + n;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      if (n + t < N) atomicAdd(acc_ws + o + t, v[t]);
+    }
+  } else {
+    store4<EPI>(out, a_scale, w_scale, m, n, N, v, vec);
   }
 }
 
 // partial sums of k in [blockIdx.z * k_chunk, ... + k_chunk): written with
 // the epilogue when gridDim.z is 1, else added into acc_ws (int32 [M, N])
-// and written by the tile's last-arriving block (count: [gridDim.y,
-// gridDim.x] arrival counters); both zero on entry and on exit
-template <int EPI>
-__global__ void __launch_bounds__(THREADS)
+// and written by the tile's last-arriving block (count: one arrival counter
+// per (blockIdx.y, blockIdx.x)); both zero on entry and on exit
+template <class T, int EPI>
+__global__ void __launch_bounds__(T::THREADS, T::MINB)
 lutmul_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ w,
-              const int32_t* __restrict__ table,
+              const uint32_t* __restrict__ words,
               const float* __restrict__ a_scale,
               const float* __restrict__ w_scale, void* __restrict__ out,
               int32_t* __restrict__ acc_ws, unsigned* __restrict__ count,
-              int M, int K, int N, int k_chunk) {
-  __shared__ int32_t s_t[256];                     // [a_code][w_code]
-  __shared__ __align__(16) uint8_t s_a[BK * BM];   // [k][m], a << 4
-  __shared__ int32_t s_red[KS][BM][BN];
+              int M, int K, int N, int k_chunk, int flags) {
+  __shared__ uint32_t s_word[16];
+  __shared__ __align__(16) int32_t s_red[T::RED];   // [WK][BM][BN]
   __shared__ bool s_last;
 
-  const int lane = threadIdx.x;
-  const int warp = threadIdx.y;
-  const int tid = warp * BN + lane;
-  const int n = blockIdx.x * BN + lane;
-  const int m0 = blockIdx.y * BM;
-  const bool col_ok = n < N;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  const int wm = warp % T::WM;
+  const int wk = warp / T::WM;
+  const int bm0 = blockIdx.x * T::BM;           // the block's first row
+  const int m0 = bm0 + wm * 8 * T::TM;          // the warp's first row
+  const int n0 = blockIdx.y * T::BN;
   const int k_begin = blockIdx.z * k_chunk;
   const int k_end = min(K, k_begin + k_chunk);
+  const int k2_end = k_end >> 1;                // K and k_chunk are even
+  const bool wvec = flags & kWVec;
+  const bool avec = flags & kAVec;
 
-  for (int i = tid; i < 256; i += THREADS) {
-    s_t[i] = table[(i & 15) * 16 + (i >> 4)];
-  }
+  if (tid < 16) s_word[tid] = words[tid];
+  __syncthreads();
 
-  int32_t acc[BM];
+  int32_t acc[T::TM][2 * T::NG][4];
 #pragma unroll
-  for (int m = 0; m < BM; ++m) acc[m] = 0;
+  for (int j = 0; j < T::TM; ++j)
+#pragma unroll
+    for (int i = 0; i < 2 * T::NG; ++i)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[j][i][r] = 0;
 
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    __syncthreads();   // the previous tile is consumed
-    for (int i = tid; i < BK * BM; i += THREADS) {
-      const int m = i / BK;            // consecutive threads: consecutive k
-      const int k = i % BK;
-      const int gm = m0 + m;
-      const int gk = k0 + k;
-      uint8_t v = 0;
-      if (gm < M && gk < k_end) {
-        v = (uint8_t)((a[(size_t)gm * K + gk] & 0xF) << 4);
+  // chunk at kc: wv[q][s] = w[kc/2 + 4*tig + s, n0 + 32q + 4g .. +3],
+  // av[j] = a[m0 + 8j + g, kc + 8*tig .. +7]; zero outside the matrices
+  auto load = [&](int kc, uint32_t (&wv)[T::NG][4], uint2 (&av)[T::TM]) {
+#pragma unroll
+    for (int q = 0; q < T::NG; ++q) {
+      const int n = n0 + 32 * q + 4 * g;
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const int k2 = (kc >> 1) + 4 * tig + s;
+        uint32_t v = 0;
+        if (k2 < k2_end && n < N) {
+          const uint8_t* p = w + (size_t)k2 * N + n;
+          if (wvec) {
+            v = *reinterpret_cast<const uint32_t*>(p);
+          } else {
+#pragma unroll
+            for (int t = 0; t < 4; ++t) {
+              if (n + t < N) v |= (uint32_t)p[t] << (8 * t);
+            }
+          }
+        }
+        wv[q][s] = v;
       }
-      s_a[k * BM + m] = v;
     }
-    // this warp's weight bytes of the tile, all loads in flight at once
-    uint32_t wb[K2W];
 #pragma unroll
-    for (int j = 0; j < K2W; ++j) {
-      const int k2 = k0 / 2 + j * KS + warp;
-      wb[j] = (col_ok && 2 * k2 < k_end) ? w[(size_t)k2 * N + n] : 0u;
+    for (int j = 0; j < T::TM; ++j) {
+      const int m = m0 + 8 * j + g;
+      const int k = kc + 8 * tig;
+      uint2 x = make_uint2(0u, 0u);
+      if (m < M && k < k_end) {
+        const uint8_t* p = a + (size_t)m * K + k;
+        if (avec) {
+          x = *reinterpret_cast<const uint2*>(p);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const uint32_t b = k + i < k_end ? (uint32_t)p[i] : 0u;
+            if (i < 4) {
+              x.x |= b << (8 * i);
+            } else {
+              x.y |= b << (8 * (i - 4));
+            }
+          }
+        }
+      }
+      av[j] = x;
     }
-    __syncthreads();
-    if (col_ok) {
+  };
+
+  // uniform per warp: row tiles and column groups past the matrix idle
+  bool row_ok[T::TM];
 #pragma unroll
-      for (int j = 0; j < K2W; ++j) {
-        const int t2 = j * KS + warp;          // packed row within the tile
-        if (2 * (k0 / 2 + t2) < k_end) {
-          const int32_t* t_lo = s_t + (wb[j] & 0xFu);
-          const int32_t* t_hi = s_t + (wb[j] >> 4);
-          // rows 0-3 / 4-7 of k = 2*t2 (x, y) and of k = 2*t2 + 1 (z, w)
-          const uint4 av = *reinterpret_cast<const uint4*>(s_a + 2 * t2 * BM);
+  for (int j = 0; j < T::TM; ++j) row_ok[j] = m0 + 8 * j < M;
+  bool col_ok[T::NG];
 #pragma unroll
-          for (int m = 0; m < 4; ++m) {
-            acc[m] += row_lookup(t_lo, av.x, m) + row_lookup(t_hi, av.z, m);
-            acc[m + 4] += row_lookup(t_lo, av.y, m)
-                          + row_lookup(t_hi, av.w, m);
+  for (int q = 0; q < T::NG; ++q) col_ok[q] = n0 + 32 * q < N;
+
+  uint32_t wv[T::NG][4];
+  uint2 av[T::TM];
+  int kc = k_begin + wk * KC;
+  load(kc, wv, av);
+  for (; kc < k_end; kc += T::WK * KC) {
+    uint32_t wn[T::NG][4];
+    uint2 an[T::TM];
+    load(kc + T::WK * KC, wn, an);   // the next chunk's loads in flight
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      uint32_t b[T::TM][2];
+#pragma unroll
+      for (int j = 0; j < T::TM; ++j) {
+        const uint32_t x = s < 2 ? av[j].x : av[j].y;
+        b[j][0] = planes(x, 2 * (s & 1));
+        b[j][1] = planes(x, 2 * (s & 1) + 1);
+      }
+#pragma unroll
+      for (int q = 0; q < T::NG; ++q) {
+        if (!col_ok[q]) continue;
+        const uint32_t x = wv[q][s];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          // tile 2q+h: rows g / g+8 are columns 4g + 2h / 4g + 2h + 1;
+          // k slots tig / tig+4 are the low / high nibbles of row k2
+          const uint32_t c0 = x >> (16 * h);
+          const uint32_t c1 = x >> (16 * h + 8);
+          const uint32_t a0 = s_word[c0 & 0xFu];
+          const uint32_t a1 = s_word[c1 & 0xFu];
+          const uint32_t a2 = s_word[(c0 >> 4) & 0xFu];
+          const uint32_t a3 = s_word[(c1 >> 4) & 0xFu];
+#pragma unroll
+          for (int j = 0; j < T::TM; ++j) {
+            if (row_ok[j]) {
+              mma_s8(acc[j][2 * q + h], a0, a1, a2, a3, b[j][0], b[j][1]);
+            }
           }
         }
       }
     }
+#pragma unroll
+    for (int q = 0; q < T::NG; ++q)
+#pragma unroll
+      for (int s = 0; s < 4; ++s) wv[q][s] = wn[q][s];
+#pragma unroll
+    for (int j = 0; j < T::TM; ++j) av[j] = an[j];
   }
 
-#pragma unroll
-  for (int m = 0; m < BM; ++m) s_red[warp][m][lane] = acc[m];
-  __syncthreads();
+  // lane (g, tig) holds, for rows 8j + 2*tig + r, columns 32q + 4g .. +3:
+  // d[r] and d[2 + r] of tiles 2q and 2q+1
   const bool split = gridDim.z > 1;
-  for (int i = tid; i < BM * BN; i += THREADS) {
-    const int m = i / BN;
-    const int c = i % BN;
-    const int gm = m0 + m;
-    const int gn = blockIdx.x * BN + c;
-    if (gm >= M || gn >= N) continue;
-    int32_t s = 0;
+  const bool ovec = flags & kOVec;
+  if constexpr (T::WK == 1) {
 #pragma unroll
-    for (int q = 0; q < KS; ++q) s += s_red[q][m][c];
-    const size_t o = (size_t)gm * N + gn;
-    if (split) {
-      atomicAdd(acc_ws + o, s);
-    } else {
-      store<EPI>(out, o, s, EPI == kInt32 ? 0.f : a_scale[gm],
-                 EPI == kInt32 ? 0.f : w_scale[gn]);
+    for (int j = 0; j < T::TM; ++j)
+#pragma unroll
+      for (int q = 0; q < T::NG; ++q)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int32_t v[4] = {acc[j][2 * q][r], acc[j][2 * q][2 + r],
+                                acc[j][2 * q + 1][r],
+                                acc[j][2 * q + 1][2 + r]};
+          put4<EPI>(out, acc_ws, a_scale, w_scale, m0 + 8 * j + 2 * tig + r,
+                    n0 + 32 * q + 4 * g, M, N, v, split, ovec);
+        }
+  } else {
+#pragma unroll
+    for (int j = 0; j < T::TM; ++j)
+#pragma unroll
+      for (int q = 0; q < T::NG; ++q)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int ml = wm * 8 * T::TM + 8 * j + 2 * tig + r;
+          const int nl = 32 * q + 4 * g;
+          *reinterpret_cast<int4*>(s_red + (wk * T::BM + ml) * T::BN + nl) =
+              make_int4(acc[j][2 * q][r], acc[j][2 * q][2 + r],
+                        acc[j][2 * q + 1][r], acc[j][2 * q + 1][2 + r]);
+        }
+    __syncthreads();
+    for (int i = tid; i < T::BM * T::BN / 4; i += T::THREADS) {
+      const int ml = i / (T::BN / 4);
+      const int nl = 4 * (i % (T::BN / 4));
+      int32_t v[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int p = 0; p < T::WK; ++p) {
+        const int4 x = *reinterpret_cast<const int4*>(
+            s_red + (p * T::BM + ml) * T::BN + nl);
+        v[0] += x.x;
+        v[1] += x.y;
+        v[2] += x.z;
+        v[3] += x.w;
+      }
+      put4<EPI>(out, acc_ws, a_scale, w_scale, bm0 + ml, n0 + nl, M, N, v,
+                split, ovec);
     }
   }
   if (!split) return;
@@ -182,45 +374,77 @@ lutmul_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ w,
   __syncthreads();
   if (!s_last) return;
   __threadfence();   // every other split's sums are visible past here
-  for (int i = tid; i < BM * BN; i += THREADS) {
-    const int gm = m0 + i / BN;
-    const int gn = blockIdx.x * BN + i % BN;
-    if (gm >= M || gn >= N) continue;
-    const size_t o = (size_t)gm * N + gn;
-    const int32_t s = atomicExch(acc_ws + o, 0);   // read and re-zero
-    store<EPI>(out, o, s, EPI == kInt32 ? 0.f : a_scale[gm],
-               EPI == kInt32 ? 0.f : w_scale[gn]);
+  for (int i = tid; i < T::BM * T::BN / 4; i += T::THREADS) {
+    const int m = bm0 + i / (T::BN / 4);
+    const int n = n0 + 4 * (i % (T::BN / 4));
+    if (m >= M || n >= N) continue;
+    const size_t o = (size_t)m * N + n;
+    int32_t v[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      if (n + t < N) v[t] = atomicExch(acc_ws + o + t, 0);   // read, re-zero
+    }
+    store4<EPI>(out, a_scale, w_scale, m, n, N, v, ovec);
   }
   if (tid == 0) count[tile] = 0u;
 }
 
 struct Geometry {
-  dim3 grid;
+  long long gx;   // row tiles
+  long long gy;   // column tiles
+  int gz;         // K splits
   int k_chunk;
 };
 
-// split K (in whole tiles) until the grid has about TARGET_BLOCKS blocks
+// split K (in whole chunks, at least one per warp) until the grid has
+// about TARGET blocks
+template <class T>
 Geometry geometry(int M, int K, int N) {
-  const int gx = (N + BN - 1) / BN;
-  const int gy = (M + BM - 1) / BM;
-  const int tiles = (K + BK - 1) / BK;
-  if (tiles <= 1) return {dim3(gx, gy, 1), K > 0 ? K : 1};
-  int split = (TARGET_BLOCKS + gx * gy - 1) / (gx * gy);
-  split = std::max(1, std::min(split, tiles));
-  const int k_chunk = ((tiles + split - 1) / split) * BK;
-  return {dim3(gx, gy, (K + k_chunk - 1) / k_chunk), k_chunk};
+  const long long gx = (M + T::BM - 1) / T::BM;
+  const long long gy = (N + T::BN - 1) / T::BN;
+  const int chunks = (K + KC - 1) / KC;
+  const long long tiles = gx * gy;
+  long long split = tiles < T::TARGET ? (T::TARGET + tiles - 1) / tiles : 1;
+  split = std::max(1LL, std::min(split, (long long)(chunks / T::WK)));
+  const int per = (int)((chunks + split - 1) / split);
+  const int k_chunk = std::max(1, per) * KC;
+  const int gz = std::max(1, (K + k_chunk - 1) / k_chunk);
+  return {gx, gy, gz, k_chunk};
+}
+
+template <class T, int EPI>
+int launch(const uint8_t* a, const uint8_t* w, const uint32_t* words,
+           const float* as, const float* ws, void* out, int32_t* work,
+           int M, int K, int N, cudaStream_t s) {
+  const Geometry g = geometry<T>(M, K, N);
+  if (g.gx > 0x7FFFFFFFLL || g.gy > 65535) return (int)cudaErrorInvalidValue;
+  const int esize = EPI == kBf16 ? 2 : 4;
+  int flags = 0;
+  if (N % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 4 == 0) flags |= kWVec;
+  if (K % 8 == 0 && reinterpret_cast<uintptr_t>(a) % 8 == 0) flags |= kAVec;
+  if (N % 4 == 0 && reinterpret_cast<uintptr_t>(out) % (4 * esize) == 0) {
+    flags |= kOVec;
+  }
+  unsigned* count = reinterpret_cast<unsigned*>(work + (size_t)M * N);
+  lutmul_kernel<T, EPI><<<dim3((unsigned)g.gx, (unsigned)g.gy, g.gz),
+                          T::THREADS, 0, s>>>(
+      a, w, words, as, ws, out, work, count, M, K, N, g.k_chunk, flags);
+  return (int)cudaGetLastError();
 }
 
 template <int EPI>
-int launch(const uint8_t* a, const uint8_t* w, const int32_t* t,
-           const float* as, const float* ws, void* out, int32_t* work,
-           int M, int K, int N, cudaStream_t s) {
-  const Geometry g = geometry(M, K, N);
-  if (g.grid.y > 65535u) return (int)cudaErrorInvalidValue;  // M > 524,280
-  unsigned* count = reinterpret_cast<unsigned*>(work + (size_t)M * N);
-  lutmul_kernel<EPI><<<g.grid, dim3(BN, KS), 0, s>>>(
-      a, w, t, as, ws, out, work, count, M, K, N, g.k_chunk);
-  return (int)cudaGetLastError();
+int dispatch(const uint8_t* a, const uint8_t* w, const uint32_t* words,
+             const float* as, const float* ws, void* out, int32_t* work,
+             int M, int K, int N, cudaStream_t s) {
+  if (M <= Decode::BM) {
+    return launch<Decode, EPI>(a, w, words, as, ws, out, work, M, K, N, s);
+  }
+  return launch<Tall, EPI>(a, w, words, as, ws, out, work, M, K, N, s);
+}
+
+template <class T>
+long long tiles(int M, int N) {
+  return (long long)((M + T::BM - 1) / T::BM) * ((N + T::BN - 1) / T::BN);
 }
 
 }  // namespace
@@ -230,9 +454,10 @@ int launch(const uint8_t* a, const uint8_t* w, const int32_t* t,
 // the first call; every call leaves it zero.
 extern "C" long long lutmul_workspace_words(int M, int N) {
   return (long long)M * N
-         + (long long)((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+         + (M <= Decode::BM ? tiles<Decode>(M, N) : tiles<Tall>(M, N));
 }
 
+// table: the int32 [16] selection words (core/lut.py contraction_words)
 extern "C" int lutmul_launch(const void* a, const void* w, const void* table,
                              const void* a_scale, const void* w_scale,
                              void* out, void* workspace, int M, int K, int N,
@@ -240,17 +465,17 @@ extern "C" int lutmul_launch(const void* a, const void* w, const void* table,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* a8 = static_cast<const uint8_t*>(a);
   const uint8_t* w8 = static_cast<const uint8_t*>(w);
-  const int32_t* t = static_cast<const int32_t*>(table);
+  const uint32_t* t = static_cast<const uint32_t*>(table);
   const float* as = static_cast<const float*>(a_scale);
   const float* ws = static_cast<const float*>(w_scale);
   int32_t* work = static_cast<int32_t*>(workspace);
   switch (epilogue) {
     case kInt32:
-      return launch<kInt32>(a8, w8, t, as, ws, out, work, M, K, N, s);
+      return dispatch<kInt32>(a8, w8, t, as, ws, out, work, M, K, N, s);
     case kBf16:
-      return launch<kBf16>(a8, w8, t, as, ws, out, work, M, K, N, s);
+      return dispatch<kBf16>(a8, w8, t, as, ws, out, work, M, K, N, s);
     case kF32:
-      return launch<kF32>(a8, w8, t, as, ws, out, work, M, K, N, s);
+      return dispatch<kF32>(a8, w8, t, as, ws, out, work, M, K, N, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -89,6 +90,26 @@ def build_all() -> dict[str, str]:
         if errors:
             raise RuntimeError("\n".join(errors))
         return {n: _LOGS.get(n, "") for n in SOURCES}
+
+
+def sass_counts(name: str, opcode: str) -> dict[str, int]:
+    """{kernel function: SASS instructions of ``opcode``} in the built
+    library of ``csrc/<name>.cu`` (built first if need be), from the
+    toolkit's ``cuobjdump -sass``."""
+    load(name)
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(_target(name))],
+                          capture_output=True, text=True, check=True).stdout
+    counts: dict[str, int] = {}
+    func = None
+    pattern = re.compile(rf"[\s}}]{re.escape(opcode)}[.\s]")
+    for line in text.splitlines():
+        if "Function :" in line:
+            func = line.split("Function :", 1)[1].strip()
+            counts[func] = 0
+        elif func is not None and pattern.search(line):
+            counts[func] += 1
+    return counts
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -5,8 +5,11 @@ Seven entry points, each with a plain launch counter in ``LAUNCHES``:
 
 * ``lutmul`` / ``lutmul_fused`` replace ``lutmul_pallas(impl="onehot")``
   and ``lutmul_fused_pallas`` (``repro/kernels/lutmul/kernel.py:178`` and
-  ``:380``): ``acc[m,n] = sum_k T[w[k,n], a[m,k]]`` through the [16, 16]
-  product table in shared memory, int32 out or the fused
+  ``:380``): ``acc[m,n] = sum_k T[w[k,n], a[m,k]]`` as the TPU kernel's
+  two-stage contraction, on the int8 tensor cores: each weight code selects
+  its word of the 16 in :func:`product_words` (``T[w, 2^b]``, b = 0..3, as
+  int8 bytes), contracted with the activation codes' 0/1 bitplanes
+  (``ref.lutmul_bitplane_ref`` is the plain form); int32 out or the fused
   ``(acc.f32 * a_scale) * w_scale`` epilogue.
 * ``lutmul_gather`` replaces ``lutmul_pallas(impl="gather")``: the same
   int32 sums, one serial gather per product from the flat 256-entry table
@@ -20,10 +23,10 @@ Seven entry points, each with a plain launch counter in ``LAUNCHES``:
   ``sum_b coeff_b * (a . plane_b) + const * sum_k a``, with g = 2
   partial-sum tables for a4 activations and g = 1 for a8.
 
-Bound on the H100 at decode (M = 8): the weight bytes over 3.35 TB/s for the
-int8 kernel (the 545 MB qwen2-7b head: 0.16 ms); for the LUT kernel the
-M*K*N shared-memory lookups weigh more than its K*N/2 weight bytes (the
-source notes in ``csrc/`` say what each design does about its bound).
+Bound on the H100 at decode (M = 8): the weight bytes over 3.35 TB/s (the
+545 MB qwen2-7b int8 head: 0.16 ms; a LUT projection's K*N/2 bytes); at the
+CNN stages the LUT kernel's M*N*4 output bytes (the source notes in
+``csrc/`` say what each design does about its bound).
 
 A tensor on the CPU takes the plain version from ``ref.py``; a CUDA tensor
 launches the kernel on the current stream or raises — there is no fallback.
@@ -45,9 +48,9 @@ LAUNCHES = {"lutmul": 0, "lutmul_fused": 0, "lutmul_gather": 0,
             "int_matmul": 0, "int_matmul_fused": 0, "lutmul_tmac": 0,
             "lutmul_tmac_fused": 0}
 
-# grid.y carries the row tiles (8 rows a block in lutmul.cu, 32 in
-# lutmul_gather.cu) and takes at most 65,535 of them
-_MAX_ROWS = {"lutmul": 8 * 65535, "lutmul_gather": 32 * 65535}
+# lutmul_gather.cu's row tiles (32 rows a block) ride grid.y, which takes
+# at most 65,535 of them; lutmul.cu's ride grid.x and have no such cap
+_GATHER_MAX_ROWS = 32 * 65535
 
 _EPILOGUE = {torch.int32: 0, torch.bfloat16: 1, torch.float32: 2}
 _TABLES: dict[tuple, torch.Tensor] = {}
@@ -61,7 +64,8 @@ def reset_launches() -> None:
 
 
 def product_table(a_signed: bool, device) -> torch.Tensor:
-    """[16, 16] int32 product table on ``device`` (cached)."""
+    """[16, 16] int32 product table on ``device`` (cached): what
+    ``csrc/lutmul_gather.cu`` looks up."""
     key = (a_signed, str(device))
     t = _TABLES.get(key)
     if t is None:
@@ -160,25 +164,16 @@ def _lut_shapes(a_codes, w_packed) -> tuple[int, int, int]:
     return M, K, w_packed.shape[1]
 
 
-def _check_rows(M: int, lib: str) -> None:
-    if M > _MAX_ROWS[lib]:
-        raise ValueError(
-            f"{lib}: M = {M} rows is more than one launch takes "
-            f"({_MAX_ROWS[lib]}: grid.y holds at most 65,535 row tiles); "
-            "split the rows into several calls")
-
-
 def _lut_launch(a_codes, w_packed, a_scale, w_scale, out, epi: int,
                 a_signed: bool, name: str) -> None:
     M, K, N = _lut_shapes(a_codes, w_packed)
-    _check_rows(M, "lutmul")
     if M == 0 or N == 0:
         return
-    table = product_table(a_signed, a_codes.device)
+    words = product_words(a_signed, a_codes.device)
     stream = torch.cuda.current_stream(a_codes.device).cuda_stream
     work = _workspace("lutmul", M, N, a_codes.device, stream)
     fn = _entry("lutmul", "lutmul_launch", _launch_args(7))
-    code = fn(a_codes.data_ptr(), w_packed.data_ptr(), table.data_ptr(),
+    code = fn(a_codes.data_ptr(), w_packed.data_ptr(), words.data_ptr(),
               a_scale.data_ptr() if a_scale is not None else None,
               w_scale.data_ptr() if w_scale is not None else None,
               out.data_ptr(), work.data_ptr(), M, K, N, epi, stream)
@@ -308,7 +303,11 @@ def lutmul_gather(a_codes: torch.Tensor, w_packed: torch.Tensor, *,
     _check("a_codes", a_codes, torch.uint8, 2, dev)
     _check("w_packed", w_packed, torch.uint8, 2, dev)
     M, K, N = _lut_shapes(a_codes, w_packed)
-    _check_rows(M, "lutmul_gather")
+    if M > _GATHER_MAX_ROWS:
+        raise ValueError(
+            f"lutmul_gather: M = {M} rows is more than one launch takes "
+            f"({_GATHER_MAX_ROWS}: grid.y holds at most 65,535 row tiles); "
+            "split the rows into several calls")
     out = torch.empty((M, N), dtype=torch.int32, device=dev)
     if M == 0 or N == 0:
         return out

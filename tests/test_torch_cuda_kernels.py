@@ -63,15 +63,81 @@ def test_cuda_kernels_match_plain(cuda_device, M, K, N):
                                "lutmul_tmac_fused": 0}
 
 
+# the LUT kernel's two tiles: up to 16 rows (decode) and taller (CNN stages)
+LUT_M = [1, 7, 8, 9, 16, 33, 1568]
+LUT_KN = [(K, N) for K in (2, 16, 30, 96, 3584) for N in (1, 15, 17, 96, 512)]
+
+
+def _lut_equal(a, w, a_signed, a_s, w_s):
+    """int32 exactly and both fused outputs bitwise, against the plain
+    version and the plain bitplane form."""
+    want = ref.lutmul_ref(a, w, a_signed)
+    assert torch.equal(ref.lutmul_bitplane_ref(
+        a, w, kernel.product_words(a_signed, a.device)), want)
+    assert torch.equal(kernel.lutmul(a, w, a_signed=a_signed), want)
+    for dt, bits in ((torch.bfloat16, torch.int16),
+                     (torch.float32, torch.int32)):
+        got = kernel.lutmul_fused(a, w, a_s, w_s, a_signed=a_signed,
+                                  out_dtype=dt)
+        exp = ref.scaled_lutmul_ref(a, w, a_s, w_s, a_signed, out_dtype=dt)
+        assert torch.equal(got.view(bits), exp.view(bits))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,N", LUT_KN)
+@pytest.mark.parametrize("M", LUT_M)
+def test_cuda_lutmul_tiles_match_plain(cuda_device, M, K, N):
+    """Both tiles, ragged M, N and K, the K-split and single-pass grids,
+    signed and unsigned tables, activation bytes with their high nibble
+    set (the kernel reads the low one)."""
+    a, w, _, _, a_s, w_s = (torch.from_numpy(v).to(cuda_device)
+                            for v in _inputs(M, K, N, seed=M + K + N))
+    a_hi = a | (torch.arange(M * K, device=cuda_device).reshape(M, K)
+                .to(torch.uint8) << 4)
+    kernel.reset_launches()
+    for a_signed in (True, False):
+        _lut_equal(a, w, a_signed, a_s, w_s)
+    _lut_equal(a_hi, w, True, a_s, w_s)
+    assert kernel.LAUNCHES["lutmul"] == 3
+    assert kernel.LAUNCHES["lutmul_fused"] == 6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [8, 1568])
+@pytest.mark.parametrize("a_code", [8, 15])
+@pytest.mark.parametrize("a_signed", [True, False])
+def test_cuda_lutmul_extreme_codes(cuda_device, M, a_code, a_signed):
+    """Every weight code -8 against activation code 8 or 15: the |64|
+    bytes of the selection words, summed over K = 3584."""
+    K, N = 3584, 96
+    a = torch.full((M, K), a_code, dtype=torch.uint8, device=cuda_device)
+    w = torch.full((K // 2, N), 0x88, dtype=torch.uint8, device=cuda_device)
+    got = kernel.lutmul(a, w, a_signed=a_signed)
+    av = a_code - 16 if a_signed and a_code >= 8 else a_code
+    assert bool((got == K * -8 * av).all())
+    assert torch.equal(got, ref.lutmul_ref(a, w, a_signed))
+
+
+@pytest.mark.gpu
+def test_cuda_lutmul_uses_tensor_cores(cuda_device):
+    """Every instantiation of the LUT kernel (two tiles x three epilogues)
+    contracts on the int8 tensor cores: IMMA in its SASS."""
+    from repro_torch.kernels import build
+    counts = {f: n for f, n in build.sass_counts("lutmul", "IMMA").items()
+              if "lutmul_kernel" in f}
+    assert len(counts) == 6 and min(counts.values()) > 0, counts
+
+
 @pytest.mark.gpu
 def test_cuda_lut_workspace_left_zero(cuda_device):
     """The K-split LUT kernel is one launch: the last split block of each
     tile writes the output and re-zeroes the sums and arrival counters, so
-    the cached workspace serves the next call (another shape, another
-    stream) without clearing."""
+    the cached workspace serves the next call (another shape, either tile,
+    another stream) without clearing."""
     kernel.reset_launches()
     for i, (M, K, N) in enumerate([(8, 3584, 512), (5, 18944, 70),
-                                   (8, 3584, 512), (64, 1030, 96)]):
+                                   (8, 3584, 512), (64, 1030, 96),
+                                   (33, 3584, 17), (1568, 960, 160)]):
         a, w, _, _, a_s, w_s = (torch.from_numpy(v).to(cuda_device)
                                 for v in _inputs(M, K, N, seed=10 + i))
         assert torch.equal(kernel.lutmul(a, w), ref.lutmul_ref(a, w))
@@ -84,8 +150,8 @@ def test_cuda_lut_workspace_left_zero(cuda_device):
         got = kernel.lutmul(a, w)
     side.synchronize()
     assert torch.equal(got, ref.lutmul_ref(a, w))
-    assert kernel.LAUNCHES["lutmul"] == 5
-    assert kernel.LAUNCHES["lutmul_fused"] == 4
+    assert kernel.LAUNCHES["lutmul"] == 7
+    assert kernel.LAUNCHES["lutmul_fused"] == 6
     for ws in kernel._WORKSPACES.values():
         assert not ws.any()
 
@@ -370,7 +436,7 @@ def test_cuda_gather_matches_plain(cuda_device, M, K, N, a_signed):
                                    (524_280, 16, 24), (150_001, 96, 24)])
 def test_cuda_lutmul_unsigned_large_m(cuda_device, M, K, N):
     """Unsigned activation codes at the CNN's row counts (M = 401,408 is
-    b1_0_expand at batch 32), up to grid.y's last row tile."""
+    b1_0_expand at batch 32)."""
     g = torch.Generator(device=cuda_device).manual_seed(M)
     a = torch.randint(0, 16, (M, K), generator=g, device=cuda_device,
                       dtype=torch.uint8)
@@ -382,17 +448,23 @@ def test_cuda_lutmul_unsigned_large_m(cuda_device, M, K, N):
 
 @pytest.mark.gpu
 def test_cuda_row_limits_raise(cuda_device):
-    w = torch.zeros((8, 16), dtype=torch.uint8, device=cuda_device)
-    a = torch.zeros((524_281, 16), dtype=torch.uint8, device=cuda_device)
+    """The LUT kernel's row tiles ride grid.x: 524,281 rows (one past the
+    65,535 8-row tiles of grid.y) run in one launch and equal the plain
+    version; the gather baseline keeps its grid.y limit and raises."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    w = torch.randint(0, 256, (8, 16), generator=g, device=cuda_device,
+                      dtype=torch.uint8)
+    a = torch.randint(0, 16, (524_281, 16), generator=g, device=cuda_device,
+                      dtype=torch.uint8)
     kernel.reset_launches()
-    with pytest.raises(ValueError, match="524280"):
-        kernel.lutmul(a, w, a_signed=False)
+    assert torch.equal(kernel.lutmul(a, w, a_signed=False),
+                       ref.lutmul_ref(a, w, a_signed=False))
     assert kernel.lutmul_gather(a, w).shape == (524_281, 16)
     a = torch.zeros((32 * 65535 + 1, 16), dtype=torch.uint8,
                     device=cuda_device)
     with pytest.raises(ValueError, match="2097120"):
         kernel.lutmul_gather(a, w)
-    assert kernel.LAUNCHES["lutmul"] == 0
+    assert kernel.LAUNCHES["lutmul"] == 1
     assert kernel.LAUNCHES["lutmul_gather"] == 1
 
 
