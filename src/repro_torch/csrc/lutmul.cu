@@ -19,34 +19,40 @@
 // Bound on the H100: bytes.  The bitplane form does 4x the MACs of an int8
 // product, which the tensor cores still finish far under the time the
 // bytes take: at decode (M = 8) the K*N/2 weight bytes, at the CNN stages
-// the M*N*4 output bytes.  What the design does about it:
+// the M*N*4 output bytes.  Next to them come the lookups, one shared-memory
+// load per weight nibble: at decode about as many SM clocks as the weight
+// bytes take.  What the design does about it:
 //  * weight columns on the instruction's 16-row side and activation rows on
 //    its 8-column side (acc^T = TW^T . bits^T), so 8 decode rows fill the
-//    instruction;
+//    instruction and each lookup serves all the rows of a warp's tile;
 //  * each lane owns 4 adjacent columns (n = 32q + 4g + t for lane group g)
 //    and the k2 rows 4*tig + s of each 32-deep chunk (tig = lane % 4, step
 //    s = 0..3): one 4-byte load of the packed weights gives both nibbles
 //    of 4 columns, i.e. the A fragments of two m16 tiles for one step
-//    after 8 table lookups, and one 8-byte load of a row's codes gives its
-//    B fragments for all 4 steps ((x * 0x00204081) & 0x01010101 turns a
+//    after 8 lookups, and one 8-byte load of a row's codes gives its B
+//    fragments for all 4 steps ((x * 0x00204081) & 0x01010101 turns a
 //    nibble into its 4 bitplane bytes); the k order inside a chunk is the
 //    lanes', the same for both operands;
-//  * the lookups read the 16 words in shared memory: 16 distinct banks,
-//    no conflict; each one serves all the rows of the warp's tile;
+//  * a lookup is one PRMT and one shared load: the 16 words sit 256-byte
+//    aligned on 16 banks (no conflict), and the PRMT writes 4x the nibble
+//    into the low byte of the table's address;
 //  * the accumulator fragment holds, per row, the lane's 4 adjacent
 //    columns: one 16-byte store (8 for bf16) per row, 128 contiguous bytes
 //    per warp and row;
 //  * the weights go straight from device memory to registers (they are
 //    read once), the next chunk's loads issued before this one's math.
 //
-// Tiles by M: up to 16 rows (decode) a block is 8 warps over one 32-column,
-// 16-row tile, each warp a share of the K chunks, summed in shared memory;
-// above that (the CNN stages, M = 1,568 - 401,408 at K = 16 - 960) a block
-// is 4 warps of 32 rows x 64 columns.  Row tiles ride grid.x, so the rows
-// are not capped at 65,535 tiles.
+// Tiles by M, chosen by timing variants at the served shapes: up to 16 rows
+// (decode) a block is 8 warps over one 64-column, 8-row tile (two row tiles
+// for 9-16 rows), each warp a share of the K chunks, summed in shared
+// memory; above that (the CNN stages, M = 1,568 - 401,408 at K = 16 - 960)
+// a block is 4 warps of 16 rows x 32 columns.  Row tiles ride grid.x, so
+// the rows are not capped at 65,535 tiles.
 //
 // Hopper blocks run in no order and nothing carries across them.  When the
-// row and column tiles leave the card idle, K is split over grid.z: each
+// row and column tiles leave the card idle, K is split over grid.z (as far
+// as the blocks still fit in one wave: a second, partial wave costs more
+// than the split saves): each
 // split adds its partial sums into an int32 workspace with atomicAdd
 // (integer addition: order-free, exact), then counts itself in the tile's
 // arrival counter; the last block to arrive reads the sums back, re-zeroes
@@ -65,21 +71,24 @@ enum Epilogue { kInt32 = 0, kBf16 = 1, kF32 = 2 };
 enum Flags { kWVec = 1, kAVec = 2, kOVec = 4 };
 
 constexpr int KC = 32;   // k per chunk: 4 mma steps of 8 k (32 deep in k')
+constexpr int kDecodeRows = 16;   // the decode tile up to here, else tall
 
-// NG 32-column groups (2 m16 tiles each) and TM 8-row tiles per warp; WM
-// warps along rows, WK along K; TARGET blocks wanted before K is split.
-template <int NG_, int TM_, int WM_, int WK_, int MINB_, int TARGET_>
+// NG 32-column groups (2 m16 tiles each) and TM 8-row tiles per warp; WN
+// warps along columns, WM along rows, WK along K; DEPTH chunks in flight
+// per warp; MINB blocks per SM; TARGET blocks wanted before K is split.
+template <int NG_, int TM_, int WN_, int WM_, int WK_, int DEPTH_, int MINB_,
+          int TARGET_>
 struct Tile {
-  static constexpr int NG = NG_, TM = TM_, WM = WM_, WK = WK_;
-  static constexpr int MINB = MINB_, TARGET = TARGET_;
-  static constexpr int BN = 32 * NG;
+  static constexpr int NG = NG_, TM = TM_, WN = WN_, WM = WM_, WK = WK_;
+  static constexpr int DEPTH = DEPTH_, MINB = MINB_, TARGET = TARGET_;
+  static constexpr int BN = 32 * NG * WN;
   static constexpr int BM = 8 * TM * WM;
-  static constexpr int THREADS = 32 * WM * WK;
+  static constexpr int THREADS = 32 * WN * WM * WK;
   static constexpr int RED = WK > 1 ? WK * BM * BN : 4;
 };
 
-using Decode = Tile<1, 2, 1, 8, 4, 132 * 4>;   // M <= 16
-using Tall = Tile<2, 4, 4, 1, 4, 132>;         // M > 16
+using Decode = Tile<2, 1, 1, 1, 8, 2, 4, 132 * 4>;   // M <= kDecodeRows
+using Tall = Tile<1, 2, 1, 4, 1, 2, 8, 132 * 2>;      // M > kDecodeRows
 
 __device__ __forceinline__ void mma_s8(int32_t (&d)[4], uint32_t a0,
                                        uint32_t a1, uint32_t a2, uint32_t a3,
@@ -89,6 +98,17 @@ __device__ __forceinline__ void mma_s8(int32_t (&d)[4], uint32_t a0,
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// the selection word at byte offset (4 * code) = byte i of offs; the table
+// is 256-byte aligned in shared memory, so its address is s_base with the
+// low byte replaced (one PRMT)
+__device__ __forceinline__ uint32_t lookup(uint32_t s_base, uint32_t offs,
+                                          int i) {
+  const uint32_t addr = __byte_perm(offs, s_base, 0x7650 | i);
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(addr));
+  return v;
 }
 
 // the 4 bitplane bytes (bit b in byte b) of the code in byte i of x
@@ -180,7 +200,7 @@ lutmul_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ w,
               const float* __restrict__ w_scale, void* __restrict__ out,
               int32_t* __restrict__ acc_ws, unsigned* __restrict__ count,
               int M, int K, int N, int k_chunk, int flags) {
-  __shared__ uint32_t s_word[16];
+  __shared__ __align__(256) uint32_t s_word[16];
   __shared__ __align__(16) int32_t s_red[T::RED];   // [WK][BM][BN]
   __shared__ bool s_last;
 
@@ -189,11 +209,13 @@ lutmul_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ w,
   const int warp = tid >> 5;
   const int g = lane >> 2;
   const int tig = lane & 3;
-  const int wm = warp % T::WM;
-  const int wk = warp / T::WM;
+  const int wn = warp % T::WN;
+  const int wm = warp / T::WN % T::WM;
+  const int wk = warp / (T::WN * T::WM);
   const int bm0 = blockIdx.x * T::BM;           // the block's first row
   const int m0 = bm0 + wm * 8 * T::TM;          // the warp's first row
   const int n0 = blockIdx.y * T::BN;
+  const int nw = n0 + wn * 32 * T::NG;          // the warp's first column
   const int k_begin = blockIdx.z * k_chunk;
   const int k_end = min(K, k_begin + k_chunk);
   const int k2_end = k_end >> 1;                // K and k_chunk are even
@@ -201,6 +223,9 @@ lutmul_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ w,
   const bool avec = flags & kAVec;
 
   if (tid < 16) s_word[tid] = words[tid];
+  const uint32_t s_base =
+      static_cast<uint32_t>(__cvta_generic_to_shared(s_word));
+  if (s_base & 0xFFu) __trap();   // lookup() needs the 256-byte alignment
   __syncthreads();
 
   int32_t acc[T::TM][2 * T::NG][4];
@@ -211,12 +236,12 @@ lutmul_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ w,
 #pragma unroll
       for (int r = 0; r < 4; ++r) acc[j][i][r] = 0;
 
-  // chunk at kc: wv[q][s] = w[kc/2 + 4*tig + s, n0 + 32q + 4g .. +3],
+  // chunk at kc: wv[q][s] = w[kc/2 + 4*tig + s, nw + 32q + 4g .. +3],
   // av[j] = a[m0 + 8j + g, kc + 8*tig .. +7]; zero outside the matrices
   auto load = [&](int kc, uint32_t (&wv)[T::NG][4], uint2 (&av)[T::TM]) {
 #pragma unroll
     for (int q = 0; q < T::NG; ++q) {
-      const int n = n0 + 32 * q + 4 * g;
+      const int n = nw + 32 * q + 4 * g;
 #pragma unroll
       for (int s = 0; s < 4; ++s) {
         const int k2 = (kc >> 1) + 4 * tig + s;
@@ -266,21 +291,17 @@ lutmul_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ w,
   for (int j = 0; j < T::TM; ++j) row_ok[j] = m0 + 8 * j < M;
   bool col_ok[T::NG];
 #pragma unroll
-  for (int q = 0; q < T::NG; ++q) col_ok[q] = n0 + 32 * q < N;
+  for (int q = 0; q < T::NG; ++q) col_ok[q] = nw + 32 * q < N;
 
-  uint32_t wv[T::NG][4];
-  uint2 av[T::TM];
-  int kc = k_begin + wk * KC;
-  load(kc, wv, av);
-  for (; kc < k_end; kc += T::WK * KC) {
-    uint32_t wn[T::NG][4];
-    uint2 an[T::TM];
-    load(kc + T::WK * KC, wn, an);   // the next chunk's loads in flight
+  // one chunk on the tensor cores: 4 steps of k32 (8 k, 4 bitplanes each)
+  auto contract = [&](const uint32_t (&wv)[T::NG][4],
+                      const uint2 (&av)[T::TM]) {
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
       uint32_t b[T::TM][2];
 #pragma unroll
       for (int j = 0; j < T::TM; ++j) {
+        if (!row_ok[j]) continue;
         const uint32_t x = s < 2 ? av[j].x : av[j].y;
         b[j][0] = planes(x, 2 * (s & 1));
         b[j][1] = planes(x, 2 * (s & 1) + 1);
@@ -288,17 +309,17 @@ lutmul_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ w,
 #pragma unroll
       for (int q = 0; q < T::NG; ++q) {
         if (!col_ok[q]) continue;
-        const uint32_t x = wv[q][s];
+        // byte t: 4x the low / high nibble (k slot tig / tig+4) of column
+        // 4g + t
+        const uint32_t lo = (wv[q][s] << 2) & 0x3C3C3C3Cu;
+        const uint32_t hi = (wv[q][s] >> 2) & 0x3C3C3C3Cu;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          // tile 2q+h: rows g / g+8 are columns 4g + 2h / 4g + 2h + 1;
-          // k slots tig / tig+4 are the low / high nibbles of row k2
-          const uint32_t c0 = x >> (16 * h);
-          const uint32_t c1 = x >> (16 * h + 8);
-          const uint32_t a0 = s_word[c0 & 0xFu];
-          const uint32_t a1 = s_word[c1 & 0xFu];
-          const uint32_t a2 = s_word[(c0 >> 4) & 0xFu];
-          const uint32_t a3 = s_word[(c1 >> 4) & 0xFu];
+          // tile 2q+h: rows g / g+8 are columns 4g + 2h / 4g + 2h + 1
+          const uint32_t a0 = lookup(s_base, lo, 2 * h);
+          const uint32_t a1 = lookup(s_base, lo, 2 * h + 1);
+          const uint32_t a2 = lookup(s_base, hi, 2 * h);
+          const uint32_t a3 = lookup(s_base, hi, 2 * h + 1);
 #pragma unroll
           for (int j = 0; j < T::TM; ++j) {
             if (row_ok[j]) {
@@ -308,12 +329,26 @@ lutmul_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ w,
         }
       }
     }
+  };
+
+  // a ring of DEPTH chunks in registers: the warp's chunks are wk, wk + WK,
+  // ...; each slot's next load is issued as soon as it is contracted
+  constexpr int D = T::DEPTH;
+  const int step = T::WK * KC;
+  uint32_t wv[D][T::NG][4];
+  uint2 av[D][T::TM];
 #pragma unroll
-    for (int q = 0; q < T::NG; ++q)
+  for (int d = 0; d < D; ++d) {
+    load(k_begin + wk * KC + d * step, wv[d], av[d]);
+  }
+  for (int kc = k_begin + wk * KC; kc < k_end; kc += D * step) {
 #pragma unroll
-      for (int s = 0; s < 4; ++s) wv[q][s] = wn[q][s];
-#pragma unroll
-    for (int j = 0; j < T::TM; ++j) av[j] = an[j];
+    for (int d = 0; d < D; ++d) {
+      if (kc + d * step < k_end) {
+        contract(wv[d], av[d]);
+        load(kc + (d + D) * step, wv[d], av[d]);
+      }
+    }
   }
 
   // lane (g, tig) holds, for rows 8j + 2*tig + r, columns 32q + 4g .. +3:
@@ -331,7 +366,7 @@ lutmul_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ w,
                                 acc[j][2 * q + 1][r],
                                 acc[j][2 * q + 1][2 + r]};
           put4<EPI>(out, acc_ws, a_scale, w_scale, m0 + 8 * j + 2 * tig + r,
-                    n0 + 32 * q + 4 * g, M, N, v, split, ovec);
+                    nw + 32 * q + 4 * g, M, N, v, split, ovec);
         }
   } else {
 #pragma unroll
@@ -341,7 +376,7 @@ lutmul_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ w,
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int ml = wm * 8 * T::TM + 8 * j + 2 * tig + r;
-          const int nl = 32 * q + 4 * g;
+          const int nl = nw - n0 + 32 * q + 4 * g;
           *reinterpret_cast<int4*>(s_red + (wk * T::BM + ml) * T::BN + nl) =
               make_int4(acc[j][2 * q][r], acc[j][2 * q][2 + r],
                         acc[j][2 * q + 1][r], acc[j][2 * q + 1][2 + r]);
@@ -396,16 +431,16 @@ struct Geometry {
   int k_chunk;
 };
 
-// split K (in whole chunks, at least one per warp) until the grid has
-// about TARGET blocks
+// split K (in whole chunks, at least one per warp) while the grid stays
+// within TARGET blocks
 template <class T>
 Geometry geometry(int M, int K, int N) {
   const long long gx = (M + T::BM - 1) / T::BM;
   const long long gy = (N + T::BN - 1) / T::BN;
   const int chunks = (K + KC - 1) / KC;
   const long long tiles = gx * gy;
-  long long split = tiles < T::TARGET ? (T::TARGET + tiles - 1) / tiles : 1;
-  split = std::max(1LL, std::min(split, (long long)(chunks / T::WK)));
+  const long long split = std::max(
+      1LL, std::min(T::TARGET / tiles, (long long)(chunks / T::WK)));
   const int per = (int)((chunks + split - 1) / split);
   const int k_chunk = std::max(1, per) * KC;
   const int gz = std::max(1, (K + k_chunk - 1) / k_chunk);
@@ -436,7 +471,7 @@ template <int EPI>
 int dispatch(const uint8_t* a, const uint8_t* w, const uint32_t* words,
              const float* as, const float* ws, void* out, int32_t* work,
              int M, int K, int N, cudaStream_t s) {
-  if (M <= Decode::BM) {
+  if (M <= kDecodeRows) {
     return launch<Decode, EPI>(a, w, words, as, ws, out, work, M, K, N, s);
   }
   return launch<Tall, EPI>(a, w, words, as, ws, out, work, M, K, N, s);
@@ -454,7 +489,7 @@ long long tiles(int M, int N) {
 // the first call; every call leaves it zero.
 extern "C" long long lutmul_workspace_words(int M, int N) {
   return (long long)M * N
-         + (M <= Decode::BM ? tiles<Decode>(M, N) : tiles<Tall>(M, N));
+         + (M <= kDecodeRows ? tiles<Decode>(M, N) : tiles<Tall>(M, N));
 }
 
 // table: the int32 [16] selection words (core/lut.py contraction_words)
