@@ -4,8 +4,9 @@
     python3 scripts/lutmul_tiles.py                       # the source's tiles
     python3 scripts/lutmul_tiles.py '{"v1": ["Tile<...>", "Tile<...>"]}'
 
-Each variant names the ``Decode`` and ``Tall`` tile types (the template
-arguments of ``Tile`` in the source); the script compiles one copy of the
+Each variant names the ``Decode`` and ``Tall`` tile types, as
+``Tile<NG, TM, WM, WK, MINB, TARGET>`` (their meaning is in the source);
+the script compiles one copy of the
 source per variant into ``build/lutmul_tiles/`` (``nvcc`` in parallel, the
 flags of ``kernels/build.py``), holds every variant's int32 and bf16 outputs
 against the plain versions, and times the int32 entry point as
@@ -49,12 +50,12 @@ def compile_variants(variants: dict) -> dict:
         procs[name] = (so, subprocess.Popen(
             [build.nvcc_path(), *build.NVCC_FLAGS, "-o", so, cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = {name: proc.communicate()[0] for name, (_, proc) in procs.items()}
     libs = {}
     for name, (so, proc) in procs.items():
-        log, _ = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        regs = sorted({ln.split(":", 1)[1].strip() for ln in log.splitlines()
+            raise RuntimeError(f"nvcc failed for {name}:\n{logs[name]}")
+        regs = sorted({ln.strip() for ln in logs[name].splitlines()
                        if "registers" in ln or "spill stores" in ln})
         print(f"{name}: {regs}", flush=True)
         fn = ctypes.CDLL(so).lutmul_launch

@@ -73,22 +73,21 @@ enum Flags { kWVec = 1, kAVec = 2, kOVec = 4 };
 constexpr int KC = 32;   // k per chunk: 4 mma steps of 8 k (32 deep in k')
 constexpr int kDecodeRows = 16;   // the decode tile up to here, else tall
 
-// NG 32-column groups (2 m16 tiles each) and TM 8-row tiles per warp; WN
-// warps along columns, WM along rows, WK along K; DEPTH chunks in flight
-// per warp; MINB blocks per SM; TARGET blocks wanted before K is split.
-template <int NG_, int TM_, int WN_, int WM_, int WK_, int DEPTH_, int MINB_,
-          int TARGET_>
+// NG 32-column groups (2 m16 tiles each) and TM 8-row tiles per warp; WM
+// warps along rows, WK along K; MINB blocks per SM; at most TARGET blocks
+// once K is split.
+template <int NG_, int TM_, int WM_, int WK_, int MINB_, int TARGET_>
 struct Tile {
-  static constexpr int NG = NG_, TM = TM_, WN = WN_, WM = WM_, WK = WK_;
-  static constexpr int DEPTH = DEPTH_, MINB = MINB_, TARGET = TARGET_;
-  static constexpr int BN = 32 * NG * WN;
+  static constexpr int NG = NG_, TM = TM_, WM = WM_, WK = WK_;
+  static constexpr int MINB = MINB_, TARGET = TARGET_;
+  static constexpr int BN = 32 * NG;
   static constexpr int BM = 8 * TM * WM;
-  static constexpr int THREADS = 32 * WN * WM * WK;
+  static constexpr int THREADS = 32 * WM * WK;
   static constexpr int RED = WK > 1 ? WK * BM * BN : 4;
 };
 
-using Decode = Tile<2, 1, 1, 1, 8, 2, 4, 132 * 4>;   // M <= kDecodeRows
-using Tall = Tile<1, 2, 1, 4, 1, 2, 8, 132 * 2>;      // M > kDecodeRows
+using Decode = Tile<2, 1, 1, 8, 4, 132 * 4>;   // M <= kDecodeRows
+using Tall = Tile<1, 2, 4, 1, 8, 132 * 2>;      // M > kDecodeRows
 
 __device__ __forceinline__ void mma_s8(int32_t (&d)[4], uint32_t a0,
                                        uint32_t a1, uint32_t a2, uint32_t a3,
@@ -209,13 +208,11 @@ lutmul_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ w,
   const int warp = tid >> 5;
   const int g = lane >> 2;
   const int tig = lane & 3;
-  const int wn = warp % T::WN;
-  const int wm = warp / T::WN % T::WM;
-  const int wk = warp / (T::WN * T::WM);
+  const int wm = warp % T::WM;
+  const int wk = warp / T::WM;
   const int bm0 = blockIdx.x * T::BM;           // the block's first row
   const int m0 = bm0 + wm * 8 * T::TM;          // the warp's first row
   const int n0 = blockIdx.y * T::BN;
-  const int nw = n0 + wn * 32 * T::NG;          // the warp's first column
   const int k_begin = blockIdx.z * k_chunk;
   const int k_end = min(K, k_begin + k_chunk);
   const int k2_end = k_end >> 1;                // K and k_chunk are even
@@ -236,12 +233,12 @@ lutmul_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ w,
 #pragma unroll
       for (int r = 0; r < 4; ++r) acc[j][i][r] = 0;
 
-  // chunk at kc: wv[q][s] = w[kc/2 + 4*tig + s, nw + 32q + 4g .. +3],
+  // chunk at kc: wv[q][s] = w[kc/2 + 4*tig + s, n0 + 32q + 4g .. +3],
   // av[j] = a[m0 + 8j + g, kc + 8*tig .. +7]; zero outside the matrices
   auto load = [&](int kc, uint32_t (&wv)[T::NG][4], uint2 (&av)[T::TM]) {
 #pragma unroll
     for (int q = 0; q < T::NG; ++q) {
-      const int n = nw + 32 * q + 4 * g;
+      const int n = n0 + 32 * q + 4 * g;
 #pragma unroll
       for (int s = 0; s < 4; ++s) {
         const int k2 = (kc >> 1) + 4 * tig + s;
@@ -291,7 +288,7 @@ lutmul_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ w,
   for (int j = 0; j < T::TM; ++j) row_ok[j] = m0 + 8 * j < M;
   bool col_ok[T::NG];
 #pragma unroll
-  for (int q = 0; q < T::NG; ++q) col_ok[q] = nw + 32 * q < N;
+  for (int q = 0; q < T::NG; ++q) col_ok[q] = n0 + 32 * q < N;
 
   // one chunk on the tensor cores: 4 steps of k32 (8 k, 4 bitplanes each)
   auto contract = [&](const uint32_t (&wv)[T::NG][4],
@@ -331,9 +328,10 @@ lutmul_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ w,
     }
   };
 
-  // a ring of DEPTH chunks in registers: the warp's chunks are wk, wk + WK,
-  // ...; each slot's next load is issued as soon as it is contracted
-  constexpr int D = T::DEPTH;
+  // a ring of D chunks in registers: the warp's chunks are wk, wk + WK,
+  // ...; each slot's next load is issued as soon as it is contracted.
+  // Deeper rings spill at the decode tile's 64 registers and ran slower.
+  constexpr int D = 2;
   const int step = T::WK * KC;
   uint32_t wv[D][T::NG][4];
   uint2 av[D][T::TM];
@@ -366,7 +364,7 @@ lutmul_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ w,
                                 acc[j][2 * q + 1][r],
                                 acc[j][2 * q + 1][2 + r]};
           put4<EPI>(out, acc_ws, a_scale, w_scale, m0 + 8 * j + 2 * tig + r,
-                    nw + 32 * q + 4 * g, M, N, v, split, ovec);
+                    n0 + 32 * q + 4 * g, M, N, v, split, ovec);
         }
   } else {
 #pragma unroll
@@ -376,7 +374,7 @@ lutmul_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ w,
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int ml = wm * 8 * T::TM + 8 * j + 2 * tig + r;
-          const int nl = nw - n0 + 32 * q + 4 * g;
+          const int nl = 32 * q + 4 * g;
           *reinterpret_cast<int4*>(s_red + (wk * T::BM + ml) * T::BN + nl) =
               make_int4(acc[j][2 * q][r], acc[j][2 * q][2 + r],
                         acc[j][2 * q + 1][r], acc[j][2 * q + 1][2 + r]);
@@ -438,7 +436,7 @@ Geometry geometry(int M, int K, int N) {
   const long long gx = (M + T::BM - 1) / T::BM;
   const long long gy = (N + T::BN - 1) / T::BN;
   const int chunks = (K + KC - 1) / KC;
-  const long long tiles = gx * gy;
+  const long long tiles = std::max(1LL, gx * gy);
   const long long split = std::max(
       1LL, std::min(T::TARGET / tiles, (long long)(chunks / T::WK)));
   const int per = (int)((chunks + split - 1) / split);
@@ -478,8 +476,9 @@ int dispatch(const uint8_t* a, const uint8_t* w, const uint32_t* words,
 }
 
 template <class T>
-long long tiles(int M, int N) {
-  return (long long)((M + T::BM - 1) / T::BM) * ((N + T::BN - 1) / T::BN);
+long long workspace_words(int M, int N) {
+  const Geometry g = geometry<T>(M, 0, N);   // the tiles do not depend on K
+  return (long long)M * N + g.gx * g.gy;
 }
 
 }  // namespace
@@ -488,8 +487,8 @@ long long tiles(int M, int N) {
 // sums, then one arrival counter per output tile.  It must be zero before
 // the first call; every call leaves it zero.
 extern "C" long long lutmul_workspace_words(int M, int N) {
-  return (long long)M * N
-         + (M <= kDecodeRows ? tiles<Decode>(M, N) : tiles<Tall>(M, N));
+  return M <= kDecodeRows ? workspace_words<Decode>(M, N)
+                          : workspace_words<Tall>(M, N);
 }
 
 // table: the int32 [16] selection words (core/lut.py contraction_words)
