@@ -63,28 +63,27 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def _table(make, a_signed: bool, device) -> torch.Tensor:
+    """``make(a_signed=...)`` as an int32 tensor on ``device``, cached."""
+    key = (make.__name__, a_signed, str(device))
+    t = _TABLES.get(key)
+    if t is None:
+        t = torch.as_tensor(make(a_signed=a_signed), dtype=torch.int32,
+                            device=device).contiguous()
+        _TABLES[key] = t
+    return t
+
+
 def product_table(a_signed: bool, device) -> torch.Tensor:
     """[16, 16] int32 product table on ``device`` (cached): what
     ``csrc/lutmul_gather.cu`` looks up."""
-    key = (a_signed, str(device))
-    t = _TABLES.get(key)
-    if t is None:
-        t = torch.as_tensor(contraction_table(a_signed=a_signed),
-                            dtype=torch.int32, device=device).contiguous()
-        _TABLES[key] = t
-    return t
+    return _table(contraction_table, a_signed, device)
 
 
 def product_words(a_signed: bool, device) -> torch.Tensor:
     """int32 [16] selection words of the bitplane contraction on ``device``
     (cached): what ``csrc/lutmul.cu`` takes in place of the table."""
-    key = ("words", a_signed, str(device))
-    t = _TABLES.get(key)
-    if t is None:
-        t = torch.as_tensor(contraction_words(a_signed=a_signed),
-                            dtype=torch.int32, device=device).contiguous()
-        _TABLES[key] = t
-    return t
+    return _table(contraction_words, a_signed, device)
 
 
 def _entry(lib_name: str, fn_name: str, argtypes: list,
