@@ -6,7 +6,9 @@
 Phases (any failure raises and exits non-zero):
 
 1. device + build: the ``nvidia-smi`` name/power-limit line, then the five
-   CUDA sources compiled for sm_90a (one ``nvcc`` each, in parallel).
+   CUDA sources compiled for sm_90a (one ``nvcc`` each, in parallel), and
+   the int8 tensor-core instructions (``IMMA``) counted in the SASS of
+   every ``lutmul.cu`` and ``int_matmul.cu`` kernel.
 2. kernels: the entry points at the shapes the served models give them
    (M = 8 decode slots; M = 32 for the speculative verify forward), held
    against their plain versions on the card — int32 outputs exactly, fused
@@ -936,12 +938,13 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
-    imma = {f: n for f, n in build.sass_counts("lutmul", "IMMA").items()
-            if "lutmul_kernel" in f}
-    log(f"lutmul.cu SASS: IMMA instructions by kernel {json.dumps(imma)}")
-    if not imma or min(imma.values()) == 0:
-        raise AssertionError("a lutmul.cu kernel has no int8 tensor-core "
-                             "instruction (IMMA) in its SASS")
+    for src in ("lutmul", "int_matmul"):
+        imma = {f: n for f, n in build.sass_counts(src, "IMMA").items()
+                if f"{src}_kernel" in f}
+        log(f"{src}.cu SASS: IMMA instructions by kernel {json.dumps(imma)}")
+        if not imma or min(imma.values()) == 0:
+            raise AssertionError(f"a {src}.cu kernel has no int8 tensor-core "
+                                 "instruction (IMMA) in its SASS")
 
     bench = Bench(args.reps)
     for phase, fn in (("kernels", lambda: check_kernels(bench)),

@@ -31,15 +31,18 @@ sys.path.insert(0, os.path.join(REPO, "src"))
 sys.path.insert(0, REPO)
 
 
-def compile_variants(variants: dict) -> dict:
+def compile_variants(variants: dict, source: str = "lutmul",
+                     kinds: tuple = ("Decode", "Tall")) -> dict:
+    """{variant: loaded library} for ``csrc/<source>.cu`` with each
+    variant's tile types (``kinds``, in order) substituted."""
     from repro_torch.kernels import build
-    src = (build.CSRC / "lutmul.cu").read_text()
-    out_dir = os.path.join(REPO, "build", "lutmul_tiles")
+    src = (build.CSRC / f"{source}.cu").read_text()
+    out_dir = os.path.join(REPO, "build", f"{source}_tiles")
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
     for name, tiles in variants.items():
         text = src
-        for kind, tile in zip(("Decode", "Tall"), tiles or ()):
+        for kind, tile in zip(kinds, tiles or ()):
             text, n = re.subn(rf"using {kind} = Tile<[^;]*>;",
                               f"using {kind} = {tile};", text)
             assert n == 1, kind
@@ -58,10 +61,7 @@ def compile_variants(variants: dict) -> dict:
         regs = sorted({ln.strip() for ln in logs[name].splitlines()
                        if "registers" in ln or "spill stores" in ln})
         print(f"{name}: {regs}", flush=True)
-        fn = ctypes.CDLL(so).lutmul_launch
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p]
-        libs[name] = fn
+        libs[name] = ctypes.CDLL(so)
     return libs
 
 
@@ -79,7 +79,11 @@ def main() -> int:
         "source": None}
     reps = int(os.environ.get("REPS", "20"))
     print(smi_line(), flush=True)
-    libs = compile_variants(variants)
+    libs = {}
+    for name, lib in compile_variants(variants).items():
+        libs[name] = lib.lutmul_launch
+        libs[name].argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
     dev = torch.device("cuda")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)

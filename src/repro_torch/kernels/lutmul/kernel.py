@@ -15,8 +15,10 @@ Seven entry points, each with a plain launch counter in ``LAUNCHES``:
   int32 sums, one serial gather per product from the flat 256-entry table
   (the A/B baseline, not tuned).
 * ``int_matmul`` / ``int_matmul_fused`` replace ``int_matmul_pallas`` and
-  ``int_matmul_fused_pallas`` (``:332`` and ``:483``): int8 x int8 -> int32,
-  with the same optional epilogue.
+  ``int_matmul_fused_pallas`` (``:332`` and ``:483``): int8 x int8 -> int32
+  on the int8 tensor cores, one block over up to 32 rows (each weight byte
+  read once at decode and verify), with the same optional epilogue and the
+  LUT kernel's one-launch K split.
 * ``lutmul_tmac`` / ``lutmul_tmac_fused`` replace ``lutmul_tmac_pallas``
   and ``lutmul_tmac_fused_pallas`` (``:289`` and ``:430``): int8 activation
   codes against packed weight bitplanes ``[P, K//8, N]``,
@@ -188,12 +190,13 @@ def _int_launch(a, w, a_scale, w_scale, out, epi: int, name: str) -> None:
     N = w.shape[1]
     if M == 0 or N == 0:
         return
-    fn = _entry("int_matmul", "int_matmul_launch", _launch_args(5))
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    work = _workspace("int_matmul", M, N, a.device, stream)
+    fn = _entry("int_matmul", "int_matmul_launch", _launch_args(6))
     code = fn(a.data_ptr(), w.data_ptr(),
               a_scale.data_ptr() if a_scale is not None else None,
               w_scale.data_ptr() if w_scale is not None else None,
-              out.data_ptr(), M, K, N, epi,
-              torch.cuda.current_stream(a.device).cuda_stream)
+              out.data_ptr(), work.data_ptr(), M, K, N, epi, stream)
     _raise_on(code, name)
     LAUNCHES[name] += 1
 

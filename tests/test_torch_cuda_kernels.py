@@ -156,6 +156,103 @@ def test_cuda_lut_workspace_left_zero(cuda_device):
         assert not ws.any()
 
 
+# the int8 kernel: its one-row-tile (M <= 8) and 32-row blocks, ragged
+# shapes (byte loads) and multiples of 16 (16-byte cp.async), K split or not
+INT_M = [1, 7, 8, 9, 16, 31, 32, 33, 64, 1568]
+INT_K = [2, 30, 130, 1024, 1030, 3584]
+INT_N = [1, 3, 17, 129, 512, 1000]
+
+
+def _int_equal(a8, w8, a_s, w_s):
+    """int32 exactly and both fused outputs bitwise, against the plain
+    versions."""
+    assert torch.equal(kernel.int_matmul(a8, w8), ref.int_matmul_ref(a8, w8))
+    for dt, bits in ((torch.bfloat16, torch.int16),
+                     (torch.float32, torch.int32)):
+        got = kernel.int_matmul_fused(a8, w8, a_s, w_s, out_dtype=dt)
+        want = ref.scaled_int_matmul_ref(a8, w8, a_s, w_s, out_dtype=dt)
+        assert torch.equal(got.view(bits), want.view(bits))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", INT_N)
+@pytest.mark.parametrize("K", INT_K)
+@pytest.mark.parametrize("M", INT_M)
+def test_cuda_int_matmul_grid_matches_plain(cuda_device, M, K, N):
+    _, _, a8, w8, a_s, w_s = (torch.from_numpy(v).to(cuda_device)
+                              for v in _inputs(M, K, N, seed=M * K + N))
+    kernel.reset_launches()
+    _int_equal(a8, w8, a_s, w_s)
+    assert kernel.LAUNCHES["int_matmul"] == 1
+    assert kernel.LAUNCHES["int_matmul_fused"] == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [8, 32])
+@pytest.mark.parametrize("w_code", [-128, 127])
+def test_cuda_int_matmul_extreme_codes(cuda_device, M, w_code):
+    """Activation code -128 against weight code -128 or 127 everywhere,
+    summed over K = 3584: |acc| = 58.7 M, exact in int32."""
+    K, N = 3584, 272
+    a = torch.full((M, K), -128, dtype=torch.int8, device=cuda_device)
+    w = torch.full((K, N), w_code, dtype=torch.int8, device=cuda_device)
+    got = kernel.int_matmul(a, w)
+    assert bool((got == K * -128 * w_code).all())
+    assert torch.equal(got, ref.int_matmul_ref(a, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(8, 3584, 512), (32, 1024, 96),
+                                   (9, 64, 40)])
+def test_cuda_int_matmul_unaligned_views(cuda_device, M, K, N):
+    """Views at odd byte offsets (w, a, both) take the byte loads."""
+    _, _, a8, w8, a_s, w_s = (torch.from_numpy(v).to(cuda_device)
+                              for v in _inputs(M, K, N, seed=K + N))
+    for a_off, w_off in ((0, 1), (3, 0), (5, 7)):
+        a_v = torch.empty(a8.numel() + a_off, dtype=torch.int8,
+                          device=cuda_device)[a_off:].view(M, K)
+        a_v.copy_(a8)
+        w_v = torch.empty(w8.numel() + w_off, dtype=torch.int8,
+                          device=cuda_device)[w_off:].view(K, N)
+        w_v.copy_(w8)
+        _int_equal(a_v, w_v, a_s, w_s)
+
+
+@pytest.mark.gpu
+def test_cuda_int_workspace_left_zero(cuda_device):
+    """The K-split int8 kernel is one launch whose last split block of each
+    tile re-zeroes the sums and arrival counters: the cached workspace
+    serves the next call (another shape, either block, another stream)
+    without clearing."""
+    kernel.reset_launches()
+    for i, (M, K, N) in enumerate([(8, 3200, 32000), (32, 3584, 512),
+                                   (5, 18944, 70), (8, 3584, 512),
+                                   (1568, 3584, 1000), (33, 1030, 17)]):
+        _, _, a8, w8, a_s, w_s = (torch.from_numpy(v).to(cuda_device)
+                                  for v in _inputs(M, K, N, seed=20 + i))
+        _int_equal(a8, w8, a_s, w_s)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = kernel.int_matmul(a8, w8)
+    side.synchronize()
+    assert torch.equal(got, ref.int_matmul_ref(a8, w8))
+    assert kernel.LAUNCHES["int_matmul"] == 7
+    assert kernel.LAUNCHES["int_matmul_fused"] == 12
+    for key, ws in kernel._WORKSPACES.items():
+        assert not ws.any(), key
+
+
+@pytest.mark.gpu
+def test_cuda_int_matmul_uses_tensor_cores(cuda_device):
+    """Every instantiation of the int8 kernel (two blocks x three
+    epilogues) contracts on the int8 tensor cores: IMMA in its SASS."""
+    from repro_torch.kernels import build
+    counts = {f: n for f, n in build.sass_counts("int_matmul", "IMMA").items()
+              if "int_matmul_kernel" in f}
+    assert len(counts) == 6 and min(counts.values()) > 0, counts
+
+
 @pytest.mark.gpu
 def test_cuda_wrappers_reject_bad_inputs(cuda_device):
     a = torch.zeros((4, 8), dtype=torch.uint8, device=cuda_device)
