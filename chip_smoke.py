@@ -8,7 +8,7 @@ Phases (any failure raises and exits non-zero):
 1. device + build: the ``nvidia-smi`` name/power-limit line, then the five
    CUDA sources compiled for sm_90a (one ``nvcc`` each, in parallel), and
    the int8 tensor-core instructions (``IMMA``) counted in the SASS of
-   every ``lutmul.cu`` and ``int_matmul.cu`` kernel.
+   every ``lutmul.cu``, ``int_matmul.cu`` and ``lutmul_tmac.cu`` kernel.
 2. kernels: the entry points at the shapes the served models give them
    (M = 8 decode slots; M = 32 for the speculative verify forward), held
    against their plain versions on the card — int32 outputs exactly, fused
@@ -938,9 +938,11 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
-    for src in ("lutmul", "int_matmul"):
+    for src, kern in (("lutmul", "lutmul_kernel"),
+                      ("int_matmul", "int_matmul_kernel"),
+                      ("lutmul_tmac", "tmac_kernel")):
         imma = {f: n for f, n in build.sass_counts(src, "IMMA").items()
-                if f"{src}_kernel" in f}
+                if kern in f}
         log(f"{src}.cu SASS: IMMA instructions by kernel {json.dumps(imma)}")
         if not imma or min(imma.values()) == 0:
             raise AssertionError(f"a {src}.cu kernel has no int8 tensor-core "

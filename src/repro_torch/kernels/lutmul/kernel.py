@@ -22,8 +22,12 @@ Seven entry points, each with a plain launch counter in ``LAUNCHES``:
 * ``lutmul_tmac`` / ``lutmul_tmac_fused`` replace ``lutmul_tmac_pallas``
   and ``lutmul_tmac_fused_pallas`` (``:289`` and ``:430``): int8 activation
   codes against packed weight bitplanes ``[P, K//8, N]``,
-  ``sum_b coeff_b * (a . plane_b) + const * sum_k a``, with g = 2
-  partial-sum tables for a4 activations and g = 1 for a8.
+  ``sum_b coeff_b * (a . plane_b) + const * sum_k a``: each block decodes
+  the planes into the int8 weight codes in registers (``ref.tmac_words``
+  is that decode on the CPU) and contracts them once on the int8 tensor
+  cores, one block over up to 32 rows (each plane byte read once at decode
+  and verify).  ``g`` (2 for a4, 1 for a8: the reference's table width) is
+  validated and leaves the sums unchanged.
 
 Bound on the H100 at decode (M = 8): the weight bytes over 3.35 TB/s (the
 545 MB qwen2-7b int8 head: 0.16 ms; a LUT projection's K*N/2 bytes); at the
@@ -211,12 +215,6 @@ def _tmac_shapes(a_q, w_planes) -> tuple[int, int, int, int]:
     return M, K, N, P
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """The tmac kernel reads 8 and 4 bytes at a time: a tensor whose data
-    does not start on a 16-byte boundary (a view at an offset) is copied."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def _tmac_launch(a_q, w_planes, wbits, g: int, a_scale, w_scale, out,
                  epi: int, name: str) -> None:
     M, K, N, P = _tmac_shapes(a_q, w_planes)
@@ -228,7 +226,6 @@ def _tmac_launch(a_q, w_planes, wbits, g: int, a_scale, w_scale, out,
         raise ValueError(f"tmac group size g must be 1 or 2, got {g}")
     if M == 0 or N == 0:
         return
-    a_q, w_planes = _aligned(a_q), _aligned(w_planes)
     stream = torch.cuda.current_stream(a_q.device).cuda_stream
     work = _workspace("lutmul_tmac", M, N, a_q.device, stream)
     fn = _entry("lutmul_tmac", "lutmul_tmac_launch",
@@ -247,8 +244,10 @@ def _tmac_launch(a_q, w_planes, wbits, g: int, a_scale, w_scale, out,
 def lutmul_tmac(a_q: torch.Tensor, w_planes: torch.Tensor, wbits, *,
                 g: int = 2) -> torch.Tensor:
     """a_q [M, K] int8 signed codes, w_planes [P, K//8, N] uint8 packed
-    bitplanes of spec ``wbits`` -> int32 [M, N].  ``g = 2`` (the a4 tables)
-    needs codes in [-8, 7]: its pair sums are int8."""
+    bitplanes of spec ``wbits`` -> int32 [M, N].  ``g`` (1 or 2) is the
+    reference's table width: the kernel checks it, the sums do not depend
+    on it (``ops.lutmul_tmac`` keeps the reference's a4-only rule for
+    g = 2)."""
     if a_q.device.type == "cpu":
         return ref.tmac_ref(a_q, w_planes, wbits)
     dev = a_q.device

@@ -5,11 +5,13 @@ int32 matmul, so the integer products are taken in float64 and cast back:
 exact while ``|acc| < 2^53`` (float32 is not: the int8 head reaches
 ``128 * 128 * 3584 > 2^24``).
 
-The T-MAC bitplane product has two plain forms: ``lutmul_tmac_ref``, the
+The T-MAC bitplane product has three plain forms: ``lutmul_tmac_ref``, the
 faithful group-table gather (the paper's and T-MAC's lookup, as the
-reference's oracle builds it), and ``tmac_ref``, the decoded-plane
+reference's oracle builds it); ``tmac_ref``, the decoded-plane
 contraction (the reference's ``ref`` backend), which the kernel wrappers
-and the serving path use.  They give the same integers.
+and the serving path use; and ``tmac_words_ref``, the CUDA kernel's own
+word-level decode (``tmac_words``) and contraction, step by step.  They
+give the same integers.
 """
 from __future__ import annotations
 
@@ -102,6 +104,101 @@ def tmac_ref(a_q: torch.Tensor, w_planes: torch.Tensor,
     [M, N] — the same integers as :func:`lutmul_tmac_ref` for any g."""
     return _exact_matmul(a_q, decode_planes(unpack_bitplanes(w_planes),
                                             wbits))
+
+
+_U32 = 0xFFFFFFFF
+
+
+def _byte_perm(x: torch.Tensor, y: torch.Tensor, sel: int) -> torch.Tensor:
+    """CUDA's ``__byte_perm`` on uint32 words: byte i of the result is byte
+    ``(sel >> 4i) & 7`` of the 8 bytes (x low, y high)."""
+    v = x | (y << 32)
+    out = torch.zeros_like(x)
+    for i in range(4):
+        out |= ((v >> (8 * ((sel >> (4 * i)) & 7))) & 0xFF) << (8 * i)
+    return out
+
+
+def _swap_bits(x: torch.Tensor, y: torch.Tensor, d: int, mask: int):
+    """Swap the bits of x under ``mask`` with those of y under ``mask >> d``."""
+    t = (x ^ ((y << d) & _U32)) & mask
+    return x ^ t, y ^ (t >> d)
+
+
+def tmac_shift(wbits) -> int:
+    """How far the tmac kernel's A bytes shift each weight code up: 8 less
+    its two's-complement bit slots (P for the int widths, 2 for ternary
+    and w1), so the top slot is the byte's sign bit."""
+    n_planes, _, _ = plane_decomposition(wbits)
+    return 8 - (n_planes if wbits not in ("ternary", 1) else 2)
+
+
+def tmac_words(w_planes: torch.Tensor, wbits) -> torch.Tensor:
+    """The CUDA tmac kernel's in-register decode (``csrc/lutmul_tmac.cu``
+    ``decode``), word for word: packed planes [P, K//8, N] -> int32 A words
+    [K//8, N, 2].  Word (j, n, h) is the A register of column n that lane
+    ``tig = j % 4`` feeds the 32-deep step ``j // 4`` in its k slots
+    ``16h + 4*tig .. +3``: byte i is the weight code at k = 8j + 4h + i,
+    shifted up by :func:`tmac_shift` (an int8 byte).
+
+    Each lane takes 4 adjacent columns: one uint32 word per plane (byte c =
+    column c's plane byte).  The spec's map makes two's-complement bit
+    slots, top-aligned in each nibble (ternary ``p0 - p1`` is the code
+    ``(p1 & ~p0, p0 ^ p1)``, w1's ``2p - 1`` the code ``(~p, 1)``); two
+    delta-swap rounds transpose (slot, k) inside every nibble; a 4 x 4 byte
+    transpose gives each column one word; its high nibbles and its low
+    nibbles shifted up are the two A registers.  The uint32 words are held
+    in int64 tensors so that right shifts are logical, as in CUDA."""
+    n_planes, _, _ = plane_decomposition(wbits)
+    P, KB, N = w_planes.shape
+    if P != n_planes:
+        raise ValueError(f"w_planes has {P} planes, wbits={wbits!r} has "
+                         f"{n_planes}")
+    n4 = -(-N // 4)
+    w = torch.zeros((P, KB, 4 * n4), dtype=torch.int64,
+                    device=w_planes.device)
+    w[..., :N] = w_planes.to(torch.int64)
+    w = w.reshape(P, KB, n4, 4)
+    words = sum(w[..., c] << (8 * c) for c in range(4))      # [P, KB, n4]
+    zero = torch.zeros_like(words[0])
+    s = [zero] * 4
+    if wbits == "ternary":
+        s[2] = words[0] ^ words[1]
+        s[3] = words[1] & ~words[0] & _U32
+    elif wbits == 1:
+        s[2] = zero | _U32
+        s[3] = ~words[0] & _U32
+    else:
+        for p in range(P):
+            s[4 - P + p] = words[p]
+    s[0], s[2] = _swap_bits(s[0], s[2], 2, 0xCCCCCCCC)
+    s[1], s[3] = _swap_bits(s[1], s[3], 2, 0xCCCCCCCC)
+    s[0], s[1] = _swap_bits(s[0], s[1], 1, 0xAAAAAAAA)
+    s[2], s[3] = _swap_bits(s[2], s[3], 1, 0xAAAAAAAA)
+    lo01 = _byte_perm(s[0], s[1], 0x5140)
+    lo23 = _byte_perm(s[2], s[3], 0x5140)
+    hi01 = _byte_perm(s[0], s[1], 0x7362)
+    hi23 = _byte_perm(s[2], s[3], 0x7362)
+    t = [_byte_perm(lo01, lo23, 0x5410), _byte_perm(lo01, lo23, 0x7632),
+         _byte_perm(hi01, hi23, 0x5410), _byte_perm(hi01, hi23, 0x7632)]
+    q = torch.stack([torch.stack([(tc << 4) & 0xF0F0F0F0, tc & 0xF0F0F0F0],
+                                 dim=-1) for tc in t], dim=2)  # [KB,n4,4,2]
+    q = q.reshape(KB, 4 * n4, 2)[:, :N]
+    return torch.where(q >= 1 << 31, q - (1 << 32), q).to(torch.int32)
+
+
+def tmac_words_ref(a_q: torch.Tensor, w_planes: torch.Tensor,
+                   wbits) -> torch.Tensor:
+    """The contraction the CUDA tmac kernel runs on :func:`tmac_words`:
+    int8 A bytes (codes shifted up) against the activation codes, exact,
+    then shifted back down.  int32 [M, N], equal to :func:`tmac_ref`."""
+    q = tmac_words(w_planes, wbits).to(torch.int64) & _U32     # [KB, N, 2]
+    KB, N, _ = q.shape
+    u8 = (q[..., None] >> (8 * torch.arange(4, device=q.device))) & 0xFF
+    w = u8 - ((u8 >= 128).to(torch.int64) << 8)               # [KB,N,2,4]
+    w = w.permute(0, 2, 3, 1).reshape(8 * KB, N)      # k = 8j + 4h + i
+    acc = (a_q.to(torch.float64) @ w.to(torch.float64)).to(torch.int64)
+    return (acc >> tmac_shift(wbits)).to(torch.int32)
 
 
 def int_matmul_ref(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

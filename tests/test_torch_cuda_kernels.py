@@ -381,7 +381,7 @@ def test_cuda_tmac_workspace_left_zero(cuda_device):
 
 @pytest.mark.gpu
 def test_cuda_tmac_unaligned_views(cuda_device):
-    """A view at an odd offset is copied before the 8- and 4-byte loads."""
+    """A view at an odd offset takes the byte loads (no 16-byte cp.async)."""
     a, planes, _, _ = (torch.from_numpy(v).to(cuda_device) for v in
                        _tmac_inputs(9, 64, 40, 3, 4, seed=3))
     a_off = torch.empty(a.numel() + 1, dtype=torch.int8,
@@ -392,6 +392,128 @@ def test_cuda_tmac_unaligned_views(cuda_device):
     p_off.copy_(planes)
     assert torch.equal(kernel.lutmul_tmac(a_off, p_off, 3),
                        ref.tmac_ref(a, planes, 3))
+
+
+# the tmac kernel on the tensor cores: its one-row-tile (M <= 8) and
+# 32-row blocks, ragged N (byte loads), K % 32 != 0, every spec (w1 with its
+# const), K split or not
+TMAC_M = [1, 8, 9, 31, 32, 33, 64]
+TMAC_KN = [(40, 20), (72, 17), (136, 128), (264, 3), (1032, 40),
+           (3584, 512)]
+TMAC_SPECS = [1, "ternary", 2, 3, 4]
+
+
+def _tmac_equal(a, planes, spec, a_s, w_s, g):
+    """int32 exactly and both fused outputs bitwise, against the plain
+    versions."""
+    assert torch.equal(kernel.lutmul_tmac(a, planes, spec, g=g),
+                       ref.tmac_ref(a, planes, spec))
+    for dt, bits in ((torch.bfloat16, torch.int16),
+                     (torch.float32, torch.int32)):
+        got = kernel.lutmul_tmac_fused(a, planes, spec, a_s, w_s, g=g,
+                                       out_dtype=dt)
+        want = ref.scaled_tmac_ref(a, planes, spec, a_s, w_s, out_dtype=dt)
+        assert torch.equal(got.view(bits), want.view(bits))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", TMAC_SPECS)
+@pytest.mark.parametrize("K,N", TMAC_KN)
+@pytest.mark.parametrize("M", TMAC_M)
+def test_cuda_tmac_grid_matches_plain(cuda_device, M, K, N, spec):
+    kernel.reset_launches()
+    for abits in (4, 8):
+        a, planes, a_s, w_s = (torch.from_numpy(v).to(cuda_device) for v in
+                               _tmac_inputs(M, K, N, spec, abits,
+                                            seed=M * K + N + abits))
+        _tmac_equal(a, planes, spec, a_s, w_s, ops.tmac_group_size(abits))
+    assert kernel.LAUNCHES["lutmul_tmac"] == 2
+    assert kernel.LAUNCHES["lutmul_tmac_fused"] == 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", TMAC_SPECS)
+@pytest.mark.parametrize("M", [8, 32])
+@pytest.mark.parametrize("abits", [4, 8])
+def test_cuda_tmac_extreme_codes(cuda_device, spec, M, abits):
+    """All-ones planes (w = -1 for every int width, 0 for ternary, 1 for
+    w1) against the most negative activation code, summed over K = 3584."""
+    K, N = 3584, 272
+    P = plane_decomposition(spec)[0]
+    lo = -(1 << (abits - 1))
+    a = torch.full((M, K), lo, dtype=torch.int8, device=cuda_device)
+    planes = torch.full((P, K // 8, N), 255, dtype=torch.uint8,
+                        device=cuda_device)
+    w = {1: 1, "ternary": 0}.get(spec, -1)
+    got = kernel.lutmul_tmac(a, planes, spec)
+    assert bool((got == K * lo * w).all())
+    assert torch.equal(got, ref.tmac_ref(a, planes, spec))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("keep", [2, 3])
+@pytest.mark.parametrize("M", [8, 32])
+def test_cuda_tmac_drafter_view_no_copy(cuda_device, keep, M):
+    """The drafter's top planes are a view at an offset of the target's
+    stack; at a served shape it is 16-byte aligned and the kernel reads it
+    in place: each call allocates its output and nothing else."""
+    K, N = 3584, 512
+    a, planes, a_s, w_s = (torch.from_numpy(v).to(cuda_device) for v in
+                           _tmac_inputs(M, K, N, 4, 4, seed=keep))
+    view, kspec, _ = ops.truncate_planes(planes, 4, keep)
+    assert view.data_ptr() == planes.data_ptr() + (4 - keep) * K // 8 * N
+    assert view.data_ptr() % 16 == 0
+    want = ref.tmac_ref(a, view, kspec)
+    want_bf = ref.scaled_tmac_ref(a, view, kspec, a_s, w_s,
+                                  out_dtype=torch.bfloat16)
+    kernel.lutmul_tmac(a, view, kspec)            # the workspace, cached
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    got = kernel.lutmul_tmac(a, view, kspec)
+    got_bf = kernel.lutmul_tmac_fused(a, view, kspec, a_s, w_s)
+    after = torch.cuda.memory_stats()["allocation.all.allocated"]
+    assert after - before == 2
+    assert torch.equal(got, want)
+    assert torch.equal(got_bf.view(torch.int16), want_bf.view(torch.int16))
+
+
+@pytest.mark.gpu
+def test_cuda_tmac_workspace_left_zero_32_row_tiles(cuda_device):
+    """The workspace geometry of both blocks (8 and 32 rows): split and
+    unsplit calls of every spec leave the sums and the arrival counters
+    zero, so the next call (another shape, block or stream) is right."""
+    kernel.reset_launches()
+    calls = [(32, 3584, 512, 4, 4), (8, 18944, 3584, 2, 4),
+             (64, 1032, 96, "ternary", 8), (33, 3584, 17, 1, 4),
+             (1, 72, 40, 3, 8), (9, 3200, 8640, "ternary", 8),
+             (32, 18944, 3584, 4, 4)]
+    for i, (M, K, N, spec, abits) in enumerate(calls):
+        a, planes, a_s, w_s = (torch.from_numpy(v).to(cuda_device) for v in
+                               _tmac_inputs(M, K, N, spec, abits, seed=40 + i))
+        _tmac_equal(a, planes, spec, a_s, w_s, ops.tmac_group_size(abits))
+        for key, ws in kernel._WORKSPACES.items():
+            assert not ws.any(), (key, M, K, N)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = kernel.lutmul_tmac(a, planes, spec)
+    side.synchronize()
+    assert torch.equal(got, ref.tmac_ref(a, planes, spec))
+    assert kernel.LAUNCHES["lutmul_tmac"] == 8
+    assert kernel.LAUNCHES["lutmul_tmac_fused"] == 14
+    for key, ws in kernel._WORKSPACES.items():
+        assert not ws.any(), key
+
+
+@pytest.mark.gpu
+def test_cuda_tmac_uses_tensor_cores(cuda_device):
+    """Every instantiation of the tmac kernel (five specs x two blocks x
+    three epilogues) contracts on the int8 tensor cores: IMMA in its
+    SASS."""
+    from repro_torch.kernels import build
+    counts = {f: n for f, n in build.sass_counts("lutmul_tmac", "IMMA")
+              .items() if "tmac_kernel" in f}
+    assert len(counts) == 30 and min(counts.values()) > 0, counts
 
 
 @pytest.mark.gpu
