@@ -5,7 +5,8 @@
 
 Phases (any failure raises and exits non-zero):
 
-1. device + build: the ``nvidia-smi`` name/power-limit line, then the five
+1. device + build: the ``nvidia-smi`` name/power-limit line and the SM
+   clock's maximum, then the five
    CUDA sources compiled for sm_90a (one ``nvcc`` each, in parallel), and
    the int8 tensor-core instructions (``IMMA``) counted in the SASS of
    every ``lutmul.cu``, ``int_matmul.cu`` and ``lutmul_tmac.cu`` kernel.
@@ -43,7 +44,9 @@ Phases (any failure raises and exits non-zero):
    kernel (34 + 34 launches), codes equal to the plain versions and within
    one code of the float reference, and a gather pass through the gather
    baseline (34 launches, the same codes); the threshold, gather and LUT
-   kernels timed at every stage's shape.
+   kernels timed at every stage's shape; each gather group also records
+   its products and its gather floor (one shared-memory table read per
+   product at 32 a clock per SM, at the card's maximum SM clock).
 6. the script's total time, the ``kernels`` JSON line, the ``nvidia-smi``
    line, and last the ``{"ok": true, ...}`` line.
 
@@ -111,12 +114,24 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def smi_line() -> str:
+def smi_line(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()
     return out[0]
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock (``nvidia-smi`` clocks.max.sm)."""
+    return float(smi_line("clocks.max.sm").split()[0]) * 1e6
+
+
+def gather_floor_ms(products: int, sm_hz: float) -> float:
+    """Least time of ``products`` table reads from shared memory: 32 words
+    a clock on each SM."""
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return products / (sms * 32 * sm_hz) * 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -187,9 +202,10 @@ class Bench:
     """Kernel records: each entry point's shape groups, every shape held
     against its plain version (int32 exactly, floats bitwise) and timed."""
 
-    def __init__(self, reps: int):
+    def __init__(self, reps: int, sm_hz: float):
         import torch
         self.reps = reps
+        self.sm_hz = sm_hz
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
         self.recs = {name: {"name": name, "route": "cuda",
                             "source": CSRC + src, "replaces": rep,
@@ -255,16 +271,26 @@ class Bench:
                                            if s["library_note"]), None)
                 gr["bound_by"] = "bytes" if all(s["bound_by"] == "bytes"
                                                 for s in sh) else "operations"
+                floor = ""
+                if r["name"] == "lutmul_gather":
+                    gr["products"] = sum(s["M"] * s["K"] * s["N"]
+                                         for s in sh)
+                    gr["gather_floor_ms"] = gather_floor_ms(gr["products"],
+                                                            self.sm_hz)
+                    floor = (f" products {gr['products']} gather floor "
+                             f"{gr['gather_floor_ms']:.4f}")
                 log(f"kernel {r['name']} [{group}]: max|diff| "
                     f"{gr['max_abs_err']} ms {gr['ms']:.4f} plain "
                     f"{gr['plain_ms']:.3f} bound {gr['bound_ms']:.4f} "
-                    f"library {gr['library_ms']}")
+                    f"library {gr['library_ms']}{floor}")
             main = r["groups"].get(r["main_group"])
             if main is None:
                 continue
             for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                        "bound_by", "library_ms", "library_note"):
-                r[key] = main[key]
+                        "bound_by", "library_ms", "library_note", "products",
+                        "gather_floor_ms"):
+                if key in main:
+                    r[key] = main[key]
             r["max_abs_err"] = max(gr["max_abs_err"]
                                    for gr in r["groups"].values())
         return {n: r for n, r in self.recs.items() if "ms" in r}
@@ -929,8 +955,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
-    log(f"device: {smi} | torch {torch.__version__} cuda "
-        f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
+    sm_hz = sm_clock_hz()
+    log(f"device: {smi} | max SM clock {sm_hz / 1e6:.0f} MHz | torch "
+        f"{torch.__version__} cuda {torch.version.cuda} | "
+        f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     logs = build.build_all()
     log(f"build: {time.perf_counter() - t0:.1f}s for {len(logs)} sources")
@@ -948,7 +976,7 @@ def main() -> int:
             raise AssertionError(f"a {src}.cu kernel has no int8 tensor-core "
                                  "instruction (IMMA) in its SASS")
 
-    bench = Bench(args.reps)
+    bench = Bench(args.reps, sm_hz)
     for phase, fn in (("kernels", lambda: check_kernels(bench)),
                       ("qwen", lambda: run_qwen(args.layers, args.profile)),
                       ("bitnet", lambda: run_bitnet(args.layers)),

@@ -12,8 +12,10 @@ Seven entry points, each with a plain launch counter in ``LAUNCHES``:
   (``ref.lutmul_bitplane_ref`` is the plain form); int32 out or the fused
   ``(acc.f32 * a_scale) * w_scale`` epilogue.
 * ``lutmul_gather`` replaces ``lutmul_pallas(impl="gather")``: the same
-  int32 sums, one serial gather per product from the flat 256-entry table
-  (the A/B baseline, not tuned).
+  int32 sums, one read of the table in shared memory per product (the A/B
+  baseline), from the product table or any [16, 16] int32 ``table``
+  (``ref.gather_layout`` is its conflict-free staging, the sums wrap as
+  int32 adds do).
 * ``int_matmul`` / ``int_matmul_fused`` replace ``int_matmul_pallas`` and
   ``int_matmul_fused_pallas`` (``:332`` and ``:483``): int8 x int8 -> int32
   on the int8 tensor cores, one block over up to 32 rows (each weight byte
@@ -53,10 +55,6 @@ from repro_torch.kernels.lutmul import ref
 LAUNCHES = {"lutmul": 0, "lutmul_fused": 0, "lutmul_gather": 0,
             "int_matmul": 0, "int_matmul_fused": 0, "lutmul_tmac": 0,
             "lutmul_tmac_fused": 0}
-
-# lutmul_gather.cu's row tiles (32 rows a block) ride grid.y, which takes
-# at most 65,535 of them; lutmul.cu's ride grid.x and have no such cap
-_GATHER_MAX_ROWS = 32 * 65535
 
 _EPILOGUE = {torch.int32: 0, torch.bfloat16: 1, torch.float32: 2}
 _TABLES: dict[tuple, torch.Tensor] = {}
@@ -295,24 +293,28 @@ def lutmul(a_codes: torch.Tensor, w_packed: torch.Tensor, *,
 
 
 def lutmul_gather(a_codes: torch.Tensor, w_packed: torch.Tensor, *,
-                  a_signed: bool = True) -> torch.Tensor:
-    """The serial-gather baseline: the same int32 [M, N] as
-    :func:`lutmul`, one table gather per product."""
+                  a_signed: bool = True,
+                  table: torch.Tensor | None = None) -> torch.Tensor:
+    """The gather baseline: int32 [M, N] ``sum_k table[w[k, n], a[m, k]]``
+    (wrapping as int32 adds do), one table read per product.  ``table``
+    (int32 [16, 16], row = weight code) defaults to the product table of
+    ``a_signed``, whose sums are :func:`lutmul`'s."""
     if a_codes.device.type == "cpu":
-        return ref.lutmul_ref(a_codes, w_packed, a_signed)
+        if table is None:
+            return ref.lutmul_ref(a_codes, w_packed, a_signed)
+        return ref.lutmul_gather_ref(a_codes, w_packed, table)
     dev = a_codes.device
     _check("a_codes", a_codes, torch.uint8, 2, dev)
     _check("w_packed", w_packed, torch.uint8, 2, dev)
+    if table is None:
+        table = product_table(a_signed, dev)
+    _check("table", table, torch.int32, 2, dev)
+    if tuple(table.shape) != (16, 16):
+        raise ValueError(f"table must be [16, 16], got {tuple(table.shape)}")
     M, K, N = _lut_shapes(a_codes, w_packed)
-    if M > _GATHER_MAX_ROWS:
-        raise ValueError(
-            f"lutmul_gather: M = {M} rows is more than one launch takes "
-            f"({_GATHER_MAX_ROWS}: grid.y holds at most 65,535 row tiles); "
-            "split the rows into several calls")
     out = torch.empty((M, N), dtype=torch.int32, device=dev)
     if M == 0 or N == 0:
         return out
-    table = product_table(a_signed, dev)
     fn = _entry("lutmul_gather", "lutmul_gather_launch",
                 [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
                 + [ctypes.c_void_p])

@@ -165,27 +165,37 @@ def truncate_planes(w_planes: torch.Tensor, wbits, keep: int
 
 def lutmul(a_codes: torch.Tensor, w_packed: torch.Tensor, *,
            a_signed: bool = True, backend: Optional[str] = None,
-           impl: str = "onehot") -> torch.Tensor:
+           impl: str = "onehot",
+           table: Optional[torch.Tensor] = None) -> torch.Tensor:
     """LUT matmul on 4-bit codes. a_codes [M, K] u8; w_packed [K//2, N] u8.
 
     ``impl``: "onehot" (``csrc/lutmul.cu``, the kernel that serves) or
-    "gather" (``csrc/lutmul_gather.cu``, the serial A/B baseline); both
-    compute the same int32 sums."""
+    "gather" (``csrc/lutmul_gather.cu``, the A/B baseline); both compute
+    the same int32 sums.  ``table`` (int32 [16, 16], row = weight code,
+    gather only) replaces the product table of ``a_signed``."""
     if impl not in ("onehot", "gather"):
         raise ValueError(f"unknown lutmul impl {impl!r}: expected 'onehot' "
                          "or 'gather'")
+    if table is not None and impl != "gather":
+        raise ValueError("table= is taken by impl='gather' only: the onehot "
+                         "kernel selects from the product table's words")
     _check_lut_shapes(a_codes, w_packed)
     be = backend or get_backend()
     if be == "ref":
+        if table is not None:
+            return ref.lutmul_gather_ref(a_codes, w_packed, table)
         return ref.lutmul_ref(a_codes, w_packed, a_signed)
-    fn = kernel.lutmul if impl == "onehot" else kernel.lutmul_gather
-    return fn(a_codes.contiguous(), w_packed.contiguous(), a_signed=a_signed)
+    if impl == "onehot":
+        return kernel.lutmul(a_codes.contiguous(), w_packed.contiguous(),
+                             a_signed=a_signed)
+    return kernel.lutmul_gather(a_codes.contiguous(), w_packed.contiguous(),
+                                a_signed=a_signed, table=table)
 
 
 def lutmul_gather(a_codes: torch.Tensor, w_packed: torch.Tensor, *,
                   a_signed: bool = True,
                   backend: Optional[str] = None) -> torch.Tensor:
-    """The retained serial-gather kernel (A/B baseline for the benches)."""
+    """The retained gather kernel (A/B baseline for the benches)."""
     return lutmul(a_codes, w_packed, a_signed=a_signed, backend=backend,
                   impl="gather")
 

@@ -20,6 +20,8 @@ import torch
 from repro_torch.core.lut import (decode_planes, plane_decomposition,
                                   unpack_bitplanes, unpack_int4)
 
+_U32 = 0xFFFFFFFF
+
 
 def decode_codes(codes: torch.Tensor, bits: int = 4,
                  signed: bool = True) -> torch.Tensor:
@@ -41,6 +43,43 @@ def lutmul_ref(a_codes: torch.Tensor, w_packed: torch.Tensor,
     a = decode_codes(a_codes, 4, a_signed)
     w = unpack_int4(w_packed.T, signed=True).T
     return _exact_matmul(a, w)
+
+
+GATHER_COLS = 8       # columns a half-warp of csrc/lutmul_gather.cu holds
+
+
+def gather_layout(table: torch.Tensor) -> torch.Tensor:
+    """The [16, 16] int32 table (row = weight code) as the CUDA gather
+    kernel stages it in shared memory: int32 [1024] with ``T[w, a]`` at
+    word ``(w << 6) | (g << 4) | a`` for both halves g = 0, 1 of a warp.
+    A half-warp's 16 lanes share w and differ in a, so its reads fall in
+    banks ``16 g + a`` (word mod 32): one wavefront per warp-wide read.
+    The words with bit 5 set are never written nor read (0 here)."""
+    t = table.to(torch.int32).reshape(16, 1, 16)
+    lay = torch.zeros((16, 4, 16), dtype=torch.int32, device=table.device)
+    lay[:, :2] = t
+    return lay.reshape(-1)
+
+
+def lutmul_gather_ref(a_codes: torch.Tensor, w_packed: torch.Tensor,
+                      table: torch.Tensor) -> torch.Tensor:
+    """The gather kernel's sums, step by step: for every k, each product
+    is one read of :func:`gather_layout` at ``(w << 6) | (g << 4) | a``
+    (a the low nibble of the activation byte, w the weight nibble, g the
+    half-warp of column n: ``(n // 8) % 2``), added up modulo 2^32 as
+    int32 adds wrap.  a_codes [M, K] uint8, w_packed [K//2, N] uint8, any
+    [16, 16] int32 table -> int32 [M, N]."""
+    lay = gather_layout(table).to(torch.int64)
+    a = a_codes.to(torch.int64) & 0xF                             # [M, K]
+    w = unpack_int4(w_packed.T, signed=False).T.to(torch.int64)   # [K, N]
+    M, K = a.shape
+    N = w.shape[1]
+    half = (torch.arange(N, device=a.device) // GATHER_COLS) % 2
+    acc = torch.zeros((M, N), dtype=torch.int64, device=a.device)
+    for k in range(K):
+        acc += lay[(w[k] << 6 | half << 4)[None, :] | a[:, k, None]]
+    acc &= _U32
+    return torch.where(acc >= 1 << 31, acc - (1 << 32), acc).to(torch.int32)
 
 
 def lutmul_bitplane_ref(a_codes: torch.Tensor, w_packed: torch.Tensor,
@@ -104,9 +143,6 @@ def tmac_ref(a_q: torch.Tensor, w_planes: torch.Tensor,
     [M, N] — the same integers as :func:`lutmul_tmac_ref` for any g."""
     return _exact_matmul(a_q, decode_planes(unpack_bitplanes(w_planes),
                                             wbits))
-
-
-_U32 = 0xFFFFFFFF
 
 
 def _byte_perm(x: torch.Tensor, y: torch.Tensor, sel: int) -> torch.Tensor:

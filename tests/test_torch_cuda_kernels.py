@@ -667,9 +667,11 @@ def test_cuda_lutmul_unsigned_large_m(cuda_device, M, K, N):
 
 @pytest.mark.gpu
 def test_cuda_row_limits_raise(cuda_device):
-    """The LUT kernel's row tiles ride grid.x: 524,281 rows (one past the
-    65,535 8-row tiles of grid.y) run in one launch and equal the plain
-    version; the gather baseline keeps its grid.y limit and raises."""
+    """Both LUT kernels' row tiles ride grid.x: 524,281 rows (one past the
+    65,535 8-row tiles of grid.y) through the LUT kernel and 2,097,121
+    rows (one past the gather kernel's former grid.y cap of 65,535 32-row
+    tiles) through the gather kernel each run in one launch and equal the
+    plain version."""
     g = torch.Generator(device=cuda_device).manual_seed(5)
     w = torch.randint(0, 256, (8, 16), generator=g, device=cuda_device,
                       dtype=torch.uint8)
@@ -678,13 +680,104 @@ def test_cuda_row_limits_raise(cuda_device):
     kernel.reset_launches()
     assert torch.equal(kernel.lutmul(a, w, a_signed=False),
                        ref.lutmul_ref(a, w, a_signed=False))
-    assert kernel.lutmul_gather(a, w).shape == (524_281, 16)
-    a = torch.zeros((32 * 65535 + 1, 16), dtype=torch.uint8,
-                    device=cuda_device)
-    with pytest.raises(ValueError, match="2097120"):
-        kernel.lutmul_gather(a, w)
+    a = torch.randint(0, 16, (32 * 65535 + 1, 16), generator=g,
+                      device=cuda_device, dtype=torch.uint8)
+    assert torch.equal(kernel.lutmul_gather(a, w),
+                       ref.lutmul_ref(a, w))
     assert kernel.LAUNCHES["lutmul"] == 1
     assert kernel.LAUNCHES["lutmul_gather"] == 1
+
+
+def _gather_table(kind: str, seed: int, device) -> torch.Tensor:
+    """The product tables, or a random asymmetric int32 table: small
+    entries, or entries near +-2^31 so that every sum wraps."""
+    if kind in ("signed", "unsigned"):
+        return kernel.product_table(kind == "signed", device)
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        t = rng.integers(-5000, 5000, (16, 16))
+    else:
+        t = rng.integers(2 ** 31 - 64, 2 ** 31, (16, 16))
+        t[::2] = -t[::2]
+    return torch.from_numpy(t.astype(np.int32)).to(device)
+
+
+# both tiles (M <= 16 splits K in the block), ragged M, K and N, the
+# vector and the byte paths
+GATHER_SHAPES = [(1, 2, 1), (5, 6, 3), (8, 3584, 512), (16, 30, 17),
+                 (17, 16, 16), (20, 1030, 77), (33, 24, 24), (300, 130, 40),
+                 (257, 96, 1280), (1000, 16, 9)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", GATHER_SHAPES)
+@pytest.mark.parametrize("kind", ["signed", "unsigned", "random",
+                                  "wrapping"])
+def test_cuda_gather_tables_match_plain(cuda_device, kind, M, K, N):
+    """Any [16, 16] table through the kernel equals the plain gather bit
+    for bit, sums that wrap included; activation bytes with their high
+    nibble set (the kernel reads the low one); and a misaligned view of
+    the same codes (the byte path) gives the same sums."""
+    rng = np.random.default_rng(M + 7 * K + 31 * N)
+    a = torch.from_numpy(rng.integers(0, 256, (M, K)).astype(np.uint8)) \
+        .to(cuda_device)
+    w = torch.from_numpy(rng.integers(0, 256, (K // 2, N)).astype(np.uint8)) \
+        .to(cuda_device)
+    t = _gather_table(kind, M + K + N, cuda_device)
+    kernel.reset_launches()
+    got = kernel.lutmul_gather(a, w, table=t)
+    assert torch.equal(got, ref.lutmul_gather_ref(a, w, t))
+    if kind != "random" and kind != "wrapping":
+        assert torch.equal(got, ref.lutmul_ref(a, w, kind == "signed"))
+        assert torch.equal(kernel.lutmul_gather(a, w,
+                                                a_signed=kind == "signed"),
+                           got)
+    a_off = torch.empty(M * K + 1, dtype=torch.uint8, device=cuda_device)
+    a_off[1:] = a.reshape(-1)
+    assert torch.equal(kernel.lutmul_gather(a_off[1:].view(M, K), w,
+                                            table=t), got)
+    assert torch.equal(ops.lutmul(a, w, impl="gather", table=t), got)
+    assert kernel.LAUNCHES["lutmul_gather"] == (4 if kind in (
+        "signed", "unsigned") else 3)
+
+
+# MobileNetV2's stage shapes at batch 32 (K = 16-960; N = 16, 24, 96 and
+# 1280) at its smallest and largest row counts (1280 columns only at 1568)
+GATHER_CNN = [(M, K, N) for M in (1568, 401_408)
+              for K, N in ((16, 16), (24, 24), (16, 96), (32, 16), (144, 24),
+                           (960, 24), (320, 1280)) if M * N < 10 ** 8]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", GATHER_CNN)
+def test_cuda_gather_cnn_shapes(cuda_device, M, K, N):
+    """The unsigned product table against the plain matmul, a wrapping
+    random table against the plain gather."""
+    g = torch.Generator(device=cuda_device).manual_seed(M + K + N)
+    a = torch.randint(0, 16, (M, K), generator=g, device=cuda_device,
+                      dtype=torch.uint8)
+    w = torch.randint(0, 256, (K // 2, N), generator=g, device=cuda_device,
+                      dtype=torch.uint8)
+    assert torch.equal(kernel.lutmul_gather(a, w, a_signed=False),
+                       ref.lutmul_ref(a, w, a_signed=False))
+    t = _gather_table("wrapping", K + N, cuda_device)
+    assert torch.equal(kernel.lutmul_gather(a, w, table=t),
+                       ref.lutmul_gather_ref(a, w, t))
+
+
+@pytest.mark.gpu
+def test_cuda_gather_rejects_bad_tables(cuda_device):
+    a = torch.zeros((4, 8), dtype=torch.uint8, device=cuda_device)
+    w = torch.zeros((4, 8), dtype=torch.uint8, device=cuda_device)
+    t = torch.zeros((16, 16), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError):
+        kernel.lutmul_gather(a, w, table=t.float())
+    with pytest.raises(ValueError, match="16, 16"):
+        kernel.lutmul_gather(a, w, table=t[:8])
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel.lutmul_gather(a, w, table=t.T)
+    with pytest.raises(ValueError, match="cpu"):
+        kernel.lutmul_gather(a, w, table=t.cpu())
 
 
 @pytest.mark.gpu
