@@ -903,6 +903,9 @@ def run_mobilenet(bench: Bench) -> None:
                       8 * M * N + 4 * N * (L + 1), M * N * (L + 1),
                       F32_OPS_PER_S)
             del acc, want
+        log("threshold stages (M x N: ms, bound_ms / ms): " + "; ".join(
+            f"{s['M']}x{s['N']}: {s['ms']:.4f} {s['bound_ms'] / s['ms']:.3f}"
+            for s in bench.recs["threshold"]["groups"][group]["shapes"]))
     del params, codes, inputs
     torch.cuda.empty_cache()
 

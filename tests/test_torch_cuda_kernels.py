@@ -588,7 +588,15 @@ def test_cuda_verify_step_equals_sequential_decode(cuda_device):
 
 THRESHOLD_SHAPES = [(1, 1, 15), (8, 8, 15), (100, 24, 15), (33, 7, 15),
                     (257, 129, 15), (5000, 96, 15), (64, 40, 0), (64, 40, 1),
-                    (31, 70, 255)]
+                    (31, 70, 255),
+                    # across the register / general boundary (L <= 16)
+                    (64, 40, 3), (64, 40, 7), (100, 24, 16), (33, 7, 16),
+                    (100, 24, 17), (33, 7, 17),
+                    # MobileNetV2's narrow and wide stages at batch 32
+                    (401_408, 16, 15), (401_408, 24, 15), (100_352, 16, 15),
+                    (100_352, 24, 15), (1568, 1280, 15),
+                    # N % 4 != 0: 4-byte accesses
+                    (37, 30, 15), (5, 1022, 3), (1568, 161, 16)]
 
 
 @pytest.mark.gpu
@@ -616,6 +624,76 @@ def test_cuda_threshold_matches_plain(cuda_device, M, N, L):
     tkernel.reset_launches()
     got = tkernel.threshold(a, t, sg)
     assert got.dtype == torch.int32
+    assert torch.equal(got, tref.threshold_ref(a, t, sg))
+    assert tkernel.LAUNCHES == {"threshold": 1}
+
+
+def _sorted_threshold_inputs(M, N, L, special, seed):
+    """Rows ascending, as ``make_thresholds`` gives them, some with -inf
+    or +inf ends, signs +-1, 0 and -0; then ``special``: NaN signs, NaN
+    thresholds (a NaN row is not sorted) or a mix of sorted and unsorted
+    columns in one launch."""
+    rng = np.random.default_rng(seed)
+    acc = rng.integers(-3000, 3000, (M, N)).astype(np.int32)
+    acc[::5, ::3] = rng.integers(-(2 ** 31), 2 ** 31 - 1,
+                                 acc[::5, ::3].shape)
+    thr = np.sort(rng.normal(0, 1500, (N, L)).astype(np.float32), axis=1)
+    if L > 2:
+        thr[::3, 0] = -np.inf
+        thr[1::3, -1] = np.inf
+    sign = rng.choice([-1.0, 1.0], N).astype(np.float32)
+    sign[5::9] = 0.0
+    sign[7::9] = -0.0
+    if special == "nan_sign":
+        sign[1::4] = np.nan
+    elif special == "nan_thr" and L:
+        thr[2::5, L // 2] = np.nan
+    elif special == "mixed" and L > 1:
+        thr[N // 2::3] = thr[N // 2::3, ::-1]
+    return acc, thr, sign
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,N,L", [(5000, 96, 15), (401_408, 16, 15),
+                                   (1568, 1280, 15), (100, 24, 16),
+                                   (257, 129, 7), (64, 40, 3), (33, 7, 1),
+                                   (31, 70, 255)])
+@pytest.mark.parametrize("special", ["nan_sign", "nan_thr", "mixed"])
+def test_cuda_threshold_sorted_rows_match_plain(cuda_device, M, N, L,
+                                                special):
+    """Sorted rows (the kernel searches them), with NaN signs, NaN
+    thresholds or unsorted columns beside them: codes equal the plain
+    version's exactly, in one launch."""
+    acc, thr, sign = _sorted_threshold_inputs(M, N, L, special, M + N + L)
+    a, t, sg = (torch.from_numpy(v).to(cuda_device) for v in (acc, thr, sign))
+    tkernel.reset_launches()
+    got = tkernel.threshold(a, t, sg)
+    assert torch.equal(got, tref.threshold_ref(a, t, sg))
+    assert tkernel.LAUNCHES == {"threshold": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,N,L", [(100, 24, 15), (1568, 1280, 15),
+                                   (33, 8, 16), (9, 4, 3), (31, 70, 255)])
+@pytest.mark.parametrize("offset", ["acc", "thresholds", "sign"])
+def test_cuda_threshold_offset_views_match_plain(cuda_device, M, N, L,
+                                                 offset):
+    """A contiguous view 4 bytes into its storage (not 16-byte aligned)
+    takes the 4-byte accesses: codes equal the plain version's."""
+    acc, thr, sign = _sorted_threshold_inputs(M, N, L, "mixed", M * N + L)
+
+    def place(x, shift):
+        buf = torch.zeros(x.size + 4, dtype=torch.from_numpy(x).dtype,
+                          device=cuda_device)
+        view = buf[shift:shift + x.size].view(x.shape)
+        view.copy_(torch.from_numpy(x))
+        return view
+    a = place(acc, 1 if offset == "acc" else 0)
+    t = place(thr, 1 if offset == "thresholds" else 0)
+    sg = place(sign, 1 if offset == "sign" else 0)
+    assert a.is_contiguous() and t.is_contiguous() and sg.is_contiguous()
+    tkernel.reset_launches()
+    got = tkernel.threshold(a, t, sg)
     assert torch.equal(got, tref.threshold_ref(a, t, sg))
     assert tkernel.LAUNCHES == {"threshold": 1}
 

@@ -141,6 +141,73 @@ def test_threshold_special_values_match_reference():
     _eq(got, want)
 
 
+# The CUDA kernel counts every level of a row in registers for L <= 16
+# and in shared memory above; the plain version it is held to on the card
+# must agree with the reference on every kind of row either way.
+KINDS = ["sorted", "sorted_inf", "unsorted", "nan_thr", "nan_sign", "mixed"]
+LEVELS = [0, 1, 3, 7, 15, 16, 17, 255]
+
+
+def _level_inputs(M, N, L, kind, seed):
+    """Rows ascending (as ``make_thresholds`` gives them), with -inf/+inf
+    ends, unsorted, with NaN thresholds, or sorted and unsorted columns in
+    one call; signs +-1, 0 and -0 (and NaN for ``nan_sign``); |acc| past
+    2^24 against thresholds 2 apart there, where the conversion rounds."""
+    rng = np.random.default_rng(seed)
+    acc = rng.integers(-3000, 3000, (M, N)).astype(np.int32)
+    acc[::3, ::2] = rng.integers(-(2 ** 31), 2 ** 31 - 1,
+                                 acc[::3, ::2].shape)
+    thr = rng.normal(0, 1500, (N, L)).astype(np.float32)
+    if kind != "unsorted" and kind != "nan_thr":
+        thr = np.sort(thr, axis=1)
+    if kind == "sorted_inf" and L > 2:
+        thr[::3, 0] = -np.inf
+        thr[1::3, -1] = np.inf
+    if kind == "nan_thr" and L:
+        thr[2::5, L // 2] = np.nan
+    if kind == "mixed" and L > 1:
+        thr[N // 2::3] = thr[N // 2::3, ::-1]
+    if L:
+        thr[3::7] = np.float32(2 ** 24) + 2 * np.arange(L, dtype=np.float32)
+        acc[:, 3::7] = 2 ** 24 + 1 + 2 * rng.integers(
+            0, L, (M, len(range(3, N, 7))))
+    sign = rng.choice([-1.0, 1.0], N).astype(np.float32)
+    sign[5::9] = 0.0
+    sign[7::9] = -0.0
+    if kind == "nan_sign":
+        sign[1::4] = np.nan
+    return acc, thr, sign
+
+
+@pytest.mark.parametrize("L", LEVELS)
+@pytest.mark.parametrize("kind", KINDS)
+def test_threshold_levels_match_reference(L, kind):
+    """Every kind of row at L across the kernel's register/shared-memory
+    boundary: the port equals the reference's plain version exactly."""
+    acc, thr, sign = _level_inputs(37, 30, L, kind, seed=L * 11 + len(kind))
+    want = jref.threshold_ref(jnp.asarray(acc), jnp.asarray(thr),
+                              jnp.asarray(sign))
+    got = kernel.threshold(torch.from_numpy(acc), torch.from_numpy(thr),
+                           torch.from_numpy(sign))
+    assert got.dtype == torch.int32
+    _eq(got, want)
+
+
+@pytest.mark.parametrize("L,kind", [(1, "sorted"), (3, "sorted_inf"),
+                                    (7, "unsorted"), (15, "sorted"),
+                                    (15, "nan_sign"), (15, "mixed"),
+                                    (16, "nan_thr"), (16, "sorted_inf"),
+                                    (17, "mixed"), (255, "unsorted")])
+def test_threshold_levels_match_reference_interpret(L, kind):
+    """The same inputs through the reference's Pallas kernel in interpret
+    mode."""
+    acc, thr, sign = _level_inputs(19, 12, L, kind, seed=L + 3)
+    want = jops.threshold(jnp.asarray(acc), jnp.asarray(thr),
+                          jnp.asarray(sign), backend="interpret")
+    _eq(ops.threshold(torch.from_numpy(acc), torch.from_numpy(thr),
+                      torch.from_numpy(sign)), want)
+
+
 def test_lutmul_threshold_stage_matches_reference_interpret():
     rng = np.random.default_rng(2)
     M, K, N = 16, 32, 8
