@@ -29,10 +29,17 @@ Phases (any failure raises and exits non-zero):
    equal to the LUT run's: w4 bitplanes decode to the nibble codes), unfused
    (4), plain (2), bitplane self-speculative decoding on the same codes (8,
    equal to the plain tmac run's), and speculation after zeroing the low two
-   planes in place (4; every draft accepted).  Each run's launch counters
-   must be exactly 7 per layer per forward for the inner kernel and 1 head
-   launch per forward, by lane.  Short profiles give the device-busy share
-   of a decode step, a drafter step and a verify forward.
+   planes in place (4; every draft accepted).  On the kernel backend every
+   round is a replayed CUDA graph, one captured per round key
+   (``serve/graphs.py``); the plain backend runs op by op.  Each run's
+   launch counters must be exactly 7 per layer per forward for the inner
+   kernel and 1 head launch per forward, by lane, a replay counting the
+   launches its capture recorded, and every key replayed must have
+   captured exactly that for its own forwards.  Short profiles give the
+   device-busy share of eager decode steps, a drafter step and a verify
+   forward, and of a replayed round of each engine (8 decode iterations,
+   or a speculative round); the eager LUT decode step's profile also lists
+   every device row (the activation quantizer's kernels among them).
 4. serving bitnet-3b (26 layers, full width) in ternary_a8_tmac: fused (8
    requests) and plain (first 4), equal transcripts.
 5. the paper's CNN: full-width MobileNetV2 (224x224, width 1.0, 1000
@@ -438,18 +445,62 @@ def all_launches() -> dict:
     return {**kernel.LAUNCHES, **tkernel.LAUNCHES}
 
 
+def _graph_state(engine) -> tuple:
+    g = engine.graphs
+    return ({id(r): r.replays for r in g.rounds.values()}, len(g.rounds),
+            g.capture_s, g.replays)
+
+
+def _graph_stats(engine, before: tuple, label: str, rounds: int,
+                 inner: str = None, fused: bool = True) -> dict:
+    """The run's captured and replayed rounds.  On the kernel backend every
+    round must be a replayed graph, and every key replayed must have
+    captured 7 launches per layer per forward of the inner kernel and one
+    head launch per forward; on the plain backend no round is a graph."""
+    seen, n_keys, capture_s, replays = before
+    g = engine.graphs
+    ran = [(k, r) for k, r in g.rounds.items()
+           if r.replays > seen.get(id(r), 0)]
+    st = {"keys_captured": len(g.rounds) - n_keys, "keys_replayed": len(ran),
+          "capture_s": g.capture_s - capture_s,
+          "replays": g.replays - replays,
+          "keys": [{"n_real": k[0], "chunk": k[1], "spec": k[2],
+                    "variant": k[4], "forwards": r.forwards,
+                    "replays": r.replays - seen.get(id(r), 0),
+                    "launches": r.launches} for k, r in ran]}
+    if inner is None:
+        if st["replays"] or st["keys_captured"]:
+            raise AssertionError(f"{label}: the plain backend replayed "
+                                 f"graphs: {st}")
+        return st
+    if st["replays"] != rounds or not ran:
+        raise AssertionError(f"{label}: {st['replays']} of {rounds} rounds "
+                             "were replayed graphs")
+    sfx = "_fused" if fused else ""
+    for k, r in ran:
+        want = {inner + sfx: 7 * engine.cfg.n_layers * r.forwards,
+                "int_matmul" + sfx: r.forwards}
+        if not r.forwards or r.launches != want:
+            raise AssertionError(f"{label}: graph {k[:5]} captured launches "
+                                 f"{r.launches} != {want} for forwards "
+                                 f"{r.lanes}")
+    return st
+
+
 def serve(engine, vocab: int, label: str, n_requests: int,
           inner: str = None, fused: bool = True) -> list:
     """Drain ``n_requests`` requests through a fresh Scheduler, with the
     launch counters zeroed just before and read just after; ``inner`` names
     the projection kernel every forward must launch 7 times per layer (the
-    head kernel once), None for the plain backend (no launches at all)."""
+    head kernel once), None for the plain backend (no launches at all).
+    A replayed round counts the launches its capture recorded."""
     import torch
     from repro_torch.serve import Scheduler
     reqs = make_requests(vocab)[:n_requests]
     sched = Scheduler(engine, slots=SLOTS, chunk=8)
     engine.decode_steps = 0
     engine.lane_steps = dict.fromkeys(engine.lane_steps, 0)
+    graphs0 = _graph_state(engine)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -470,19 +521,27 @@ def serve(engine, vocab: int, label: str, n_requests: int,
         sfx = "_fused" if fused else ""
         want[inner + sfx] = 7 * engine.cfg.n_layers * forwards
         want["int_matmul" + sfx] = forwards
-    if launches != want:
+    if launches != want or not forwards:
         raise AssertionError(f"{label}: launches {launches} != {want} for "
                              f"forwards by lane {lanes}")
+    graphs = _graph_stats(engine, graphs0, label, sched.stats["rounds"],
+                          inner, fused)
     emitted = sum(len(r.tokens) for r in reqs)
+    served = dt - graphs["capture_s"]      # without warm-ups and captures
     st = {"label": label, "requests": n_requests, "seconds": dt,
           "rounds": sched.stats["rounds"], "emitted_tokens": emitted,
           "tokens_per_s": emitted / dt, "forwards_by_lane": lanes,
           "ms_per_decode_step": 1e3 * dt / engine.decode_steps,
           "ms_per_forward": 1e3 * dt / forwards,
-          "launches": launches,
+          "tokens_per_s_after_capture": emitted / served,
+          "ms_per_decode_step_after_capture":
+              1e3 * served / engine.decode_steps,
+          "graphs": graphs, "launches": launches,
           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
     if engine.scfg.spec_decode:
         st["ms_per_round"] = 1e3 * dt / sched.stats["rounds"]
+        st["ms_per_round_after_capture"] = \
+            1e3 * served / sched.stats["rounds"]
         for k in ("spec_rounds", "spec_drafted", "spec_accepted"):
             st[k] = sched.stats[k]
         st["accept_rate"] = (st["spec_accepted"] / st["spec_drafted"]
@@ -503,9 +562,12 @@ def same(a: list, b: list, what: str) -> None:
 PROFILES: dict = {}
 
 
-def profile(label: str, fn, steps: int) -> None:
+def profile(label: str, fn, steps: int, forwards: int = 1,
+            detail: bool = False) -> None:
     """Device time by kernel over ``steps`` calls of ``fn`` (torch.profiler)
-    against their host wall time: the device-busy share."""
+    against their host wall time: the device-busy share.  ``forwards``:
+    model forwards per call; ``detail`` also logs every device row (the
+    activation quantizer's kernels among them)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
@@ -524,34 +586,52 @@ def profile(label: str, fn, steps: int) -> None:
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA), reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
-    out = {"calls": steps, "wall_ms_per_call": 1e3 * wall / steps,
+    out = {"calls": steps, "forwards_per_call": forwards,
+           "wall_ms_per_call": 1e3 * wall / steps,
            "device_ms_per_call": busy_ms / steps,
            "device_busy_share": busy_ms / (1e3 * wall),
            "top": [{"kernel": k[:60], "ms_per_call": us / 1e3 / steps,
                     "launches_per_call": n / steps}
                    for us, k, n in rows[:6]]}
     log(f"profile[{label}]: " + json.dumps(out))
+    if detail:
+        log(f"profile rows[{label}]: " + json.dumps(
+            [{"kernel": k[:240], "ms_per_call": us / 1e3 / steps,
+              "launches_per_call": n / steps} for us, k, n in rows]))
     PROFILES[label] = out
 
 
-def profile_engine(engine, label: str, steps: int, spec: bool) -> None:
-    """A full-batch decode step (and, for a spec engine, a drafter step and
-    a verify forward) at 8 slots, positions 16..23."""
+def profile_engine(engine, label: str, steps: int,
+                   detail: bool = False) -> None:
+    """At 8 slots, positions 16..23, op by op: a full-batch decode step
+    (``detail``: every device row), or for a spec engine a drafter step and
+    a verify forward; then one replayed round from the same state: 8 decode
+    iterations, or for a spec engine a speculative round."""
     import torch
     if not steps:
         return
+    spec = engine.scfg.spec_decode
     cache = engine.init_cache(SLOTS)
     tok = torch.zeros((SLOTS,), dtype=torch.int32, device="cuda")
     pos = torch.arange(SLOTS, dtype=torch.int32, device="cuda") + 16
-    profile(f"{label} decode step",
-            lambda: engine._decode(tok, cache, pos), steps)
-    if spec:
+    if not spec:
+        profile(f"{label} decode step",
+                lambda: engine._decode(tok, cache, pos), steps,
+                detail=detail)
+    else:
         toks = torch.zeros((SLOTS, engine.scfg.draft_k + 1),
                            dtype=torch.int32, device="cuda")
         profile(f"{label} drafter step",
                 lambda: engine._decode(tok, cache, pos, "draft"), steps)
         profile(f"{label} verify forward",
                 lambda: engine._verify(toks, cache, pos), steps)
+    done = torch.zeros((SLOTS,), dtype=torch.bool, device="cuda")
+    eos = torch.full((SLOTS,), -1, dtype=torch.int32, device="cuda")
+    kind = "speculative" if spec else "decode"
+    profile(f"{label} {kind} round, replayed",
+            lambda: engine.step(cache, None, tok, pos, done, eos, 8,
+                                spec=spec), steps,
+            forwards=engine.scfg.draft_k + 1 if spec else 8)
     del cache
 
 
@@ -599,7 +679,7 @@ def run_qwen(n_layers: int, profile_steps: int) -> None:
     ops.set_backend("cuda")
     ops.set_variant(None)
     lut = serve(engine, V, "qwen lut fused", 8, "lutmul")
-    profile_engine(engine, "qwen lut", profile_steps, spec=False)
+    profile_engine(engine, "qwen lut", profile_steps, detail=True)
     ops.set_variant("unfused")
     same(serve(engine, V, "qwen lut unfused", 4, "lutmul", fused=False),
          lut, "lut unfused == lut fused")
@@ -622,6 +702,7 @@ def run_qwen(n_layers: int, profile_steps: int) -> None:
         f"{time.perf_counter() - t0:.1f}s")
     tmac = serve(engine, V, "qwen tmac fused", 8, "lutmul_tmac")
     same(tmac, lut, "tmac fused == lut fused")
+    profile_engine(engine, "qwen tmac", profile_steps)
     ops.set_variant("unfused")
     same(serve(engine, V, "qwen tmac unfused", 4, "lutmul_tmac",
                fused=False), tmac, "tmac unfused == tmac fused")
@@ -639,7 +720,7 @@ def run_qwen(n_layers: int, profile_steps: int) -> None:
          "tmac spec == tmac fused")
     if RUNS["qwen tmac spec"]["spec_rounds"] < 1:
         raise AssertionError("the spec run made no speculative round")
-    profile_engine(spec, "qwen tmac", profile_steps, spec=True)
+    profile_engine(spec, "qwen tmac", profile_steps)
     n = zero_low_planes(engine.params)
     log(f"zeroed the low 2 planes of {n} leaves in place")
     serve(spec, V, "qwen tmac spec, low planes zeroed", 4, "lutmul_tmac")
@@ -652,7 +733,7 @@ def run_qwen(n_layers: int, profile_steps: int) -> None:
     torch.cuda.empty_cache()
 
 
-def run_bitnet(n_layers: int) -> None:
+def run_bitnet(n_layers: int, profile_steps: int) -> None:
     import dataclasses
     import torch
     from repro_torch.configs import bitnet_3b
@@ -674,6 +755,7 @@ def run_bitnet(n_layers: int) -> None:
         f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.quant}; init + quantize "
         f"{time.perf_counter() - t0:.1f}s")
     fused = serve(engine, cfg.vocab, "bitnet tmac fused", 8, "lutmul_tmac")
+    profile_engine(engine, "bitnet tmac", profile_steps)
     ops.set_backend("ref")
     same(serve(engine, cfg.vocab, "bitnet tmac plain", 4), fused,
          "bitnet plain == bitnet fused")
@@ -982,7 +1064,8 @@ def main() -> int:
     bench = Bench(args.reps, sm_hz)
     for phase, fn in (("kernels", lambda: check_kernels(bench)),
                       ("qwen", lambda: run_qwen(args.layers, args.profile)),
-                      ("bitnet", lambda: run_bitnet(args.layers)),
+                      ("bitnet",
+                       lambda: run_bitnet(args.layers, args.profile)),
                       ("mobilenetv2", lambda: run_mobilenet(bench))):
         if phase in phases:
             t0 = time.perf_counter()

@@ -43,6 +43,7 @@ with ``torch.empty`` and raise when the launch reports a CUDA error.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -60,6 +61,7 @@ _EPILOGUE = {torch.int32: 0, torch.bfloat16: 1, torch.float32: 2}
 _TABLES: dict[tuple, torch.Tensor] = {}
 _WORKSPACES: dict[tuple, torch.Tensor] = {}
 _ENTRIES: dict[str, object] = {}
+_GRAPH_WORKSPACES: dict | None = None   # see graph_workspaces
 
 
 def reset_launches() -> None:
@@ -106,18 +108,60 @@ def _launch_args(n_ptr: int) -> list:
     return [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
+def _workspace_words(lib: str, M: int, N: int) -> int:
+    return _entry(lib, f"{lib}_workspace_words",
+                  [ctypes.c_int, ctypes.c_int], ctypes.c_longlong)(M, N)
+
+
 def _workspace(lib: str, M: int, N: int, device, stream: int) -> torch.Tensor:
     """A K-split kernel's int32 scratch (split sums + per-tile arrival
     counters), one per (kernel, device, stream).  Allocated zeroed and
-    grown, never cleared: every launch leaves it zero again."""
-    words = _entry(lib, f"{lib}_workspace_words",
-                   [ctypes.c_int, ctypes.c_int], ctypes.c_longlong)(M, N)
+    grown, never cleared: every launch leaves it zero again.  Inside
+    :func:`graph_workspaces` a launch takes the graph's workspace instead,
+    which never moves (captured graphs hold its address): one too small
+    raises, as does a launch under capture outside it."""
+    words = _workspace_words(lib, M, N)
+    if _GRAPH_WORKSPACES is not None:
+        ws = _GRAPH_WORKSPACES.get(lib)
+        if ws is None or ws.numel() < words or ws.device != device:
+            have = 0 if ws is None else ws.numel()
+            raise RuntimeError(
+                f"{lib} at M={M}, N={N} needs a {words}-word workspace on "
+                f"{device}; the graphs' workspace holds {have}: "
+                "reserve_workspaces must cover every shape they capture")
+        return ws
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{lib}: a launch under graph capture takes its "
+                           "workspace from graph_workspaces")
     key = (lib, device, stream)
     ws = _WORKSPACES.get(key)
     if ws is None or ws.numel() < words:
         ws = torch.zeros((words,), dtype=torch.int32, device=device)
         _WORKSPACES[key] = ws
     return ws
+
+
+def reserve_workspaces(shapes, device) -> dict:
+    """Zeroed workspaces of the three K-split kernels at the largest of
+    ``shapes`` ((M, N) pairs), for :func:`graph_workspaces`."""
+    return {lib: torch.zeros(
+        (max(_workspace_words(lib, M, N) for M, N in shapes),),
+        dtype=torch.int32, device=device)
+        for lib in ("lutmul", "int_matmul", "lutmul_tmac")}
+
+
+@contextlib.contextmanager
+def graph_workspaces(workspaces: dict):
+    """Launches inside take their K-split workspaces from ``workspaces``
+    (:func:`reserve_workspaces`) and never allocate one: graphs captured
+    inside record these addresses.  Graphs may share them, since replays
+    run in order on one stream and every launch leaves them zero."""
+    global _GRAPH_WORKSPACES
+    prev, _GRAPH_WORKSPACES = _GRAPH_WORKSPACES, workspaces
+    try:
+        yield
+    finally:
+        _GRAPH_WORKSPACES = prev
 
 
 def _check(name: str, t: torch.Tensor, dtype, ndim: int, device) -> None:

@@ -1,7 +1,7 @@
 """Time full-batch decode steps of qwen2-7b in w4a4_lut on one GPU.
 
     PYTHONPATH=src python -m repro_torch.serve.bench [--layers 28]
-        [--steps 32] [--rounds 5]
+        [--steps 32] [--rounds 5] [--graphs]
 
 Builds the model at full width from seed-0 random weights, quantizes it at
 load through ``make_engine``, and times ``rounds`` rounds of ``steps``
@@ -12,6 +12,11 @@ other tenants of a shared host disturb less).  Prints one JSON line: ms
 per step of every round, their medians, and the kernel launches per step.
 Two versions of the kernels are compared by running this in each version's
 checkout within one session on the same card, interleaved.
+
+``--graphs`` also times ``rounds`` decode rounds of ``steps`` iterations
+through ``Engine.step``: each replayed from its captured CUDA graph, beside
+the same round run op by op (``_eager``), interleaved; the capture's
+seconds (warm-up included) are reported apart.
 """
 from __future__ import annotations
 
@@ -27,6 +32,8 @@ def main() -> None:
     p.add_argument("--steps", type=int, default=32)
     p.add_argument("--rounds", type=int, default=5)
     p.add_argument("--label", default="")
+    p.add_argument("--graphs", action="store_true",
+                   help="also time replayed and eager decode rounds")
     args = p.parse_args()
 
     import torch
@@ -60,13 +67,36 @@ def main() -> None:
         rounds.append(1e3 * (time.perf_counter() - t0) / args.steps)
         cpu.append(1e3 * (time.process_time() - c0) / args.steps)
     n = args.rounds * args.steps
-    print(json.dumps({
+    out = {
         "label": args.label, "layers": cfg.n_layers, "slots": slots,
         "ms_per_step": sorted(rounds)[len(rounds) // 2],
         "cpu_ms_per_step": sorted(cpu)[len(cpu) // 2],
         "rounds_ms_per_step": rounds,
         "launches_per_step": {k: v / n for k, v in kernel.LAUNCHES.items()},
-        "device": torch.cuda.get_device_name(0)}), flush=True)
+        "device": torch.cuda.get_device_name(0)}
+    if args.graphs:
+        done = torch.zeros((slots,), dtype=torch.bool, device="cuda")
+        eos = torch.full((slots,), -1, dtype=torch.int32, device="cuda")
+
+        def decode_round(eager: bool) -> float:
+            t0 = time.perf_counter()
+            engine.step(cache, None, tok, pos, done, eos, args.steps,
+                        _eager=eager)
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0) / args.steps
+
+        decode_round(False)                               # capture
+        times = {True: [], False: []}
+        for _ in range(args.rounds):
+            for eager in (False, True):
+                times[eager].append(decode_round(eager))
+        out.update({
+            "replay_ms_per_step": sorted(times[False])[args.rounds // 2],
+            "eager_round_ms_per_step": sorted(times[True])[args.rounds // 2],
+            "rounds_replay_ms_per_step": times[False],
+            "rounds_eager_ms_per_step": times[True],
+            "capture_s": engine.graphs.capture_s})
+    print(json.dumps(out), flush=True)
 
 
 if __name__ == "__main__":

@@ -6,13 +6,22 @@ paging, sampling or fault injection).
 iterations (each a full-batch ``decode_step`` with the target slot's
 (token, position) substituted in, sampling a request's first output token
 when its last prompt token lands) followed by ``chunk`` decode iterations
-over every slot.  The reference compiles both lanes into one ``lax.scan``
-dispatch; here they are a Python loop over ``decode_step``, and the pad
-entries of a short chunk lane — full-batch no-ops whose only effect is
-rewriting every row's held KV with the same bits — are skipped.  With
-``spec_decode`` a round's decode lane can instead be a speculative one:
-``draft_k`` drafter steps on the top-plane view of the tmac weights, one
-``verify_step`` over the drafts, the longest matching prefix accepted.
+over every slot.  As in the reference, the chunk lane arrives as device
+vectors (:class:`ChunkLane`) and the round reads nothing back from the
+device: whether an entry fires is a ``torch.where``, and the round's
+results come back packed into one int32 tensor (:func:`pack_round`), so a
+round costs the caller one device-to-host read.  The pad entries of a short
+chunk lane — full-batch no-ops whose only effect is rewriting every row's
+held KV with the same bits — are not passed: the lane holds the ``n_real``
+real entries.  With ``spec_decode`` a round's decode lane can instead be a
+speculative one: ``draft_k`` drafter steps on the top-plane view of the
+tmac weights, one ``verify_step`` over the drafts, the longest matching
+prefix accepted.
+
+On the card with the kernel backend, a round is one captured CUDA graph
+per round key, replayed (``serve.graphs``, the counterpart of the
+reference's one compiled dispatch per key); on the CPU and with the
+``ref`` backend it runs eagerly, op by op.
 
 ``generate`` is the static-batch oracle: prefill, then a per-token loop.
 Positions are per-sequence ``pos: [B]`` int32; a negative position is the
@@ -21,12 +30,13 @@ free-slot sentinel (every key of the row masked, writes inside its row).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models import transformer
+from repro_torch.serve import graphs
 
 
 @dataclasses.dataclass
@@ -85,6 +95,34 @@ def sample_logits(logits: torch.Tensor,
     return torch.argmax(logits.to(torch.float32), dim=-1).to(torch.int32)
 
 
+class ChunkLane(NamedTuple):
+    """A round's prompt-token entries as device vectors of length
+    ``n_real`` (the reference's ``c_slot, c_tok, c_pos, c_first, c_b1``)."""
+    slot: torch.Tensor        # int32 target row
+    tok: torch.Tensor         # int32 prompt token
+    pos: torch.Tensor         # int32 its position
+    first: torch.Tensor       # bool: the prompt's last token
+    budget_one: torch.Tensor  # bool: with ``first``, the whole budget
+
+
+def pack_round(tok0, done0, toks, dones, ok, n_valid) -> torch.Tensor:
+    """A round's per-slot results as one int32 [B, 2W + 4] tensor: tok0,
+    done0, the [B, W] tokens, the [B, W] dones, ok, n_valid."""
+    i32 = torch.int32
+    return torch.cat([tok0[:, None], done0[:, None].to(i32), toks,
+                      dones.to(i32), ok[:, None].to(i32),
+                      n_valid[:, None]], 1)
+
+
+def unpack_round(packed):
+    """:func:`pack_round`'s inverse on a tensor or an array: (tok0, done0,
+    tokens [B, W], dones [B, W], ok, n_valid), the flags as booleans."""
+    W = (packed.shape[1] - 4) // 2
+    return (packed[:, 0], packed[:, 1] != 0, packed[:, 2:2 + W],
+            packed[:, 2 + W:2 + 2 * W] != 0, packed[:, 2 + 2 * W] != 0,
+            packed[:, 3 + 2 * W])
+
+
 def _to_device(params, device):
     """Every tensor of a parameter tree on ``device``."""
     if isinstance(params, dict):
@@ -129,6 +167,7 @@ class Engine:
             # views of the target's plane bytes (a zeroing of the target's
             # planes in place shows through)
             self.draft_params = draft_params_view(params, scfg.draft_planes)
+        self.graphs = graphs.RoundGraphs()
 
     # -- scheduler-facing API ------------------------------------------------
 
@@ -152,21 +191,22 @@ class Engine:
         return transformer.verify_step(self.params, self.cfg, toks, cache,
                                        pos)
 
-    def step(self, cache, entries, tok, pos, done, eos, chunk: int,
-             spec: bool = False):
-        """ONE unified serving round: the chunk lane (when ``entries`` is
-        not None) then ``chunk`` (>= 1) decode iterations over every slot,
-        or with ``spec`` (needs ``scfg.spec_decode``) one speculative
-        round: ``draft_k`` drafter steps, one verify over ``[tok, d_1 ..
-        d_K]``, the longest prefix where the target reproduces the drafts
-        accepted (up to ``draft_k + 1`` tokens per slot, cut after an EOS).
+    def step(self, cache, lane: Optional[ChunkLane], tok, pos, done, eos,
+             chunk: int, spec: bool = False, *, _eager: bool = False):
+        """ONE unified serving round: the chunk lane (when ``lane`` is not
+        None) then ``chunk`` (>= 1) decode iterations over every slot, or
+        with ``spec`` (needs ``scfg.spec_decode``) one speculative round:
+        ``draft_k`` drafter steps, one verify over ``[tok, d_1 .. d_K]``,
+        the longest prefix where the target reproduces the drafts accepted
+        (up to ``draft_k + 1`` tokens per slot, cut after an EOS).
 
-        ``entries``: dict of [prefill_chunk] host lists — ``slot`` (target
-        row, -1 = pad), ``tok``/``pos`` (prompt token and its position),
-        ``first`` (the prompt's last token: sample the first output) and
-        ``budget_one`` (with ``first``: that token is the whole budget).
-        Non-target rows re-run their held (token, position); finished and
-        free slots (done=True) hold token and position throughout.
+        ``lane``: the round's ``n_real`` prompt-token entries as device
+        vectors — ``slot`` (target row), ``tok``/``pos`` (prompt token and
+        its position), ``first`` (the prompt's last token: sample the first
+        output) and ``budget_one`` (with ``first``: that token is the whole
+        budget).  Non-target rows re-run their held (token, position);
+        finished and free slots (done=True) hold token and position
+        throughout.
 
         Precondition of ``spec``: every occupied slot holds a position
         ``<= max_len - (draft_k + 1)`` (the scheduler's headroom guard).
@@ -174,50 +214,59 @@ class Engine:
         position; the drafter's write at their held slot is rewritten with
         the target's bits by the verify.
 
-        Returns (cache, tok, pos, done, tok0, done0, tokens [B, W],
-        dones [B, W], ok [B], n_valid [B]) with W = chunk (draft_k + 1 under
-        ``spec``) — tok0/done0 are the first tokens and immediately-finished
-        flags of rows whose ``first`` entry fired; ok is the per-slot
-        finite-logits guard; only the first ``n_valid[b]`` columns of row b
-        are real (all W on a plain round).
+        Returns (cache, tok, pos, done, packed): the new state and the
+        per-slot results in one int32 tensor (:func:`unpack_round` gives
+        tok0, done0, tokens [B, W], dones [B, W], ok, n_valid with W =
+        chunk, or draft_k + 1 under ``spec``) — tok0/done0 are the first
+        tokens and immediately-finished flags of rows whose ``first`` entry
+        fired; ok is the per-slot finite-logits guard; only the first
+        ``n_valid[b]`` columns of row b are real (all W on a plain round).
+        On the card with the kernel backend the round is a replayed CUDA
+        graph and tok, pos, done and packed are its static buffers, valid
+        until the next round; ``_eager`` forces the op-by-op round.
         """
         if spec and not self.scfg.spec_decode:
             raise ValueError(
                 "spec=True requires ServeConfig(spec_decode=True)")
-        C = self.prefill_chunk if entries is not None else 0
+        if not _eager and graphs.applies(self.device):
+            tok, pos, done, packed = self.graphs.run(
+                self, cache, lane, tok, pos, done, eos, chunk, spec)
+        else:
+            tok, pos, done, packed = self._round(
+                cache, lane, tok, pos, done, eos, chunk, spec)
+        return cache, tok, pos, done, packed
+
+    def _round(self, cache, lane, tok, pos, done, eos, chunk: int,
+               spec: bool):
+        """The round op by op, as the reference's ``_make_step_impl``
+        (``fill`` for each entry, then the decode or speculative lane):
+        (tok, pos, done, packed), the cache written in place."""
         ok = torch.ones_like(done)
         tok0, done0 = tok, done
-        if C:
+        if lane is not None:
             rows = torch.arange(tok.shape[0], dtype=torch.int32,
                                 device=tok.device)
-            for i in range(C):
-                s = int(entries["slot"][i])
-                if s < 0:
-                    continue              # pad entry: a full-batch no-op
-                t, p = int(entries["tok"][i]), int(entries["pos"][i])
-                first = bool(entries["first"][i])
-                b1 = bool(entries["budget_one"][i])
-                target = rows == s
-                tok_in = torch.where(target, t, tok)
-                pos_in = torch.where(target, p, pos)
+            for i in range(lane.slot.shape[0]):
+                target = rows == lane.slot[i]
+                tok_in = torch.where(target, lane.tok[i], tok)
+                pos_in = torch.where(target, lane.pos[i], pos)
                 logits, cache = self._decode(tok_in, cache, pos_in, "chunk")
-                if first:
-                    fire = target
-                    ok = ok & (torch.isfinite(logits).all(-1) | ~fire)
-                    nxt = sample_logits(logits)
-                    nd = ((nxt == eos) & (eos >= 0)) | b1
-                    tok = torch.where(fire, nxt, tok_in)
-                    pos = torch.where(fire, p + 1, pos_in)
-                    done = torch.where(fire, nd, done)
-                    tok0 = torch.where(fire, nxt, tok0)
-                    done0 = torch.where(fire, nd, done0)
-                else:                     # the target parks on (t, p)
-                    tok, pos = tok_in, pos_in
+                # fire: the row becomes a decoder at (sampled, p + 1);
+                # otherwise the target parks on this entry's (t, p)
+                fire = target & lane.first[i]
+                ok = ok & (torch.isfinite(logits).all(-1) | ~fire)
+                nxt = sample_logits(logits)
+                nd = ((nxt == eos) & (eos >= 0)) | lane.budget_one[i]
+                tok = torch.where(fire, nxt, tok_in)
+                pos = torch.where(fire, lane.pos[i] + 1, pos_in)
+                done = torch.where(fire, nd, done)
+                tok0 = torch.where(fire, nxt, tok0)
+                done0 = torch.where(fire, nd, done0)
         if spec:
             cache, tok, pos, done, toks, dones, ok, n_valid = \
                 self._spec_lane(cache, tok, pos, done, eos, ok)
-            return (cache, tok, pos, done, tok0, done0, toks, dones, ok,
-                    n_valid)
+            return tok, pos, done, pack_round(tok0, done0, toks, dones, ok,
+                                              n_valid)
         toks, dones = [], []
         for j in range(chunk):
             logits, cache = self._decode(tok, cache, pos)
@@ -231,8 +280,8 @@ class Engine:
             toks.append(nxt)
             dones.append(done)
         n_valid = torch.full_like(tok, chunk)
-        return (cache, tok, pos, done, tok0, done0, torch.stack(toks, 1),
-                torch.stack(dones, 1), ok, n_valid)
+        return tok, pos, done, pack_round(tok0, done0, torch.stack(toks, 1),
+                                          torch.stack(dones, 1), ok, n_valid)
 
     def _spec_lane(self, cache, tok, pos, done, eos, ok):
         """Draft ``draft_k`` / verify once / accept the longest prefix."""

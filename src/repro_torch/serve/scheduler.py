@@ -14,6 +14,12 @@ rewrite the same KV bits.  On a ``spec_decode`` engine the decode lane is a
 speculative round whenever every occupied slot has the headroom for its
 ``draft_k + 1``-token block, else a plain round; a row emits only the
 first ``n_valid`` tokens of its round.
+
+The per-slot state (``tok``, ``pos``, ``done``, ``eos``) lives on the
+device and is updated in place; what the host decides (admissions, parks,
+frees, EOS ids) travels host-to-device, and a round reads the device once:
+the engine's packed result, as in the reference (``repro/serve/engine.py``:
+"a round of tokens needs exactly one host round-trip").
 """
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ from typing import Deque, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.serve.engine import Engine
+from repro_torch.serve.engine import ChunkLane, Engine, unpack_round
 from repro_torch.serve.request import Request, RequestStatus
 
 
@@ -43,10 +49,10 @@ class Scheduler:
         self.tok = torch.zeros((slots,), dtype=torch.int32, device=dev)
         self.pos = torch.full((slots,), -1, dtype=torch.int32, device=dev)
         self.done = torch.ones((slots,), dtype=torch.bool, device=dev)
-        # per-slot EOS ids mirrored host-side (admission rebuilds the device
+        self.eos = torch.full((slots,), -1, dtype=torch.int32, device=dev)
+        # per-slot EOS ids mirrored host-side (admission rewrites the device
         # vector without device reads); -1 = none
         self._eos_h = [-1] * slots
-        self._push_eos()
         self.queue: Deque[Request] = collections.deque()
         self.slots: List[Optional[Request]] = [None] * slots
         self.finished: List[Request] = []
@@ -80,17 +86,36 @@ class Scheduler:
         self.queue.append(request)
         return request
 
+    def _to_device(self, rows) -> torch.Tensor:
+        """Host int rows as one int32 device tensor (on the card through
+        pinned memory, asynchronously: the host allocator keeps the pinned
+        block until the copy has run)."""
+        t = torch.tensor(rows, dtype=torch.int32)
+        if self.engine.device.type == "cuda":
+            return t.pin_memory().to(self.engine.device, non_blocking=True)
+        return t
+
     def _push_eos(self) -> None:
-        self.eos = torch.as_tensor(self._eos_h, dtype=torch.int32,
-                                   device=self.engine.device)
+        self.eos.copy_(self._to_device(self._eos_h))
+
+    def _write_slots(self, rows: dict, tok: bool) -> torch.Tensor:
+        """Set ``pos`` (and ``tok``) of the slots in ``rows`` ({slot: (tok,
+        pos)}) in place from a host-built mask, without reading them;
+        returns the mask."""
+        m, t, p = [0] * self.n_slots, [0] * self.n_slots, [0] * self.n_slots
+        for s, (ts, ps) in rows.items():
+            m[s], t[s], p[s] = 1, ts, ps
+        mtp = self._to_device([m, t, p])
+        mask = mtp[0] != 0
+        if tok:
+            self.tok.copy_(torch.where(mask, mtp[1], self.tok))
+        self.pos.copy_(torch.where(mask, mtp[2], self.pos))
+        return mask
 
     def _free_on_device(self, freed: List[int]) -> None:
         """Mark freed slots done with the negative-position sentinel."""
-        fm = np.zeros((self.n_slots,), bool)
-        fm[freed] = True
-        fm = torch.as_tensor(fm, device=self.engine.device)
-        self.done = self.done | fm
-        self.pos = torch.where(fm, -1, self.pos)
+        mask = self._write_slots({s: (0, -1) for s in freed}, tok=False)
+        self.done.logical_or_(mask)
 
     # -- the scheduling loop -------------------------------------------------
 
@@ -108,9 +133,10 @@ class Scheduler:
     def _assemble_chunk(self):
         """This round's chunk-lane entries: continue mid-prefill slots in
         admission order, then admit from the queue head (no skip-ahead)
-        while budget and free slots last.  Returns (entries | None, plan
-        {slot: new progress}, fresh [(slot, req)], completing {slots whose
-        last prompt token lands this round}, parks {slot: (tok, pos)})."""
+        while budget and free slots last.  Returns (the lane's real entries
+        as a ``ChunkLane`` of device vectors | None, plan {slot: new
+        progress}, fresh [(slot, req)], completing {slots whose last prompt
+        token lands this round}, parks {slot: (tok, pos)})."""
         C = self.engine.prefill_chunk
         e_slot: List[int] = []
         e_tok: List[int] = []
@@ -164,31 +190,22 @@ class Scheduler:
             return None, plan, fresh, completing, parks
         if fresh:
             self._push_eos()
-        pad = C - len(e_slot)
-        entries = {"slot": e_slot + [-1] * pad,
-                   "tok": e_tok + [0] * pad,
-                   "pos": e_pos + [0] * pad,
-                   "first": e_first + [False] * pad,
-                   "budget_one": e_b1 + [False] * pad}
-        return entries, plan, fresh, completing, parks
+        lane = self._to_device([e_slot, e_tok, e_pos, e_first, e_b1])
+        lane = ChunkLane(lane[0], lane[1], lane[2], lane[3] != 0,
+                         lane[4] != 0)
+        return lane, plan, fresh, completing, parks
 
     def step(self) -> int:
         """One round: admit into free slots through the chunk lane, decode
         one chunk, retire finished sequences.  Returns the tokens emitted."""
-        entries, plan, fresh, completing, parks = self._assemble_chunk()
+        lane, plan, fresh, completing, parks = self._assemble_chunk()
         if not any(r is not None for r in self.slots):
             return 0
-        C = self.engine.prefill_chunk if entries is not None else 0
         if parks:
             # fresh rows park at their first entry BEFORE the dispatch, so
             # chunk iterations ahead of their first target re-run the same
             # write the entry itself makes
-            tok_h, pos_h = self.tok.cpu().numpy().copy(), \
-                self.pos.cpu().numpy().copy()
-            for s, (t, p) in parks.items():
-                tok_h[s], pos_h[s] = t, p
-            self.tok = torch.as_tensor(tok_h, device=self.engine.device)
-            self.pos = torch.as_tensor(pos_h, device=self.engine.device)
+            self._write_slots(parks, tok=True)
         scfg = self.engine.scfg
         use_spec = scfg.spec_decode
         if use_spec:
@@ -210,11 +227,15 @@ class Scheduler:
                 if held > lim:
                     use_spec = False
                     break
-        (self.cache, self.tok, self.pos, self.done, tok0, done0, toks,
-         dones, ok, n_valid) = self.engine.step(
-            self.cache, entries, self.tok, self.pos, self.done, self.eos,
+        self.cache, tok, pos, done, packed = self.engine.step(
+            self.cache, lane, self.tok, self.pos, self.done, self.eos,
             self.chunk, spec=use_spec)
-        ok_h = ok.cpu().numpy()
+        self.tok.copy_(tok)
+        self.pos.copy_(pos)
+        self.done.copy_(done)
+        # the round's one device-to-host read
+        tok0_h, done0_h, toks_h, dones_h, ok_h, nv_h = unpack_round(
+            np.asarray(packed.tolist(), dtype=np.int64))
         if not ok_h.all():
             raise RuntimeError("non-finite logits in decode for slots "
                                f"{np.flatnonzero(~ok_h).tolist()}")
@@ -223,14 +244,10 @@ class Scheduler:
         for slot, req in fresh:
             self._admit_counter += 1
             self._admit_seq[slot] = self._admit_counter
-        if entries is not None:
-            self.stats["prefill_tokens"] += C
-            self.stats["admitted_tokens"] += sum(
-                1 for s in entries["slot"] if s >= 0)
+        if lane is not None:
+            self.stats["prefill_tokens"] += self.engine.prefill_chunk
+            self.stats["admitted_tokens"] += lane.slot.shape[0]
         self.stats["rounds"] += 1
-        toks_h, dones_h = toks.cpu().numpy(), dones.cpu().numpy()
-        tok0_h, done0_h = tok0.cpu().numpy(), done0.cpu().numpy()
-        nv_h = n_valid.cpu().numpy()
         if use_spec:
             # every live decode row drafted draft_k tokens and committed
             # n_valid - 1 of them (the last is the verifier's own token)

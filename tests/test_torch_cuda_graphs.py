@@ -1,0 +1,313 @@
+"""The serving round as a captured CUDA graph (``serve/graphs.py``) on the
+card: full-width qwen2-7b and bitnet-3b at 2 layers, seed-0 random
+weights.  A replayed round must equal the eager round bit for bit (cache
+bytes, tokens, positions, done flags, the packed result) and count the
+same launches; graphs never move a workspace, never replay under another
+kernel variant, and a capture that fails raises.  Every test needs a CUDA
+GPU (marker ``gpu``) and skips elsewhere; the file imports no JAX:
+``python -m pytest -q -m gpu tests/test_torch_cuda_graphs.py``.
+"""
+import dataclasses
+import warnings
+
+import pytest
+import torch
+
+from repro_torch.configs import bitnet_3b, qwen2_7b
+from repro_torch.kernels.lutmul import kernel, ops
+from repro_torch.models import transformer
+from repro_torch.serve import Request, Scheduler, ServeConfig, make_engine
+from repro_torch.serve.engine import ChunkLane
+
+pytestmark = [pytest.mark.gpu, pytest.mark.skipif(
+    not torch.cuda.is_available(),
+    reason="needs a CUDA GPU: graphs are captured on the card")]
+
+LAYERS = 2
+SLOTS = 8
+MAX_LEN = 64
+
+
+@pytest.fixture(autouse=True)
+def _dispatch():
+    ops.set_backend("cuda")
+    ops.set_variant(None)
+    yield
+    ops.set_backend(None)
+    ops.set_variant(None)
+
+
+_ENGINES = {}
+
+
+def _engine(name: str):
+    """lut, tmac, spec (on the tmac codes) or bitnet, built once."""
+    if name not in _ENGINES:
+        if name in ("lut", "tmac", "spec"):
+            cfg = dataclasses.replace(qwen2_7b.config(quant="w4a4_lut"),
+                                      n_layers=LAYERS)
+            params = transformer.init_params(cfg, seed=0, device="cuda")
+            _ENGINES["lut"] = make_engine(params, cfg, ServeConfig(
+                quant="w4a4_lut", max_len=MAX_LEN))
+            tcfg = dataclasses.replace(cfg, quant="w4a4_tmac")
+            tmac = make_engine(params, tcfg, ServeConfig(
+                quant="w4a4_tmac", max_len=MAX_LEN))
+            _ENGINES["tmac"] = tmac
+            _ENGINES["spec"] = make_engine(tmac.params, tcfg, ServeConfig(
+                max_len=MAX_LEN, spec_decode=True))
+            del params
+        else:
+            cfg = dataclasses.replace(bitnet_3b.config(), n_layers=LAYERS)
+            params = transformer.init_params(cfg, seed=0, device="cuda")
+            _ENGINES["bitnet"] = make_engine(params, cfg, ServeConfig(
+                quant="ternary_a8_tmac", max_len=MAX_LEN))
+            del params
+        torch.cuda.empty_cache()
+    return _ENGINES[name]
+
+
+def _state(eng, seed=0):
+    """A cache of random bf16 rows and 8 slots: live decoders, a row parked
+    mid-prompt (5), a free row (3) admitted this round with a one-token
+    budget, a finished row (4) and one with an EOS id (1)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cache = eng.init_cache(SLOTS)
+    for c in cache:
+        for v in c.values():
+            v.normal_(generator=g)
+    V = eng.cfg.vocab
+    tok = torch.randint(0, V, (SLOTS,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    pos = torch.tensor([5, 9, 0, 0, 12, 3, 7, 20], dtype=torch.int32,
+                       device="cuda")
+    done = torch.tensor([0, 0, 0, 1, 1, 1, 0, 0], dtype=torch.bool,
+                        device="cuda")
+    eos = torch.tensor([-1, int(tok[1]), -1, -1, -1, -1, -1, -1],
+                       dtype=torch.int32, device="cuda")
+    t = torch.randint(0, V, (3,), generator=g, dtype=torch.int32,
+                      device="cuda")
+    lane = ChunkLane(
+        torch.tensor([5, 5, 3], dtype=torch.int32, device="cuda"), t,
+        torch.tensor([3, 4, 0], dtype=torch.int32, device="cuda"),
+        torch.tensor([0, 1, 1], dtype=torch.bool, device="cuda"),
+        torch.tensor([0, 0, 1], dtype=torch.bool, device="cuda"))
+    return cache, lane, (tok, pos, done), eos
+
+
+def _copy(cache):
+    return [{k: v.clone() for k, v in c.items()} for c in cache]
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def _round(eng, cache, lane, state, eos, chunk, spec, eager):
+    kernel.reset_launches()
+    _, tok, pos, done, packed = eng.step(cache, lane, *state, eos, chunk,
+                                         spec, _eager=eager)
+    torch.cuda.synchronize()
+    return ([tok.clone(), pos.clone(), done.clone(), packed.clone()],
+            dict(kernel.LAUNCHES))
+
+
+ROUNDS = [("lut", None, False), ("lut", "unfused", False),
+          ("tmac", None, False), ("spec", None, True),
+          ("bitnet", None, False)]
+
+
+@pytest.mark.parametrize("name,variant,spec", ROUNDS,
+                         ids=["lut", "lut-unfused", "tmac", "spec", "bitnet"])
+def test_replayed_round_equals_eager_round(name, variant, spec):
+    """Three rounds from one state: with the chunk lane (captured), then
+    two without (captured, then replayed with no warm-up before it)."""
+    eng = _engine(name)
+    ops.set_variant(variant)
+    cache, lane, state, eos = _state(eng)
+    c_eager, c_graph = _copy(cache), cache
+    s_eager = s_graph = state
+    replays = eng.graphs.replays
+    for i, ln in enumerate((lane, None, None)):
+        want, want_launches = _round(eng, c_eager, ln, s_eager, eos, 3,
+                                     spec, True)
+        got, got_launches = _round(eng, c_graph, ln, s_graph, eos, 3, spec,
+                                   False)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), i
+        for a, b in zip(c_graph, c_eager):
+            assert torch.equal(_bits(a["k"]), _bits(b["k"])), i
+            assert torch.equal(_bits(a["v"]), _bits(b["v"])), i
+        assert got_launches == want_launches and sum(want_launches.values())
+        s_eager, s_graph = tuple(want[:3]), tuple(got[:3])
+    assert eng.graphs.replays == replays + 3
+
+
+def test_replay_counts_the_forwards_of_its_capture():
+    eng = _engine("lut")
+    cache, lane, state, eos = _state(eng, seed=1)
+    eng.decode_steps = 0
+    eng.lane_steps = dict.fromkeys(eng.lane_steps, 0)
+    for _ in range(2):
+        _round(eng, cache, lane, state, eos, 2, False, False)
+    assert eng.lane_steps == {"chunk": 6, "decode": 4, "draft": 0,
+                              "verify": 0}
+    assert eng.decode_steps == 10
+    r = next(r for k, r in eng.graphs.rounds.items()
+             if k[:3] == (3, 2, False) and k[-1] == tuple(
+                 t.data_ptr() for c in cache for t in c.values()))
+    assert r.replays == 2 and r.forwards == 5
+    assert r.launches == {"lutmul_fused": 7 * LAYERS * 5,
+                          "int_matmul_fused": 5}
+
+
+def test_workspaces_stay_put_across_captures():
+    eng = _engine("spec")
+    cache, lane, state, eos = _state(eng, seed=2)
+    _round(eng, cache, lane, state, eos, 2, True, False)
+    ws = eng.graphs._workspaces[SLOTS]
+    ptrs = {lib: t.data_ptr() for lib, t in ws.items()}
+    eager = {k: t.data_ptr() for k, t in kernel._WORKSPACES.items()}
+    for ln, chunk, spec in ((None, 2, True), (None, 3, False),
+                            (ChunkLane(*(t[:1] for t in lane)), 1, False),
+                            (lane, 4, True)):
+        _round(eng, cache, ln, state, eos, chunk, spec, False)
+    assert eng.graphs._workspaces == {SLOTS: ws}
+    assert {lib: t.data_ptr() for lib, t in ws.items()} == ptrs
+    # warm-ups and captures never touch the per-stream eager workspaces
+    assert {k: t.data_ptr() for k, t in kernel._WORKSPACES.items()} == eager
+    for t in ws.values():
+        assert not t.any()
+
+
+def test_a_launch_that_outgrows_the_graph_workspace_raises():
+    g = torch.Generator(device="cuda").manual_seed(3)
+    a = torch.randint(0, 16, (8, 256), generator=g, dtype=torch.uint8,
+                      device="cuda")
+    small = torch.randint(0, 256, (128, 64), generator=g, dtype=torch.uint8,
+                          device="cuda")
+    wide = torch.randint(0, 256, (128, 4096), generator=g,
+                         dtype=torch.uint8, device="cuda")
+    ws = kernel.reserve_workspaces([(8, 64)], a.device)
+    ptr = ws["lutmul"].data_ptr()
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with kernel.graph_workspaces(ws), torch.cuda.stream(s):
+        got = kernel.lutmul(a, small)
+        with pytest.raises(RuntimeError, match="workspace"):
+            kernel.lutmul(a, wide)
+    s.synchronize()
+    assert torch.equal(got.cpu(), kernel.lutmul(a.cpu(), small.cpu()))
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="workspace"):
+        with kernel.graph_workspaces(ws), torch.cuda.graph(graph, stream=s):
+            kernel.lutmul(a, wide)
+    with pytest.raises(RuntimeError, match="graph_workspaces"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=s):
+            kernel.lutmul(a, small)
+    torch.cuda.synchronize()
+    assert ws["lutmul"].data_ptr() == ptr and not ws["lutmul"].any()
+    assert torch.equal(kernel.lutmul(a, wide).cpu(),
+                       kernel.lutmul(a.cpu(), wide.cpu()))
+
+
+def test_a_graph_never_replays_under_another_variant():
+    eng = _engine("lut")
+    cache, lane, state, eos = _state(eng, seed=4)
+
+    def graph_of(variant):
+        return next(r for k, r in eng.graphs.rounds.items()
+                    if k[:5] == (3, 2, False, "cuda", variant)
+                    and k[-1][0] == cache[0]["k"].data_ptr())
+
+    _round(eng, cache, lane, state, eos, 2, False, False)
+    fused = graph_of("fused")
+    n_fused = fused.replays     # the cache may sit where an earlier one did
+    ops.set_variant("unfused")
+    _, launches = _round(eng, cache, lane, state, eos, 2, False, False)
+    unfused = graph_of("unfused")
+    n_unfused = unfused.replays
+    assert fused.replays == n_fused
+    assert launches == {**dict.fromkeys(kernel.LAUNCHES, 0),
+                        "lutmul": 7 * LAYERS * 5, "int_matmul": 5}
+    ops.set_variant(None)
+    _round(eng, cache, lane, state, eos, 2, False, False)
+    assert fused.replays == n_fused + 1 and unfused.replays == n_unfused
+
+
+def test_scheduler_round_reads_the_card_once():
+    """A replayed Scheduler round synchronizes with the card once: the
+    packed result's read (``torch.cuda`` sync debug mode counts them)."""
+    eng = _engine("tmac")
+    sched = Scheduler(eng, slots=SLOTS, chunk=4)
+    g = torch.Generator().manual_seed(5)
+    for L in (3, 9, 5, 1, 12, 4, 7, 2, 6):
+        sched.submit(Request(prompt=torch.randint(
+            0, eng.cfg.vocab, (L,), generator=g).tolist(), max_new_tokens=6))
+    syncs = []
+    while sched.has_work:
+        keys = len(eng.graphs.rounds)
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                sched.step()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        if len(eng.graphs.rounds) == keys:        # nothing captured
+            syncs.append(sum("synchroniz" in str(w.message) for w in seen))
+    assert syncs and syncs == [1] * len(syncs)
+
+
+# run in a process of its own: a failed capture may leave the CUDA context
+# unusable for the tests after it
+HOST_READ = """
+import dataclasses, sys, torch
+from repro_torch.configs import qwen2_7b
+from repro_torch.kernels.lutmul import ops
+from repro_torch.models import transformer
+from repro_torch.serve import ServeConfig, make_engine
+from repro_torch.serve.engine import ChunkLane
+
+ops.set_backend("cuda")
+cfg = dataclasses.replace(qwen2_7b.smoke_config(quant="w4a4_lut"),
+                          n_layers=2)
+eng = make_engine(transformer.init_params(cfg, seed=0, device="cuda"), cfg,
+                  ServeConfig(quant="w4a4_lut", max_len=16))
+decode = transformer.decode_step
+
+def reading(*a, **k):
+    logits, c = decode(*a, **k)
+    logits.isfinite().all().item()          # a host read inside the round
+    return logits, c
+
+transformer.decode_step = reading
+i32 = dict(dtype=torch.int32, device="cuda")
+lane = ChunkLane(torch.tensor([0], **i32), torch.tensor([3], **i32),
+                 torch.tensor([0], **i32),
+                 torch.ones(1, dtype=torch.bool, device="cuda"),
+                 torch.zeros(1, dtype=torch.bool, device="cuda"))
+state = (torch.zeros(2, **i32), torch.tensor([0, -1], **i32),
+         torch.ones(2, dtype=torch.bool, device="cuda"),
+         torch.full((2,), -1, **i32))
+try:
+    eng.step(eng.init_cache(2), lane, *state, 2)
+except RuntimeError as err:
+    print("raised:", str(err).splitlines()[0])
+    sys.exit(0 if not eng.graphs.rounds and not eng.graphs.replays else 3)
+sys.exit(2)
+"""
+
+
+def test_a_host_read_in_a_round_fails_the_capture():
+    """A round that reads the device cannot be captured: the step raises
+    (no eager fallback) and keeps no graph for its key."""
+    import os
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    run = subprocess.run([sys.executable, "-c", HOST_READ], env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stdout + run.stderr
+    assert "raised:" in run.stdout
