@@ -29,7 +29,15 @@ Phases (any failure raises and exits non-zero):
    equal to the LUT run's: w4 bitplanes decode to the nibble codes), unfused
    (4), plain (2), bitplane self-speculative decoding on the same codes (8,
    equal to the plain tmac run's), and speculation after zeroing the low two
-   planes in place (4; every draft accepted).  On the kernel backend every
+   planes in place (4; every draft accepted).  Then the sampled mix
+   (``SAMPLED_MIX``: per-request temperature / top-k / top-p, greedy rows
+   among them, ``ServeConfig(seed=SAMPLE_SEED)``) on the same engines: lut
+   fused over the 8 prompts (its greedy rows equal the all-greedy run, a
+   sampled row leaves it), then over the first 4: lut fused, unfused and
+   plain, and tmac fused, all equal; speculative on the first 2, the
+   graph equal to the plain backend, its accept rate printed.  A sampled
+   transcript depends on the batch's global draw counter, so only runs over
+   the same requests are compared.  On the kernel backend every
    round is a replayed CUDA graph, one captured per round key
    (``serve/graphs.py``); the plain backend runs op by op.  Each run's
    launch counters must be exactly 7 per layer per forward for the inner
@@ -39,7 +47,10 @@ Phases (any failure raises and exits non-zero):
    device-busy share of eager decode steps, a drafter step and a verify
    forward, and of a replayed round of each engine (8 decode iterations,
    or a speculative round); the eager LUT decode step's profile also lists
-   every device row (the activation quantizer's kernels among them).
+   every device row (the activation quantizer's kernels among them).  The
+   sampling ops: a replayed sampled decode round against the greedy round
+   from the same state (their device time's difference), and one
+   ``sample_logits`` draw at [8, vocab] alone, every device row listed.
 4. serving bitnet-3b (26 layers, full width) in ternary_a8_tmac: fused (8
    requests) and plain (first 4), equal transcripts.
 5. the paper's CNN: full-width MobileNetV2 (224x224, width 1.0, 1000
@@ -85,6 +96,11 @@ BITNET_INNER = {"wq": (3200, 3200), "wk": (3200, 3200), "wv": (3200, 3200),
 QWEN_HEAD = (3584, 152064)
 BITNET_HEAD = (3200, 32000)
 F32_OPS_PER_S = 67e12             # H100 SXM float32 outside the tensor cores
+SAMPLE_SEED = 1234
+# per-request (temperature, top_k, top_p) of the sampled mix, by prompt:
+# unfiltered, top-k, greedy, top-p, top-k + top-p, greedy, top-k, top-p
+SAMPLED_MIX = [(0.7, 0, 1.0), (1.0, 40, 1.0), (0.0, 0, 1.0), (0.8, 0, 0.9),
+               (1.0, 50, 0.95), (0.0, 0, 1.0), (1.2, 8, 1.0), (0.5, 0, 0.8)]
 MB_BATCH = 32
 MB_CHECK = 4                      # images held against the CPU forward
 MB_FLOAT_RTOL = 1e-3              # of max |logit|; see run_mobilenet
@@ -417,14 +433,18 @@ def check_kernels(bench: Bench) -> None:
 # phases 3 and 4: serving
 # ---------------------------------------------------------------------------
 
-def make_requests(vocab: int, seed: int = 0):
+def make_requests(vocab: int, seed: int = 0, sampled: bool = False):
+    """8 requests, prompts of 8, 16, ..., 64 tokens; ``sampled`` gives
+    each its ``SAMPLED_MIX`` knobs."""
     import numpy as np
     from repro_torch.serve import Request
     rng = np.random.default_rng(seed)
     out = []
-    for L in range(8, 65, 8):
+    for i, L in enumerate(range(8, 65, 8)):
+        t, k, p = SAMPLED_MIX[i] if sampled else (None, None, None)
         out.append(Request(prompt=rng.integers(0, vocab, L).tolist(),
-                           max_new_tokens=int(rng.integers(16, 33))))
+                           max_new_tokens=int(rng.integers(16, 33)),
+                           temperature=t, top_k=k, top_p=p))
     return out
 
 
@@ -465,7 +485,7 @@ def _graph_stats(engine, before: tuple, label: str, rounds: int,
           "capture_s": g.capture_s - capture_s,
           "replays": g.replays - replays,
           "keys": [{"n_real": k[0], "chunk": k[1], "spec": k[2],
-                    "variant": k[4], "forwards": r.forwards,
+                    "greedy": k[3], "variant": k[5], "forwards": r.forwards,
                     "replays": r.replays - seen.get(id(r), 0),
                     "launches": r.launches} for k, r in ran]}
     if inner is None:
@@ -481,22 +501,24 @@ def _graph_stats(engine, before: tuple, label: str, rounds: int,
         want = {inner + sfx: 7 * engine.cfg.n_layers * r.forwards,
                 "int_matmul" + sfx: r.forwards}
         if not r.forwards or r.launches != want:
-            raise AssertionError(f"{label}: graph {k[:5]} captured launches "
+            raise AssertionError(f"{label}: graph {k[:6]} captured launches "
                                  f"{r.launches} != {want} for forwards "
                                  f"{r.lanes}")
     return st
 
 
 def serve(engine, vocab: int, label: str, n_requests: int,
-          inner: str = None, fused: bool = True) -> list:
-    """Drain ``n_requests`` requests through a fresh Scheduler, with the
-    launch counters zeroed just before and read just after; ``inner`` names
-    the projection kernel every forward must launch 7 times per layer (the
-    head kernel once), None for the plain backend (no launches at all).
-    A replayed round counts the launches its capture recorded."""
+          inner: str = None, fused: bool = True,
+          sampled: bool = False) -> list:
+    """Drain ``n_requests`` requests (``sampled``: with the sampled mix's
+    knobs) through a fresh Scheduler, with the launch counters zeroed just
+    before and read just after; ``inner`` names the projection kernel every
+    forward must launch 7 times per layer (the head kernel once), None for
+    the plain backend (no launches at all).  A replayed round counts the
+    launches its capture recorded."""
     import torch
     from repro_torch.serve import Scheduler
-    reqs = make_requests(vocab)[:n_requests]
+    reqs = make_requests(vocab, sampled=sampled)[:n_requests]
     sched = Scheduler(engine, slots=SLOTS, chunk=8)
     engine.decode_steps = 0
     engine.lane_steps = dict.fromkeys(engine.lane_steps, 0)
@@ -635,6 +657,91 @@ def profile_engine(engine, label: str, steps: int,
     del cache
 
 
+def sampling_knobs(step0: int = 0) -> dict:
+    """``Engine.step``'s sampling arguments for 8 slots of the mix."""
+    import torch
+    t, k, p = zip(*SAMPLED_MIX)
+    return dict(
+        temperature=torch.tensor(t, dtype=torch.float32, device="cuda"),
+        top_k=torch.tensor(k, dtype=torch.int32, device="cuda"),
+        top_p=torch.tensor(p, dtype=torch.float32, device="cuda"),
+        step0=step0, greedy=False)
+
+
+SAMPLING: dict = {}
+
+
+def profile_sampling(engine, label: str, steps: int) -> None:
+    """What the sampling ops cost a replayed decode round (8 iterations,
+    8 draws): the device time of the sampled round less the greedy round's
+    from the same state (torch.profiler), both rounds' wall ms per step
+    without the profiler (interleaved, 3 each), and one ``sample_logits``
+    draw at [8, vocab] alone with every device row."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.serve import sample_logits
+    if not steps:
+        return
+    cache = engine.init_cache(SLOTS)
+    tok = torch.zeros((SLOTS,), dtype=torch.int32, device="cuda")
+    pos = torch.arange(SLOTS, dtype=torch.int32, device="cuda") + 16
+    done = torch.zeros((SLOTS,), dtype=torch.bool, device="cuda")
+    eos = torch.full((SLOTS,), -1, dtype=torch.int32, device="cuda")
+    knobs = sampling_knobs(step0=5)
+    rounds = {
+        "greedy": lambda: engine.step(cache, None, tok, pos, done, eos, 8),
+        "sampled": lambda: engine.step(cache, None, tok, pos, done, eos, 8,
+                                       **knobs)}
+    for kind, fn in rounds.items():
+        profile(f"{label} {kind} decode round, replayed", fn, steps,
+                forwards=8)
+    wall = {kind: [] for kind in rounds}
+    for _ in range(3):
+        for kind, fn in rounds.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall[kind].append(1e3 * (time.perf_counter() - t0) / 8)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    logits = 3.0 * torch.randn((SLOTS, engine.cfg.vocab), generator=g,
+                               device="cuda")
+    key = prng.fold_in(engine.key, 0)
+    draw = f"{label} sample_logits [8, vocab] draw"
+    profile(draw, lambda: sample_logits(logits, key, knobs["temperature"],
+                                        knobs["top_k"], knobs["top_p"]),
+            steps, forwards=0, detail=True)
+    dev = {kind: PROFILES[f"{label} {kind} decode round, replayed"]
+           ["device_ms_per_call"] for kind in rounds}
+    extra = dev["sampled"] - dev["greedy"]
+    SAMPLING.update({
+        "device_ms_per_round": dev,
+        "sampling_ops_device_ms_per_round": extra,
+        "sampling_ops_share_of_sampled_round": extra / dev["sampled"],
+        "draw_device_ms": PROFILES[draw]["device_ms_per_call"],
+        "replayed_wall_ms_per_step": {k: sorted(v)[1]
+                                      for k, v in wall.items()},
+        "replayed_wall_ms_per_step_all": wall})
+    log(f"sampling ops[{label}]: {json.dumps(SAMPLING)}")
+    del cache, logits
+
+
+def check_mix(sampled: list, greedy: list, what: str) -> None:
+    """The mix's greedy rows equal the all-greedy run's transcripts, and a
+    sampled row leaves its greedy transcript."""
+    rows = [i for i, (t, _, _) in enumerate(SAMPLED_MIX[:len(sampled)])
+            if t <= 0.0]
+    same([sampled[i] for i in rows], [greedy[i] for i in rows],
+         f"{what}: greedy rows == the all-greedy run")
+    moved = [i for i in range(len(sampled))
+             if i not in rows and sampled[i] != greedy[i]]
+    if not moved:
+        raise AssertionError(f"{what}: no sampled request left its greedy "
+                             "transcript")
+    log(f"{what}: sampled requests {moved} differ from their greedy "
+        "transcripts")
+
+
 def zero_low_planes(params, draft_planes: int = 2) -> int:
     """Zero the low planes of every draftable leaf IN PLACE: a leaf whose
     low planes are zero decodes to exactly 2^(B-p) x its top-plane code,
@@ -667,8 +774,8 @@ def run_qwen(n_layers: int, profile_steps: int) -> None:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = transformer.init_params(cfg, seed=0, device="cuda")
-    engine = make_engine(params, cfg,
-                         ServeConfig(quant="w4a4_lut", max_len=256))
+    engine = make_engine(params, cfg, ServeConfig(
+        quant="w4a4_lut", max_len=256, seed=SAMPLE_SEED))
     torch.cuda.synchronize()
     log(f"model: {cfg.name} {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.compute_dtype}; init + "
@@ -680,21 +787,32 @@ def run_qwen(n_layers: int, profile_steps: int) -> None:
     ops.set_variant(None)
     lut = serve(engine, V, "qwen lut fused", 8, "lutmul")
     profile_engine(engine, "qwen lut", profile_steps, detail=True)
+    # the sampled mix: 8 requests, then the first 4 for the comparisons
+    check_mix(serve(engine, V, "qwen lut fused sampled", 8, "lutmul",
+                    sampled=True), lut, "lut fused sampled")
+    profile_sampling(engine, "qwen lut", profile_steps)
+    lut_s = serve(engine, V, "qwen lut fused sampled, 4", 4, "lutmul",
+                  sampled=True)
     ops.set_variant("unfused")
     same(serve(engine, V, "qwen lut unfused", 4, "lutmul", fused=False),
          lut, "lut unfused == lut fused")
+    same(serve(engine, V, "qwen lut unfused sampled", 4, "lutmul",
+               fused=False, sampled=True), lut_s,
+         "lut unfused sampled == lut fused sampled")
     ops.set_variant(None)
     ops.set_backend("ref")
     same(serve(engine, V, "qwen lut plain", 4), lut,
          "lut plain == lut fused")
+    same(serve(engine, V, "qwen lut plain sampled", 4, sampled=True), lut_s,
+         "lut plain sampled == lut fused sampled")
     ops.set_backend("cuda")
     del engine
 
     # this slice: the same float weights as w4a4_tmac bitplanes
     tcfg = dataclasses.replace(cfg, quant="w4a4_tmac")
     t0 = time.perf_counter()
-    engine = make_engine(params, tcfg,
-                         ServeConfig(quant="w4a4_tmac", max_len=256))
+    engine = make_engine(params, tcfg, ServeConfig(
+        quant="w4a4_tmac", max_len=256, seed=SAMPLE_SEED))
     del params            # the float master weights go; codes stay
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -702,6 +820,8 @@ def run_qwen(n_layers: int, profile_steps: int) -> None:
         f"{time.perf_counter() - t0:.1f}s")
     tmac = serve(engine, V, "qwen tmac fused", 8, "lutmul_tmac")
     same(tmac, lut, "tmac fused == lut fused")
+    same(serve(engine, V, "qwen tmac fused sampled", 4, "lutmul_tmac",
+               sampled=True), lut_s, "tmac fused sampled == lut fused sampled")
     profile_engine(engine, "qwen tmac", profile_steps)
     ops.set_variant("unfused")
     same(serve(engine, V, "qwen tmac unfused", 4, "lutmul_tmac",
@@ -714,13 +834,27 @@ def run_qwen(n_layers: int, profile_steps: int) -> None:
 
     # bitplane self-speculative decoding on the same codes
     spec = make_engine(engine.params, tcfg, ServeConfig(
-        max_len=256, spec_decode=True, draft_planes=2, draft_k=3))
+        max_len=256, spec_decode=True, draft_planes=2, draft_k=3,
+        seed=SAMPLE_SEED))
     log(f"spec engine: {spec.n_draftable_leaves} draftable leaves")
     same(serve(spec, V, "qwen tmac spec", 8, "lutmul_tmac"), tmac,
          "tmac spec == tmac fused")
     if RUNS["qwen tmac spec"]["spec_rounds"] < 1:
         raise AssertionError("the spec run made no speculative round")
     profile_engine(spec, "qwen tmac", profile_steps)
+    # speculation at temperature > 0: drafts and verify columns draw their
+    # own keys, so the accept rate is reported, not asserted
+    spec_s = serve(spec, V, "qwen tmac spec sampled", 2, "lutmul_tmac",
+                   sampled=True)
+    st = RUNS["qwen tmac spec sampled"]
+    if st["spec_rounds"] < 1:
+        raise AssertionError("the sampled spec run made no speculative round")
+    log(f"tmac spec sampled: accept rate {st['accept_rate']} "
+        f"({st['spec_accepted']} of {st['spec_drafted']} drafts)")
+    ops.set_backend("ref")
+    same(serve(spec, V, "qwen tmac spec sampled plain", 2, sampled=True),
+         spec_s, "tmac spec sampled plain == tmac spec sampled graph")
+    ops.set_backend("cuda")
     n = zero_low_planes(engine.params)
     log(f"zeroed the low 2 planes of {n} leaves in place")
     serve(spec, V, "qwen tmac spec, low planes zeroed", 4, "lutmul_tmac")

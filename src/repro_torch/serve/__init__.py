@@ -4,7 +4,9 @@
     Request -> Scheduler (FIFO queue, slot map) -> Engine.step
                    one round = chunk lane of prompt tokens + `chunk` decode
                    tokens for every slot, each a transformer.decode_step
-                   whose projections run the LUT / int8 kernels
+                   whose projections run the LUT / int8 kernels, its
+                   tokens drawn on the device (per-slot temperature /
+                   top-k / top-p over core.prng's threefry stream)
 """
 from repro_torch.serve.engine import Engine, ServeConfig, sample_logits
 from repro_torch.serve.request import Request, RequestStatus

@@ -1,6 +1,6 @@
 """Batched serving engine (port of ``repro.serve.engine``: dense KV, one
-device, chunked prefill, greedy bitplane self-speculative decoding; no
-paging, sampling or fault injection).
+device, chunked prefill, per-slot sampling, bitplane self-speculative
+decoding; no paging or fault injection).
 
 ``Engine.step`` is one unified serving round: a chunk lane of prompt-token
 iterations (each a full-batch ``decode_step`` with the target slot's
@@ -18,30 +18,52 @@ speculative one: ``draft_k`` drafter steps on the top-plane view of the
 tmac weights, one ``verify_step`` over the drafts, the longest matching
 prefix accepted.
 
+Sampling is on the device with per-slot temperature / top-k / top-p
+vectors and the port's own threefry stream (``core.prng``): draw ``n`` of a
+round uses ``fold_in(PRNGKey(seed), step0 + n)``, numbered as the
+reference numbers them — chunk entry ``i`` is ``n = i``, decode or draft
+step ``j`` is ``C + j`` and verify column ``i`` is ``C + draft_k + i``,
+where ``C`` is ``prefill_chunk`` on a round with a chunk lane (pads
+included, though the port never runs them) and 0 otherwise.  A round whose
+every slot is greedy takes the argmax-only variant (``greedy=True``): no
+key, sort or softmax in it.
+
 On the card with the kernel backend, a round is one captured CUDA graph
 per round key, replayed (``serve.graphs``, the counterpart of the
 reference's one compiled dispatch per key); on the CPU and with the
 ``ref`` backend it runs eagerly, op by op.
 
-``generate`` is the static-batch oracle: prefill, then a per-token loop.
-Positions are per-sequence ``pos: [B]`` int32; a negative position is the
-free-slot sentinel (every key of the row masked, writes inside its row).
+``generate`` is the static-batch oracle: prefill, then a per-token loop
+that draws token ``i`` with ``fold_in(PRNGKey(seed), i)`` under the
+ServeConfig's scalars.  Positions are per-sequence ``pos: [B]`` int32; a
+negative position is the free-slot sentinel (every key of the row masked,
+writes inside its row).
 """
 from __future__ import annotations
 
 import dataclasses
+import numbers
 from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.serve import graphs
+from repro_torch.serve.request import check_sampling
+
+NEG_INF = -1e30
 
 
 @dataclasses.dataclass
 class ServeConfig:
     max_len: int = 512
+    # the default sampling of every request that sets none of its own
+    temperature: float = 0.0      # <= 0: greedy
+    top_k: int = 0                # 0 disables top-k filtering
+    top_p: float = 1.0            # >= 1.0 disables nucleus filtering
+    seed: int = 0                 # the PRNGKey every draw is folded from
     quant: Optional[str] = None   # convert weights to serving codes at load
     # prompt tokens processed per unified round (None = 8)
     prefill_chunk: Optional[int] = None
@@ -49,7 +71,9 @@ class ServeConfig:
     # ``draft_k`` tokens per round with the top-``draft_planes``-plane view
     # of the tmac weight codes (no extra weight memory), verify them in one
     # (draft_k+1)-token target forward, accept the longest matching prefix.
-    # Transcripts equal the non-speculative engine's.
+    # Transcripts equal the non-speculative engine's at temperature 0; above
+    # it, drafts and verify columns are sampled with their own keys and
+    # still matched token for token.
     spec_decode: bool = False
     draft_planes: int = 2         # top planes the drafter keeps (>= 2)
     draft_k: int = 3              # tokens drafted per verify round
@@ -57,6 +81,10 @@ class ServeConfig:
     def __post_init__(self):
         if self.max_len < 1:
             raise ValueError(f"max_len must be >= 1, got {self.max_len}")
+        check_sampling(self.temperature, self.top_k, self.top_p)
+        if not isinstance(self.seed, numbers.Integral) \
+                or isinstance(self.seed, bool):
+            raise ValueError(f"seed must be an int, got {self.seed!r}")
         if self.prefill_chunk is not None:
             if self.prefill_chunk < 1:
                 raise ValueError(f"prefill_chunk must be >= 1, got "
@@ -84,15 +112,65 @@ class ServeConfig:
         return 8 if self.prefill_chunk is None else self.prefill_chunk
 
 
-def sample_logits(logits: torch.Tensor,
-                  temperature: float = 0.0) -> torch.Tensor:
-    """Greedy decoding: the per-row argmax (first index on ties), as the
-    reference's ``sample_logits`` at temperature <= 0.  Sampling at a
-    positive temperature is not ported yet and raises."""
-    if temperature > 0.0:
-        raise NotImplementedError(
-            f"temperature={temperature}: sampling is not ported yet")
-    return torch.argmax(logits.to(torch.float32), dim=-1).to(torch.int32)
+def _per_row(x, dtype, B: int, device) -> torch.Tensor:
+    """A scalar or [B] sampling knob as a [B] tensor of ``dtype``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype).reshape(-1).expand(B)
+    return torch.full((B,), x, dtype=dtype, device=device)
+
+
+def sample_logits(logits: torch.Tensor, key: Optional[torch.Tensor] = None,
+                  temperature=0.0, top_k=0, top_p=1.0) -> torch.Tensor:
+    """Per-row sampling, as the reference's ``sample_logits``: the argmax
+    (first index on ties) where temperature <= 0, otherwise a draw under
+    ``key`` from the temperature softmax restricted by top-k and/or top-p.
+
+    logits: [B, V] ([..., V] when greedy); temperature / top_k / top_p:
+    Python scalars or [B] tensors.  Python scalars short-circuit:
+    all-greedy is the argmax alone (``key`` unused), unfiltered sampling
+    skips the vocabulary sort.  The general path computes both and selects
+    per row.  Temperatures divide as device tensors (CUDA turns a division
+    by a Python number into a reciprocal multiply)."""
+    logits = logits.to(torch.float32)
+    static = all(isinstance(x, (int, float))
+                 for x in (temperature, top_k, top_p))
+    if static and temperature <= 0.0:       # any leading shape
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    B, V = logits.shape
+    dev = logits.device
+    if static and top_k == 0 and top_p >= 1.0:
+        t = torch.full((), max(temperature, 1e-6), dtype=torch.float32,
+                       device=dev)
+        return prng.categorical(key, logits / t).to(torch.int32)
+    temperature = _per_row(temperature, torch.float32, B, dev)
+    top_k = _per_row(top_k, torch.int32, B, dev)
+    top_p = _per_row(top_p, torch.float32, B, dev)
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+    sorted_l = torch.sort(logits, dim=-1, descending=True).values
+    kth = sorted_l.gather(-1, (torch.clamp(top_k, 1, V) - 1).long()[:, None])
+    keep = (logits >= kth) | (top_k <= 0)[:, None]
+    t = torch.clamp_min(temperature, 1e-6)[:, None]
+    scaled = sorted_l / t
+    unnorm = torch.exp(scaled - scaled.amax(-1, keepdim=True))
+    probs = unnorm / unnorm.sum(-1, keepdim=True)
+    csum = torch.cumsum(probs, dim=-1)
+    # nucleus: the smallest prefix whose mass reaches top_p (the first
+    # token always in)
+    n_keep = torch.clamp_min(((csum - probs) < top_p[:, None]).sum(-1), 1)
+    cutoff = sorted_l.gather(-1, (n_keep - 1)[:, None])
+    keep = keep & ((logits >= cutoff) | (top_p >= 1.0)[:, None])
+    sampled = prng.categorical(
+        key, torch.where(keep, logits, NEG_INF) / t).to(torch.int32)
+    return torch.where(temperature <= 0.0, greedy, sampled)
+
+
+class Sampling(NamedTuple):
+    """A sampled round's per-slot knobs and stream position, on the
+    device."""
+    temperature: torch.Tensor  # float32 [B]
+    top_k: torch.Tensor        # int32 [B]
+    top_p: torch.Tensor        # float32 [B]
+    step0: torch.Tensor        # int32 scalar: the round's first draw index
 
 
 class ChunkLane(NamedTuple):
@@ -167,6 +245,9 @@ class Engine:
             # views of the target's plane bytes (a zeroing of the target's
             # planes in place shows through)
             self.draft_params = draft_params_view(params, scfg.draft_planes)
+        # every draw of a round is folded from this key (a constant of the
+        # engine, so a captured round reads it at a fixed address)
+        self.key = prng.prng_key(scfg.seed, self.device)
         self.graphs = graphs.RoundGraphs()
 
     # -- scheduler-facing API ------------------------------------------------
@@ -192,7 +273,9 @@ class Engine:
                                        pos)
 
     def step(self, cache, lane: Optional[ChunkLane], tok, pos, done, eos,
-             chunk: int, spec: bool = False, *, _eager: bool = False):
+             chunk: int, spec: bool = False, *, temperature=None,
+             top_k=None, top_p=None, step0=0, greedy: bool = True,
+             _eager: bool = False):
         """ONE unified serving round: the chunk lane (when ``lane`` is not
         None) then ``chunk`` (>= 1) decode iterations over every slot, or
         with ``spec`` (needs ``scfg.spec_decode``) one speculative round:
@@ -207,6 +290,15 @@ class Engine:
         budget).  Non-target rows re-run their held (token, position);
         finished and free slots (done=True) hold token and position
         throughout.
+
+        ``greedy`` (every slot at temperature 0 with no filter; the caller
+        knows it from its host mirrors) runs the argmax-only round.
+        Otherwise ``temperature``, ``top_k`` and ``top_p`` are the per-slot
+        [B] device vectors and ``step0`` (an int or a device int32 scalar)
+        the round's first draw index; draw ``n`` of the round uses
+        ``fold_in(self.key, step0 + n)`` (the module docstring numbers
+        them), so a round advances the stream by ``C + chunk``, or ``C +
+        2 * draft_k + 1`` under ``spec``.
 
         Precondition of ``spec``: every occupied slot holds a position
         ``<= max_len - (draft_k + 1)`` (the scheduler's headroom guard).
@@ -228,19 +320,45 @@ class Engine:
         if spec and not self.scfg.spec_decode:
             raise ValueError(
                 "spec=True requires ServeConfig(spec_decode=True)")
+        samp = None
+        if not greedy:
+            if temperature is None or top_k is None or top_p is None:
+                raise ValueError("a sampled round (greedy=False) needs the "
+                                 "temperature, top_k and top_p vectors")
+            if not isinstance(step0, torch.Tensor):
+                step0 = torch.full((), step0, dtype=torch.int32,
+                                   device=tok.device)
+            samp = Sampling(temperature, top_k, top_p, step0)
         if not _eager and graphs.applies(self.device):
             tok, pos, done, packed = self.graphs.run(
-                self, cache, lane, tok, pos, done, eos, chunk, spec)
+                self, cache, lane, tok, pos, done, eos, chunk, spec, samp)
         else:
             tok, pos, done, packed = self._round(
-                cache, lane, tok, pos, done, eos, chunk, spec)
+                cache, lane, tok, pos, done, eos, chunk, spec, samp)
         return cache, tok, pos, done, packed
 
+    @staticmethod
+    def _sample(logits, samp: Optional[Sampling], keys, n: int):
+        """Draw ``n`` of the round (the argmax on a greedy round)."""
+        if samp is None:
+            return sample_logits(logits)
+        return sample_logits(logits, keys[n], samp.temperature, samp.top_k,
+                             samp.top_p)
+
     def _round(self, cache, lane, tok, pos, done, eos, chunk: int,
-               spec: bool):
+               spec: bool, samp: Optional[Sampling] = None):
         """The round op by op, as the reference's ``_make_step_impl``
         (``fill`` for each entry, then the decode or speculative lane):
         (tok, pos, done, packed), the cache written in place."""
+        C = 0 if lane is None else self.prefill_chunk
+        keys = None
+        if samp is not None:
+            # the keys of the round's draws, [n, 2], in one vectorized
+            # fold-in (the reference first folds in the data shard,
+            # tp_lib.fold_in_data: the identity on one device)
+            n = C + (2 * self.scfg.draft_k + 1 if spec else chunk)
+            keys = prng.fold_in(self.key, samp.step0 + torch.arange(
+                n, dtype=torch.int32, device=samp.step0.device))
         ok = torch.ones_like(done)
         tok0, done0 = tok, done
         if lane is not None:
@@ -255,7 +373,7 @@ class Engine:
                 # otherwise the target parks on this entry's (t, p)
                 fire = target & lane.first[i]
                 ok = ok & (torch.isfinite(logits).all(-1) | ~fire)
-                nxt = sample_logits(logits)
+                nxt = self._sample(logits, samp, keys, i)
                 nd = ((nxt == eos) & (eos >= 0)) | lane.budget_one[i]
                 tok = torch.where(fire, nxt, tok_in)
                 pos = torch.where(fire, lane.pos[i] + 1, pos_in)
@@ -264,7 +382,8 @@ class Engine:
                 done0 = torch.where(fire, nd, done0)
         if spec:
             cache, tok, pos, done, toks, dones, ok, n_valid = \
-                self._spec_lane(cache, tok, pos, done, eos, ok)
+                self._spec_lane(cache, tok, pos, done, eos, ok, samp,
+                                keys, C)
             return tok, pos, done, pack_round(tok0, done0, toks, dones, ok,
                                               n_valid)
         toks, dones = [], []
@@ -272,7 +391,7 @@ class Engine:
             logits, cache = self._decode(tok, cache, pos)
             # rows done before this step never sample these logits
             ok = ok & (torch.isfinite(logits).all(-1) | done)
-            nxt = sample_logits(logits)
+            nxt = self._sample(logits, samp, keys, C + j)
             nxt = torch.where(done, tok, nxt)
             pos = torch.where(done, pos, pos + 1)
             done = done | ((nxt == eos) & (eos >= 0))
@@ -283,14 +402,19 @@ class Engine:
         return tok, pos, done, pack_round(tok0, done0, torch.stack(toks, 1),
                                           torch.stack(dones, 1), ok, n_valid)
 
-    def _spec_lane(self, cache, tok, pos, done, eos, ok):
-        """Draft ``draft_k`` / verify once / accept the longest prefix."""
+    def _spec_lane(self, cache, tok, pos, done, eos, ok, samp, keys,
+                   C: int):
+        """Draft ``draft_k`` / verify once / accept the longest prefix.
+        Draft ``j`` is draw ``C + j``, verify column ``i`` draw ``C + K +
+        i``: at temperature > 0 the drafter and the target draw different
+        noise, and the tokens are still matched as they are."""
         K = self.scfg.draft_k
         S = K + 1
         dtok, dpos, drafts = tok, pos, []
-        for _ in range(K):
+        for j in range(K):
             logits, cache = self._decode(dtok, cache, dpos, "draft")
-            nxt = torch.where(done, dtok, sample_logits(logits))
+            nxt = torch.where(done, dtok,
+                              self._sample(logits, samp, keys, C + j))
             dpos = torch.where(done, dpos, dpos + 1)
             dtok = nxt
             drafts.append(nxt)
@@ -298,7 +422,12 @@ class Engine:
         logits, cache = self._verify(torch.cat([tok[:, None], drafts], 1),
                                      cache, pos)
         ok = ok & (torch.isfinite(logits).all(-1).all(-1) | done)
-        v = sample_logits(logits)                                  # [B, S]
+        if samp is None:
+            v = sample_logits(logits)                              # [B, S]
+        else:
+            # each column its own [B, V] draw with its own key
+            v = torch.stack([self._sample(logits[:, i], samp, keys,
+                                          C + K + i) for i in range(S)], 1)
         # accept the longest prefix where the target reproduces the draft;
         # the target's token after it (correction or bonus) comes free
         match = (v[:, :K] == drafts).to(torch.int32)
@@ -337,17 +466,27 @@ class Engine:
     def generate(self, prompts: torch.Tensor,
                  max_new_tokens: int) -> torch.Tensor:
         """prompts [B, S] int -> [B, S + max_new_tokens]: the static-batch
-        oracle (prefill, then a greedy per-token loop)."""
+        oracle (prefill, then a per-token loop, token ``i`` drawn with
+        ``fold_in(self.key, i)`` under the ServeConfig's sampling), as the
+        reference's ``generate(use_scan=False)``."""
+        sc = self.scfg
+        greedy = sc.temperature <= 0.0
+
+        def draw(logits, i):
+            key = None if greedy else prng.fold_in(self.key, i)
+            return sample_logits(logits, key, sc.temperature, sc.top_k,
+                                 sc.top_p)
+
         prompts = torch.as_tensor(prompts, device=self.device)
         B, S = prompts.shape
         logits, cache = transformer.prefill(self.params, self.cfg, prompts)
         cache = self._grow_cache(cache)
-        tok = sample_logits(logits)
+        tok = draw(logits, 0)
         pos = torch.full((B,), S, dtype=torch.int32, device=self.device)
         toks = [tok]
         for i in range(1, max_new_tokens):
             logits, cache = self._decode(tok, cache, pos)
-            tok = sample_logits(logits)
+            tok = draw(logits, i)
             toks.append(tok)
             pos = pos + 1
         return torch.cat([prompts, torch.stack(toks, 1).to(prompts.dtype)],

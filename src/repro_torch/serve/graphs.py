@@ -8,16 +8,21 @@ while the host issues them.  :class:`RoundGraphs` captures the eager round
 (``Engine._round``) once per key into a ``torch.cuda.CUDAGraph`` and
 replays it, so a round costs the host a few copies and one graph launch.
 
-* **Key:** (n_real, chunk, spec) — the reference's (C, chunk, spec) with
-  the lane's real entries for C — and what the graph was captured over:
-  the batch, the cache tensors' shape and addresses, and the kernel
-  backend and variant.  ``ops.set_backend`` and ``ops.set_variant`` are
-  module globals read while the round is captured, so a graph captured
-  under one never replays under another.
+* **Key:** (n_real, chunk, spec, greedy) — the reference's (C, chunk,
+  greedy, spec) with the lane's real entries for C — and what the graph was
+  captured over: the batch, the cache tensors' shape and addresses, and
+  the kernel backend and variant.  ``ops.set_backend`` and
+  ``ops.set_variant`` are module globals read while the round is
+  captured, so a graph captured under one never replays under another.
 * **Static buffers:** tok, pos, done, eos and the chunk lane's five
-  vectors.  A round copies its inputs into them; the graph writes the new
-  tok, pos and done back into them and the packed result
-  (``engine.pack_round``) into its static output.
+  vectors; on a sampled key (``greedy`` False) also the per-slot
+  temperature, top_k and top_p vectors and the round's first draw index
+  ``step0`` (an int32 scalar), so a new ``step0`` or new sampling values
+  replay the same graph.  The seed's key is the engine's constant
+  ``Engine.key``.  A round copies its inputs into them; the graph writes
+  the new tok, pos and done back into them and the packed result
+  (``engine.pack_round``) into its static output.  A greedy key's graph
+  has no draw in it.
 * **Workspaces:** graphs record addresses, so the K-split kernels'
   workspaces of a batch size are allocated once, before its first
   capture, at the largest (rows, columns) the engine's leaves give
@@ -49,9 +54,11 @@ from repro_torch.kernels.lutmul import kernel, ops
 class _Round:
     """One key's graph, its static buffers and what its capture recorded."""
 
-    def __init__(self, lane, tok, pos, done, eos):
+    def __init__(self, lane, tok, pos, done, eos, samp):
         self.lane = None if lane is None else type(lane)(
             *(t.clone() for t in lane))
+        self.samp = None if samp is None else type(samp)(
+            *(t.clone() for t in samp))
         self.tok, self.pos = tok.clone(), pos.clone()
         self.done, self.eos = done.clone(), eos.clone()
         self.graph = torch.cuda.CUDAGraph()
@@ -65,10 +72,11 @@ class _Round:
     def forwards(self) -> int:
         return sum(self.lanes.values())
 
-    def replay(self, lane, tok, pos, done, eos) -> None:
-        if self.lane is not None:
-            for dst, src in zip(self.lane, lane):
-                dst.copy_(src)
+    def replay(self, lane, tok, pos, done, eos, samp) -> None:
+        for static, given in ((self.lane, lane), (self.samp, samp)):
+            if static is not None:
+                for dst, src in zip(static, given):
+                    dst.copy_(src)
         self.tok.copy_(tok)
         self.pos.copy_(pos)
         self.done.copy_(done)
@@ -120,24 +128,26 @@ class RoundGraphs:
         self._stream = None
         self._pool = None
 
-    def key(self, cache, lane, tok, chunk: int, spec: bool) -> tuple:
+    def key(self, cache, lane, tok, chunk: int, spec: bool,
+            greedy: bool) -> tuple:
         be = ops.get_backend()
-        return (0 if lane is None else lane.slot.shape[0], chunk, spec, be,
-                ops.pick_variant(be), tok.shape[0],
+        return (0 if lane is None else lane.slot.shape[0], chunk, spec,
+                greedy, be, ops.pick_variant(be), tok.shape[0],
                 tuple(cache[0]["k"].shape),
                 tuple(t.data_ptr() for c in cache for t in c.values()))
 
     def run(self, eng, cache, lane, tok, pos, done, eos, chunk: int,
-            spec: bool):
+            spec: bool, samp=None):
         """Replay the round of this key of engine ``eng``, capturing it
         first when it is new: (tok, pos, done, packed), the graph's static
-        buffers."""
-        key = self.key(cache, lane, tok, chunk, spec)
+        buffers.  ``samp``: the sampled round's ``engine.Sampling``, None
+        on a greedy round."""
+        key = self.key(cache, lane, tok, chunk, spec, samp is None)
         r = self.rounds.get(key)
         if r is None:
             r = self._capture(eng, key, cache, lane, tok, pos, done, eos,
-                              chunk, spec)
-        r.replay(lane, tok, pos, done, eos)
+                              chunk, spec, samp)
+        r.replay(lane, tok, pos, done, eos, samp)
         for name, n in r.launches.items():
             kernel.LAUNCHES[name] += n
         eng.decode_steps += r.decode_steps
@@ -161,7 +171,7 @@ class RoundGraphs:
         return ws
 
     def _capture(self, eng, key, cache, lane, tok, pos, done, eos,
-                 chunk: int, spec: bool) -> _Round:
+                 chunk: int, spec: bool, samp) -> _Round:
         t0 = time.perf_counter()
         if self._stream is None:
             self._stream = torch.cuda.Stream(tok.device)
@@ -175,15 +185,15 @@ class RoundGraphs:
                 stream.wait_stream(current)
                 with torch.cuda.stream(stream):
                     eng._round(cache, lane, tok, pos, done, eos, chunk,
-                               spec)
+                               spec, samp)
                 current.wait_stream(stream)
                 _restore(eng, saved)
-                r = _Round(lane, tok, pos, done, eos)
+                r = _Round(lane, tok, pos, done, eos, samp)
                 with torch.cuda.graph(r.graph, pool=self._pool,
                                       stream=stream):
                     new_tok, new_pos, new_done, r.packed = eng._round(
                         cache, r.lane, r.tok, r.pos, r.done, r.eos, chunk,
-                        spec)
+                        spec, r.samp)
                     r.tok.copy_(new_tok)
                     r.pos.copy_(new_pos)
                     r.done.copy_(new_done)

@@ -1,6 +1,6 @@
-"""Continuous-batching scheduler with chunked prefill and greedy
-self-speculative rounds (port of ``repro.serve.scheduler`` without
-deadlines, shedding, snapshots, save/load and paging).
+"""Continuous-batching scheduler with chunked prefill, per-request
+sampling and self-speculative rounds (port of ``repro.serve.scheduler``
+without deadlines, shedding, snapshots, save/load and paging).
 
 A fixed pool of ``slots`` decode lanes over one set of live cache buffers.
 Requests queue FIFO; every round runs ONE ``Engine.step`` carrying up to
@@ -15,11 +15,18 @@ speculative round whenever every occupied slot has the headroom for its
 ``draft_k + 1``-token block, else a plain round; a row emits only the
 first ``n_valid`` tokens of its round.
 
-The per-slot state (``tok``, ``pos``, ``done``, ``eos``) lives on the
-device and is updated in place; what the host decides (admissions, parks,
-frees, EOS ids) travels host-to-device, and a round reads the device once:
-the engine's packed result, as in the reference (``repro/serve/engine.py``:
-"a round of tokens needs exactly one host round-trip").
+The per-slot state (``tok``, ``pos``, ``done``, ``eos`` and the sampling
+vectors ``temperature``, ``top_k``, ``top_p``) lives on the device at fixed
+addresses and is updated in place; what the host decides (admissions,
+parks, frees, EOS ids, sampling knobs, kept in host mirrors) travels
+host-to-device, and a round reads the device once: the engine's packed
+result, as in the reference (``repro/serve/engine.py``: "a round of tokens
+needs exactly one host round-trip").  A round whose every slot is greedy
+by the host mirrors runs the engine's argmax-only variant; a freed slot
+falls back to the engine's defaults.  The global draw counter ``_step``
+advances by ``C + chunk`` a round (``C + 2 * draft_k + 1`` on a
+speculative one, ``C`` the engine's ``prefill_chunk`` when the round has a
+chunk lane, else 0), as the reference's does.
 """
 from __future__ import annotations
 
@@ -50,9 +57,19 @@ class Scheduler:
         self.pos = torch.full((slots,), -1, dtype=torch.int32, device=dev)
         self.done = torch.ones((slots,), dtype=torch.bool, device=dev)
         self.eos = torch.full((slots,), -1, dtype=torch.int32, device=dev)
-        # per-slot EOS ids mirrored host-side (admission rewrites the device
-        # vector without device reads); -1 = none
+        self.temperature = torch.zeros((slots,), dtype=torch.float32,
+                                       device=dev)
+        self.top_k = torch.zeros((slots,), dtype=torch.int32, device=dev)
+        self.top_p = torch.ones((slots,), dtype=torch.float32, device=dev)
+        # per-slot EOS ids (-1 = none) and sampling knobs mirrored host-side
+        # (admission rewrites the device vectors without device reads)
+        scfg = engine.scfg
         self._eos_h = [-1] * slots
+        self._temp_h = [scfg.temperature] * slots
+        self._topk_h = [scfg.top_k] * slots
+        self._topp_h = [scfg.top_p] * slots
+        self._push_sampling_state()
+        self._step = 0                  # global draw index (PRNG fold-in)
         self.queue: Deque[Request] = collections.deque()
         self.slots: List[Optional[Request]] = [None] * slots
         self.finished: List[Request] = []
@@ -86,17 +103,38 @@ class Scheduler:
         self.queue.append(request)
         return request
 
-    def _to_device(self, rows) -> torch.Tensor:
-        """Host int rows as one int32 device tensor (on the card through
-        pinned memory, asynchronously: the host allocator keeps the pinned
-        block until the copy has run)."""
-        t = torch.tensor(rows, dtype=torch.int32)
+    def _to_device(self, rows, dtype=torch.int32) -> torch.Tensor:
+        """Host rows as one device tensor (on the card through pinned
+        memory, asynchronously: the host allocator keeps the pinned block
+        until the copy has run)."""
+        t = torch.tensor(rows, dtype=dtype)
         if self.engine.device.type == "cuda":
             return t.pin_memory().to(self.engine.device, non_blocking=True)
         return t
 
-    def _push_eos(self) -> None:
-        self.eos.copy_(self._to_device(self._eos_h))
+    def _sampling_for(self, req: Request):
+        scfg = self.engine.scfg
+        temp = scfg.temperature if req.temperature is None else req.temperature
+        top_k = scfg.top_k if req.top_k is None else req.top_k
+        top_p = scfg.top_p if req.top_p is None else req.top_p
+        return float(temp), int(top_k), float(top_p)
+
+    def _reset_slot_sampling(self, slot: int) -> None:
+        """Freed slots fall back to the engine defaults, so a past sampling
+        request does not keep the greedy variant off."""
+        scfg = self.engine.scfg
+        self._eos_h[slot] = -1
+        (self._temp_h[slot], self._topk_h[slot],
+         self._topp_h[slot]) = (scfg.temperature, scfg.top_k, scfg.top_p)
+
+    def _push_sampling_state(self) -> None:
+        """The host mirrors into the fixed device vectors."""
+        ik = self._to_device([self._eos_h, self._topk_h])
+        tp = self._to_device([self._temp_h, self._topp_h], torch.float32)
+        self.eos.copy_(ik[0])
+        self.top_k.copy_(ik[1])
+        self.temperature.copy_(tp[0])
+        self.top_p.copy_(tp[1])
 
     def _write_slots(self, rows: dict, tok: bool) -> torch.Tensor:
         """Set ``pos`` (and ``tok``) of the slots in ``rows`` ({slot: (tok,
@@ -182,6 +220,8 @@ class Scheduler:
             self.slots[slot] = req
             self._target[slot] = len(req.prompt)
             self._progress[slot] = 0
+            (self._temp_h[slot], self._topk_h[slot],
+             self._topp_h[slot]) = self._sampling_for(req)
             self._eos_h[slot] = -1 if req.eos_id is None else int(req.eos_id)
             fresh.append((slot, req))
             parks[slot] = (int(req.prompt[0]), 0)
@@ -189,7 +229,7 @@ class Scheduler:
         if not e_slot:
             return None, plan, fresh, completing, parks
         if fresh:
-            self._push_eos()
+            self._push_sampling_state()
         lane = self._to_device([e_slot, e_tok, e_pos, e_first, e_b1])
         lane = ChunkLane(lane[0], lane[1], lane[2], lane[3] != 0,
                          lane[4] != 0)
@@ -206,6 +246,9 @@ class Scheduler:
             # chunk iterations ahead of their first target re-run the same
             # write the entry itself makes
             self._write_slots(parks, tok=True)
+        # the host mirrors pick the argmax-only variant without a read
+        greedy = all(t <= 0.0 and k == 0 and p >= 1.0 for t, k, p in
+                     zip(self._temp_h, self._topk_h, self._topp_h))
         scfg = self.engine.scfg
         use_spec = scfg.spec_decode
         if use_spec:
@@ -229,7 +272,13 @@ class Scheduler:
                     break
         self.cache, tok, pos, done, packed = self.engine.step(
             self.cache, lane, self.tok, self.pos, self.done, self.eos,
-            self.chunk, spec=use_spec)
+            self.chunk, spec=use_spec, temperature=self.temperature,
+            top_k=self.top_k, top_p=self.top_p, step0=self._step,
+            greedy=greedy)
+        # a speculative round draws draft_k drafts and draft_k + 1 verify
+        # columns
+        C = self.engine.prefill_chunk if lane is not None else 0
+        self._step += C + (2 * scfg.draft_k + 1 if use_spec else self.chunk)
         self.tok.copy_(tok)
         self.pos.copy_(pos)
         self.done.copy_(done)
@@ -288,7 +337,7 @@ class Scheduler:
             if req.done:
                 self.finished.append(req)
                 self.slots[slot] = None
-                self._eos_h[slot] = -1
+                self._reset_slot_sampling(slot)
                 self._progress[slot] = self._target[slot] = 0
                 freed.append(slot)
         if freed:

@@ -2,8 +2,11 @@
 card: full-width qwen2-7b and bitnet-3b at 2 layers, seed-0 random
 weights.  A replayed round must equal the eager round bit for bit (cache
 bytes, tokens, positions, done flags, the packed result) and count the
-same launches; graphs never move a workspace, never replay under another
-kernel variant, and a capture that fails raises.  Every test needs a CUDA
+same launches, greedy and sampled; a sampled key replays under a new
+``step0`` and new sampling values without a recapture; the port's
+threefry stream gives the same bits on the card as on the CPU; graphs
+never move a workspace, never replay under another kernel variant, and a
+capture that fails raises.  Every test needs a CUDA
 GPU (marker ``gpu``) and skips elsewhere; the file imports no JAX:
 ``python -m pytest -q -m gpu tests/test_torch_cuda_graphs.py``.
 """
@@ -14,6 +17,7 @@ import pytest
 import torch
 
 from repro_torch.configs import bitnet_3b, qwen2_7b
+from repro_torch.core import prng
 from repro_torch.kernels.lutmul import kernel, ops
 from repro_torch.models import transformer
 from repro_torch.serve import Request, Scheduler, ServeConfig, make_engine
@@ -102,10 +106,10 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
 
 
-def _round(eng, cache, lane, state, eos, chunk, spec, eager):
+def _round(eng, cache, lane, state, eos, chunk, spec, eager, **samp):
     kernel.reset_launches()
     _, tok, pos, done, packed = eng.step(cache, lane, *state, eos, chunk,
-                                         spec, _eager=eager)
+                                         spec, _eager=eager, **samp)
     torch.cuda.synchronize()
     return ([tok.clone(), pos.clone(), done.clone(), packed.clone()],
             dict(kernel.LAUNCHES))
@@ -142,6 +146,91 @@ def test_replayed_round_equals_eager_round(name, variant, spec):
     assert eng.graphs.replays == replays + 3
 
 
+def _knobs(step0: int) -> dict:
+    """A sampled round's knobs for the 8 slots: greedy, unfiltered, top-k,
+    top-p and both, under ``step0``."""
+    f32 = dict(dtype=torch.float32, device="cuda")
+    return dict(
+        temperature=torch.tensor([1.0, 0.7, 0.0, 0.8, 1.0, 0.0, 1.2, 0.5],
+                                 **f32),
+        top_k=torch.tensor([0, 40, 0, 0, 50, 0, 5, 0], dtype=torch.int32,
+                           device="cuda"),
+        top_p=torch.tensor([1.0, 1.0, 1.0, 0.9, 0.95, 1.0, 0.8, 1.0],
+                           **f32),
+        step0=step0, greedy=False)
+
+
+@pytest.mark.parametrize("name,spec", [("lut", False), ("spec", True)],
+                         ids=["lut", "spec"])
+def test_replayed_sampled_round_equals_eager_round(name, spec):
+    """Three sampled rounds from one state, each at its own ``step0``: with
+    the chunk lane (captured), then two without (the second replays the
+    first's graph under a new step0): tokens, state, packed results and
+    cache bytes equal the eager rounds', launches too."""
+    eng = _engine(name)
+    cache, lane, state, eos = _state(eng, seed=6)
+    c_eager, c_graph = _copy(cache), cache
+    s_eager = s_graph = state
+    for i, (ln, step0) in enumerate(((lane, 3), (None, 40), (None, 1234))):
+        want, want_launches = _round(eng, c_eager, ln, s_eager, eos, 3,
+                                     spec, True, **_knobs(step0))
+        got, got_launches = _round(eng, c_graph, ln, s_graph, eos, 3, spec,
+                                   False, **_knobs(step0))
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), i
+        for a, b in zip(c_graph, c_eager):
+            assert torch.equal(_bits(a["k"]), _bits(b["k"])), i
+            assert torch.equal(_bits(a["v"]), _bits(b["v"])), i
+        assert got_launches == want_launches and sum(want_launches.values())
+        s_eager, s_graph = tuple(want[:3]), tuple(got[:3])
+
+
+def test_new_step0_replays_without_recapture():
+    """A sampled key is captured once: new step0 values and new sampling
+    vectors replay it (the same cache and state each time, so only the
+    draws change)."""
+    eng = _engine("lut")
+    cache, _, state, eos = _state(eng, seed=7)
+    outs = [_round(eng, cache, None, state, eos, 2, False, False,
+                   **_knobs(0))[0][3]]
+    keys = len(eng.graphs.rounds)
+    for step0 in (0, 8, 2 ** 20):
+        replays = eng.graphs.replays
+        got, _ = _round(eng, cache, None, state, eos, 2, False, False,
+                        **_knobs(step0))
+        outs.append(got[3])
+        assert len(eng.graphs.rounds) == keys
+        assert eng.graphs.replays == replays + 1
+    knobs = _knobs(8)
+    knobs["temperature"] = knobs["temperature"] * 2
+    _round(eng, cache, None, state, eos, 2, False, False, **knobs)
+    assert len(eng.graphs.rounds) == keys
+    ptrs = tuple(t.data_ptr() for c in cache for t in c.values())
+    assert len([k for k in eng.graphs.rounds
+                if k[:4] == (0, 2, False, False) and k[-1] == ptrs]) == 1
+    assert torch.equal(outs[0], outs[1])
+    assert not torch.equal(outs[1], outs[2])
+    assert not torch.equal(outs[2], outs[3])
+
+
+@pytest.mark.parametrize("seed", [0, 9, -3, 2 ** 31 - 1])
+def test_prng_on_the_card_equals_the_cpu(seed):
+    """Keys, bits and uniforms of the port's threefry stream, bitwise,
+    at the served draw's shape (8 slots x qwen2-7b's vocabulary)."""
+    shape = (SLOTS, qwen2_7b.config().vocab)
+    kc, kg = prng.prng_key(seed), prng.prng_key(seed, "cuda")
+    data = torch.arange(-3, 29, dtype=torch.int32) * 40503
+    assert torch.equal(prng.fold_in(kg, data.cuda()).cpu(),
+                       prng.fold_in(kc, data))
+    kc, kg = prng.fold_in(kc, 17), prng.fold_in(kg, 17)
+    assert torch.equal(prng.random_bits(kg, shape).cpu(),
+                       prng.random_bits(kc, shape))
+    for lo in (0.0, prng._TINY):
+        a = prng.uniform(kg, shape, lo, 1.0).cpu()
+        b = prng.uniform(kc, shape, lo, 1.0)
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def test_replay_counts_the_forwards_of_its_capture():
     eng = _engine("lut")
     cache, lane, state, eos = _state(eng, seed=1)
@@ -153,7 +242,7 @@ def test_replay_counts_the_forwards_of_its_capture():
                               "verify": 0}
     assert eng.decode_steps == 10
     r = next(r for k, r in eng.graphs.rounds.items()
-             if k[:3] == (3, 2, False) and k[-1] == tuple(
+             if k[:4] == (3, 2, False, True) and k[-1] == tuple(
                  t.data_ptr() for c in cache for t in c.values()))
     assert r.replays == 2 and r.forwards == 5
     assert r.launches == {"lutmul_fused": 7 * LAYERS * 5,
@@ -214,10 +303,14 @@ def test_a_graph_never_replays_under_another_variant():
     eng = _engine("lut")
     cache, lane, state, eos = _state(eng, seed=4)
 
+    ptrs = tuple(t.data_ptr() for c in cache for t in c.values())
+
     def graph_of(variant):
+        # the whole address tuple: an earlier test's cache may have sat
+        # where this one's first tensor does
         return next(r for k, r in eng.graphs.rounds.items()
-                    if k[:5] == (3, 2, False, "cuda", variant)
-                    and k[-1][0] == cache[0]["k"].data_ptr())
+                    if k[:6] == (3, 2, False, True, "cuda", variant)
+                    and k[-1] == ptrs)
 
     _round(eng, cache, lane, state, eos, 2, False, False)
     fused = graph_of("fused")

@@ -2,7 +2,7 @@
 ``make_engine`` + ``Scheduler`` serving qwen2-7b-smoke in w4a4_lut on
 converted weights; plus the port's own serving invariants (scheduler ==
 static-batch oracle, EOS / budget retirement, validation, greedy
-decoding).
+decoding; sampling is in ``test_torch_sampling.py``).
 
 The transcripts are compared exactly.  The teacher-forced logits along the
 reference transcript agree at ``atol=rtol=1e-5`` (float32 compute): the
@@ -290,18 +290,9 @@ def test_sample_logits_greedy_first_index_ties():
     # the reference at temperature 0, on logits full of ties
     x = np.random.default_rng(4).integers(0, 3, (16, 40)).astype(np.float32)
     want = jserve.sample_logits(jnp.asarray(x), None, 0.0, 0, 1.0)
-    got = tserve.sample_logits(torch.from_numpy(x), 0.0)
+    got = tserve.sample_logits(torch.from_numpy(x), None, 0.0, 0, 1.0)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-
-
-def test_sampling_is_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tserve.sample_logits(torch.zeros((1, 4)), 1.0)
-    with pytest.raises(TypeError):
-        tserve.ServeConfig(temperature=0.7)
-    with pytest.raises(TypeError):
-        tserve.Request(prompt=[1], temperature=1.0)
 
 
 def test_generate_matches_reference_generate():
