@@ -51,6 +51,21 @@ Phases (any failure raises and exits non-zero):
    sampling ops: a replayed sampled decode round against the greedy round
    from the same state (their device time's difference), and one
    ``sample_logits`` draw at [8, vocab] alone, every device row listed.
+   Then the paged KV cache on the same codes (``ServeConfig(paged=True,
+   page_size=4)``, engines built from the quantized codes, no second copy
+   of the weights): lut fused over the 8 prompts (== the dense lut run),
+   the sampled mix over the first 4 (== the dense sampled 4, no prefix
+   hit), the plain backend over the first 2 (no graph), a shared 32-token
+   prefix before each of the 8 prompts (== a dense run over the same
+   requests; prefix hits, and fewer peak pages than a run without
+   reuse), a contended pool of max(half the uncontended peak, the
+   longest request's pages) + 1 pages (preemptions, == the dense lut
+   run), and after the speculative runs tmac speculative over the first
+   4 (== the tmac run, pages trimmed).  Every paged run drains with no
+   page allocated or leaked and reports peak pages, resident KV bytes
+   against the dense capacity, hit rate and preemptions (``paged runs:``);
+   ``paged round[qwen lut]:`` gives a replayed paged decode round's
+   device ms against the dense round's from one state.
 4. serving bitnet-3b (26 layers, full width) in ternary_a8_tmac: fused (8
    requests) and plain (first 4), equal transcripts.
 5. the paper's CNN: full-width MobileNetV2 (224x224, width 1.0, 1000
@@ -507,19 +522,53 @@ def _graph_stats(engine, before: tuple, label: str, rounds: int,
     return st
 
 
+def prefix_requests(vocab: int) -> list:
+    """The contract's 8 requests, each prompt after one shared 32-token
+    prefix (8 pages of 4; numpy seed 1)."""
+    import numpy as np
+    prefix = np.random.default_rng(1).integers(0, vocab, 32).tolist()
+    reqs = make_requests(vocab)
+    for r in reqs:
+        r.prompt = prefix + list(r.prompt)
+    return reqs
+
+
+def dense_kv_bytes(engine) -> int:
+    """The dense cache's capacity at SLOTS slots: K and V of every layer,
+    [SLOTS, max_len, n_kv, head_dim] each."""
+    import torch
+    cfg = engine.cfg
+    return (2 * cfg.n_layers * SLOTS * engine.scfg.max_len * cfg.n_kv
+            * cfg.head_dim * torch.finfo(cfg.cdtype).bits // 8)
+
+
 def serve(engine, vocab: int, label: str, n_requests: int,
           inner: str = None, fused: bool = True,
-          sampled: bool = False) -> list:
+          sampled: bool = False, reqs: list = None) -> list:
     """Drain ``n_requests`` requests (``sampled``: with the sampled mix's
-    knobs) through a fresh Scheduler, with the launch counters zeroed just
-    before and read just after; ``inner`` names the projection kernel every
-    forward must launch 7 times per layer (the head kernel once), None for
-    the plain backend (no launches at all).  A replayed round counts the
-    launches its capture recorded."""
+    knobs; ``reqs``: these instead) through a fresh Scheduler, with the
+    launch counters zeroed just before and read just after; ``inner`` names
+    the projection kernel every forward must launch 7 times per layer (the
+    head kernel once), None for the plain backend (no launches at all).  A
+    replayed round counts the launches its capture recorded.  A paged
+    engine's run also reports its pool (peak pages, resident KV bytes
+    against the dense capacity, prefix hits, preemptions, pages trimmed)
+    and ends with ``check_drained``."""
     import torch
     from repro_torch.serve import Scheduler
-    reqs = make_requests(vocab, sampled=sampled)[:n_requests]
+    if reqs is None:
+        reqs = make_requests(vocab, sampled=sampled)
+    reqs = reqs[:n_requests]
     sched = Scheduler(engine, slots=SLOTS, chunk=8)
+    trimmed = [0]
+    if engine.paged:
+        trim = engine.pool.trim
+
+        def counted(slot, keep):
+            n = trim(slot, keep)
+            trimmed[0] += n
+            return n
+        engine.pool.trim = counted
     engine.decode_steps = 0
     engine.lane_steps = dict.fromkeys(engine.lane_steps, 0)
     graphs0 = _graph_state(engine)
@@ -568,6 +617,26 @@ def serve(engine, vocab: int, label: str, n_requests: int,
             st[k] = sched.stats[k]
         st["accept_rate"] = (st["spec_accepted"] / st["spec_drafted"]
                              if st["spec_drafted"] else None)
+    st["prefill_entries"] = sched.stats["admitted_tokens"]
+    if engine.paged:
+        pool = engine.pool
+        st["paged"] = {
+            "page_size": engine.scfg.page_size,
+            "pool_pages": pool.pages_per_shard,
+            "peak_pages": pool.peak_pages,
+            "kv_cache_bytes": engine.kv_cache_bytes(SLOTS),
+            "dense_kv_bytes": dense_kv_bytes(engine),
+            "pool_bytes": engine.page_bytes(SLOTS) * pool.pages_per_shard,
+            "prefix_hits": pool.prefix_hits,
+            "prefix_fresh": pool.prefix_fresh,
+            "prefix_hit_rate": pool.prefix_hit_rate,
+            "preemptions": sched.stats["preemptions"],
+            "pages_trimmed": trimmed[0],
+            "allocated_at_drain": pool.allocated_pages,
+            "leaked_at_drain": len(pool.leaked_pages())}
+        if pool.preemptions != sched.stats["preemptions"] \
+                or pool.allocated_pages or pool.leaked_pages():
+            raise AssertionError(f"{label}: pool at drain {st['paged']}")
     log(f"serving[{label}]: {json.dumps(st)}")
     RUNS[label] = st
     return [list(r.tokens) for r in reqs]
@@ -759,6 +828,122 @@ def zero_low_planes(params, draft_planes: int = 2) -> int:
     return 0
 
 
+def profile_paged_round(dense, paged, steps: int) -> None:
+    """One replayed 8-iteration decode round from one state (8 slots at
+    positions 16..23) on the dense engine and on the paged one (each row on
+    its own pages): their device time's difference is what the page gathers
+    and scatters cost a round."""
+    import torch
+    if not steps:
+        return
+    tok = torch.zeros((SLOTS,), dtype=torch.int32, device="cuda")
+    pos = torch.arange(SLOTS, dtype=torch.int32, device="cuda") + 16
+    done = torch.zeros((SLOTS,), dtype=torch.bool, device="cuda")
+    eos = torch.full((SLOTS,), -1, dtype=torch.int32, device="cuda")
+    dev = {}
+    for eng, kind in ((dense, "dense"), (paged, "paged")):
+        cache = eng.init_cache(SLOTS)
+        if eng.paged:
+            for s in range(SLOTS):
+                eng.pool.admit(s, [1000 * s + i for i in range(24)])
+                eng.pool.ensure(s, 40)
+        label = f"qwen lut {kind} decode round, replayed"
+        profile(label, lambda: eng.step(cache, None, tok, pos, done, eos, 8),
+                steps, forwards=8)
+        dev[kind] = PROFILES[label]["device_ms_per_call"]
+        del cache
+    log(f"paged round[qwen lut]: device ms per replayed 8-iteration round "
+        f"{json.dumps(dev)}, paged - dense {dev['paged'] - dev['dense']}")
+
+
+def paged_summary(labels: list) -> None:
+    """The paged runs' figures on one line."""
+    out = {}
+    for label in labels:
+        st = RUNS[label]
+        out[label] = {k: st[k] for k in (
+            "ms_per_decode_step", "ms_per_decode_step_after_capture",
+            "tokens_per_s", "tokens_per_s_after_capture", "rounds",
+            "prefill_entries")}
+        out[label]["keys_captured"] = st["graphs"]["keys_captured"]
+        out[label]["capture_s"] = st["graphs"]["capture_s"]
+        out[label].update(st.get("paged", {}))
+        for k in ("ms_per_round", "ms_per_round_after_capture",
+                  "spec_rounds"):
+            if k in st:
+                out[label][k] = st[k]
+    log("paged runs: " + json.dumps(out))
+
+
+def run_paged_lut(engine, cfg, V: int, lut: list, lut_s: list,
+                  profile_steps: int) -> None:
+    """The paged KV cache (4-token pages, max_len 256) on the lut codes of
+    the dense ``engine``: greedy, the sampled mix, the plain backend, a
+    shared 32-token prefix (with and without prefix reuse, against the
+    dense engine over the same requests) and a pool of about half the
+    uncontended peak, or the longest request's own need where that is more
+    (preemptions)."""
+    import dataclasses
+    from repro_torch.kernels.lutmul import ops
+    from repro_torch.serve import ServeConfig, make_engine
+    scfg = ServeConfig(max_len=256, seed=SAMPLE_SEED, paged=True,
+                       page_size=4)
+    paged = make_engine(engine.params, cfg, scfg)
+    log(f"paged engine: pool of {paged.scfg.num_pages or 'auto'} pages of "
+        f"{scfg.page_size} tokens, prefill chunk {paged.prefill_chunk}")
+    same(serve(paged, V, "qwen lut fused paged", 8, "lutmul"), lut,
+         "lut fused paged == lut fused")
+    peak = RUNS["qwen lut fused paged"]["paged"]["peak_pages"]
+    profile_paged_round(engine, paged, profile_steps)
+    same(serve(paged, V, "qwen lut fused paged sampled, 4", 4, "lutmul",
+               sampled=True), lut_s,
+         "lut fused paged sampled == lut fused sampled")
+    if RUNS["qwen lut fused paged sampled, 4"]["paged"]["prefix_hits"]:
+        raise AssertionError("the sampled paged run shared prefix pages: its "
+                             "rounds would differ from the dense run's")
+    ops.set_backend("ref")
+    same(serve(paged, V, "qwen lut paged plain", 2), lut,
+         "lut paged plain == lut fused")
+    ops.set_backend("cuda")
+    # a shared prefix: paged with and without reuse against dense
+    shared = serve(engine, V, "qwen lut fused, shared prefix", 8, "lutmul",
+                   reqs=prefix_requests(V))
+    same(serve(paged, V, "qwen lut fused paged, shared prefix", 8, "lutmul",
+               reqs=prefix_requests(V)), shared,
+         "lut fused paged, shared prefix == lut fused, shared prefix")
+    plain = make_engine(engine.params, cfg,
+                        dataclasses.replace(scfg, prefix_reuse=False))
+    same(serve(plain, V, "qwen lut fused paged, shared prefix, no reuse", 8,
+               "lutmul", reqs=prefix_requests(V)), shared,
+         "lut fused paged, no reuse == lut fused, shared prefix")
+    del plain
+    reuse = RUNS["qwen lut fused paged, shared prefix"]
+    no_reuse = RUNS["qwen lut fused paged, shared prefix, no reuse"]
+    if not (reuse["paged"]["prefix_hits"] > 0
+            and no_reuse["paged"]["prefix_hits"] == 0
+            and reuse["paged"]["peak_pages"]
+            < no_reuse["paged"]["peak_pages"]):
+        raise AssertionError(f"prefix reuse: {reuse['paged']} against "
+                             f"{no_reuse['paged']} without")
+    log(f"prefix reuse: hit rate {reuse['paged']['prefix_hit_rate']}, peak "
+        f"pages {reuse['paged']['peak_pages']} (no reuse "
+        f"{no_reuse['paged']['peak_pages']}), prefill entries "
+        f"{reuse['prefill_entries']} (no reuse "
+        f"{no_reuse['prefill_entries']}, dense "
+        f"{RUNS['qwen lut fused, shared prefix']['prefill_entries']})")
+    # a pool of about half the uncontended run's peak, but never below what
+    # the longest request needs alone with its round ahead: preemptions
+    longest = max(len(r.prompt) + r.max_new_tokens for r in make_requests(V))
+    alone = -(-(longest + 8 - 1) // scfg.page_size)
+    tight = make_engine(engine.params, cfg, dataclasses.replace(
+        scfg, num_pages=max(peak // 2, alone) + 1))
+    same(serve(tight, V, "qwen lut fused paged, contended", 8, "lutmul"),
+         lut, "lut fused paged, contended == lut fused")
+    if RUNS["qwen lut fused paged, contended"]["paged"]["preemptions"] < 1:
+        raise AssertionError("the contended paged run preempted nothing")
+    del tight, paged
+
+
 def run_qwen(n_layers: int, profile_steps: int) -> None:
     import dataclasses
     import torch
@@ -806,6 +991,7 @@ def run_qwen(n_layers: int, profile_steps: int) -> None:
     same(serve(engine, V, "qwen lut plain sampled", 4, sampled=True), lut_s,
          "lut plain sampled == lut fused sampled")
     ops.set_backend("cuda")
+    run_paged_lut(engine, cfg, V, lut, lut_s, profile_steps)
     del engine
 
     # this slice: the same float weights as w4a4_tmac bitplanes
@@ -855,6 +1041,18 @@ def run_qwen(n_layers: int, profile_steps: int) -> None:
     same(serve(spec, V, "qwen tmac spec sampled plain", 2, sampled=True),
          spec_s, "tmac spec sampled plain == tmac spec sampled graph")
     ops.set_backend("cuda")
+    # speculation on the paged cache: rejected blocks trimmed
+    pspec = make_engine(engine.params, tcfg, dataclasses.replace(
+        spec.scfg, paged=True, page_size=4))
+    same(serve(pspec, V, "qwen tmac spec paged", 4, "lutmul_tmac"), tmac,
+         "tmac spec paged == tmac fused")
+    st = RUNS["qwen tmac spec paged"]
+    if st["spec_rounds"] < 1 or st["paged"]["pages_trimmed"] < 1:
+        raise AssertionError(f"tmac spec paged: {st['spec_rounds']} spec "
+                             f"rounds, {st['paged']['pages_trimmed']} pages "
+                             "trimmed")
+    del pspec
+    paged_summary([k for k in RUNS if "paged" in RUNS[k]])
     n = zero_low_planes(engine.params)
     log(f"zeroed the low 2 planes of {n} leaves in place")
     serve(spec, V, "qwen tmac spec, low planes zeroed", 4, "lutmul_tmac")

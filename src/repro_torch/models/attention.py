@@ -1,7 +1,8 @@
-"""Attention (port of ``repro.models.attention``, dense part): GQA with the
-reference's boolean position mask and ``NEG_INF`` fill, full-sequence
-prefill, single-token decode and the S-token speculative-verify block over
-a dense per-slot KV cache.
+"""Attention (port of ``repro.models.attention``, full-length layers): GQA
+with the reference's boolean position mask and ``NEG_INF`` fill,
+full-sequence prefill, single-token decode and the S-token
+speculative-verify block over a dense per-slot KV cache or, with a page
+``table``, over shared page pools (``paged_gather`` / ``paged_write``).
 
 Plain PyTorch ops throughout (the reference has no Pallas kernel here).
 Scores and the probability-value product accumulate in float32 on float32
@@ -13,6 +14,7 @@ it, so the two are the same data flow) and returns the same tensors.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -117,16 +119,57 @@ def decode_kv_positions(pos: torch.Tensor, T: int) -> torch.Tensor:
     return torch.where((idx <= posb) & (posb >= 0), idx, -(10 ** 9))
 
 
+# ---------------------------------------------------------------------------
+# paged KV cache: ordered gather / per-row page-table writes.  The pool is a
+# shared [num_pages, page_size, ...] block store; each batch row owns a
+# fixed-shape [E] int32 page-table row.  Gathering the pages in table order
+# rebuilds the row's dense [T = E * page_size, ...] buffer, equal to the
+# dense cache at every position the mask keeps (unmapped entries read the
+# reserved null page 0, whose junk stays behind the position mask), and of
+# the dense buffer's shape, so the attention after it is the dense path's.
+# Plain indexing, no host read: both run inside a captured round.
+# ---------------------------------------------------------------------------
+
+def paged_gather(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """pool [P, ps, ...], table [B, E] int32 -> dense [B, E * ps, ...] in
+    logical order (page j's rows land at positions [j * ps, (j + 1) * ps))."""
+    B, E = table.shape
+    g = pool.index_select(0, table.reshape(-1))          # [B * E, ps, ...]
+    return g.reshape((B, E * pool.shape[1]) + tuple(pool.shape[2:]))
+
+
+def paged_write(pool: torch.Tensor, table: torch.Tensor, slot: torch.Tensor,
+                new: torch.Tensor) -> torch.Tensor:
+    """One token a row written in place through the page table.
+
+    pool [P, ps, ...]; table [B, E]; slot [B] int32 (the token's position in
+    the row's logical buffer); new [B, 1, ...].  A free row's table row is
+    all zeros, so its write lands in the null page, where several rows may
+    write at once: only values the position mask hides (no ``accumulate``).
+    Live rows own their current page, so their writes never collide."""
+    ps = pool.shape[1]
+    page = table.gather(1, (slot // ps).long()[:, None])[:, 0]
+    pool[page.long(), (slot % ps).long()] = new[:, 0].to(pool.dtype)
+    return pool
+
+
 def decode_attention(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, pos, *, n_heads: int, n_kv: int,
                      head_dim: int, rope_theta: float = 10000.0,
-                     quant: str = "none", compute_dtype=torch.bfloat16):
+                     quant: str = "none", compute_dtype=torch.bfloat16,
+                     table: Optional[torch.Tensor] = None):
     """One decode step.  x [B, 1, d]; cache [B, T, Hkv, D]; pos scalar or
     [B] int32.  Returns (y, cache_k, cache_v) with the caches updated in
     place.  A negative ``pos[b]`` marks a free slot: its write lands inside
-    its own row (slot 0) and every key of that row stays masked."""
+    its own row (slot 0) and every key of that row stays masked.
+
+    ``table`` ([B, E] int32) makes the caches page pools ([P, page_size,
+    Hkv, D]): the token is written through the row's page table and the
+    attention runs over the ordered page gather, the dense path's buffer
+    at every unmasked position, so the output is the dense path's."""
     B = x.shape[0]
-    T = cache_k.shape[1]
+    paged = table is not None
+    T = table.shape[1] * cache_k.shape[1] if paged else cache_k.shape[1]
     q = _proj_qkv(p, "wq", x, B, 1, head_dim, quant, compute_dtype)
     k = _proj_qkv(p, "wk", x, B, 1, head_dim, quant, compute_dtype)
     v = _proj_qkv(p, "wv", x, B, 1, head_dim, quant, compute_dtype)
@@ -135,10 +178,16 @@ def decode_attention(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
     q = apply_rope(q, posb, rope_theta)
     k = apply_rope(k, posb, rope_theta)
     slot = torch.clamp(posv, 0, T - 1)
-    _write_kv_slot(cache_k, k, slot)
-    _write_kv_slot(cache_v, v, slot)
+    if paged:
+        paged_write(cache_k, table, slot, k)
+        paged_write(cache_v, table, slot, v)
+        dense_k = paged_gather(cache_k, table)
+        dense_v = paged_gather(cache_v, table)
+    else:
+        dense_k = _write_kv_slot(cache_k, k, slot)
+        dense_v = _write_kv_slot(cache_v, v, slot)
     k_pos = decode_kv_positions(posv, T)
-    out = full_attention(q, cache_k, cache_v, posb, k_pos)
+    out = full_attention(q, dense_k, dense_v, posb, k_pos)
     y = _proj_out(p, out.to(compute_dtype), B, 1, quant, compute_dtype)
     return y, cache_k, cache_v
 
@@ -158,7 +207,8 @@ def decode_attention_multi(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
                            cache_v: torch.Tensor, pos, *, n_heads: int,
                            n_kv: int, head_dim: int,
                            rope_theta: float = 10000.0, quant: str = "none",
-                           compute_dtype=torch.bfloat16):
+                           compute_dtype=torch.bfloat16,
+                           table: Optional[torch.Tensor] = None):
     """A contiguous S-token decode block (speculative verify).  x [B, S, d];
     pos [B] int32 start positions, token i of a row at ``pos + i``.
 
@@ -172,9 +222,15 @@ def decode_attention_multi(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
     ``dynamic_update_slice``: live rows need ``pos <= T - S`` (the
     scheduler's headroom guard); a free row (negative ``pos``) writes the
     tail of its own row and keeps every key masked.
+
+    With ``table`` (page pools, as in :func:`decode_attention`) the block
+    is S sequential per-token writes at ``clip(pos + i, 0, T - 1)``
+    through the table, the reference's paged rule (not the dense block
+    start): a free row's writes land in the null page.
     """
     B, S = x.shape[:2]
-    T = cache_k.shape[1]
+    paged = table is not None
+    T = table.shape[1] * cache_k.shape[1] if paged else cache_k.shape[1]
     q = _proj_qkv(p, "wq", x, B, S, head_dim, quant, compute_dtype)
     k = _proj_qkv(p, "wk", x, B, S, head_dim, quant, compute_dtype)
     v = _proj_qkv(p, "wv", x, B, S, head_dim, quant, compute_dtype)
@@ -185,16 +241,24 @@ def decode_attention_multi(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
                      rope_theta) for i in range(S)]
     k = torch.cat([apply_rope(k[:, i:i + 1].contiguous(), q_pos[:, i:i + 1],
                               rope_theta) for i in range(S)], dim=1)
-    # the reference's dynamic_update_slice: a negative start wraps (+T),
-    # then every start clamps into [0, T - S]
-    start = torch.clamp(torch.where(posv < 0, posv + T, posv), 0, T - S)
-    _write_kv_block(cache_k, k, start)
-    _write_kv_block(cache_v, v, start)
+    if paged:
+        for i in range(S):
+            slot = torch.clamp(posv + i, 0, T - 1)
+            paged_write(cache_k, table, slot, k[:, i:i + 1])
+            paged_write(cache_v, table, slot, v[:, i:i + 1])
+        dense_k = paged_gather(cache_k, table)
+        dense_v = paged_gather(cache_v, table)
+    else:
+        # the reference's dynamic_update_slice: a negative start wraps
+        # (+T), then every start clamps into [0, T - S]
+        start = torch.clamp(torch.where(posv < 0, posv + T, posv), 0, T - S)
+        dense_k = _write_kv_block(cache_k, k, start)
+        dense_v = _write_kv_block(cache_v, v, start)
     outs = []
     for i in range(S):
         # free rows stay negative: every key of theirs stays masked
         pos_i = torch.where(posv >= 0, posv + i, posv)
-        outs.append(full_attention(qs[i], cache_k, cache_v,
+        outs.append(full_attention(qs[i], dense_k, dense_v,
                                    q_pos[:, i:i + 1],
                                    decode_kv_positions(pos_i, T)))
     out = torch.cat(outs, dim=1)

@@ -6,7 +6,9 @@ Layers are a per-layer list (``params["blocks"][i]``), not the reference's
 position ``j`` (``convert.params_from_jax`` unstacks in that order).  The
 decode cache is a list of per-layer ``{"k", "v"}`` buffers
 ``[B, max_len, n_kv, head_dim]`` that ``decode_step`` and ``verify_step``
-update in place.
+update in place; the paged cache (``init_paged_cache``) is per-layer page
+pools ``[num_pages, page_size, n_kv, head_dim]`` addressed through the
+``tables`` those two take.
 """
 from __future__ import annotations
 
@@ -161,19 +163,44 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             for _ in range(cfg.n_layers)]
 
 
+def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
+                     num_pages: int, page_size: int, device=None) -> list:
+    """Paged form of :func:`init_cache`: per layer, ``k`` and ``v`` as
+    shared zero page pools ``[num_pages, page_size, n_kv, head_dim]``; the
+    per-slot addressing lives in the scheduler's page tables (``batch`` and
+    ``max_len`` size the tables, not the pools)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    shape = (num_pages, page_size, cfg.n_kv, cfg.head_dim)
+    return [{"k": torch.zeros(shape, dtype=cfg.cdtype, device=dev),
+             "v": torch.zeros(shape, dtype=cfg.cdtype, device=dev)}
+            for _ in range(cfg.n_layers)]
+
+
+def _full_table(tables):
+    """The full-length layers' page table of a ``tables`` pair (the ring
+    table is unused: the port refuses sliding windows)."""
+    return None if tables is None else tables[0]
+
+
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
-                cache: list, pos) -> tuple[torch.Tensor, list]:
+                cache: list, pos, tables=None) -> tuple[torch.Tensor, list]:
     """One token for the whole batch.  token [B] int; pos scalar or [B]
     int32 (each slot at its own depth; negative = free slot).  Returns
-    (logits [B, V] float32, cache) with the cache updated in place."""
+    (logits [B, V] float32, cache) with the cache updated in place.
+
+    ``tables`` (paged serving): ``(full_table [B, E], ...)`` int32, the
+    reference's pair whose ring table the port leaves unused; the cache is
+    then :func:`init_paged_cache`'s page pools."""
     cd = cfg.cdtype
+    table = _full_table(tables)
     x = _embed(params, cfg, token)[:, None, :]                   # [B, 1, d]
     for bp, c in zip(params["blocks"], cache):
         h = rms_norm(bp["ln1"], x)
         y, _, _ = attn_lib.decode_attention(
             bp["attn"], h, c["k"], c["v"], pos, n_heads=cfg.n_heads,
             n_kv=cfg.n_kv, head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
-            quant=cfg.quant, compute_dtype=cd)
+            quant=cfg.quant, compute_dtype=cd, table=table)
         x = x + y
         h = rms_norm(bp["ln2"], x)
         x = x + mlp(bp["mlp"], h, quant=cfg.quant, compute_dtype=cd)
@@ -191,7 +218,7 @@ def _norm_rows(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def verify_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                cache: list, pos) -> tuple[torch.Tensor, list]:
+                cache: list, pos, tables=None) -> tuple[torch.Tensor, list]:
     """S tokens for the whole batch in one forward (speculative verify).
 
     tokens [B, S] int, token i of a row at ``pos + i``; pos [B] int32 start
@@ -199,16 +226,18 @@ def verify_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     S``).  Returns (logits [B, S, V] float32, cache) with every K/V write
     landed in place: ``logits[:, i]`` has the bits of the i-th of S
     sequential :func:`decode_step` calls.  The projections and the head run
-    once at M = B*S; norms, rope and attention run per position."""
+    once at M = B*S; norms, rope and attention run per position.
+    ``tables``: as in :func:`decode_step`."""
     check_supported(cfg)
     cd = cfg.cdtype
+    table = _full_table(tables)
     x = _embed(params, cfg, tokens)                              # [B, S, d]
     for bp, c in zip(params["blocks"], cache):
         h = _norm_rows(bp["ln1"], x)
         y, _, _ = attn_lib.decode_attention_multi(
             bp["attn"], h, c["k"], c["v"], pos, n_heads=cfg.n_heads,
             n_kv=cfg.n_kv, head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
-            quant=cfg.quant, compute_dtype=cd)
+            quant=cfg.quant, compute_dtype=cd, table=table)
         x = x + y
         h = _norm_rows(bp["ln2"], x)
         x = x + mlp(bp["mlp"], h, quant=cfg.quant, compute_dtype=cd)

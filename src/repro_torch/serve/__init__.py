@@ -1,14 +1,19 @@
 """Serving: continuous batching over static-shape decode buffers (port of
-``repro.serve``, single-device dense-KV part).
+``repro.serve``, single-device part: dense or paged KV).
 
-    Request -> Scheduler (FIFO queue, slot map) -> Engine.step
+    Request -> Scheduler (FIFO queue, slot map, paged block accounting)
+                   -> Engine.step
                    one round = chunk lane of prompt tokens + `chunk` decode
                    tokens for every slot, each a transformer.decode_step
                    whose projections run the LUT / int8 kernels, its
                    tokens drawn on the device (per-slot temperature /
                    top-k / top-p over core.prng's threefry stream)
+    PagePool (serve.paged): with ServeConfig(paged=True), the host-side
+                   page allocator (prefix reuse, preemption, speculative
+                   trim) whose table the round reads on the device
 """
 from repro_torch.serve.engine import Engine, ServeConfig, sample_logits
+from repro_torch.serve.paged import PagedLayout, PagePool
 from repro_torch.serve.request import Request, RequestStatus
 from repro_torch.serve.scheduler import Scheduler
 
@@ -22,4 +27,4 @@ def make_engine(params, cfg, scfg: ServeConfig = ServeConfig(), *,
 
 
 __all__ = ["Engine", "ServeConfig", "Request", "RequestStatus", "Scheduler",
-           "make_engine", "sample_logits"]
+           "PagedLayout", "PagePool", "make_engine", "sample_logits"]

@@ -1,6 +1,6 @@
-"""Batched serving engine (port of ``repro.serve.engine``: dense KV, one
-device, chunked prefill, per-slot sampling, bitplane self-speculative
-decoding; no paging or fault injection).
+"""Batched serving engine (port of ``repro.serve.engine``: dense or paged
+KV, one device, chunked prefill, per-slot sampling, bitplane
+self-speculative decoding; no fault injection).
 
 ``Engine.step`` is one unified serving round: a chunk lane of prompt-token
 iterations (each a full-batch ``decode_step`` with the target slot's
@@ -32,6 +32,14 @@ On the card with the kernel backend, a round is one captured CUDA graph
 per round key, replayed (``serve.graphs``, the counterpart of the
 reference's one compiled dispatch per key); on the CPU and with the
 ``ref`` backend it runs eagerly, op by op.
+
+With ``ServeConfig(paged=True)`` the cache is per-layer page pools and
+``init_cache`` makes a fresh host-side ``serve.paged.PagePool`` under
+``engine.pool``, which the Scheduler drives (admission, growth, trim,
+release).  The engine owns one int32 ``[slots, E]`` device table at a
+fixed address; every round first copies the pool's numpy table into it
+(through pinned memory on the card), and the round, replayed or eager,
+reads its pages through it.
 
 ``generate`` is the static-batch oracle: prefill, then a per-token loop
 that draws token ``i`` with ``fold_in(PRNGKey(seed), i)`` under the
@@ -65,7 +73,15 @@ class ServeConfig:
     top_p: float = 1.0            # >= 1.0 disables nucleus filtering
     seed: int = 0                 # the PRNGKey every draw is folded from
     quant: Optional[str] = None   # convert weights to serving codes at load
-    # prompt tokens processed per unified round (None = 8)
+    # paged KV cache (serve.paged): per-layer page pools + per-slot page
+    # tables instead of dense [slots, max_len] buffers
+    paged: bool = False
+    page_size: int = 4            # tokens per page; must divide max_len
+    num_pages: int = 0            # total pool pages incl. the null page;
+                                  # 0 = worst-case auto-size
+    prefix_reuse: bool = True     # share identical prompt-prefix pages
+    # prompt tokens processed per unified round; a multiple of page_size on
+    # paged engines (None = 2 pages when paged, else 8)
     prefill_chunk: Optional[int] = None
     # bitplane-truncated self-speculative decoding (greedy): draft
     # ``draft_k`` tokens per round with the top-``draft_planes``-plane view
@@ -85,6 +101,16 @@ class ServeConfig:
         if not isinstance(self.seed, numbers.Integral) \
                 or isinstance(self.seed, bool):
             raise ValueError(f"seed must be an int, got {self.seed!r}")
+        if self.page_size < 1:
+            raise ValueError(f"page_size must be >= 1, got {self.page_size}")
+        if self.paged and self.max_len % self.page_size:
+            raise ValueError(
+                f"page_size ({self.page_size}) must divide max_len "
+                f"({self.max_len}) — pick a power-of-two page size or pad "
+                f"max_len up to a multiple")
+        if self.num_pages < 0:
+            raise ValueError(f"num_pages must be >= 0 (0 = auto-size), got "
+                             f"{self.num_pages}")
         if self.prefill_chunk is not None:
             if self.prefill_chunk < 1:
                 raise ValueError(f"prefill_chunk must be >= 1, got "
@@ -93,6 +119,11 @@ class ServeConfig:
                 raise ValueError(
                     f"prefill_chunk ({self.prefill_chunk}) cannot exceed "
                     f"max_len ({self.max_len}) — no prompt is longer")
+            if self.paged and self.prefill_chunk % self.page_size:
+                raise ValueError(
+                    f"prefill_chunk ({self.prefill_chunk}) must be a "
+                    f"multiple of page_size ({self.page_size}) so chunk "
+                    f"boundaries align with page boundaries")
         if self.spec_decode:
             if self.draft_k < 1:
                 raise ValueError(
@@ -109,7 +140,32 @@ class ServeConfig:
 
     @property
     def chunk_tokens(self) -> int:
-        return 8 if self.prefill_chunk is None else self.prefill_chunk
+        """The resolved prefill chunk budget (auto when unset)."""
+        if self.prefill_chunk is not None:
+            return self.prefill_chunk
+        return 2 * self.page_size if self.paged else 8
+
+
+def paged_layout(cfg, scfg: ServeConfig):
+    """The engine's page geometry (validated against cfg and scfg)."""
+    from repro_torch.serve.paged import PagedLayout
+    return PagedLayout.build(cfg, scfg.max_len, scfg.page_size)
+
+
+def resolve_pages_per_shard(cfg, scfg: ServeConfig, batch: int,
+                            n_shards: int) -> int:
+    """Pool pages per shard: ``scfg.num_pages / n_shards`` when set (must
+    divide), else the exhaustion-free worst case for ``batch`` slots."""
+    lay = paged_layout(cfg, scfg)
+    if scfg.num_pages:
+        if scfg.num_pages % n_shards:
+            raise ValueError(f"num_pages ({scfg.num_pages}) must divide "
+                             f"over the data axis ({n_shards})")
+        return scfg.num_pages // n_shards
+    if batch % n_shards:
+        raise ValueError(f"slots ({batch}) must divide over the data axis "
+                         f"({n_shards})")
+    return lay.auto_pages_per_shard(batch // n_shards)
 
 
 def _per_row(x, dtype, B: int, device) -> torch.Tensor:
@@ -224,6 +280,17 @@ class Engine:
             params = quantize_params_for_serving(params, mode=scfg.quant)
         self.params = params
         self.scfg = scfg
+        # paged serving state: the geometry is checked here; init_cache
+        # makes the PagePool and the device table (they need the slots)
+        self.pool = None
+        self.table = None
+        if scfg.paged:
+            paged_layout(cfg, scfg)          # raises on bad page geometry
+            if scfg.num_pages and scfg.num_pages < 2:
+                raise ValueError(
+                    f"num_pages ({scfg.num_pages}) leaves no usable pages: "
+                    f"page 0 is the null page — give the pool at least 2 "
+                    f"pages")
         self.decode_steps = 0         # decode_step calls (every lane)
         # forward calls by lane: chunk-lane and decode-lane decode_steps,
         # drafter decode_steps and verify_steps
@@ -253,24 +320,85 @@ class Engine:
     # -- scheduler-facing API ------------------------------------------------
 
     @property
+    def paged(self) -> bool:
+        return bool(self.scfg.paged)
+
+    @property
     def prefill_chunk(self) -> int:
         """Prompt tokens carried by the chunk lane of one unified round."""
         return self.scfg.chunk_tokens
 
     def init_cache(self, batch: int) -> list:
-        return transformer.init_cache(self.cfg, batch, self.scfg.max_len,
-                                      self.device)
+        """Zero decode buffers for ``batch`` slots.  Paged: page pools, a
+        fresh ``PagePool`` under ``self.pool`` and the zeroed device table
+        ``self.table`` (made once per batch size)."""
+        if not self.paged:
+            return transformer.init_cache(self.cfg, batch, self.scfg.max_len,
+                                          self.device)
+        from repro_torch.serve.paged import PagePool
+        pages = resolve_pages_per_shard(self.cfg, self.scfg, batch, 1)
+        self.pool = PagePool(batch, paged_layout(self.cfg, self.scfg),
+                             pages_per_shard=pages,
+                             prefix_reuse=self.scfg.prefix_reuse)
+        if self.table is None or self.table.shape != self.pool.table.shape:
+            self.table = torch.zeros(self.pool.table.shape,
+                                     dtype=torch.int32, device=self.device)
+        else:       # one address per engine: its graphs stay valid
+            self.table.zero_()
+        return transformer.init_paged_cache(
+            self.cfg, batch, self.scfg.max_len, pages, self.scfg.page_size,
+            self.device)
 
-    def _decode(self, tok, cache, pos, lane: str = "decode"):
+    def _device_tables(self) -> tuple:
+        """The pool's table copied into the fixed device table (through
+        pinned memory on the card, asynchronously: the host allocator keeps
+        the pinned block until the copy has run), as the ``tables`` pair
+        the model takes."""
+        t = torch.from_numpy(self.pool.table)
+        if self.device.type == "cuda":
+            self.table.copy_(t.pin_memory(), non_blocking=True)
+        else:
+            self.table.copy_(t)
+        return (self.table,)
+
+    def _kv_leaf_bytes(self, batch: int) -> int:
+        """Bytes of every layer's K and V: the pools when paged, else the
+        dense [batch, max_len] buffers."""
+        cfg, sc = self.cfg, self.scfg
+        if self.paged:
+            rows = resolve_pages_per_shard(cfg, sc, batch, 1) * sc.page_size
+        else:
+            rows = batch * sc.max_len
+        return (2 * cfg.n_layers * rows * cfg.n_kv * cfg.head_dim
+                * torch.finfo(cfg.cdtype).bits // 8)
+
+    def page_bytes(self, batch: int = 1) -> int:
+        """Bytes ONE page occupies summed over every layer's K and V."""
+        if not self.paged:
+            raise ValueError("page_bytes is a paged-engine figure")
+        return self._kv_leaf_bytes(batch) // resolve_pages_per_shard(
+            self.cfg, self.scfg, batch, 1)
+
+    def kv_cache_bytes(self, batch: int) -> int:
+        """KV memory: a dense engine reports its ``max_len`` capacity, a
+        paged one the peak of its in-use pages times the page bytes (the
+        pool is larger, but the allocated figure is what scales with the
+        traffic)."""
+        if self.paged and self.pool is not None:
+            return self.pool.peak_pages * self.page_bytes(batch)
+        return self._kv_leaf_bytes(batch)
+
+    def _decode(self, tok, cache, pos, lane: str = "decode", tables=None):
         self.decode_steps += 1
         self.lane_steps[lane] += 1
         params = self.draft_params if lane == "draft" else self.params
-        return transformer.decode_step(params, self.cfg, tok, cache, pos)
+        return transformer.decode_step(params, self.cfg, tok, cache, pos,
+                                       tables)
 
-    def _verify(self, toks, cache, pos):
+    def _verify(self, toks, cache, pos, tables=None):
         self.lane_steps["verify"] += 1
         return transformer.verify_step(self.params, self.cfg, toks, cache,
-                                       pos)
+                                       pos, tables)
 
     def step(self, cache, lane: Optional[ChunkLane], tok, pos, done, eos,
              chunk: int, spec: bool = False, *, temperature=None,
@@ -315,7 +443,9 @@ class Engine:
         ``n_valid[b]`` columns of row b are real (all W on a plain round).
         On the card with the kernel backend the round is a replayed CUDA
         graph and tok, pos, done and packed are its static buffers, valid
-        until the next round; ``_eager`` forces the op-by-op round.
+        until the next round; ``_eager`` forces the op-by-op round.  A
+        paged engine's ``cache`` is the page pools of its ``init_cache``,
+        addressed through ``self.pool``'s table as it stands at the call.
         """
         if spec and not self.scfg.spec_decode:
             raise ValueError(
@@ -329,12 +459,14 @@ class Engine:
                 step0 = torch.full((), step0, dtype=torch.int32,
                                    device=tok.device)
             samp = Sampling(temperature, top_k, top_p, step0)
+        tables = self._device_tables() if self.paged else None
         if not _eager and graphs.applies(self.device):
             tok, pos, done, packed = self.graphs.run(
-                self, cache, lane, tok, pos, done, eos, chunk, spec, samp)
+                self, cache, lane, tok, pos, done, eos, chunk, spec, samp,
+                tables)
         else:
             tok, pos, done, packed = self._round(
-                cache, lane, tok, pos, done, eos, chunk, spec, samp)
+                cache, lane, tok, pos, done, eos, chunk, spec, samp, tables)
         return cache, tok, pos, done, packed
 
     @staticmethod
@@ -346,10 +478,11 @@ class Engine:
                              samp.top_p)
 
     def _round(self, cache, lane, tok, pos, done, eos, chunk: int,
-               spec: bool, samp: Optional[Sampling] = None):
+               spec: bool, samp: Optional[Sampling] = None, tables=None):
         """The round op by op, as the reference's ``_make_step_impl``
         (``fill`` for each entry, then the decode or speculative lane):
-        (tok, pos, done, packed), the cache written in place."""
+        (tok, pos, done, packed), the cache written in place (through
+        ``tables`` when paged)."""
         C = 0 if lane is None else self.prefill_chunk
         keys = None
         if samp is not None:
@@ -368,7 +501,8 @@ class Engine:
                 target = rows == lane.slot[i]
                 tok_in = torch.where(target, lane.tok[i], tok)
                 pos_in = torch.where(target, lane.pos[i], pos)
-                logits, cache = self._decode(tok_in, cache, pos_in, "chunk")
+                logits, cache = self._decode(tok_in, cache, pos_in, "chunk",
+                                             tables)
                 # fire: the row becomes a decoder at (sampled, p + 1);
                 # otherwise the target parks on this entry's (t, p)
                 fire = target & lane.first[i]
@@ -383,12 +517,12 @@ class Engine:
         if spec:
             cache, tok, pos, done, toks, dones, ok, n_valid = \
                 self._spec_lane(cache, tok, pos, done, eos, ok, samp,
-                                keys, C)
+                                keys, C, tables)
             return tok, pos, done, pack_round(tok0, done0, toks, dones, ok,
                                               n_valid)
         toks, dones = [], []
         for j in range(chunk):
-            logits, cache = self._decode(tok, cache, pos)
+            logits, cache = self._decode(tok, cache, pos, tables=tables)
             # rows done before this step never sample these logits
             ok = ok & (torch.isfinite(logits).all(-1) | done)
             nxt = self._sample(logits, samp, keys, C + j)
@@ -403,7 +537,7 @@ class Engine:
                                           torch.stack(dones, 1), ok, n_valid)
 
     def _spec_lane(self, cache, tok, pos, done, eos, ok, samp, keys,
-                   C: int):
+                   C: int, tables=None):
         """Draft ``draft_k`` / verify once / accept the longest prefix.
         Draft ``j`` is draw ``C + j``, verify column ``i`` draw ``C + K +
         i``: at temperature > 0 the drafter and the target draw different
@@ -412,7 +546,7 @@ class Engine:
         S = K + 1
         dtok, dpos, drafts = tok, pos, []
         for j in range(K):
-            logits, cache = self._decode(dtok, cache, dpos, "draft")
+            logits, cache = self._decode(dtok, cache, dpos, "draft", tables)
             nxt = torch.where(done, dtok,
                               self._sample(logits, samp, keys, C + j))
             dpos = torch.where(done, dpos, dpos + 1)
@@ -420,7 +554,7 @@ class Engine:
             drafts.append(nxt)
         drafts = torch.stack(drafts, 1)                            # [B, K]
         logits, cache = self._verify(torch.cat([tok[:, None], drafts], 1),
-                                     cache, pos)
+                                     cache, pos, tables)
         ok = ok & (torch.isfinite(logits).all(-1).all(-1) | done)
         if samp is None:
             v = sample_logits(logits)                              # [B, S]
@@ -468,7 +602,8 @@ class Engine:
         """prompts [B, S] int -> [B, S + max_new_tokens]: the static-batch
         oracle (prefill, then a per-token loop, token ``i`` drawn with
         ``fold_in(self.key, i)`` under the ServeConfig's sampling), as the
-        reference's ``generate(use_scan=False)``."""
+        reference's ``generate(use_scan=False)``; over a dense cache on a
+        paged engine too."""
         sc = self.scfg
         greedy = sc.temperature <= 0.0
 

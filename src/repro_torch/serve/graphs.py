@@ -10,8 +10,9 @@ replays it, so a round costs the host a few copies and one graph launch.
 
 * **Key:** (n_real, chunk, spec, greedy) — the reference's (C, chunk,
   greedy, spec) with the lane's real entries for C — and what the graph was
-  captured over: the batch, the cache tensors' shape and addresses, and
-  the kernel backend and variant.  ``ops.set_backend`` and
+  captured over: the batch, the cache tensors' shape and addresses, a
+  paged engine's page table's shape and address (None on a dense one),
+  and the kernel backend and variant.  ``ops.set_backend`` and
   ``ops.set_variant`` are module globals read while the round is
   captured, so a graph captured under one never replays under another.
 * **Static buffers:** tok, pos, done, eos and the chunk lane's five
@@ -23,6 +24,10 @@ replays it, so a round costs the host a few copies and one graph launch.
   the new tok, pos and done back into them and the packed result
   (``engine.pack_round``) into its static output.  A greedy key's graph
   has no draw in it.
+* **Page tables:** a paged round reads the engine's one device table
+  (``Engine.table``, int32 ``[slots, E]``) where it lies, like the cache:
+  ``Engine.step`` copies the pool's mapping into it before each round, so
+  a graph captured under one mapping replays under any other.
 * **Workspaces:** graphs record addresses, so the K-split kernels'
   workspaces of a batch size are allocated once, before its first
   capture, at the largest (rows, columns) the engine's leaves give
@@ -129,24 +134,27 @@ class RoundGraphs:
         self._pool = None
 
     def key(self, cache, lane, tok, chunk: int, spec: bool,
-            greedy: bool) -> tuple:
+            greedy: bool, tables=None) -> tuple:
         be = ops.get_backend()
+        table = None if tables is None else (tuple(tables[0].shape),
+                                             tables[0].data_ptr())
         return (0 if lane is None else lane.slot.shape[0], chunk, spec,
                 greedy, be, ops.pick_variant(be), tok.shape[0],
-                tuple(cache[0]["k"].shape),
+                tuple(cache[0]["k"].shape), table,
                 tuple(t.data_ptr() for c in cache for t in c.values()))
 
     def run(self, eng, cache, lane, tok, pos, done, eos, chunk: int,
-            spec: bool, samp=None):
+            spec: bool, samp=None, tables=None):
         """Replay the round of this key of engine ``eng``, capturing it
         first when it is new: (tok, pos, done, packed), the graph's static
         buffers.  ``samp``: the sampled round's ``engine.Sampling``, None
-        on a greedy round."""
-        key = self.key(cache, lane, tok, chunk, spec, samp is None)
+        on a greedy round; ``tables``: a paged round's ``(Engine.table,)``,
+        read in place."""
+        key = self.key(cache, lane, tok, chunk, spec, samp is None, tables)
         r = self.rounds.get(key)
         if r is None:
             r = self._capture(eng, key, cache, lane, tok, pos, done, eos,
-                              chunk, spec, samp)
+                              chunk, spec, samp, tables)
         r.replay(lane, tok, pos, done, eos, samp)
         for name, n in r.launches.items():
             kernel.LAUNCHES[name] += n
@@ -171,7 +179,7 @@ class RoundGraphs:
         return ws
 
     def _capture(self, eng, key, cache, lane, tok, pos, done, eos,
-                 chunk: int, spec: bool, samp) -> _Round:
+                 chunk: int, spec: bool, samp, tables) -> _Round:
         t0 = time.perf_counter()
         if self._stream is None:
             self._stream = torch.cuda.Stream(tok.device)
@@ -185,7 +193,7 @@ class RoundGraphs:
                 stream.wait_stream(current)
                 with torch.cuda.stream(stream):
                     eng._round(cache, lane, tok, pos, done, eos, chunk,
-                               spec, samp)
+                               spec, samp, tables)
                 current.wait_stream(stream)
                 _restore(eng, saved)
                 r = _Round(lane, tok, pos, done, eos, samp)
@@ -193,7 +201,7 @@ class RoundGraphs:
                                       stream=stream):
                     new_tok, new_pos, new_done, r.packed = eng._round(
                         cache, r.lane, r.tok, r.pos, r.done, r.eos, chunk,
-                        spec, r.samp)
+                        spec, r.samp, tables)
                     r.tok.copy_(new_tok)
                     r.pos.copy_(new_pos)
                     r.done.copy_(new_done)

@@ -1,6 +1,7 @@
 """Continuous-batching scheduler with chunked prefill, per-request
-sampling and self-speculative rounds (port of ``repro.serve.scheduler``
-without deadlines, shedding, snapshots, save/load and paging).
+sampling, self-speculative rounds and paged block accounting (port of
+``repro.serve.scheduler`` without deadlines, shedding, snapshots and
+save/load).
 
 A fixed pool of ``slots`` decode lanes over one set of live cache buffers.
 Requests queue FIFO; every round runs ONE ``Engine.step`` carrying up to
@@ -27,6 +28,19 @@ falls back to the engine's defaults.  The global draw counter ``_step``
 advances by ``C + chunk`` a round (``C + 2 * draft_k + 1`` on a
 speculative one, ``C`` the engine's ``prefill_chunk`` when the round has a
 chunk lane, else 0), as the reference's does.
+
+With a paged engine (``ServeConfig(paged=True)``) the scheduler also runs
+the reference's block accounting on ``engine.pool``: every round first maps
+pages for the chunk ahead (``max(chunk, draft_k + 1)`` positions on a
+speculative engine); when the pool runs dry the youngest slot is
+preempted, its pages released, and it is requeued at the queue head with
+its emitted tokens, so its re-admission prefills prompt + emitted and
+continues exactly.  Admission is gated on free pages (FIFO, no
+skip-ahead) and maps every leading ready prefix page shared; a fresh row
+parks at ``(seq[p0], p0)``, its first entry after the shared prefix.
+Pages become shareable as each round's chunk lane commits, are released
+when a request finishes, and a speculative round's pages past the
+accepted sequence are trimmed.  ``run`` ends with :meth:`check_drained`.
 """
 from __future__ import annotations
 
@@ -80,8 +94,74 @@ class Scheduler:
         self._target = [0] * slots
         self.stats = {"rounds": 0, "prefill_tokens": 0,
                       "admitted_tokens": 0, "emitted_tokens": 0,
-                      "failed": 0, "spec_rounds": 0, "spec_drafted": 0,
-                      "spec_accepted": 0}
+                      "failed": 0, "preemptions": 0, "spec_rounds": 0,
+                      "spec_drafted": 0, "spec_accepted": 0}
+
+    # -- paged helpers -------------------------------------------------------
+
+    @staticmethod
+    def _seq(req: Request) -> List[int]:
+        """The tokens a (re-)admission must prefill: the prompt plus every
+        token already emitted (non-empty only on a preemption resume)."""
+        return list(req.prompt) + [int(t) for t in req.tokens]
+
+    def _preempt_victim(self) -> tuple:
+        """Preempt the youngest slot by admission order (the reference's
+        pick when no request carries a deadline): its pages are released,
+        its sampling mirrors reset, and the request keeps its emitted
+        tokens."""
+        victim = max((s for s, r in enumerate(self.slots) if r is not None),
+                     key=lambda s: self._admit_seq[s])
+        req = self.slots[victim]
+        self.slots[victim] = None
+        self.engine.pool.release(victim)
+        self._reset_slot_sampling(victim)
+        self._progress[victim] = self._target[victim] = 0
+        req.status = RequestStatus.QUEUED
+        req.slot = None
+        self.stats["preemptions"] += 1
+        self.engine.pool.preemptions += 1
+        return victim, req
+
+    def _ensure_chunk_pages(self) -> None:
+        """Grow every active slot's mapping to cover the round ahead; when
+        the pool runs dry, preempt and requeue youngest-first until the
+        rest fit (one sequence alone exhausting the pool is a configuration
+        error)."""
+        pool = self.engine.pool
+        scfg = self.engine.scfg
+        # a speculative round writes a draft_k+1-token block per slot:
+        # reserve for either lane (the round's kind is decided after
+        # assembly; the trim after a spec round gives the excess back)
+        W = max(self.chunk, scfg.draft_k + 1) if scfg.spec_decode \
+            else self.chunk
+        freed, evicted = [], []
+        while True:
+            active = [(s, r) for s, r in enumerate(self.slots)
+                      if r is not None]
+            # a decoder's pending token is the first of the round's writes
+            # (W - 1 past its residency); a slot mid-prefill that completes
+            # this round decodes a full W past its sequence
+            need = [(s, min(len(r.prompt) + len(r.tokens) + W
+                            - (0 if self._progress[s] < self._target[s]
+                               else 1), scfg.max_len))
+                    for s, r in active]
+            if next((s for s, n in need if not pool.ensure(s, n)),
+                    None) is None:
+                break
+            if len(active) == 1:
+                raise RuntimeError(
+                    "KV page pool exhausted by a single sequence — "
+                    "raise ServeConfig.num_pages (or lower max_len)")
+            slot, req = self._preempt_victim()
+            evicted.append(req)
+            freed.append(slot)
+        if evicted:
+            # evicted youngest first: appendleft in eviction order puts the
+            # oldest evictee at the queue head, so FIFO order survives
+            for req in evicted:
+                self.queue.appendleft(req)
+            self._free_on_device(freed)
 
     # -- admission -----------------------------------------------------------
 
@@ -187,7 +267,7 @@ class Scheduler:
         parks: dict = {}
 
         def feed(slot, req, p0):
-            seq, L = list(req.prompt), self._target[slot]
+            seq, L = self._seq(req), self._target[slot]
             take = min(C - len(e_slot), L - p0)
             for p in range(p0, p0 + take):
                 last = p == L - 1
@@ -208,24 +288,47 @@ class Scheduler:
             if len(e_slot) >= C:
                 break
             feed(slot, self.slots[slot], self._progress[slot])
+        pool = self.engine.pool
         while len(e_slot) < C and self.queue:
             req = self.queue[0]
+            seq = self._seq(req)
+            L = len(seq)
             slot = next((s for s in range(self.n_slots)
                          if self.slots[s] is None), None)
             if slot is None:
                 break
+            p0 = 0
+            if self.engine.paged:
+                start = pool.admit(slot, seq, fills_now=False)
+                if start is None:
+                    if (not any(r is not None for r in self.slots)
+                            and pool.allocated_pages == 0):
+                        raise RuntimeError(
+                            "request needs more KV pages than the whole "
+                            "pool holds — raise ServeConfig.num_pages")
+                    break
+                # a fully shared prompt still replays its last token: that
+                # entry's logits are the first-token logits
+                p0 = min(start, L - 1)
+                if (L - p0 <= C - len(e_slot) and not pool.ensure(
+                        slot, min(L + self.chunk,
+                                  self.engine.scfg.max_len))):
+                    # completes this round but its decode growth does not
+                    # fit: undo the mapping and wait (no skip-ahead)
+                    pool.release(slot)
+                    break
             self.queue.popleft()
             req.status = RequestStatus.RUNNING
             req.slot = slot
             self.slots[slot] = req
-            self._target[slot] = len(req.prompt)
-            self._progress[slot] = 0
+            self._target[slot] = L
+            self._progress[slot] = p0
             (self._temp_h[slot], self._topk_h[slot],
              self._topp_h[slot]) = self._sampling_for(req)
             self._eos_h[slot] = -1 if req.eos_id is None else int(req.eos_id)
             fresh.append((slot, req))
-            parks[slot] = (int(req.prompt[0]), 0)
-            feed(slot, req, 0)
+            parks[slot] = (int(seq[p0]), p0)
+            feed(slot, req, p0)
         if not e_slot:
             return None, plan, fresh, completing, parks
         if fresh:
@@ -236,15 +339,21 @@ class Scheduler:
         return lane, plan, fresh, completing, parks
 
     def step(self) -> int:
-        """One round: admit into free slots through the chunk lane, decode
-        one chunk, retire finished sequences.  Returns the tokens emitted."""
+        """One round: map the pages of the round ahead (paged), admit into
+        free slots through the chunk lane, decode one chunk, retire
+        finished sequences.  Returns the tokens emitted."""
+        paged = self.engine.paged
+        if paged:
+            self._ensure_chunk_pages()
         lane, plan, fresh, completing, parks = self._assemble_chunk()
         if not any(r is not None for r in self.slots):
             return 0
         if parks:
             # fresh rows park at their first entry BEFORE the dispatch, so
             # chunk iterations ahead of their first target re-run the same
-            # write the entry itself makes
+            # write the entry itself makes (the free-slot sentinel's
+            # clamped write would land on page 0 of the row's table, a
+            # shared page under prefix reuse)
             self._write_slots(parks, tok=True)
         # the host mirrors pick the argmax-only variant without a read
         greedy = all(t <= 0.0 and k == 0 and p >= 1.0 for t, k, p in
@@ -288,8 +397,11 @@ class Scheduler:
         if not ok_h.all():
             raise RuntimeError("non-finite logits in decode for slots "
                                f"{np.flatnonzero(~ok_h).tolist()}")
+        # the chunk lane commits: freshly covered pages become shareable
         for slot, p in plan.items():
             self._progress[slot] = p
+            if paged:
+                self.engine.pool.mark_filled(slot, p)
         for slot, req in fresh:
             self._admit_counter += 1
             self._admit_seq[slot] = self._admit_counter
@@ -339,7 +451,18 @@ class Scheduler:
                 self.slots[slot] = None
                 self._reset_slot_sampling(slot)
                 self._progress[slot] = self._target[slot] = 0
+                if paged:
+                    self.engine.pool.release(slot)
                 freed.append(slot)
+        if use_spec and paged:
+            # the paged rollback of rejected speculation: unmap the pages
+            # grown for the draft_k+1 block past the committed sequence
+            # (the pending token's position stays mapped)
+            for slot, req in enumerate(self.slots):
+                if req is None or self._progress[slot] < self._target[slot]:
+                    continue
+                self.engine.pool.trim(slot,
+                                      len(req.prompt) + len(req.tokens))
         if freed:
             self._free_on_device(freed)
         self.stats["emitted_tokens"] += emitted
@@ -366,4 +489,18 @@ class Scheduler:
             if rounds > max_rounds:
                 raise RuntimeError("scheduler failed to drain "
                                    f"({len(self.queue)} queued)")
+        self.check_drained()
         return self.finished
+
+    def check_drained(self) -> None:
+        """Leak check at drain (paged): with no work left, the pool holds
+        no allocated page and no page is referenced without a slot mapping
+        reaching it."""
+        if self.has_work or not self.engine.paged:
+            return
+        pool = self.engine.pool
+        leaked = pool.leaked_pages()
+        if pool.allocated_pages or leaked:
+            raise RuntimeError(
+                f"page leak at drain: {pool.allocated_pages} pages still "
+                f"allocated, unreachable={leaked}")

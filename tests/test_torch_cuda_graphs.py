@@ -4,8 +4,9 @@ weights.  A replayed round must equal the eager round bit for bit (cache
 bytes, tokens, positions, done flags, the packed result) and count the
 same launches, greedy and sampled; a sampled key replays under a new
 ``step0`` and new sampling values without a recapture; the port's
-threefry stream gives the same bits on the card as on the CPU; graphs
-never move a workspace, never replay under another kernel variant, and a
+threefry stream gives the same bits on the card as on the CPU; a paged
+round replays under page tables changed since its capture; graphs never
+move a workspace, never replay under another kernel variant, and a
 capture that fails raises.  Every test needs a CUDA
 GPU (marker ``gpu``) and skips elsewhere; the file imports no JAX:
 ``python -m pytest -q -m gpu tests/test_torch_cuda_graphs.py``.
@@ -349,6 +350,100 @@ def test_scheduler_round_reads_the_card_once():
         if len(eng.graphs.rounds) == keys:        # nothing captured
             syncs.append(sum("synchroniz" in str(w.message) for w in seen))
     assert syncs and syncs == [1] * len(syncs)
+
+
+# ---------------------------------------------------------------------------
+# paged rounds: the engine's device table at a fixed address
+# ---------------------------------------------------------------------------
+
+_PAGED = {}
+
+
+def _paged_engine(name: str):
+    """A paged engine (4-token pages, no prefix sharing, so no two rows
+    write one page) on the codes of ``lut`` or ``spec``."""
+    if name not in _PAGED:
+        base = _engine(name)
+        _PAGED[name] = make_engine(base.params, base.cfg, dataclasses.replace(
+            base.scfg, quant=None, paged=True, page_size=4,
+            prefix_reuse=False))
+    return _PAGED[name]
+
+
+def _paged_state(eng, seed=0):
+    """``_state``'s slots over random page pools, each row mapped 24
+    positions past its own, more than four rounds write: a live row never
+    reads the null page, which several rows may write at once."""
+    cache, lane, state, eos = _state(eng, seed)
+    for s, p in enumerate(state[1].tolist()):
+        assert eng.pool.admit(s, [1000 * s + i for i in range(p + 1)]) == 0
+        assert eng.pool.ensure(s, p + 24)
+    return cache, lane, state, eos
+
+
+def _same_rounds(eng, c_eager, c_graph, lane, s_eager, s_graph, eos, spec):
+    want, want_launches = _round(eng, c_eager, lane, s_eager, eos, 3, spec,
+                                 True)
+    got, got_launches = _round(eng, c_graph, lane, s_graph, eos, 3, spec,
+                               False)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for a, b in zip(c_graph, c_eager):
+        assert torch.equal(_bits(a["k"]), _bits(b["k"]))
+        assert torch.equal(_bits(a["v"]), _bits(b["v"]))
+    assert got_launches == want_launches and sum(want_launches.values())
+    return tuple(want[:3]), tuple(got[:3])
+
+
+@pytest.mark.parametrize("name,spec", [("lut", False), ("spec", True)],
+                         ids=["lut", "spec"])
+def test_paged_round_replays_equal_eager_under_new_mappings(name, spec):
+    """A paged round with the chunk lane and one without, captured and
+    replayed, equal the eager rounds (state, packed result, pool bytes);
+    then ensure, trim, release and a re-admission change the page tables
+    and the same key replays, without a recapture, still equal."""
+    eng = _paged_engine(name)
+    cache, lane, state, eos = _paged_state(eng, seed=11)
+    c_eager, c_graph = _copy(cache), cache
+    s_eager = s_graph = state
+    for ln in (lane, None):
+        s_eager, s_graph = _same_rounds(eng, c_eager, c_graph, ln, s_eager,
+                                        s_graph, eos, spec)
+    keys = len(eng.graphs.rounds)
+    table0 = eng.pool.table.copy()
+    pool = eng.pool
+    p6 = int(s_eager[1][6])
+    assert pool.ensure(0, 48) and pool.ensure(6, 60)
+    assert pool.trim(6, p6 + 12) >= 1
+    pool.release(7)                    # its history now reads fresh pages
+    assert pool.admit(7, list(range(7000, 7021))) == 0
+    assert pool.ensure(7, 60)
+    assert (pool.table != table0).any()
+    replays = eng.graphs.replays
+    for _ in range(2):
+        s_eager, s_graph = _same_rounds(eng, c_eager, c_graph, None, s_eager,
+                                        s_graph, eos, spec)
+    assert len(eng.graphs.rounds) == keys
+    assert eng.graphs.replays == replays + 2
+    assert torch.equal(eng.table.cpu(), torch.from_numpy(pool.table))
+
+
+def test_paged_and_dense_rounds_have_their_own_keys():
+    """The key names the page table's shape and address: a dense engine's
+    key has none, a paged engine's has its device table."""
+    dense, paged = _engine("lut"), _paged_engine("lut")
+    cache, lane, state, eos = _state(dense, seed=12)
+    _round(dense, cache, lane, state, eos, 2, False, False)
+    pcache, plane, pstate, peos = _paged_state(paged, seed=12)
+    _round(paged, pcache, plane, pstate, peos, 2, False, False)
+    dkey = dense.graphs.key(cache, lane, state[0], 2, False, True)
+    pkey = paged.graphs.key(pcache, plane, pstate[0], 2, False, True,
+                            (paged.table,))
+    assert dkey in dense.graphs.rounds and pkey in paged.graphs.rounds
+    assert dkey[8] is None
+    assert pkey[8] == ((SLOTS, MAX_LEN // 4), paged.table.data_ptr())
+    # the same round kind; the cache shapes differ (pools against rows)
+    assert dkey[:7] == pkey[:7] and dkey[7] != pkey[7]
 
 
 # run in a process of its own: a failed capture may leave the CUDA context

@@ -38,7 +38,8 @@ def test_port_has_modules():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for mod in ("core/lut.py", "kernels/lutmul/ops.py",
                 "kernels/lutmul/kernel.py", "models/transformer.py",
-                "serve/engine.py", "serve/scheduler.py", "convert.py",
+                "serve/engine.py", "serve/scheduler.py", "serve/paged.py",
+                "convert.py",
                 "core/quantization.py", "core/thresholds.py",
                 "core/streamline.py", "kernels/thresholds/ref.py",
                 "kernels/thresholds/kernel.py", "kernels/thresholds/ops.py",
