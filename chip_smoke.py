@@ -34,10 +34,11 @@ Phases (any failure raises and exits non-zero):
    among them, ``ServeConfig(seed=SAMPLE_SEED)``) on the same engines: lut
    fused over the 8 prompts (its greedy rows equal the all-greedy run, a
    sampled row leaves it), then over the first 4: lut fused, unfused and
-   plain, and tmac fused, all equal; speculative on the first 2, the
-   graph equal to the plain backend, its accept rate printed.  A sampled
-   transcript depends on the batch's global draw counter, so only runs over
-   the same requests are compared.  On the kernel backend every
+   plain, and tmac fused, all equal; speculative on the first one (the
+   plain backend's speculative rounds take ~1.7 s each), the graph equal
+   to the plain backend, its accept rate printed.  A sampled transcript
+   depends on the batch's global draw counter, so only runs over the same
+   requests are compared.  On the kernel backend every
    round is a replayed CUDA graph, one captured per round key
    (``serve/graphs.py``); the plain backend runs op by op.  Each run's
    launch counters must be exactly 7 per layer per forward for the inner
@@ -65,7 +66,19 @@ Phases (any failure raises and exits non-zero):
    page allocated or leaked and reports peak pages, resident KV bytes
    against the dense capacity, hit rate and preemptions (``paged runs:``);
    ``paged round[qwen lut]:`` gives a replayed paged decode round's
-   device ms against the dense round's from one state.
+   device ms against the dense round's from one state.  Then the int8 KV
+   cache (``kv_quant="int8"``, max_len 256) on the same lut codes, every
+   request admitted by the monolithic admission (one eager prefill + stitch
+   dispatch per leading run of equal-length requests) and every decode
+   round a replayed graph: lut fused over the 8 prompts, paged (== dense),
+   8 prompts of 32 tokens (numpy seed 2) that one admission dispatch puts
+   into all 8 slots, dense and paged (equal), the plain backend over the
+   first 2 (== fused), and after the tmac run tmac fused over the first 4
+   (== lut).  ``int8 runs:`` gives the KV and page bytes against bf16's,
+   peak pages, ms per decode step against the bf16 lut run's, the
+   admissions (dispatches, median host ms) and the share of int8 greedy
+   tokens equal to the bf16 run's; ``int8 round[qwen lut]:`` a replayed
+   int8 decode round's device ms against the bf16 round's from one state.
 4. serving bitnet-3b (26 layers, full width) in ternary_a8_tmac: fused (8
    requests) and plain (first 4), equal transcripts.
 5. the paper's CNN: full-width MobileNetV2 (224x224, width 1.0, 1000
@@ -533,6 +546,17 @@ def prefix_requests(vocab: int) -> list:
     return reqs
 
 
+def equal_requests(vocab: int) -> list:
+    """8 prompts of 32 tokens (numpy seed 2), 16-32 new tokens each: one
+    monolithic admission dispatch fills all 8 slots."""
+    import numpy as np
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(2)
+    return [Request(prompt=rng.integers(0, vocab, 32).tolist(),
+                    max_new_tokens=int(rng.integers(16, 33)))
+            for _ in range(SLOTS)]
+
+
 def dense_kv_bytes(engine) -> int:
     """The dense cache's capacity at SLOTS slots: K and V of every layer,
     [SLOTS, max_len, n_kv, head_dim] each."""
@@ -553,13 +577,27 @@ def serve(engine, vocab: int, label: str, n_requests: int,
     replayed round counts the launches its capture recorded.  A paged
     engine's run also reports its pool (peak pages, resident KV bytes
     against the dense capacity, prefix hits, preemptions, pages trimmed)
-    and ends with ``check_drained``."""
+    and ends with ``check_drained``.  On an engine that admits
+    monolithically every prefill forward counts as a forward of its own
+    lane, and the run reports its admission dispatches (requests each, host
+    ms from the call to the read of its results)."""
     import torch
     from repro_torch.serve import Scheduler
     if reqs is None:
         reqs = make_requests(vocab, sampled=sampled)
     reqs = reqs[:n_requests]
     sched = Scheduler(engine, slots=SLOTS, chunk=8)
+    admissions = []
+    if engine.requires_monolithic_admission:
+        admit = sched._admit
+
+        def timed():
+            t0 = time.perf_counter()
+            n = admit()
+            if n:
+                admissions.append((n, 1e3 * (time.perf_counter() - t0)))
+            return n
+        sched._admit = timed
     trimmed = [0]
     if engine.paged:
         trim = engine.pool.trim
@@ -570,6 +608,7 @@ def serve(engine, vocab: int, label: str, n_requests: int,
             return n
         engine.pool.trim = counted
     engine.decode_steps = 0
+    engine.prefill_steps = 0
     engine.lane_steps = dict.fromkeys(engine.lane_steps, 0)
     graphs0 = _graph_state(engine)
     torch.cuda.synchronize()
@@ -586,6 +625,8 @@ def serve(engine, vocab: int, label: str, n_requests: int,
             raise AssertionError(f"{label}: request ended {r.finish_reason} "
                                  f"with {len(r.tokens)}/{r.max_new_tokens}")
     lanes = dict(engine.lane_steps)
+    if engine.prefill_steps:
+        lanes["prefill"] = engine.prefill_steps
     forwards = sum(lanes.values())
     want = dict.fromkeys(launches, 0)
     if inner is not None:
@@ -618,6 +659,21 @@ def serve(engine, vocab: int, label: str, n_requests: int,
         st["accept_rate"] = (st["spec_accepted"] / st["spec_drafted"]
                              if st["spec_drafted"] else None)
     st["prefill_entries"] = sched.stats["admitted_tokens"]
+    if admissions:
+        ms = sorted(a[1] for a in admissions)
+        st["admission"] = {
+            "dispatches": len(admissions),
+            "requests": [a[0] for a in admissions],
+            "host_ms": [a[1] for a in admissions],
+            "median_host_ms": ms[len(ms) // 2],
+            "prefill_rows": sched.stats["prefill_tokens"]}
+        # the decode rounds alone: without captures and admissions
+        st["ms_per_decode_step_after_capture_and_admissions"] = (
+            1e3 * served - sum(ms)) / engine.decode_steps
+        if len(admissions) != sched.stats["admission_rounds"]:
+            raise AssertionError(f"{label}: {len(admissions)} admission "
+                                 f"dispatches timed, the Scheduler counts "
+                                 f"{sched.stats['admission_rounds']}")
     if engine.paged:
         pool = engine.pool
         st["paged"] = {
@@ -944,6 +1000,106 @@ def run_paged_lut(engine, cfg, V: int, lut: list, lut_s: list,
     del tight, paged
 
 
+INT8: dict = {}
+
+
+def profile_int8_round(bf16, int8, steps: int) -> None:
+    """One replayed 8-iteration decode round from one state (8 slots at
+    positions 16..23) on the bf16-KV engine and on the int8 one: their
+    device time's difference is what the int8 attention costs a round."""
+    import torch
+    if not steps:
+        return
+    tok = torch.zeros((SLOTS,), dtype=torch.int32, device="cuda")
+    pos = torch.arange(SLOTS, dtype=torch.int32, device="cuda") + 16
+    done = torch.zeros((SLOTS,), dtype=torch.bool, device="cuda")
+    eos = torch.full((SLOTS,), -1, dtype=torch.int32, device="cuda")
+    dev = {}
+    for eng, kind in ((bf16, "bf16"), (int8, "int8")):
+        cache = eng.init_cache(SLOTS)
+        label = f"qwen lut {kind} KV decode round, replayed"
+        profile(label, lambda: eng.step(cache, None, tok, pos, done, eos, 8),
+                steps, forwards=8)
+        dev[kind] = PROFILES[label]["device_ms_per_call"]
+        del cache
+    INT8["round_device_ms"] = dev
+    log(f"int8 round[qwen lut]: device ms per replayed 8-iteration round "
+        f"{json.dumps(dev)}, int8 - bf16 {dev['int8'] - dev['bf16']}")
+
+
+def int8_summary(cfg, int8, paged, lut8: list, lut: list) -> None:
+    """The int8 runs' figures on one line, beside the bf16 run's."""
+    from repro_torch.models import transformer
+    bf16 = dict(RUNS["qwen lut fused"])
+    toks = [(a, b) for x, y in zip(lut8, lut) for a, b in zip(x, y)]
+    first = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b),
+                  len(x)) for x, y in zip(lut8, lut)]
+    INT8.update({
+        "kv_cache_bytes": {"int8": int8.kv_cache_bytes(SLOTS),
+                           "bf16": dense_kv_bytes(int8)},
+        "page_bytes": {"int8": paged.page_bytes(SLOTS),
+                       "bf16": paged.scfg.page_size
+                       * transformer.kv_bytes_per_position(cfg)},
+        "ms_per_decode_step_after_capture": {
+            "bf16": bf16["ms_per_decode_step_after_capture"],
+            **{label: RUNS[label]["ms_per_decode_step_after_capture"]
+               for label in RUNS if "int8" in label}},
+        "runs": {label: {k: st.get(k) for k in (
+            "ms_per_decode_step", "ms_per_decode_step_after_capture",
+            "tokens_per_s_after_capture", "rounds", "admission")}
+            | ({"peak_pages": st["paged"]["peak_pages"],
+                "kv_cache_bytes": st["paged"]["kv_cache_bytes"]}
+               if "paged" in st else {})
+            for label, st in RUNS.items() if "int8" in label},
+        "greedy_tokens_equal_to_bf16": sum(a == b for a, b in toks)
+        / len(toks),
+        "first_divergence_by_request": first})
+    log("int8 runs: " + json.dumps(INT8))
+
+
+def run_int8_lut(engine, cfg, V: int, lut: list,
+                 profile_steps: int) -> list:
+    """The int8 KV cache (``kv_quant="int8"``, max_len 256) on the lut
+    codes of the bf16 ``engine``, every request admitted monolithically:
+    the 8 contract requests dense and paged (equal), 8 equal-length prompts
+    filling all 8 slots in one admission dispatch (dense == paged), the
+    plain backend over the first 2 (== fused).  Returns the int8 lut
+    transcripts."""
+    import dataclasses
+    from repro_torch.kernels.lutmul import ops
+    from repro_torch.serve import ServeConfig, make_engine
+    cfg8 = dataclasses.replace(cfg, kv_quant="int8")
+    scfg = ServeConfig(max_len=256, seed=SAMPLE_SEED)
+    int8 = make_engine(engine.params, cfg8, scfg)
+    want = (2 * cfg.n_layers * SLOTS * scfg.max_len * cfg.n_kv
+            * (cfg.head_dim + 4))
+    if int8.kv_cache_bytes(SLOTS) != want:
+        raise AssertionError(f"int8 kv_cache_bytes "
+                             f"{int8.kv_cache_bytes(SLOTS)} != {want}")
+    lut8 = serve(int8, V, "qwen lut fused int8", 8, "lutmul")
+    paged = make_engine(engine.params, cfg8, dataclasses.replace(
+        scfg, paged=True, page_size=4))
+    same(serve(paged, V, "qwen lut fused int8 paged", 8, "lutmul"), lut8,
+         "lut fused int8 paged == lut fused int8")
+    eq = serve(int8, V, "qwen lut int8, equal lengths", 8, "lutmul",
+               reqs=equal_requests(V))
+    adm = RUNS["qwen lut int8, equal lengths"]["admission"]
+    if adm["requests"] != [SLOTS]:
+        raise AssertionError(f"equal lengths: admissions {adm['requests']}, "
+                             f"expected one dispatch of {SLOTS}")
+    same(serve(paged, V, "qwen lut int8 paged, equal lengths", 8, "lutmul",
+               reqs=equal_requests(V)), eq,
+         "lut int8 paged, equal lengths == lut int8, equal lengths")
+    profile_int8_round(engine, int8, profile_steps)
+    ops.set_backend("ref")
+    same(serve(int8, V, "qwen lut int8 plain", 2), lut8,
+         "lut int8 plain == lut fused int8")
+    ops.set_backend("cuda")
+    int8_summary(cfg, int8, paged, lut8, lut)
+    del int8, paged
+    return lut8
+
+
 def run_qwen(n_layers: int, profile_steps: int) -> None:
     import dataclasses
     import torch
@@ -992,6 +1148,7 @@ def run_qwen(n_layers: int, profile_steps: int) -> None:
          "lut plain sampled == lut fused sampled")
     ops.set_backend("cuda")
     run_paged_lut(engine, cfg, V, lut, lut_s, profile_steps)
+    lut8 = run_int8_lut(engine, cfg, V, lut, profile_steps)
     del engine
 
     # this slice: the same float weights as w4a4_tmac bitplanes
@@ -1006,6 +1163,11 @@ def run_qwen(n_layers: int, profile_steps: int) -> None:
         f"{time.perf_counter() - t0:.1f}s")
     tmac = serve(engine, V, "qwen tmac fused", 8, "lutmul_tmac")
     same(tmac, lut, "tmac fused == lut fused")
+    tmac8 = make_engine(engine.params, dataclasses.replace(
+        tcfg, kv_quant="int8"), ServeConfig(max_len=256, seed=SAMPLE_SEED))
+    same(serve(tmac8, V, "qwen tmac fused int8", 4, "lutmul_tmac"), lut8,
+         "tmac fused int8 == lut fused int8")
+    del tmac8
     same(serve(engine, V, "qwen tmac fused sampled", 4, "lutmul_tmac",
                sampled=True), lut_s, "tmac fused sampled == lut fused sampled")
     profile_engine(engine, "qwen tmac", profile_steps)
@@ -1030,7 +1192,7 @@ def run_qwen(n_layers: int, profile_steps: int) -> None:
     profile_engine(spec, "qwen tmac", profile_steps)
     # speculation at temperature > 0: drafts and verify columns draw their
     # own keys, so the accept rate is reported, not asserted
-    spec_s = serve(spec, V, "qwen tmac spec sampled", 2, "lutmul_tmac",
+    spec_s = serve(spec, V, "qwen tmac spec sampled", 1, "lutmul_tmac",
                    sampled=True)
     st = RUNS["qwen tmac spec sampled"]
     if st["spec_rounds"] < 1:
@@ -1038,7 +1200,7 @@ def run_qwen(n_layers: int, profile_steps: int) -> None:
     log(f"tmac spec sampled: accept rate {st['accept_rate']} "
         f"({st['spec_accepted']} of {st['spec_drafted']} drafts)")
     ops.set_backend("ref")
-    same(serve(spec, V, "qwen tmac spec sampled plain", 2, sampled=True),
+    same(serve(spec, V, "qwen tmac spec sampled plain", 1, sampled=True),
          spec_s, "tmac spec sampled plain == tmac spec sampled graph")
     ops.set_backend("cuda")
     # speculation on the paged cache: rejected blocks trimmed

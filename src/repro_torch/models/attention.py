@@ -2,7 +2,9 @@
 with the reference's boolean position mask and ``NEG_INF`` fill,
 full-sequence prefill, single-token decode and the S-token
 speculative-verify block over a dense per-slot KV cache or, with a page
-``table``, over shared page pools (``paged_gather`` / ``paged_write``).
+``table``, over shared page pools (``paged_gather`` / ``paged_write``);
+and single-token decode over an int8 KV cache (``quantize_kv``,
+``int8_kv_attention``, ``decode_attention_int8``).
 
 Plain PyTorch ops throughout (the reference has no Pallas kernel here).
 Scores and the probability-value product accumulate in float32 on float32
@@ -264,3 +266,141 @@ def decode_attention_multi(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
     out = torch.cat(outs, dim=1)
     y = _proj_out(p, out.to(compute_dtype), B, S, quant, compute_dtype)
     return y, cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# int8-quantized KV cache decode: int8 codes with per-token-per-head float32
+# scales; QK^T and PV as integer products with float32 rescales.  CUDA has
+# no int8 or int32 matmul, so both integer products run on the codes as
+# float32, which is exact: every partial sum is an integer below 2^24 (a
+# block of at most ``_EXACT_TERMS`` products of magnitude <= 127 * 127), and
+# longer contractions add their block sums in float64 and round once, as
+# the reference's int32 result rounds when cast to float32.  Codes of at
+# most 127 are exact in TF32 too.  Every division by a constant divides by
+# a device tensor (CUDA turns ``x / 127.0`` into a reciprocal multiply).
+# ---------------------------------------------------------------------------
+
+_EXACT_TERMS = 1024        # 1024 * 127 * 127 < 2^24
+
+
+def _div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` as an IEEE division on every device."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
+def _code_scale(xf: torch.Tensor, eps: float) -> torch.Tensor:
+    """``max(max |x|, eps) / 127`` over the last axis of float32 ``xf``."""
+    return _div(torch.clamp_min(torch.amax(torch.abs(xf), dim=-1), eps),
+                127.0)
+
+
+def quantize_kv(x: torch.Tensor):
+    """x [B, T, H, D] -> (int8 codes [B, T, H, D], float32 scales
+    [B, T, H]): ``scale = max(max |x|, 1e-8) / 127``, codes
+    ``clip(round(x / scale), -127, 127)`` (half to even)."""
+    xf = x.to(torch.float32)
+    scale = _code_scale(xf, 1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def int_product(eq: str, a: torch.Tensor, b: torch.Tensor, a_dim: int,
+                b_dim: int) -> torch.Tensor:
+    """``torch.einsum(eq, a, b)`` of integer-valued float32 operands of
+    magnitude <= 127 contracting ``a``'s axis ``a_dim`` with ``b``'s
+    ``b_dim``, equal to the int32 einsum cast to float32: blocks of at
+    most ``_EXACT_TERMS`` terms are exact in float32; more add their block
+    sums in float64 and round once."""
+    n = a.shape[a_dim]
+    if n <= _EXACT_TERMS:
+        return torch.einsum(eq, a, b)
+    acc = None
+    for i in range(0, n, _EXACT_TERMS):
+        w = min(_EXACT_TERMS, n - i)
+        part = torch.einsum(eq, a.narrow(a_dim, i, w),
+                            b.narrow(b_dim, i, w)).to(torch.float64)
+        acc = part if acc is None else acc + part
+    return acc.to(torch.float32)
+
+
+def int8_kv_probs(q: torch.Tensor, k_q: torch.Tensor,
+                  k_scale: torch.Tensor, v_scale: torch.Tensor,
+                  q_pos: torch.Tensor, k_pos: torch.Tensor):
+    """The probabilities :func:`int8_kv_attention` quantizes: (``p_eff``
+    [B, S, Hkv, G, T], the softmax with ``v_scale`` folded in, and its
+    per-row scale ``p_scale`` [B, S, Hkv, G]).  q [B, S, Hq, D] float is
+    quantized per (b, s, kv-head, group) row; the integer QK^T is rescaled
+    as ``(s_int * (q_scale * k_scale)) / sqrt(D)``, as the reference's."""
+    B, S, Hq, D = q.shape
+    Hkv = k_q.shape[2]
+    qg = q.reshape(B, S, Hkv, Hq // Hkv, D).to(torch.float32)
+    q_scale = _code_scale(qg, 1e-8)
+    q_int = torch.clamp(torch.round(qg / q_scale[..., None]), -127, 127)
+    s_int = int_product("bshgd,bkhd->bshgk", q_int, k_q.to(torch.float32),
+                        4, 3)
+    # scale[b, s, h, g, t] = q_scale[b, s, h, g] * k_scale[b, t, h]
+    scale = q_scale[..., None] * k_scale.permute(0, 2, 1)[:, None, :, None]
+    s = _div(s_int * scale, math.sqrt(D))
+    keep = _mask(q_pos, k_pos)
+    s = s.masked_fill(~keep[:, :, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    p_eff = p * v_scale.permute(0, 2, 1)[:, None, :, None]   # [B,S,Hkv,G,T]
+    return p_eff, _code_scale(p_eff, 1e-12)
+
+
+def int8_kv_attention(q: torch.Tensor, k_q: torch.Tensor,
+                      k_scale: torch.Tensor, v_q: torch.Tensor,
+                      v_scale: torch.Tensor, q_pos: torch.Tensor,
+                      k_pos: torch.Tensor) -> torch.Tensor:
+    """Attention over an int8 cache, as the reference's: the probabilities
+    of :func:`int8_kv_probs` quantized per row (codes in [0, 127], since
+    p and the scales are >= 0), the integer PV rescaled by their scale.
+    q [B, S, Hq, D] float; k_q/v_q [B, T, Hkv, D] int8, scales [B, T, Hkv]
+    float32 -> float32 [B, S, Hq, D]."""
+    p_eff, p_scale = int8_kv_probs(q, k_q, k_scale, v_scale, q_pos, k_pos)
+    p_int = torch.round(p_eff / p_scale[..., None])
+    o_int = int_product("bshgk,bkhd->bshgd", p_int, v_q.to(torch.float32),
+                        4, 1)
+    return (o_int * p_scale[..., None]).reshape(q.shape)
+
+
+KV_INT8_LEAVES = ("k", "v", "k_scale", "v_scale")
+
+
+def decode_attention_int8(p: Params, x: torch.Tensor, cache: dict, pos, *,
+                          n_heads: int, n_kv: int, head_dim: int,
+                          rope_theta: float = 10000.0, quant: str = "none",
+                          compute_dtype=torch.bfloat16,
+                          table: Optional[torch.Tensor] = None):
+    """One decode step over an int8 cache: ``cache`` {"k", "v": int8 [B,
+    T, Hkv, D], "k_scale", "v_scale": float32 [B, T, Hkv]}, written in
+    place.  The new K/V row is quantized per head, written at ``clip(pos,
+    0, T - 1)``, then attention reads the whole cache
+    (:func:`int8_kv_attention`).  With ``table`` the four leaves are page
+    pools ([P, page_size, ...]: codes and scales page together, so every
+    page carries its own scales).  Returns (y, cache)."""
+    B = x.shape[0]
+    paged = table is not None
+    T = table.shape[1] * cache["k"].shape[1] if paged else cache["k"].shape[1]
+    q = _proj_qkv(p, "wq", x, B, 1, head_dim, quant, compute_dtype)
+    k = _proj_qkv(p, "wk", x, B, 1, head_dim, quant, compute_dtype)
+    v = _proj_qkv(p, "wv", x, B, 1, head_dim, quant, compute_dtype)
+    posv = _pos_vec(pos, B, x.device)
+    posb = posv[:, None]
+    q = apply_rope(q, posb, rope_theta)
+    k = apply_rope(k, posb, rope_theta)
+    k_new, ks_new = quantize_kv(k)
+    v_new, vs_new = quantize_kv(v)
+    slot = torch.clamp(posv, 0, T - 1)
+    dense = {}
+    for name, new in zip(KV_INT8_LEAVES, (k_new, v_new, ks_new, vs_new)):
+        if paged:
+            paged_write(cache[name], table, slot, new)
+            dense[name] = paged_gather(cache[name], table)
+        else:
+            dense[name] = _write_kv_slot(cache[name], new, slot)
+    out = int8_kv_attention(q, dense["k"], dense["k_scale"], dense["v"],
+                            dense["v_scale"], posb,
+                            decode_kv_positions(posv, T))
+    y = _proj_out(p, out.to(compute_dtype), B, 1, quant, compute_dtype)
+    return y, cache

@@ -8,9 +8,16 @@ decode cache is a list of per-layer ``{"k", "v"}`` buffers
 ``[B, max_len, n_kv, head_dim]`` that ``decode_step`` and ``verify_step``
 update in place; the paged cache (``init_paged_cache``) is per-layer page
 pools ``[num_pages, page_size, n_kv, head_dim]`` addressed through the
-``tables`` those two take.
+``tables`` those two take.  With ``cfg.kv_quant == "int8"`` the decode
+cache holds int8 ``k``/``v`` codes with float32 per-token-per-head
+``k_scale``/``v_scale`` leaves (dense rows or page pools alike), which
+``decode_step`` reads through ``attention.decode_attention_int8``; prefill
+still returns the float K/V, which serving quantizes as it stitches them
+into the live cache.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -39,7 +46,7 @@ def check_supported(cfg: ModelConfig) -> None:
                      ("embed_scale", not cfg.embed_scale),
                      ("moe", cfg.moe is None),
                      ("enc_dec", not cfg.enc_dec),
-                     ("kv_quant", cfg.kv_quant == "none"),
+                     ("kv_quant", cfg.kv_quant in ("none", "int8")),
                      ("split_head_params", not cfg.split_head_params)):
         if not ok:
             bad.append(name)
@@ -132,9 +139,15 @@ def forward(params: dict, cfg: ModelConfig,
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
+def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+            length=None):
     """Forward that also returns the decode cache: (logits [B, V] float32
-    at the last position, per-layer {"k", "v"} of length S)."""
+    at the last position, per-layer float {"k", "v"} of length S).
+
+    ``length`` ([B] or scalar int) takes each row's logits at ``length -
+    1`` (clipped into [0, S - 1]) instead: right-padded rows and the dummy
+    rows of a batched admission (pad tokens sit after the prompt, so the
+    causal mask keeps them out of every real token)."""
     check_supported(cfg)
     B, S = tokens.shape
     x = _embed(params, cfg, tokens)
@@ -144,7 +157,13 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
         x, c = _block(bp, cfg, x, positions)
         cache.append(c)
     x = rms_norm(params["final_norm"], x)
-    logits = _lm_head(params, cfg, x[:, -1].to(cfg.cdtype)).to(torch.float32)
+    if length is None:
+        xl = x[:, -1]
+    else:
+        last = torch.as_tensor(length, dtype=torch.int64, device=x.device)
+        last = torch.clamp(last.reshape(-1).expand(B) - 1, 0, S - 1)
+        xl = x.gather(1, last[:, None, None].expand(B, 1, x.shape[-1]))[:, 0]
+    logits = _lm_head(params, cfg, xl.to(cfg.cdtype)).to(torch.float32)
     return logits, cache
 
 
@@ -152,29 +171,51 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
 # decode
 # ---------------------------------------------------------------------------
 
+def _kv_leaves(cfg: ModelConfig, rows: tuple) -> dict:
+    """One layer's decode-cache leaves over the leading shape ``rows``:
+    (shape tail, dtype) by name — float ``k``/``v``, or int8 codes and
+    float32 per-head scales under ``kv_quant == "int8"``."""
+    kv = (cfg.n_kv, cfg.head_dim)
+    if cfg.kv_quant == "int8":
+        return {"k": (rows + kv, torch.int8), "v": (rows + kv, torch.int8),
+                "k_scale": (rows + kv[:1], torch.float32),
+                "v_scale": (rows + kv[:1], torch.float32)}
+    return {"k": (rows + kv, cfg.cdtype), "v": (rows + kv, cfg.cdtype)}
+
+
+def kv_bytes_per_position(cfg: ModelConfig) -> int:
+    """Bytes one cache position (a dense row's slot or a page's token)
+    holds summed over every layer's leaves, scales included."""
+    return cfg.n_layers * sum(
+        math.prod(shape) * (torch.finfo(dt).bits if dt.is_floating_point
+                            else torch.iinfo(dt).bits) // 8
+        for shape, dt in _kv_leaves(cfg, ()).values())
+
+
+def _zero_cache(cfg: ModelConfig, rows: tuple, device) -> list:
+    dev = resolve_device(device)
+    return [{k: torch.zeros(shape, dtype=dt, device=dev)
+             for k, (shape, dt) in _kv_leaves(cfg, rows).items()}
+            for _ in range(cfg.n_layers)]
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> list:
-    """Zero per-layer dense K/V buffers [batch, max_len, n_kv, head_dim]."""
+    """Zero per-layer dense K/V buffers [batch, max_len, n_kv, head_dim]
+    (int8 KV: int8 codes and float32 scales [batch, max_len, n_kv])."""
     check_supported(cfg)
-    dev = resolve_device(device)
-    shape = (batch, max_len, cfg.n_kv, cfg.head_dim)
-    return [{"k": torch.zeros(shape, dtype=cfg.cdtype, device=dev),
-             "v": torch.zeros(shape, dtype=cfg.cdtype, device=dev)}
-            for _ in range(cfg.n_layers)]
+    return _zero_cache(cfg, (batch, max_len), device)
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
                      num_pages: int, page_size: int, device=None) -> list:
-    """Paged form of :func:`init_cache`: per layer, ``k`` and ``v`` as
-    shared zero page pools ``[num_pages, page_size, n_kv, head_dim]``; the
-    per-slot addressing lives in the scheduler's page tables (``batch`` and
-    ``max_len`` size the tables, not the pools)."""
+    """Paged form of :func:`init_cache`: per layer, every leaf as a shared
+    zero page pool ``[num_pages, page_size, ...]`` (int8 KV: the scales
+    page with their codes); the per-slot addressing lives in the
+    scheduler's page tables (``batch`` and ``max_len`` size the tables,
+    not the pools)."""
     check_supported(cfg)
-    dev = resolve_device(device)
-    shape = (num_pages, page_size, cfg.n_kv, cfg.head_dim)
-    return [{"k": torch.zeros(shape, dtype=cfg.cdtype, device=dev),
-             "v": torch.zeros(shape, dtype=cfg.cdtype, device=dev)}
-            for _ in range(cfg.n_layers)]
+    return _zero_cache(cfg, (num_pages, page_size), device)
 
 
 def _full_table(tables):
@@ -191,16 +232,21 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
 
     ``tables`` (paged serving): ``(full_table [B, E], ...)`` int32, the
     reference's pair whose ring table the port leaves unused; the cache is
-    then :func:`init_paged_cache`'s page pools."""
+    then :func:`init_paged_cache`'s page pools.  A cache with ``k_scale``
+    leaves (int8 KV) takes ``attention.decode_attention_int8``."""
     cd = cfg.cdtype
     table = _full_table(tables)
     x = _embed(params, cfg, token)[:, None, :]                   # [B, 1, d]
+    kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
+              rope_theta=cfg.rope_theta, quant=cfg.quant, compute_dtype=cd,
+              table=table)
     for bp, c in zip(params["blocks"], cache):
         h = rms_norm(bp["ln1"], x)
-        y, _, _ = attn_lib.decode_attention(
-            bp["attn"], h, c["k"], c["v"], pos, n_heads=cfg.n_heads,
-            n_kv=cfg.n_kv, head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
-            quant=cfg.quant, compute_dtype=cd, table=table)
+        if "k_scale" in c:            # the int8 cache, as the reference
+            y, _ = attn_lib.decode_attention_int8(bp["attn"], h, c, pos, **kw)
+        else:
+            y, _, _ = attn_lib.decode_attention(bp["attn"], h, c["k"],
+                                                c["v"], pos, **kw)
         x = x + y
         h = rms_norm(bp["ln2"], x)
         x = x + mlp(bp["mlp"], h, quant=cfg.quant, compute_dtype=cd)
@@ -227,8 +273,14 @@ def verify_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     landed in place: ``logits[:, i]`` has the bits of the i-th of S
     sequential :func:`decode_step` calls.  The projections and the head run
     once at M = B*S; norms, rope and attention run per position.
-    ``tables``: as in :func:`decode_step`."""
+    ``tables``: as in :func:`decode_step`.  An int8 cache raises, as the
+    reference's does: speculation needs a cache built a token at a time."""
     check_supported(cfg)
+    if any("k_scale" in c for c in cache):
+        raise ValueError(
+            f"verify_step cannot run block spec {cfg.pattern[0]} (kv_quant="
+            f"{cfg.kv_quant!r}): speculative decoding supports plain "
+            "full-length attention blocks only")
     cd = cfg.cdtype
     table = _full_table(tables)
     x = _embed(params, cfg, tokens)                              # [B, S, d]

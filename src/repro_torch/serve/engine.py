@@ -1,6 +1,7 @@
 """Batched serving engine (port of ``repro.serve.engine``: dense or paged
-KV, one device, chunked prefill, per-slot sampling, bitplane
-self-speculative decoding; no fault injection).
+KV, float or int8, one device, chunked prefill, monolithic admission,
+per-slot sampling, bitplane self-speculative decoding; no fault
+injection).
 
 ``Engine.step`` is one unified serving round: a chunk lane of prompt-token
 iterations (each a full-batch ``decode_step`` with the target slot's
@@ -41,6 +42,15 @@ fixed address; every round first copies the pool's numpy table into it
 (through pinned memory on the card), and the round, replayed or eager,
 reads its pages through it.
 
+Where prompt state cannot be built one token at a time — an int8 KV cache,
+whose codes the reference quantizes from the batched prefill's K/V — the
+Scheduler admits through :meth:`Engine.admit_monolithic` instead of the
+chunk lane: one batched prefill of the admitted prompts, its K/V
+(quantized when the cache is int8) stitched into the masked slots of the
+live cache in place, the first tokens drawn, the slot state merged, and
+the results packed for one host read.  It runs eagerly; the decode rounds
+after it are the same replayed graphs (the stitch moves no cache tensor).
+
 ``generate`` is the static-batch oracle: prefill, then a per-token loop
 that draws token ``i`` with ``fold_in(PRNGKey(seed), i)`` under the
 ServeConfig's scalars.  Positions are per-sequence ``pos: [B]`` int32; a
@@ -53,10 +63,12 @@ import dataclasses
 import numbers
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import prng
 from repro_torch.core.device import resolve_device
+from repro_torch.models import attention as attn_lib
 from repro_torch.models import transformer
 from repro_torch.serve import graphs
 from repro_torch.serve.request import check_sampling
@@ -257,6 +269,35 @@ def unpack_round(packed):
             packed[:, 3 + 2 * W])
 
 
+def _write_rows(live: torch.Tensor, part: torch.Tensor,
+                mask: torch.Tensor) -> None:
+    """Masked multi-slot write, in place: rows of ``live`` [B, T, ...]
+    where ``mask`` [B] is set take ``part`` [B, P, ...] in their leading P
+    positions (P <= T; the tail stays behind the position mask until
+    decode overwrites it).  Other rows keep their bits."""
+    head = live[:, :part.shape[1]]
+    m = mask.reshape((-1,) + (1,) * (live.dim() - 1))
+    head.copy_(torch.where(m, part.to(live.dtype), head))
+
+
+def _scatter_pages(pool: torch.Tensor, table: torch.Tensor,
+                   piece: torch.Tensor, valid: torch.Tensor) -> None:
+    """Stitch-time page scatter, in place: token ``t`` of row ``b`` of
+    ``piece`` [B, L, ...] lands in page ``table[b, t // ps]`` at offset
+    ``t % ps`` of ``pool`` [P, ps, ...] where ``valid`` [B, L]; invalid
+    entries (unadmitted rows, prefix-shared tokens) are routed to the null
+    page 0, so one scatter covers the whole admission (valid entries
+    target exclusively owned pages: duplicate indices land on page 0
+    only, over values the position mask hides)."""
+    ps = pool.shape[1]
+    B, L = valid.shape
+    t = torch.arange(L, device=pool.device)
+    page = torch.where(valid, table[:, t // ps], 0)
+    off = (t % ps).expand(B, L)
+    pool[page.reshape(-1).long(), off.reshape(-1).long()] = piece.reshape(
+        (B * L,) + tuple(piece.shape[2:])).to(pool.dtype)
+
+
 def _to_device(params, device):
     """Every tensor of a parameter tree on ``device``."""
     if isinstance(params, dict):
@@ -296,9 +337,16 @@ class Engine:
         # drafter decode_steps and verify_steps
         self.lane_steps = dict.fromkeys(("chunk", "decode", "draft",
                                          "verify"), 0)
+        self.prefill_steps = 0        # admit_monolithic's prefill forwards
         self.n_draftable_leaves = 0
         self.draft_params = None
         if scfg.spec_decode:
+            if self.requires_monolithic_admission:
+                raise ValueError(
+                    "spec_decode needs prompt/decode state that builds one "
+                    "token at a time — recurrent layers, MoE routing, "
+                    "int8-KV and enc-dec models cannot run draft/verify "
+                    "rounds")
             from repro_torch.serve.quantize import (count_draftable_leaves,
                                                     draft_params_view)
             self.n_draftable_leaves = count_draftable_leaves(
@@ -327,6 +375,22 @@ class Engine:
     def prefill_chunk(self) -> int:
         """Prompt tokens carried by the chunk lane of one unified round."""
         return self.scfg.chunk_tokens
+
+    @property
+    def requires_monolithic_admission(self) -> bool:
+        """True when prompt state cannot be built one token at a time and
+        the Scheduler admits through :meth:`admit_monolithic`: an int8 KV
+        cache, whose codes the reference quantizes from the batched
+        prefill's K/V (the other cases of the reference — recurrent
+        layers, MoE routing, enc-dec — are model families the port does
+        not run yet)."""
+        return self.cfg.kv_quant == "int8"
+
+    def chunk_eligible(self, seq_len: int) -> bool:
+        """Can a ``seq_len``-token prompt be admitted through the chunk
+        lane (else the monolithic admission)?  The port has no sliding
+        windows, so this is the engine-wide answer for every length."""
+        return not self.requires_monolithic_admission
 
     def init_cache(self, batch: int) -> list:
         """Zero decode buffers for ``batch`` slots.  Paged: page pools, a
@@ -362,18 +426,18 @@ class Engine:
         return (self.table,)
 
     def _kv_leaf_bytes(self, batch: int) -> int:
-        """Bytes of every layer's K and V: the pools when paged, else the
-        dense [batch, max_len] buffers."""
+        """Bytes of every layer's KV leaves (K and V, and an int8 cache's
+        scales): the pools when paged, else the dense [batch, max_len]
+        buffers."""
         cfg, sc = self.cfg, self.scfg
         if self.paged:
             rows = resolve_pages_per_shard(cfg, sc, batch, 1) * sc.page_size
         else:
             rows = batch * sc.max_len
-        return (2 * cfg.n_layers * rows * cfg.n_kv * cfg.head_dim
-                * torch.finfo(cfg.cdtype).bits // 8)
+        return rows * transformer.kv_bytes_per_position(cfg)
 
     def page_bytes(self, batch: int = 1) -> int:
-        """Bytes ONE page occupies summed over every layer's K and V."""
+        """Bytes ONE page occupies summed over every layer's KV leaves."""
         if not self.paged:
             raise ValueError("page_bytes is a paged-engine figure")
         return self._kv_leaf_bytes(batch) // resolve_pages_per_shard(
@@ -580,6 +644,99 @@ class Engine:
         done = done | (any_eos & (n_valid > 0))
         dones = is_eos & (cols < n_valid[:, None])
         return cache, tok, pos, done, v, dones, ok, n_valid
+
+    # -- monolithic admission ------------------------------------------------
+
+    def _stitch(self, cache: list, pcache: list, lengths: torch.Tensor,
+                mask: torch.Tensor, paged=None) -> list:
+        """Write freshly prefilled rows into the masked slots of the live
+        cache IN PLACE (the decode graphs hold its addresses), as the
+        attention branch of the reference's ``_stitch_impl``: row b of
+        ``pcache`` fills slot b where ``mask[b]``; an int8 cache takes the
+        K/V quantized here, codes and scales.  ``paged`` = (device table,
+        start_tok [B]): tokens [start_tok, length) of masked rows scatter
+        into their pages (tokens below start_tok live in prefix-shared
+        pages an earlier admission filled)."""
+        if paged is not None:
+            table, start = paged
+            t = torch.arange(pcache[0]["k"].shape[1],
+                             device=lengths.device)[None]
+            valid = (mask[:, None] & (t >= start[:, None])
+                     & (t < lengths[:, None]))
+        for live, part in zip(cache, pcache):
+            for key in ("k", "v"):
+                leaves = {key: part[key]}
+                if "k_scale" in live:
+                    leaves[key], leaves[key + "_scale"] = \
+                        attn_lib.quantize_kv(part[key])
+                for name, val in leaves.items():
+                    if paged is None:
+                        _write_rows(live[name], val, mask)
+                    else:
+                        _scatter_pages(live[name], table, val, valid)
+        return cache
+
+    def admit_monolithic(self, cache, prompts, lengths, mask, budget_one,
+                         eos, tok, pos, done, *, temperature=None,
+                         top_k=None, top_p=None, step0: int = 0,
+                         greedy: bool = True):
+        """The reference's fallback admission (``admit_monolithic`` /
+        ``_admit_impl``): one batched prefill of the admitted prompts, the
+        stitch of their K/V into the masked slots, first-token sampling
+        and the slot-state merge.
+
+        ``prompts`` [slots, P] int (host; dummy rows for slots that stay
+        empty), ``lengths`` / ``mask`` / ``budget_one`` per-slot host
+        vectors (``budget_one``: the first token is the request's whole
+        budget).  ``eos``, ``tok``, ``pos``, ``done`` and, on a sampled
+        admission (``greedy`` False), ``temperature``, ``top_k`` and
+        ``top_p`` are the per-slot device vectors; the first tokens are
+        draw ``fold_in(self.key, step0)``.  A paged engine reads its
+        pool's table and ``start`` as the Scheduler's block accounting
+        left them.  Runs eagerly, on any backend.
+
+        Returns (cache, tok, pos, done, packed): the new slot state —
+        admitted rows decode from (tok0, length), rows finished at once
+        take the free sentinel — and one int32 [slots, 3] tensor of
+        (tok0, done0, ok0) for the caller's one host read (ok0: finite
+        logits on the admitted rows)."""
+        if not greedy and (temperature is None or top_k is None
+                           or top_p is None):
+            raise ValueError("a sampled admission (greedy=False) needs the "
+                             "temperature, top_k and top_p vectors")
+        prompts = np.asarray(prompts, dtype=np.int32)
+        R, P = prompts.shape
+        start = self.pool.start if self.paged else np.zeros(R, np.int32)
+        host = torch.from_numpy(np.concatenate(
+            [prompts, np.stack([np.asarray(lengths), np.asarray(mask),
+                                np.asarray(budget_one), start],
+                               1).astype(np.int32)], 1))
+        if self.device.type == "cuda":
+            dev = host.pin_memory().to(self.device, non_blocking=True)
+        else:
+            dev = host
+        lengths, mask = dev[:, P], dev[:, P + 1] != 0
+        budget_one, start = dev[:, P + 2] != 0, dev[:, P + 3]
+        paged = (self._device_tables()[0], start) if self.paged else None
+        self.prefill_steps += 1
+        logits, pcache = transformer.prefill(self.params, self.cfg,
+                                             dev[:, :P], length=lengths)
+        self._stitch(cache, pcache, lengths, mask, paged)
+        if greedy:
+            tok0 = sample_logits(logits)
+        else:
+            tok0 = sample_logits(logits, prng.fold_in(self.key, int(step0)),
+                                 temperature, top_k, top_p)
+        # finite-logits guard on the sampled rows (free rows report healthy)
+        ok0 = torch.isfinite(logits).all(-1) | ~mask
+        done0 = ((eos >= 0) & (tok0 == eos)) | budget_one
+        active = mask & ~done0
+        tok = torch.where(mask, tok0, tok)
+        pos = torch.where(mask, torch.where(active, lengths, -1), pos)
+        done = torch.where(mask, ~active, done)
+        packed = torch.stack([tok0, done0.to(torch.int32),
+                              ok0.to(torch.int32)], 1)
+        return cache, tok, pos, done, packed
 
     # -- static-batch oracle -------------------------------------------------
 

@@ -41,6 +41,16 @@ parks at ``(seq[p0], p0)``, its first entry after the shared prefix.
 Pages become shareable as each round's chunk lane commits, are released
 when a request finishes, and a speculative round's pages past the
 accepted sequence are trimmed.  ``run`` ends with :meth:`check_drained`.
+
+An engine that ``requires_monolithic_admission`` (an int8 KV cache) admits
+as the reference's ``Scheduler._admit`` does instead: each round first
+fills free slots from the queue head with the leading run of EQUAL-length
+requests in one ``Engine.admit_monolithic`` dispatch (prefilled unpadded
+across all ``slots`` rows, dummy rows for the empty ones; a paged engine
+maps each request's pages first, FIFO, no skip-ahead), reads its
+(tok0, done0, ok0) once, then maps the pages of the round ahead and runs a
+pure-decode round.  An admission advances the draw counter by one: its
+first tokens are draw ``fold_in(key, _step)``.
 """
 from __future__ import annotations
 
@@ -92,7 +102,8 @@ class Scheduler:
         # chunked-prefill cursors: tokens fed so far / tokens to feed
         self._progress = [0] * slots
         self._target = [0] * slots
-        self.stats = {"rounds": 0, "prefill_tokens": 0,
+        self.stats = {"rounds": 0, "admission_rounds": 0,
+                      "prefill_tokens": 0,
                       "admitted_tokens": 0, "emitted_tokens": 0,
                       "failed": 0, "preemptions": 0, "spec_rounds": 0,
                       "spec_drafted": 0, "spec_accepted": 0}
@@ -338,14 +349,135 @@ class Scheduler:
                          lane[4] != 0)
         return lane, plan, fresh, completing, parks
 
+    def _admit(self) -> int:
+        """Monolithic admission, as the reference's ``_admit``: fill free
+        slots from the queue head with its leading run of equal-length
+        requests in ONE ``Engine.admit_monolithic`` dispatch (batched
+        exact-length prefill, masked stitch, first-token draw, slot-state
+        merge), read once; returns the requests admitted.  A paged engine
+        maps each candidate's pages first; those that do not fit go back
+        to the queue head in FIFO order."""
+        free = [s for s in range(self.n_slots) if self.slots[s] is None]
+        take: List[Request] = []
+        for r in self.queue:
+            if len(take) >= len(free):
+                break
+            if take and len(self._seq(r)) != len(self._seq(take[0])):
+                break
+            take.append(r)
+        for _ in take:
+            self.queue.popleft()
+        admitted = list(zip(free, take))
+        pool = self.engine.pool
+        if self.engine.paged and admitted:
+            fits = []
+            for i, (slot, req) in enumerate(admitted):
+                if pool.admit(slot, self._seq(req)) is None:
+                    if (not fits
+                            and not any(r is not None for r in self.slots)
+                            and pool.allocated_pages == 0):
+                        raise RuntimeError(
+                            "request needs more KV pages than the whole "
+                            "pool holds — raise ServeConfig.num_pages")
+                    for _, r in reversed(admitted[i:]):
+                        self.queue.appendleft(r)
+                    admitted = fits
+                    break
+                fits.append((slot, req))
+        if not admitted:
+            return 0
+        R = self.n_slots
+        # every admitted request is P tokens (an equal-length run), and
+        # submit() guarantees P <= max_len
+        P = len(self._seq(admitted[0][1]))
+        prompts = np.zeros((R, P), np.int32)
+        lengths = np.ones((R,), np.int32)
+        mask = np.zeros((R,), bool)
+        budget_one = np.zeros((R,), bool)
+        for slot, req in admitted:
+            prompts[slot] = self._seq(req)
+            lengths[slot] = P
+            mask[slot] = True
+            # <= 1: a budget-0 request finishes at admission too (its token
+            # is drawn, not emitted); ``remaining`` so a preempted request
+            # resumes with what is left of its budget
+            budget_one[slot] = req.remaining <= 1
+            (self._temp_h[slot], self._topk_h[slot],
+             self._topp_h[slot]) = self._sampling_for(req)
+            self._eos_h[slot] = -1 if req.eos_id is None else int(req.eos_id)
+        self._push_sampling_state()
+        self.cache, tok, pos, done, packed = self.engine.admit_monolithic(
+            self.cache, prompts, lengths, mask, budget_one, self.eos,
+            self.tok, self.pos, self.done, temperature=self.temperature,
+            top_k=self.top_k, top_p=self.top_p, step0=self._step,
+            greedy=self._greedy())
+        self.tok.copy_(tok)
+        self.pos.copy_(pos)
+        self.done.copy_(done)
+        self._step += 1
+        self.stats["admission_rounds"] += 1
+        self.stats["prefill_tokens"] += R * P
+        self.stats["admitted_tokens"] += P * len(admitted)
+        # the admission's one device-to-host read
+        tok0_h, done0_h, ok0_h = np.asarray(packed.tolist(), np.int64).T
+        bad = [s for s, _ in admitted if not ok0_h[s]]
+        if bad:
+            raise RuntimeError(
+                f"non-finite logits at admission for slots {bad}")
+        for slot, req in admitted:
+            req.status = RequestStatus.RUNNING
+            req.slot = slot
+            self._admit_counter += 1
+            self._admit_seq[slot] = self._admit_counter
+            self._progress[slot] = self._target[slot] = P
+            cb_ok = True
+            if req.remaining >= 1:
+                cb_ok = self._deliver(req, int(tok0_h[slot]))
+            if not cb_ok or done0_h[slot]:
+                if not cb_ok:
+                    # a raising streaming callback fails only its request
+                    req.finish("failed")
+                    self.stats["failed"] += 1
+                else:
+                    eos = self._eos_h[slot]
+                    req.finish("eos" if eos >= 0 and req.tokens
+                               and req.tokens[-1] == eos else "length")
+                self.finished.append(req)
+                self._reset_slot_sampling(slot)
+                self._progress[slot] = self._target[slot] = 0
+                if self.engine.paged:
+                    pool.release(slot)
+                if not cb_ok:
+                    self._free_on_device([slot])
+            else:
+                self.slots[slot] = req
+        return len(admitted)
+
+    def _greedy(self) -> bool:
+        """Every slot greedy by the host mirrors: the argmax-only variant,
+        chosen without a read."""
+        return all(t <= 0.0 and k == 0 and p >= 1.0 for t, k, p in
+                   zip(self._temp_h, self._topk_h, self._topp_h))
+
     def step(self) -> int:
         """One round: map the pages of the round ahead (paged), admit into
         free slots through the chunk lane, decode one chunk, retire
-        finished sequences.  Returns the tokens emitted."""
+        finished sequences.  Returns the tokens emitted.  An engine that
+        requires monolithic admission admits first (:meth:`_admit`), then
+        maps the pages of the round ahead and decodes, with no chunk
+        lane."""
         paged = self.engine.paged
-        if paged:
-            self._ensure_chunk_pages()
-        lane, plan, fresh, completing, parks = self._assemble_chunk()
+        if self.engine.requires_monolithic_admission:
+            self._admit()
+            if not any(r is not None for r in self.slots):
+                return 0
+            if paged:
+                self._ensure_chunk_pages()
+            lane, plan, fresh, completing, parks = None, {}, [], set(), {}
+        else:
+            if paged:
+                self._ensure_chunk_pages()
+            lane, plan, fresh, completing, parks = self._assemble_chunk()
         if not any(r is not None for r in self.slots):
             return 0
         if parks:
@@ -356,8 +488,7 @@ class Scheduler:
             # shared page under prefix reuse)
             self._write_slots(parks, tok=True)
         # the host mirrors pick the argmax-only variant without a read
-        greedy = all(t <= 0.0 and k == 0 and p >= 1.0 for t, k, p in
-                     zip(self._temp_h, self._topk_h, self._topp_h))
+        greedy = self._greedy()
         scfg = self.engine.scfg
         use_spec = scfg.spec_decode
         if use_spec:
@@ -406,6 +537,7 @@ class Scheduler:
             self._admit_counter += 1
             self._admit_seq[slot] = self._admit_counter
         if lane is not None:
+            self.stats["admission_rounds"] += 1
             self.stats["prefill_tokens"] += self.engine.prefill_chunk
             self.stats["admitted_tokens"] += lane.slot.shape[0]
         self.stats["rounds"] += 1

@@ -5,7 +5,10 @@ bytes, tokens, positions, done flags, the packed result) and count the
 same launches, greedy and sampled; a sampled key replays under a new
 ``step0`` and new sampling values without a recapture; the port's
 threefry stream gives the same bits on the card as on the CPU; a paged
-round replays under page tables changed since its capture; graphs never
+round replays under page tables changed since its capture; an int8-KV
+round (four cache leaves a layer) replays as its eager round does, dense
+and paged, and a round after a monolithic admission replays the graph it
+already has; graphs never
 move a workspace, never replay under another kernel variant, and a
 capture that fails raises.  Every test needs a CUDA
 GPU (marker ``gpu``) and skips elsewhere; the file imports no JAX:
@@ -46,7 +49,12 @@ _ENGINES = {}
 
 
 def _engine(name: str):
-    """lut, tmac, spec (on the tmac codes) or bitnet, built once."""
+    """lut, tmac, spec (on the tmac codes), lut8 (an int8 KV cache on the
+    lut codes) or bitnet, built once."""
+    if name == "lut8" and name not in _ENGINES:
+        lut = _engine("lut")
+        _ENGINES[name] = make_engine(lut.params, dataclasses.replace(
+            lut.cfg, kv_quant="int8"), ServeConfig(max_len=MAX_LEN))
     if name not in _ENGINES:
         if name in ("lut", "tmac", "spec"):
             cfg = dataclasses.replace(qwen2_7b.config(quant="w4a4_lut"),
@@ -72,14 +80,21 @@ def _engine(name: str):
 
 
 def _state(eng, seed=0):
-    """A cache of random bf16 rows and 8 slots: live decoders, a row parked
-    mid-prompt (5), a free row (3) admitted this round with a one-token
-    budget, a finished row (4) and one with an EOS id (1)."""
+    """A cache of random bf16 rows (int8 KV: random codes and positive
+    scales) and 8 slots: live decoders, a row parked mid-prompt (5), a free
+    row (3) admitted this round with a one-token budget, a finished row (4)
+    and one with an EOS id (1)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     cache = eng.init_cache(SLOTS)
     for c in cache:
         for v in c.values():
-            v.normal_(generator=g)
+            if v.dtype == torch.int8:
+                v.copy_(torch.randint(-127, 128, v.shape, generator=g,
+                                      device="cuda", dtype=torch.int8))
+            elif v.dtype == torch.float32:          # int8 KV scales
+                v.uniform_(1e-3, 5e-2, generator=g)
+            else:
+                v.normal_(generator=g)
     V = eng.cfg.vocab
     tok = torch.randint(0, V, (SLOTS,), generator=g, device="cuda",
                         dtype=torch.int32)
@@ -499,3 +514,90 @@ def test_a_host_read_in_a_round_fails_the_capture():
                          capture_output=True, text=True, timeout=600)
     assert run.returncode == 0, run.stdout + run.stderr
     assert "raised:" in run.stdout
+
+
+# ---------------------------------------------------------------------------
+# int8 KV rounds and monolithic admission
+# ---------------------------------------------------------------------------
+
+def _same_leaves(c_graph, c_eager) -> None:
+    for a, b in zip(c_graph, c_eager):
+        assert set(a) == {"k", "v", "k_scale", "v_scale"}
+        for key in a:
+            assert torch.equal(_bits(a[key]), _bits(b[key])), key
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_int8_round_replays_equal_eager_round(paged):
+    """Decode rounds over an int8 cache (codes and scales, four leaves a
+    layer, all in the key) captured, then replayed with no warm-up before
+    it: state, packed result and every cache leaf bitwise the eager
+    round's."""
+    eng = _paged_engine("lut8") if paged else _engine("lut8")
+    cache, _, state, eos = (_paged_state if paged else _state)(eng, seed=21)
+    c_eager, c_graph = _copy(cache), cache
+    s_eager = s_graph = state
+    key = eng.graphs.key(cache, None, state[0], 3, False, True,
+                         (eng.table,) if paged else None)
+    assert key[-1] == tuple(t.data_ptr() for c in cache for t in c.values())
+    assert len(key[-1]) == 4 * LAYERS
+    replays = eng.graphs.replays
+    for i in range(2):
+        want, want_launches = _round(eng, c_eager, None, s_eager, eos, 3,
+                                     False, True)
+        got, got_launches = _round(eng, c_graph, None, s_graph, eos, 3,
+                                   False, False)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), i
+        _same_leaves(c_graph, c_eager)
+        assert got_launches == want_launches and sum(want_launches.values())
+        s_eager, s_graph = tuple(want[:3]), tuple(got[:3])
+    assert eng.graphs.replays == replays + 2 and key in eng.graphs.rounds
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_rounds_after_monolithic_admissions_replay_their_graph(paged):
+    """A Scheduler on the int8 engine: each admission is an eager prefill
+    and stitch into the live tensors, and every decode round after it
+    replays the one greedy key, captured once; the transcripts equal the
+    eager (``ref``-free) rounds' run, and the paged run's the dense one's."""
+    runs = {}
+    for graphs in (True, False):
+        eng = _engine("lut8")
+        if paged:
+            eng = _paged_engine("lut8")
+        sched = Scheduler(eng, slots=SLOTS, chunk=4)
+        ptrs = [t.data_ptr() for c in sched.cache for t in c.values()]
+        g = torch.Generator().manual_seed(6)
+        reqs = [Request(prompt=torch.randint(0, eng.cfg.vocab, (L,),
+                                             generator=g).tolist(),
+                        max_new_tokens=6)
+                for L in (5, 5, 9, 3, 12, 12, 7, 2, 5, 8)]
+        for r in reqs:
+            sched.submit(r)
+        keys0, replays0 = len(eng.graphs.rounds), eng.graphs.replays
+        step = eng.step
+        if not graphs:
+            eng.step = lambda *a, **k: step(*a, _eager=True, **k)
+        try:
+            while sched.has_work:
+                sched.step()
+        finally:
+            eng.step = step
+        assert [t.data_ptr() for c in sched.cache
+                for t in c.values()] == ptrs
+        assert sched.stats["admission_rounds"] >= 2
+        if graphs:
+            assert len(eng.graphs.rounds) - keys0 <= 1
+            assert eng.graphs.replays - replays0 == sched.stats["rounds"]
+        runs[graphs] = [r.tokens for r in reqs]
+    assert runs[True] == runs[False]
+    if paged:
+        dense = Scheduler(_engine("lut8"), slots=SLOTS, chunk=4)
+        g = torch.Generator().manual_seed(6)
+        reqs = [Request(prompt=torch.randint(0, dense.engine.cfg.vocab, (L,),
+                                             generator=g).tolist(),
+                        max_new_tokens=6)
+                for L in (5, 5, 9, 3, 12, 12, 7, 2, 5, 8)]
+        dense.run(reqs)
+        assert [r.tokens for r in reqs] == runs[True]
