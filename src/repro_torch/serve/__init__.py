@@ -11,8 +11,15 @@
     PagePool (serve.paged): with ServeConfig(paged=True), the host-side
                    page allocator (prefix reuse, preemption, speculative
                    trim) whose table the round reads on the device
+    FaultPlan (serve.faults): seeded NaN / page-table / dispatch / stall
+                   faults at the engine's dispatch sites; the guards
+                   (finite logits, the in-round cache sweep, the pool
+                   audit) raise CacheCorruption, and the Scheduler's
+                   rolling snapshots give token-identical replay recovery
 """
 from repro_torch.serve.engine import Engine, ServeConfig, sample_logits
+from repro_torch.serve.faults import (CacheCorruption, EngineFault, Fault,
+                                      FaultPlan, InjectedFault)
 from repro_torch.serve.paged import PagedLayout, PagePool
 from repro_torch.serve.request import Request, RequestStatus
 from repro_torch.serve.scheduler import Scheduler
@@ -27,4 +34,6 @@ def make_engine(params, cfg, scfg: ServeConfig = ServeConfig(), *,
 
 
 __all__ = ["Engine", "ServeConfig", "Request", "RequestStatus", "Scheduler",
-           "PagedLayout", "PagePool", "make_engine", "sample_logits"]
+           "PagedLayout", "PagePool", "make_engine", "sample_logits",
+           "FaultPlan", "Fault", "EngineFault", "InjectedFault",
+           "CacheCorruption"]

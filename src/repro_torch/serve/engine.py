@@ -1,7 +1,7 @@
 """Batched serving engine (port of ``repro.serve.engine``: dense or paged
 KV, float or int8, one device, chunked prefill, monolithic admission,
-per-slot sampling, bitplane self-speculative decoding; no fault
-injection).
+per-slot sampling, bitplane self-speculative decoding, fault injection and
+the invariant guards).
 
 ``Engine.step`` is one unified serving round: a chunk lane of prompt-token
 iterations (each a full-batch ``decode_step`` with the target slot's
@@ -51,6 +51,15 @@ live cache in place, the first tokens drawn, the slot state merged, and
 the results packed for one host read.  It runs eagerly; the decode rounds
 after it are the same replayed graphs (the stitch moves no cache tensor).
 
+Faults and guards (``serve.faults``): an installed ``FaultPlan``
+(:meth:`Engine.set_fault_plan`) fires at every dispatch site before the
+round touches the device — ``admit`` for an admission or a round with a
+chunk lane, then ``decode`` — and a paged engine audits its pool there
+(``PagePool.validate``) before the table is copied to the card.  Every round ANDs a sweep of the float cache leaves
+(:func:`_cache_finite`) into its packed finite-logits column, so a NaN
+that integer-code matmuls launder into finite logits is still caught, in
+the same host read.
+
 ``generate`` is the static-batch oracle: prefill, then a per-token loop
 that draws token ``i`` with ``fold_in(PRNGKey(seed), i)`` under the
 ServeConfig's scalars.  Positions are per-sequence ``pos: [B]`` int32; a
@@ -71,6 +80,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import transformer
 from repro_torch.serve import graphs
+from repro_torch.serve.faults import CacheCorruption
 from repro_torch.serve.request import check_sampling
 
 NEG_INF = -1e30
@@ -178,6 +188,35 @@ def resolve_pages_per_shard(cfg, scfg: ServeConfig, batch: int,
         raise ValueError(f"slots ({batch}) must divide over the data axis "
                          f"({n_shards})")
     return lay.auto_pages_per_shard(batch // n_shards)
+
+
+_FLOAT_KV_KEYS = ("k", "v", "k_scale", "v_scale")
+
+
+def _cache_finite(cache) -> torch.Tensor:
+    """Scalar AND of ``isfinite`` over every floating cache leaf among K,
+    V and the int8 cache's scales.  The finite-logits guard sees only what
+    reaches a live row's logits: a NaN whose score the position mask drops,
+    or one an integer-code path quantizes into finite codes, slips past
+    it, so every round audits the cache itself.  Integer leaves (int8 KV
+    codes) are skipped: the codes of a NaN row are whatever the cast makes
+    of it, and the row's scale is NaN anyway.
+
+    One pass over all leaves of a dtype: a leaf's max-abs norm is finite
+    exactly when the leaf is (NaN propagates, +-Inf gives Inf, and a max
+    cannot overflow), so a round adds a few graph nodes, not two a leaf."""
+    groups: dict = {}
+    for layer in cache:
+        for key in _FLOAT_KV_KEYS:
+            leaf = layer.get(key)
+            if leaf is not None and leaf.is_floating_point():
+                groups.setdefault(leaf.dtype, []).append(leaf)
+    ok = None
+    for leaves in groups.values():
+        norms = torch._foreach_norm(leaves, float("inf"))
+        fin = torch.isfinite(torch.stack(norms)).all()
+        ok = fin if ok is None else ok & fin
+    return ok
 
 
 def _per_row(x, dtype, B: int, device) -> torch.Tensor:
@@ -364,6 +403,7 @@ class Engine:
         # engine, so a captured round reads it at a fixed address)
         self.key = prng.prng_key(scfg.seed, self.device)
         self.graphs = graphs.RoundGraphs()
+        self.faults = None            # a serve.faults.FaultPlan, or None
 
     # -- scheduler-facing API ------------------------------------------------
 
@@ -412,6 +452,26 @@ class Engine:
         return transformer.init_paged_cache(
             self.cfg, batch, self.scfg.max_len, pages, self.scfg.page_size,
             self.device)
+
+    # -- fault injection + invariant guards (serve.faults) -------------------
+
+    def set_fault_plan(self, plan) -> None:
+        """Install a ``FaultPlan`` applied at every dispatch (None clears)."""
+        self.faults = plan
+
+    def _fault_site(self, site: str, cache, pos):
+        """Apply due injected faults, then (paged) audit the page pool, so
+        a corrupted table is caught on the host BEFORE it is copied to the
+        device, where a gather or scatter would silently use it.  Runs
+        before the round touches the device."""
+        if self.faults is not None:
+            cache = self.faults.apply(site, self, cache, pos)
+        if self.paged and self.pool is not None:
+            errs = self.pool.validate()
+            if errs:
+                raise CacheCorruption(
+                    "page pool audit failed: " + "; ".join(errs[:3]))
+        return cache
 
     def _device_tables(self) -> tuple:
         """The pool's table copied into the fixed device table (through
@@ -523,6 +583,9 @@ class Engine:
                 step0 = torch.full((), step0, dtype=torch.int32,
                                    device=tok.device)
             samp = Sampling(temperature, top_k, top_p, step0)
+        if lane is not None:
+            cache = self._fault_site("admit", cache, pos)
+        cache = self._fault_site("decode", cache, pos)
         tables = self._device_tables() if self.paged else None
         if not _eager and graphs.applies(self.device):
             tok, pos, done, packed = self.graphs.run(
@@ -582,23 +645,26 @@ class Engine:
             cache, tok, pos, done, toks, dones, ok, n_valid = \
                 self._spec_lane(cache, tok, pos, done, eos, ok, samp,
                                 keys, C, tables)
-            return tok, pos, done, pack_round(tok0, done0, toks, dones, ok,
-                                              n_valid)
-        toks, dones = [], []
-        for j in range(chunk):
-            logits, cache = self._decode(tok, cache, pos, tables=tables)
-            # rows done before this step never sample these logits
-            ok = ok & (torch.isfinite(logits).all(-1) | done)
-            nxt = self._sample(logits, samp, keys, C + j)
-            nxt = torch.where(done, tok, nxt)
-            pos = torch.where(done, pos, pos + 1)
-            done = done | ((nxt == eos) & (eos >= 0))
-            tok = nxt
-            toks.append(nxt)
-            dones.append(done)
-        n_valid = torch.full_like(tok, chunk)
-        return tok, pos, done, pack_round(tok0, done0, torch.stack(toks, 1),
-                                          torch.stack(dones, 1), ok, n_valid)
+        else:
+            toks, dones = [], []
+            for j in range(chunk):
+                logits, cache = self._decode(tok, cache, pos, tables=tables)
+                # rows done before this step never sample these logits
+                ok = ok & (torch.isfinite(logits).all(-1) | done)
+                nxt = self._sample(logits, samp, keys, C + j)
+                nxt = torch.where(done, tok, nxt)
+                pos = torch.where(done, pos, pos + 1)
+                done = done | ((nxt == eos) & (eos >= 0))
+                tok = nxt
+                toks.append(nxt)
+                dones.append(done)
+            toks, dones = torch.stack(toks, 1), torch.stack(dones, 1)
+            n_valid = torch.full_like(tok, chunk)
+        # the cache sweep, once a round: a non-finite value anywhere fails
+        # every slot (recovery replays the whole batch from the snapshot)
+        ok = ok & _cache_finite(cache)
+        return tok, pos, done, pack_round(tok0, done0, toks, dones, ok,
+                                          n_valid)
 
     def _spec_lane(self, cache, tok, pos, done, eos, ok, samp, keys,
                    C: int, tables=None):
@@ -704,6 +770,7 @@ class Engine:
                            or top_p is None):
             raise ValueError("a sampled admission (greedy=False) needs the "
                              "temperature, top_k and top_p vectors")
+        cache = self._fault_site("admit", cache, pos)
         prompts = np.asarray(prompts, dtype=np.int32)
         R, P = prompts.shape
         start = self.pool.start if self.paged else np.zeros(R, np.int32)

@@ -40,6 +40,10 @@ replays it, so a round costs the host a few copies and one graph launch.
   are made there, outside the capture.  Its cache writes are the ones the
   replay then makes again, bit for bit (the same inputs at the same
   positions).
+* **Garbage collection:** the collector is off during each capture
+  (:func:`no_gc`): cyclic garbage released inside a capture (seen after
+  torch.profiler sessions) calls the runtime in ways a capture forbids,
+  and the capture fails.
 * **Failure:** a capture that fails raises; there is no eager fallback on
   the card.
 * **Counters:** a replay runs no Python, so it adds the kernel launches
@@ -49,6 +53,8 @@ replays it, so a round costs the host a few copies and one graph launch.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import time
 
 import torch
@@ -112,6 +118,20 @@ def _leaf_widths(tree) -> set:
     if isinstance(tree, (list, tuple)):
         return set().union(*(_leaf_widths(v) for v in tree))
     return set()
+
+
+@contextlib.contextmanager
+def no_gc():
+    """The cyclic garbage collector off for the block, as every CUDA graph
+    capture needs it: a collection inside a capture releases objects whose
+    finalizers call the runtime in ways a capture forbids."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def applies(device) -> bool:
@@ -197,8 +217,8 @@ class RoundGraphs:
                 current.wait_stream(stream)
                 _restore(eng, saved)
                 r = _Round(lane, tok, pos, done, eos, samp)
-                with torch.cuda.graph(r.graph, pool=self._pool,
-                                      stream=stream):
+                with no_gc(), torch.cuda.graph(r.graph, pool=self._pool,
+                                               stream=stream):
                     new_tok, new_pos, new_done, r.packed = eng._round(
                         cache, r.lane, r.tok, r.pos, r.done, r.eos, chunk,
                         spec, r.samp, tables)

@@ -1,12 +1,13 @@
 """Request: the unit of work the continuous-batching scheduler admits (port
-of ``repro.serve.request`` without deadlines, priorities and retries): the
-prompt, a decode budget, an optional EOS id, per-request sampling knobs
-(``None``: the engine's ServeConfig default) and an optional streaming
-callback.
+of ``repro.serve.request`` without deadlines and priorities): the prompt, a
+decode budget, an optional EOS id, per-request sampling knobs (``None``:
+the engine's ServeConfig default) and an optional streaming callback.
 
 Status moves QUEUED -> RUNNING -> FINISHED; ``finish_reason`` says why
 decode stopped ("eos" | "length").  A streaming callback that raises fails
-only its own request (status FAILED, reason "failed").
+only its own request (status FAILED, reason "failed"), and so does a
+request that was in flight through more fault recoveries than the
+Scheduler's ``max_retries`` (``retries`` counts them).
 """
 from __future__ import annotations
 
@@ -64,6 +65,7 @@ class Request:
     tokens: List[int] = dataclasses.field(default_factory=list)
     finish_reason: Optional[str] = None
     slot: Optional[int] = None            # decode slot while RUNNING
+    retries: int = 0                      # fault recoveries survived in flight
 
     def __post_init__(self):
         if self.max_new_tokens < 0:

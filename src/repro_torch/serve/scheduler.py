@@ -1,7 +1,7 @@
 """Continuous-batching scheduler with chunked prefill, per-request
-sampling, self-speculative rounds and paged block accounting (port of
-``repro.serve.scheduler`` without deadlines, shedding, snapshots and
-save/load).
+sampling, self-speculative rounds, paged block accounting and fault
+recovery from rolling snapshots (port of ``repro.serve.scheduler`` without
+deadlines, shedding and save/load).
 
 A fixed pool of ``slots`` decode lanes over one set of live cache buffers.
 Requests queue FIFO; every round runs ONE ``Engine.step`` carrying up to
@@ -51,6 +51,21 @@ maps each request's pages first, FIFO, no skip-ahead), reads its
 (tok0, done0, ok0) once, then maps the pages of the round ahead and runs a
 pure-decode round.  An admission advances the draw counter by one: its
 first tokens are draw ``fold_in(key, _step)``.
+
+Detection and recovery, as the reference's: the engine's finite-logits
+column (ANDed with its cache sweep) and, paged, ``PagePool.validate()``
+surface corrupted state as :class:`~repro_torch.serve.faults.CacheCorruption`;
+with ``snapshot_interval > 0`` the scheduler takes a rolling
+:meth:`snapshot` every ``snapshot_interval`` rounds and on an
+:class:`~repro_torch.serve.faults.EngineFault` restores it and replays —
+in-flight requests carry a ``retries`` count and fail past
+``max_retries``.  An injected dispatch failure rolls its admission back
+locally and simply re-dispatches.  Detection precedes every emit, so a
+streaming callback never sees a poisoned token (a replay may repeat tokens
+streamed before the snapshot: at-least-once delivery).  The snapshot's
+device state goes into host buffers allocated once and reused, and
+:meth:`restore` copies it back into the live tensors in place, so the
+captured round graphs, keyed on the cache's addresses, replay as before.
 """
 from __future__ import annotations
 
@@ -61,19 +76,27 @@ import numpy as np
 import torch
 
 from repro_torch.serve.engine import ChunkLane, Engine, unpack_round
+from repro_torch.serve.faults import (CacheCorruption, EngineFault,
+                                      InjectedFault)
 from repro_torch.serve.request import Request, RequestStatus
 
 
 class Scheduler:
     """FIFO admission over a fixed slot map; ``Engine`` executes the batch."""
 
-    def __init__(self, engine: Engine, slots: int = 4, chunk: int = 8):
+    def __init__(self, engine: Engine, slots: int = 4, chunk: int = 8, *,
+                 max_retries: int = 2, snapshot_interval: int = 0):
         if slots < 1 or chunk < 1:
             raise ValueError(f"slots and chunk must be >= 1, got slots="
                              f"{slots}, chunk={chunk}")
         self.engine = engine
         self.n_slots = slots
         self.chunk = chunk
+        # fault-recovery policy: retries a request may survive in flight
+        # (and rounds without progress before a fault is re-raised); a
+        # rolling snapshot every ``snapshot_interval`` rounds (0 = none)
+        self.max_retries = max_retries
+        self.snapshot_interval = snapshot_interval
         dev = engine.device
         self.cache = engine.init_cache(slots)
         # per-slot device state ([slots] vectors; free slot: pos=-1, done)
@@ -102,10 +125,21 @@ class Scheduler:
         # chunked-prefill cursors: tokens fed so far / tokens to feed
         self._progress = [0] * slots
         self._target = [0] * slots
+        # fault-recovery state: the rolling snapshot, the requests submitted
+        # since it was taken (restore requeues them), the snapshot's host
+        # buffers (made at the first snapshot, then reused) and the number
+        # of snapshots taken (only the latest one's buffers are intact)
+        self._snap = None
+        self._snap_bufs = None
+        self._snap_gen = 0
+        self._submit_log: List[Request] = []
+        self._ticks = 0
+        self._retries_since_progress = 0
         self.stats = {"rounds": 0, "admission_rounds": 0,
                       "prefill_tokens": 0,
                       "admitted_tokens": 0, "emitted_tokens": 0,
-                      "failed": 0, "preemptions": 0, "spec_rounds": 0,
+                      "failed": 0, "preemptions": 0, "recoveries": 0,
+                      "dispatch_retries": 0, "spec_rounds": 0,
                       "spec_drafted": 0, "spec_accepted": 0}
 
     # -- paged helpers -------------------------------------------------------
@@ -191,6 +225,8 @@ class Scheduler:
                 f"prompt ({L}) + max_new_tokens ({request.max_new_tokens}) "
                 f"exceeds max_len ({max_len})")
         request.status = RequestStatus.QUEUED
+        if self.snapshot_interval:
+            self._submit_log.append(request)
         self.queue.append(request)
         return request
 
@@ -245,6 +281,144 @@ class Scheduler:
         """Mark freed slots done with the negative-position sentinel."""
         mask = self._write_slots({s: (0, -1) for s in freed}, tok=False)
         self.done.logical_or_(mask)
+
+    def _retire(self, req: Request, reason: str) -> None:
+        """Finish ``req`` with ``reason`` and give back its slot: sampling
+        mirrors reset, cursors cleared, pages released."""
+        slot = req.slot
+        req.finish(reason)
+        self.finished.append(req)
+        if slot is not None:
+            self.slots[slot] = None
+            self._reset_slot_sampling(slot)
+            self._progress[slot] = self._target[slot] = 0
+            if self.engine.paged:
+                self.engine.pool.release(slot)
+
+    # -- snapshot / restore / fault recovery ---------------------------------
+
+    def _device_state(self) -> list:
+        """The device tensors a snapshot holds, in a fixed order: every
+        cache leaf (layer by layer), then tok, pos and done."""
+        return [t for c in self.cache for t in c.values()] + \
+            [self.tok, self.pos, self.done]
+
+    def snapshot(self) -> dict:
+        """Host-side copy of the complete serving state: the cache, the
+        slot vectors, the sampling mirrors, the draw counter, the queue and
+        slot request states, the page pool's allocator and the statistics
+        — everything :meth:`restore` needs to replay token-identically.
+        Per-request ``retries`` stays out (the retry bound must survive
+        restores).  The device tensors are copied into host buffers (pinned
+        on the card) that the Scheduler allocates at its first snapshot and
+        reuses, so a snapshot is valid until the next one (:meth:`restore`
+        refuses an older one); on the card the copies are asynchronous,
+        ordered on the stream before the next round's writes."""
+        live = self._device_state()
+        if self._snap_bufs is None:
+            pin = self.engine.device.type == "cuda"
+            self._snap_bufs = [torch.empty(t.shape, dtype=t.dtype,
+                                           pin_memory=pin) for t in live]
+        for buf, t in zip(self._snap_bufs, live):
+            buf.copy_(t, non_blocking=True)
+        self._snap_gen += 1
+        reqs = list(self.queue) + [r for r in self.slots if r is not None]
+        return {
+            "gen": self._snap_gen,
+            "device": self._snap_bufs,
+            "eos_h": list(self._eos_h), "temp_h": list(self._temp_h),
+            "topk_h": list(self._topk_h), "topp_h": list(self._topp_h),
+            "step": self._step,
+            "admit_seq": list(self._admit_seq),
+            "admit_counter": self._admit_counter,
+            "progress": list(self._progress),
+            "target": list(self._target),
+            "queue": list(self.queue),
+            "slots": list(self.slots),
+            "finished_len": len(self.finished),
+            "req_state": [(r, r.status, list(r.tokens), r.finish_reason,
+                           r.slot) for r in reqs],
+            "pool": (self.engine.pool.state_dict()
+                     if self.engine.paged else None),
+            "stats": dict(self.stats),
+        }
+
+    def restore(self, snap: dict) -> None:
+        """Reinstate a :meth:`snapshot`: the device state is copied back
+        into the live cache leaves and slot vectors IN PLACE (no tensor
+        changes address, so every captured round graph stays valid), the
+        sampling vectors are pushed in place, request objects are rewound,
+        the allocator is reloaded.  Requests submitted after the snapshot
+        rejoin the queue tail in submit order, so recovery never drops a
+        submission.  Only the latest snapshot can be restored: a later one
+        has overwritten the host buffers an older one refers to."""
+        if snap["gen"] != self._snap_gen:
+            raise RuntimeError(
+                f"stale snapshot: it is snapshot {snap['gen']} but snapshot "
+                f"{self._snap_gen} has since reused its device buffers")
+        for t, buf in zip(self._device_state(), snap["device"]):
+            t.copy_(buf, non_blocking=True)
+        self._eos_h = list(snap["eos_h"])
+        self._temp_h = list(snap["temp_h"])
+        self._topk_h = list(snap["topk_h"])
+        self._topp_h = list(snap["topp_h"])
+        self._push_sampling_state()
+        self._step = snap["step"]
+        self._admit_seq = list(snap["admit_seq"])
+        self._admit_counter = snap["admit_counter"]
+        self._progress = list(snap["progress"])
+        self._target = list(snap["target"])
+        self.queue = collections.deque(snap["queue"])
+        self.slots = list(snap["slots"])
+        del self.finished[snap["finished_len"]:]
+        for r, status, toks, reason, slot in snap["req_state"]:
+            r.status = status
+            r.tokens = list(toks)
+            r.finish_reason = reason
+            r.slot = slot
+        if snap["pool"] is not None:
+            self.engine.pool.load_state(snap["pool"])
+        self.stats = dict(snap["stats"])
+        for r in self._submit_log:       # post-snapshot submissions survive
+            r.status = RequestStatus.QUEUED
+            r.tokens = []
+            r.finish_reason = None
+            r.slot = None
+            self.queue.append(r)
+
+    def _recover(self, err: EngineFault) -> None:
+        """Bounded-retry fault recovery.  A dispatch failure already rolled
+        back locally: count it, and the next round re-dispatches.
+        Corruption restores the rolling snapshot, charges one retry to
+        every request that was in flight, and fails any that crossed
+        ``max_retries``.  More than ``max_retries`` faults without a
+        successful round in between re-raise."""
+        self._retries_since_progress += 1
+        if self._retries_since_progress > self.max_retries:
+            raise err
+        if isinstance(err, InjectedFault):
+            self.stats["recoveries"] += 1
+            self.stats["dispatch_retries"] += 1
+            return
+        if self._snap is None:
+            raise RuntimeError(
+                "corrupted serving state detected but snapshots are "
+                "disabled — construct Scheduler(snapshot_interval=1) to "
+                "enable recovery") from err
+        affected = [r for r in self.slots if r is not None]
+        self.restore(self._snap)         # also rewinds stats
+        self.stats["recoveries"] += 1
+        for r in affected:
+            r.retries += 1
+            if r.retries > self.max_retries:
+                # Request compares by value: filter by identity
+                if any(q is r for q in self.queue):
+                    self.queue = collections.deque(
+                        q for q in self.queue if q is not r)
+                if r.slot is not None and self.slots[r.slot] is r:
+                    self._free_on_device([r.slot])
+                self._retire(r, "failed")
+                self.stats["failed"] += 1
 
     # -- the scheduling loop -------------------------------------------------
 
@@ -406,11 +580,24 @@ class Scheduler:
              self._topp_h[slot]) = self._sampling_for(req)
             self._eos_h[slot] = -1 if req.eos_id is None else int(req.eos_id)
         self._push_sampling_state()
-        self.cache, tok, pos, done, packed = self.engine.admit_monolithic(
-            self.cache, prompts, lengths, mask, budget_one, self.eos,
-            self.tok, self.pos, self.done, temperature=self.temperature,
-            top_k=self.top_k, top_p=self.top_p, step0=self._step,
-            greedy=self._greedy())
+        try:
+            self.cache, tok, pos, done, packed = self.engine.admit_monolithic(
+                self.cache, prompts, lengths, mask, budget_one, self.eos,
+                self.tok, self.pos, self.done, temperature=self.temperature,
+                top_k=self.top_k, top_p=self.top_p, step0=self._step,
+                greedy=self._greedy())
+        except InjectedFault:
+            # the dispatch never ran: release this admission's pages, put
+            # the candidates back at the queue head in FIFO order, and let
+            # the retry path re-dispatch an identical admission
+            for slot, _ in admitted:
+                if self.engine.paged:
+                    pool.release(slot)
+                self._reset_slot_sampling(slot)
+            self._push_sampling_state()
+            for _, req in reversed(admitted):
+                self.queue.appendleft(req)
+            raise
         self.tok.copy_(tok)
         self.pos.copy_(pos)
         self.done.copy_(done)
@@ -422,7 +609,7 @@ class Scheduler:
         tok0_h, done0_h, ok0_h = np.asarray(packed.tolist(), np.int64).T
         bad = [s for s, _ in admitted if not ok0_h[s]]
         if bad:
-            raise RuntimeError(
+            raise CacheCorruption(
                 f"non-finite logits at admission for slots {bad}")
         for slot, req in admitted:
             req.status = RequestStatus.RUNNING
@@ -433,22 +620,15 @@ class Scheduler:
             cb_ok = True
             if req.remaining >= 1:
                 cb_ok = self._deliver(req, int(tok0_h[slot]))
-            if not cb_ok or done0_h[slot]:
-                if not cb_ok:
-                    # a raising streaming callback fails only its request
-                    req.finish("failed")
-                    self.stats["failed"] += 1
-                else:
-                    eos = self._eos_h[slot]
-                    req.finish("eos" if eos >= 0 and req.tokens
-                               and req.tokens[-1] == eos else "length")
-                self.finished.append(req)
-                self._reset_slot_sampling(slot)
-                self._progress[slot] = self._target[slot] = 0
-                if self.engine.paged:
-                    pool.release(slot)
-                if not cb_ok:
-                    self._free_on_device([slot])
+            if not cb_ok:
+                # a raising streaming callback fails only its request
+                self._retire(req, "failed")
+                self.stats["failed"] += 1
+                self._free_on_device([slot])
+            elif done0_h[slot]:
+                eos = self._eos_h[slot]
+                self._retire(req, "eos" if eos >= 0 and req.tokens
+                             and req.tokens[-1] == eos else "length")
             else:
                 self.slots[slot] = req
         return len(admitted)
@@ -460,12 +640,27 @@ class Scheduler:
                    zip(self._temp_h, self._topk_h, self._topp_h))
 
     def step(self) -> int:
-        """One round: map the pages of the round ahead (paged), admit into
-        free slots through the chunk lane, decode one chunk, retire
-        finished sequences.  Returns the tokens emitted.  An engine that
+        """One round: (maybe) snapshot, map the pages of the round ahead
+        (paged), admit into free slots through the chunk lane, decode one
+        chunk, retire finished sequences.  Returns the tokens emitted (0 on
+        a recovered fault: the retry replays next round).  An engine that
         requires monolithic admission admits first (:meth:`_admit`), then
         maps the pages of the round ahead and decodes, with no chunk
         lane."""
+        if self.snapshot_interval and \
+                self._ticks % self.snapshot_interval == 0:
+            self._snap = self.snapshot()
+            self._submit_log.clear()
+        self._ticks += 1
+        try:
+            emitted = self._step_inner()
+        except EngineFault as err:
+            self._recover(err)
+            return 0
+        self._retries_since_progress = 0
+        return emitted
+
+    def _step_inner(self) -> int:
         paged = self.engine.paged
         if self.engine.requires_monolithic_admission:
             self._admit()
@@ -510,11 +705,30 @@ class Scheduler:
                 if held > lim:
                     use_spec = False
                     break
-        self.cache, tok, pos, done, packed = self.engine.step(
-            self.cache, lane, self.tok, self.pos, self.done, self.eos,
-            self.chunk, spec=use_spec, temperature=self.temperature,
-            top_k=self.top_k, top_p=self.top_p, step0=self._step,
-            greedy=greedy)
+        try:
+            self.cache, tok, pos, done, packed = self.engine.step(
+                self.cache, lane, self.tok, self.pos, self.done, self.eos,
+                self.chunk, spec=use_spec, temperature=self.temperature,
+                top_k=self.top_k, top_p=self.top_p, step0=self._step,
+                greedy=greedy)
+        except InjectedFault:
+            # the dispatch never ran: roll back this round's fresh chunk
+            # admissions (pages released, requests back at the queue head
+            # in FIFO order) and re-raise for the retry path
+            for slot, req in reversed(fresh):
+                if paged:
+                    self.engine.pool.release(slot)
+                self.slots[slot] = None
+                self._reset_slot_sampling(slot)
+                self._progress[slot] = self._target[slot] = 0
+                req.status = RequestStatus.QUEUED
+                req.slot = None
+                self.queue.appendleft(req)
+            if fresh:
+                self._push_sampling_state()
+                # the free-slot sentinel the parks overwrote
+                self._free_on_device([slot for slot, _ in fresh])
+            raise
         # a speculative round draws draft_k drafts and draft_k + 1 verify
         # columns
         C = self.engine.prefill_chunk if lane is not None else 0
@@ -526,8 +740,10 @@ class Scheduler:
         tok0_h, done0_h, toks_h, dones_h, ok_h, nv_h = unpack_round(
             np.asarray(packed.tolist(), dtype=np.int64))
         if not ok_h.all():
-            raise RuntimeError("non-finite logits in decode for slots "
-                               f"{np.flatnonzero(~ok_h).tolist()}")
+            # poisoned tokens never reach a streaming callback: detection
+            # precedes every emit below
+            raise CacheCorruption("non-finite logits in decode for slots "
+                                  f"{np.flatnonzero(~ok_h).tolist()}")
         # the chunk lane commits: freshly covered pages become shareable
         for slot, p in plan.items():
             self._progress[slot] = p

@@ -10,8 +10,13 @@ round (four cache leaves a layer) replays as its eager round does, dense
 and paged, and a round after a monolithic admission replays the graph it
 already has; graphs never
 move a workspace, never replay under another kernel variant, and a
-capture that fails raises.  Every test needs a CUDA
-GPU (marker ``gpu``) and skips elsewhere; the file imports no JAX:
+capture that fails raises.  Faults: a NaN poisoning whose round is a new
+key is warmed up, captured and replayed on the poisoned cache, detected and
+recovered with the fault-free transcript and key count, and a replayed
+round's cache sweep flags a NaN that no logit sees, and the sweep flags
+NaN and both infinities in a full-width bf16 or float32 cache, eager and
+captured.  Every test needs a CUDA GPU (marker ``gpu``) and skips
+elsewhere; the file imports no JAX:
 ``python -m pytest -q -m gpu tests/test_torch_cuda_graphs.py``.
 """
 import dataclasses
@@ -25,7 +30,8 @@ from repro_torch.core import prng
 from repro_torch.kernels.lutmul import kernel, ops
 from repro_torch.models import transformer
 from repro_torch.serve import Request, Scheduler, ServeConfig, make_engine
-from repro_torch.serve.engine import ChunkLane
+from repro_torch.serve.engine import ChunkLane, unpack_round
+from repro_torch.serve.faults import Fault, FaultPlan
 
 pytestmark = [pytest.mark.gpu, pytest.mark.skipif(
     not torch.cuda.is_available(),
@@ -469,7 +475,8 @@ from repro_torch.configs import qwen2_7b
 from repro_torch.kernels.lutmul import ops
 from repro_torch.models import transformer
 from repro_torch.serve import ServeConfig, make_engine
-from repro_torch.serve.engine import ChunkLane
+from repro_torch.serve.engine import ChunkLane, unpack_round
+from repro_torch.serve.faults import Fault, FaultPlan
 
 ops.set_backend("cuda")
 cfg = dataclasses.replace(qwen2_7b.smoke_config(quant="w4a4_lut"),
@@ -601,3 +608,108 @@ def test_rounds_after_monolithic_admissions_replay_their_graph(paged):
                 for L in (5, 5, 9, 3, 12, 12, 7, 2, 5, 8)]
         dense.run(reqs)
         assert [r.tokens for r in reqs] == runs[True]
+
+
+# ---------------------------------------------------------------------------
+# faults: detection inside replayed rounds, recovery without recapture
+# ---------------------------------------------------------------------------
+
+def test_nan_fault_on_a_new_key_is_captured_detected_and_recovered():
+    """Two 4-token prompts fill the first round's chunk lane; the second
+    round is the first pure-decode round, a new key.  A NaN poisoning at
+    that dispatch is warmed up and captured on the poisoned cache (the
+    warm-up rewrites the positions the replay writes, with the same bits),
+    replayed, detected and recovered from the snapshot: the transcripts
+    equal the fault-free run's, which captured as many keys."""
+    base = _engine("lut")
+    runs = {}
+    for faulted in (False, True):
+        eng = make_engine(base.params, base.cfg, ServeConfig(max_len=MAX_LEN))
+        sched = Scheduler(eng, slots=SLOTS, chunk=4, snapshot_interval=1,
+                          max_retries=3)
+        ptrs = [t.data_ptr() for c in sched.cache for t in c.values()]
+        plan = FaultPlan([Fault("decode", 1, "nan_logits")]) if faulted \
+            else None
+        eng.set_fault_plan(plan)
+        step, keys = eng.step, []
+
+        def counted(*a, **k):
+            n = len(eng.graphs.rounds)
+            out = step(*a, **k)
+            keys.append((n, len(eng.graphs.rounds)))
+            return out
+        eng.step = counted
+        g = torch.Generator().manual_seed(8)
+        reqs = [Request(prompt=torch.randint(0, eng.cfg.vocab, (4,),
+                                             generator=g).tolist(),
+                        max_new_tokens=10) for _ in range(2)]
+        try:
+            sched.run(reqs)
+        finally:
+            eng.step = step
+            eng.set_fault_plan(None)
+        assert [t.data_ptr() for c in sched.cache
+                for t in c.values()] == ptrs
+        runs[faulted] = ([r.tokens for r in reqs], len(eng.graphs.rounds),
+                         sched.stats["recoveries"], keys)
+    (clean, clean_keys, _, _), (got, got_keys, recoveries, log) = \
+        runs[False], runs[True]
+    assert got == clean and got_keys == clean_keys == 2
+    assert recoveries == 1
+    # the poisoned dispatch captured the decode key; its replay after the
+    # restore captured nothing
+    assert log[1] == (1, 2) and log[2] == (2, 2)
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_replayed_round_sweep_flags_a_nan_no_logit_sees(paged):
+    """A NaN planted in the last layer's ``v`` leaf of a finished row (4),
+    past every position the round reaches, reaches no logit the guard
+    checks; the replayed round's cache sweep still clears the whole ``ok``
+    column, as the eager round's does."""
+    eng = _paged_engine("lut") if paged else _engine("lut")
+    cache, _, state, eos = (_paged_state if paged else _state)(eng, seed=4)
+    got, _ = _round(eng, cache, None, state, eos, 2, False, False)
+    assert bool(unpack_round(got[3])[4].all())
+    row = eng.pool.n_full[4] * 4 - 1 if paged else MAX_LEN - 1
+    if paged:
+        cache[-1]["v"][int(eng.pool.table[4, row // 4]), row % 4] = \
+            float("nan")
+    else:
+        cache[-1]["v"][4, row] = float("nan")
+    keys = len(eng.graphs.rounds)
+    for eager in (False, True):
+        got, _ = _round(eng, cache, None, state, eos, 2, False, eager)
+        assert not bool(unpack_round(got[3])[4].any()), eager
+    assert len(eng.graphs.rounds) == keys
+
+
+@pytest.mark.parametrize("value", [float("nan"), float("inf"),
+                                   float("-inf"), None])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cache_sweep_verdict_on_a_full_width_cache(dtype, value):
+    """The one-pass sweep over a full-width cache (28 layers of K and V at
+    [8, 256, 4, 128]: many launches of the fused norm) flags one NaN, +Inf
+    or -Inf deep inside one leaf, eager and captured, as the plain per-leaf
+    ``isfinite().all()`` does."""
+    from repro_torch.serve.engine import _cache_finite
+    from repro_torch.serve.graphs import no_gc
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cache = [{k: torch.randn(8, 256, 4, 128, generator=gen, device="cuda")
+              .to(dtype) for k in ("k", "v")} for _ in range(28)]
+    if value is not None:
+        cache[17]["v"][5, 201, 3, 77] = value
+    want = all(bool(torch.isfinite(t).all()) for c in cache
+               for t in c.values())
+    assert want == (value is None)
+    assert bool(_cache_finite(cache)) == want
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        _cache_finite(cache)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with no_gc(), torch.cuda.graph(graph, stream=stream):
+        ok = _cache_finite(cache)
+    graph.replay()
+    assert bool(ok) == want
