@@ -24,17 +24,17 @@ Phases (any failure raises and exits non-zero):
    (ternary, g = 1), and both models' int8 heads.
 3. serving qwen2-7b (28 layers, full width, random weights from a seeded
    generator) through ``make_engine`` + ``Scheduler(slots=8, chunk=8)``:
-   w4a4_lut fused (8 requests), unfused (first 4), plain backend (first 2);
+   w4a4_lut fused (8 requests), unfused (first 4), plain backend (first 1);
    then the SAME float weights quantized to w4a4_tmac: fused (8, transcripts
    equal to the LUT run's: w4 bitplanes decode to the nibble codes), unfused
-   (4), plain (2), bitplane self-speculative decoding on the same codes (8,
+   (4), plain (1), bitplane self-speculative decoding on the same codes (8,
    equal to the plain tmac run's), and speculation after zeroing the low two
    planes in place (4; every draft accepted).  Then the sampled mix
    (``SAMPLED_MIX``: per-request temperature / top-k / top-p, greedy rows
    among them, ``ServeConfig(seed=SAMPLE_SEED)``) on the same engines: lut
    fused over the 8 prompts (its greedy rows equal the all-greedy run, a
    sampled row leaves it), then over the first 4: lut fused, unfused and
-   tmac fused, all equal, and over the first 2: lut fused and plain,
+   tmac fused, all equal, and over the first one: lut fused and plain,
    equal; speculative on the first one (the
    plain backend's speculative rounds take ~1.7 s each), the graph equal
    to the plain backend, its accept rate printed.  A sampled transcript
@@ -57,7 +57,7 @@ Phases (any failure raises and exits non-zero):
    page_size=4)``, engines built from the quantized codes, no second copy
    of the weights): lut fused over the 8 prompts (== the dense lut run),
    the sampled mix over the first 4 (== the dense sampled 4, no prefix
-   hit), the plain backend over the first 2 (no graph), a shared 32-token
+   hit), the plain backend over the first one (no graph), a shared 32-token
    prefix before each of the 8 prompts (== a dense run over the same
    requests; prefix hits, and fewer peak pages than a run without
    reuse), a contended pool of max(half the uncontended peak, the
@@ -74,7 +74,7 @@ Phases (any failure raises and exits non-zero):
    round a replayed graph: lut fused over the 8 prompts, paged (== dense),
    8 prompts of 32 tokens (numpy seed 2) that one admission dispatch puts
    into all 8 slots, dense and paged (equal), the plain backend over the
-   first 2 (== fused), and after the tmac run tmac fused over the first 4
+   first one (== fused), and after the tmac run tmac fused over the first 4
    (== lut).  ``int8 runs:`` gives the KV and page bytes against bf16's,
    peak pages, ms per decode step against the bf16 lut run's, the
    admissions (dispatches, median host ms) and the share of int8 greedy
@@ -97,9 +97,25 @@ Phases (any failure raises and exits non-zero):
    pool audit's host ms a dispatch; ``cache sweep[qwen lut]:`` the device
    ms of the in-round cache-finiteness sweep alone (captured in a graph of
    its own, and eager) on the dense bf16, paged and int8 caches beside a
-   replayed round of each.
+   replayed round of each.  Then the Scheduler's logical clock and QoS
+   policies (``run_qos``): ``benchmarks/serving_bench.py``'s overload trace
+   scaled to 8 slots (96 requests of 16 tokens, ten arrivals a tick,
+   priorities and deadlines) on a paged engine of 15 pages through
+   ``Scheduler(shed_watermark=0.6, overload_queue=12)``, one logical tick
+   a step: twice (equal outcomes and counts, shed, timed-out and
+   preemption counts > 0, each run capturing its own keys) and under two
+   NaN faults with a snapshot every round (>= 2 recoveries); every
+   request with tokens against an uncontended dense run (served: equal;
+   timed out or shed: a prefix); ``qos[...]`` lines give served, shed,
+   timed out, preemptions, p50/p99 latency in ticks, mean occupancy and
+   tokens/s.  Then save/load (``SAVE_LOAD_CASES``): dense bf16 greedy (8),
+   the sampled mix (4) and paged int8 (8), each saved after 3 rounds and
+   loaded in place into a Scheduler whose graphs a warm run captured (==
+   lut, lut sampled, int8 lut; no key captured after the load);
+   ``checkpoint[...]`` lines give bytes on disk and raw, the codec, the
+   save and load host ms and whether msgpack and zstandard import.
 4. serving bitnet-3b (26 layers, full width) in ternary_a8_tmac: fused (8
-   requests) and plain (first 4), equal transcripts.
+   requests) and plain (first 1), equal transcripts.
 5. the paper's CNN: full-width MobileNetV2 (224x224, width 1.0, 1000
    classes, random weights from seed 0) at batch 32 in float and QAT mode
    (cuDNN, TF32 off), the float logits of the first 4 images held against
@@ -592,7 +608,7 @@ def _median(xs: list):
 def serve(engine, vocab: int, label: str, n_requests: int,
           inner: str = None, fused: bool = True,
           sampled: bool = False, reqs: list = None, plan=None,
-          sched_kw: dict = None, hold: list = None) -> list:
+          sched_kw: dict = None, hold: list = None, drive=None) -> list:
     """Drain ``n_requests`` requests (``sampled``: with the sampled mix's
     knobs; ``reqs``: these instead) through a fresh Scheduler, with the
     launch counters zeroed just before and read just after; ``inner`` names
@@ -610,7 +626,9 @@ def serve(engine, vocab: int, label: str, n_requests: int,
     run reports each snapshot's and restore's host ms, synchronized with
     the card before and after); ``plan`` is a ``FaultPlan`` installed for
     the run, whose recoveries the run reports; ``hold`` keeps the
-    Scheduler (and so its cache's addresses) alive after the run."""
+    Scheduler (and so its cache's addresses) alive after the run;
+    ``drive(sched, reqs)`` serves the requests instead of ``sched.run``
+    (then no request has to end by its length: the caller checks them)."""
     import torch
     from repro_torch.serve import Scheduler
     if reqs is None:
@@ -634,9 +652,9 @@ def serve(engine, vocab: int, label: str, n_requests: int,
     if engine.requires_monolithic_admission:
         admit = sched._admit
 
-        def timed():
+        def timed(*a):
             t0 = time.perf_counter()
-            n = admit()
+            n = admit(*a)
             if n:
                 admissions.append((n, 1e3 * (time.perf_counter() - t0)))
             return n
@@ -675,14 +693,17 @@ def serve(engine, vocab: int, label: str, n_requests: int,
     engine.set_fault_plan(plan)
     t0 = time.perf_counter()
     try:
-        sched.run(reqs)
+        if drive is None:
+            sched.run(reqs)
+        else:
+            drive(sched, reqs)
         torch.cuda.synchronize()
     finally:
         del engine.step
         engine.set_fault_plan(None)
     dt = time.perf_counter() - t0
     launches = all_launches()
-    for r in reqs:
+    for r in reqs if drive is None else ():
         if not (r.finish_reason == "length"
                 and len(r.tokens) == r.max_new_tokens):
             raise AssertionError(f"{label}: request ended {r.finish_reason} "
@@ -1041,7 +1062,7 @@ def run_paged_lut(engine, cfg, V: int, lut: list, lut_s: list,
         raise AssertionError("the sampled paged run shared prefix pages: its "
                              "rounds would differ from the dense run's")
     ops.set_backend("ref")
-    same(serve(paged, V, "qwen lut paged plain", 2), lut,
+    same(serve(paged, V, "qwen lut paged plain", 1), lut,
          "lut paged plain == lut fused")
     ops.set_backend("cuda")
     # a shared prefix: paged with and without reuse against dense
@@ -1146,7 +1167,7 @@ def run_int8_lut(engine, cfg, V: int, lut: list,
     codes of the bf16 ``engine``, every request admitted monolithically:
     the 8 contract requests dense and paged (equal), 8 equal-length prompts
     filling all 8 slots in one admission dispatch (dense == paged), the
-    plain backend over the first 2 (== fused).  Returns the int8 lut
+    plain backend over the first one (== fused).  Returns the int8 lut
     transcripts."""
     import dataclasses
     from repro_torch.kernels.lutmul import ops
@@ -1175,7 +1196,7 @@ def run_int8_lut(engine, cfg, V: int, lut: list,
          "lut int8 paged, equal lengths == lut int8, equal lengths")
     profile_int8_round(engine, int8, profile_steps)
     ops.set_backend("ref")
-    same(serve(int8, V, "qwen lut int8 plain", 2), lut8,
+    same(serve(int8, V, "qwen lut int8 plain", 1), lut8,
          "lut int8 plain == lut fused int8")
     ops.set_backend("cuda")
     int8_summary(cfg, int8, paged, lut8, lut)
@@ -1342,6 +1363,253 @@ def run_faults(engine, cfg, V: int, lut: list, lut_s: list,
 
 FAULTS: dict = {}
 
+# the QoS stage's overload trace: ``benchmarks/serving_bench.py``'s
+# ``_overload_rows`` scaled from 2 slots to 8 (prompts of 16, budgets 8-32,
+# ten arrivals a tick, deadlines arrival + 4 on half the priority-0
+# requests, ``random.Random(0)``), on a pool of 15 pages of 4 (PERF.md §4:
+# at 97 the 8-token chunk lane admits too slowly for the pool to fill)
+QOS_N, QOS_PROMPT, QOS_RATE, QOS_MAX_LEN, QOS_PAGES = 96, 16, 10.0, 64, 15
+QOS_SCHED = dict(shed_watermark=0.6, overload_queue=12)
+QOS_FAULTS = [("decode", 3, "nan_logits"), ("decode", 9, "nan_logits")]
+# the save/load cases: (name, ServeConfig extras, int8 KV, requests,
+# sampled, the transcripts the loaded run must equal, requests of the warm
+# run: every round key the loaded run needs — a sampled mix can end on an
+# all-greedy round, so its warm run is the same requests)
+SAVE_LOAD_CASES = [
+    ("dense bf16", {}, False, 8, False, "lut", 1),
+    ("sampled", {}, False, 4, True, "lut_s", 4),
+    ("paged int8", {"paged": True, "page_size": 4}, True, 8, False, "lut8",
+     1),
+]
+SAVE_LOAD_ROUNDS = 3
+
+
+def qos_trace(vocab: int) -> tuple:
+    """The overload trace's (prompts, budgets, priorities, arrivals,
+    deadlines), drawn in ``_overload_rows``' order."""
+    import random
+    rng = random.Random(0)
+    n = QOS_N
+    prompts = [[rng.randrange(vocab) for _ in range(QOS_PROMPT)]
+               for _ in range(n)]
+    budgets = [rng.randint(8, 32) for _ in range(n)]
+    prios = [rng.randint(0, 1) for _ in range(n)]
+    arrivals = [i / QOS_RATE for i in range(n)]
+    deadlines = [arrivals[i] + 4.0 if prios[i] == 0 and rng.random() < 0.5
+                 else None for i in range(n)]
+    return prompts, budgets, prios, arrivals, deadlines
+
+
+def _latency_ticks(reqs: list) -> dict:
+    lats = sorted(r.finish_time - r.arrival_time for r in reqs
+                  if r.finish_reason in ("eos", "length"))
+    return {"p50_latency_ticks": lats[len(lats) // 2],
+            "p99_latency_ticks":
+                lats[min(len(lats) - 1, int(len(lats) * 0.99))]}
+
+
+def run_qos(engine, cfg, V: int, lut: list, lut_s: list,
+            lut8: list) -> None:
+    """The Scheduler's logical clock and QoS policies, then save/load, at
+    full width on the lut codes of ``engine``.
+
+    The overload trace (``qos_trace``) on a paged engine (max_len 64, 15
+    pages of 4) through ``Scheduler(slots=8, chunk=8, shed_watermark=0.6,
+    overload_queue=12)``, one logical tick a step: twice (the first
+    Scheduler kept alive, so the second captures its own keys: as many),
+    every request's outcome and the shed, timed-out and preemption counts
+    equal across the two and each count > 0; then under two NaN faults
+    with a snapshot every round (>= 2 recoveries, no page leak).  Every
+    request that emitted tokens is held against an uncontended dense run
+    of the same prompts and budgets (max_len 64): a served transcript
+    equal, a timed-out or shed one a prefix.
+
+    Save/load (``SAVE_LOAD_CASES``), each on a fresh engine: Scheduler A
+    serves 3 rounds and saves into a temporary directory; Scheduler B on
+    the same engine drains a warm run (its round keys captured), loads A's
+    checkpoint in place and drains: its transcripts equal the contract's
+    (lut, lut_s, lut8) and it captures no key after the load.  Prints
+    ``qos[...]`` and ``checkpoint[...]`` lines."""
+    import dataclasses
+    import importlib.util
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.ckpt import checkpoint as ckpt_lib
+    from repro_torch.serve import (Fault, FaultPlan, Request, Scheduler,
+                                   ServeConfig, make_engine)
+    t0 = time.perf_counter()
+    prompts, budgets, prios, arrivals, deadlines = qos_trace(V)
+
+    def trace():
+        return [Request(prompt=p, max_new_tokens=b, priority=pr, deadline=d)
+                for p, b, pr, d in zip(prompts, budgets, prios, deadlines)]
+
+    def drive(sched, reqs):
+        idx, t = 0, 0.0
+        while idx < len(reqs) or sched.has_work:
+            while idx < len(reqs) and arrivals[idx] <= t:
+                sched.submit(reqs[idx], now=t)
+                idx += 1
+            sched.step(now=t)
+            t += 1.0
+            if t > 4096:
+                raise AssertionError("the overload trace did not drain")
+        sched.check_drained()
+
+    qeng = make_engine(engine.params, cfg, ServeConfig(
+        max_len=QOS_MAX_LEN, paged=True, page_size=4, num_pages=QOS_PAGES,
+        seed=SAMPLE_SEED))
+    hold, runs = [], {}
+    for name, plan, kw in (
+            ("run 1", None, {}), ("run 2", None, {}),
+            ("faulted", FaultPlan([Fault(site, i, kind)
+                                   for site, i, kind in QOS_FAULTS]),
+             dict(snapshot_interval=1, max_retries=4))):
+        label = f"qwen lut qos overload, {name}"
+        reqs = trace()
+        serve(qeng, V, label, QOS_N, "lutmul", reqs=reqs, plan=plan,
+              sched_kw={**QOS_SCHED, **kw}, hold=hold, drive=drive)
+        sched, st = hold[-1], RUNS[label]
+        runs[name] = (reqs, sched, st, plan)
+        for r in reqs:
+            if r.finish_reason == "length" and \
+                    len(r.tokens) != r.max_new_tokens:
+                raise AssertionError(f"{label}: served {len(r.tokens)} of "
+                                     f"{r.max_new_tokens}")
+    r1, s1, st1, _ = runs["run 1"]
+    r2, s2, st2, _ = runs["run 2"]
+    counts = ("shed", "timed_out", "preemptions")
+    deterministic = ([r.finish_reason for r in r1]
+                     == [r.finish_reason for r in r2]
+                     and all(s1.stats[k] == s2.stats[k] for k in counts))
+    if not deterministic or not all(s1.stats[k] > 0 for k in counts):
+        raise AssertionError(f"qos overload: deterministic {deterministic}, "
+                             f"run 1 {[s1.stats[k] for k in counts]}, "
+                             f"run 2 {[s2.stats[k] for k in counts]}")
+    if st2["graphs"]["keys_captured"] != st1["graphs"]["keys_captured"]:
+        raise AssertionError(f"qos overload: run 2 captured "
+                             f"{st2['graphs']['keys_captured']} keys, run 1 "
+                             f"{st1['graphs']['keys_captured']}")
+    rf, sf, stf, plan = runs["faulted"]
+    if plan.pending or sf.stats["recoveries"] < 2:
+        raise AssertionError(f"qos faulted: pending {plan.pending}, "
+                             f"recoveries {sf.stats['recoveries']}")
+    # the uncontended reference: every request that emitted tokens in any
+    # run, with its whole budget, on a dense engine of the same max_len
+    emitted = sorted({i for reqs in (r1, r2, rf)
+                      for i, r in enumerate(reqs) if r.tokens})
+    deng = make_engine(engine.params, cfg, ServeConfig(
+        max_len=QOS_MAX_LEN, seed=SAMPLE_SEED))
+    free = serve(deng, V, "qwen lut qos uncontended", len(emitted),
+                 "lutmul", reqs=[Request(prompt=prompts[i],
+                                         max_new_tokens=budgets[i])
+                                 for i in emitted])
+    want = dict(zip(emitted, free))
+    for name, (reqs, sched, st, _) in runs.items():
+        for i, r in enumerate(reqs):
+            full = want.get(i, [])
+            if r.finish_reason == "length" and r.tokens != full:
+                raise AssertionError(f"qos {name}: request {i} served "
+                                     "!= uncontended")
+            if r.tokens != full[:len(r.tokens)]:
+                raise AssertionError(f"qos {name}: request {i} "
+                                     f"({r.finish_reason}) is not a prefix "
+                                     "of the uncontended transcript")
+        served = [r for r in reqs if r.finish_reason == "length"]
+        out = {"requests": len(reqs), "served": len(served),
+               **{k: sched.stats[k] for k in counts},
+               "shed_after_preemption": sum(
+                   1 for r in reqs if r.finish_reason == "shed" and r.tokens),
+               "recoveries": sched.stats["recoveries"],
+               "rounds": sched.stats["rounds"],
+               "ticks": sched._ticks,
+               **_latency_ticks(reqs),
+               "mean_occupancy": sched.mean_occupancy,
+               "tokens_per_s": st["tokens_per_s"],
+               "tokens_per_s_after_capture":
+                   st["tokens_per_s_after_capture"],
+               "ms_per_decode_step_after_capture":
+                   st["ms_per_decode_step_after_capture"],
+               "keys_captured": st["graphs"]["keys_captured"],
+               "capture_s": st["graphs"]["capture_s"],
+               "seconds": st["seconds"],
+               "peak_pages": st["paged"]["peak_pages"],
+               "deterministic": deterministic}
+        if name == "faulted":
+            out["faults"] = [[f.site, f.index, f.kind, f.fired, f.skipped]
+                             for f in plan.faults]
+            out["recovery"] = st["recovery"]
+        log(f"qos[{name}]: " + json.dumps(out))
+    log(f"transcripts: qos served == uncontended, partial == prefix "
+        f"({len(emitted)} requests with tokens)")
+    del hold, runs, qeng, deng
+    t_qos = time.perf_counter() - t0
+
+    # save / load
+    t1 = time.perf_counter()
+    want = {"lut": lut, "lut_s": lut_s, "lut8": lut8}
+    for name, extra, int8, n, sampled, ref, n_warm in SAVE_LOAD_CASES:
+        c = dataclasses.replace(cfg, kv_quant="int8") if int8 else cfg
+        eng = make_engine(engine.params, c, ServeConfig(
+            max_len=256, seed=SAMPLE_SEED, **extra))
+        reqs = make_requests(V, sampled=sampled)[:n]
+        a = Scheduler(eng, slots=SLOTS, chunk=8)
+        for r in reqs:
+            a.submit(r)
+        for _ in range(SAVE_LOAD_ROUNDS):
+            a.step()
+        if not a.has_work:
+            raise AssertionError(f"checkpoint[{name}]: drained before save")
+        d = tempfile.mkdtemp(prefix="repro_torch_ckpt_")
+        try:
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            a.save(d)
+            save_ms = 1e3 * (time.perf_counter() - ts)
+            step_dir = os.path.join(d, f"step_{a._ticks:08d}")
+            on_disk = sum(os.path.getsize(os.path.join(step_dir, f))
+                          for f in os.listdir(step_dir))
+            raw = sum(t.numel() * t.element_size()
+                      for t in a._device_state())
+            codec = ckpt_lib.manifest(d)["codec"]
+            step_a = a._step
+            del a
+            b = Scheduler(eng, slots=SLOTS, chunk=8)
+            b.run(make_requests(V, sampled=sampled)[:n_warm])
+            keys = len(eng.graphs.rounds)
+            torch.cuda.synchronize()
+            tl = time.perf_counter()
+            b.load(d)
+            torch.cuda.synchronize()
+            load_ms = 1e3 * (time.perf_counter() - tl)
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        if b._step != step_a:
+            raise AssertionError(f"checkpoint[{name}]: draw counter "
+                                 f"{b._step} != {step_a}")
+        b.run()
+        got = {tuple(r.prompt): list(r.tokens) for r in b.finished}
+        same([got[tuple(r.prompt)] for r in reqs], want[ref],
+             f"checkpoint[{name}] loaded == {ref}")
+        new_keys = len(eng.graphs.rounds) - keys
+        if new_keys:
+            raise AssertionError(f"checkpoint[{name}]: {new_keys} keys "
+                                 "captured after the load")
+        out = {"requests": n, "rounds_before_save": SAVE_LOAD_ROUNDS,
+               "bytes_on_disk": on_disk, "raw_bytes": raw, "codec": codec,
+               "save_host_ms": save_ms, "load_host_ms": load_ms,
+               "keys_before_load": keys,
+               "keys_captured_after_load": new_keys,
+               "msgpack_importable":
+                   importlib.util.find_spec("msgpack") is not None,
+               "zstandard_importable":
+                   importlib.util.find_spec("zstandard") is not None}
+        log(f"checkpoint[{name}]: " + json.dumps(out))
+        del b, eng
+    log(f"qos stage: {time.perf_counter() - t0:.1f}s (overload "
+        f"{t_qos:.1f}s, save/load {time.perf_counter() - t1:.1f}s)")
+
 
 def run_qwen(n_layers: int, profile_steps: int) -> None:
     import dataclasses
@@ -1384,19 +1652,20 @@ def run_qwen(n_layers: int, profile_steps: int) -> None:
                fused=False, sampled=True), lut_s,
          "lut unfused sampled == lut fused sampled")
     ops.set_variant(None)
-    # a sampled transcript depends on the batch: the plain backend's 2
-    # sampled requests are held against a fused run of the same 2
-    lut_s2 = serve(engine, V, "qwen lut fused sampled, 2", 2, "lutmul",
+    # a sampled transcript depends on the batch: the plain backend's
+    # sampled request is held against a fused run of the same one
+    lut_s1 = serve(engine, V, "qwen lut fused sampled, 1", 1, "lutmul",
                    sampled=True)
     ops.set_backend("ref")
-    same(serve(engine, V, "qwen lut plain", 2), lut,
+    same(serve(engine, V, "qwen lut plain", 1), lut,
          "lut plain == lut fused")
-    same(serve(engine, V, "qwen lut plain sampled", 2, sampled=True), lut_s2,
+    same(serve(engine, V, "qwen lut plain sampled", 1, sampled=True), lut_s1,
          "lut plain sampled == lut fused sampled")
     ops.set_backend("cuda")
     run_paged_lut(engine, cfg, V, lut, lut_s, profile_steps)
     lut8 = run_int8_lut(engine, cfg, V, lut, profile_steps)
     run_faults(engine, cfg, V, lut, lut_s, lut8)
+    run_qos(engine, cfg, V, lut, lut_s, lut8)
     del engine
 
     # this slice: the same float weights as w4a4_tmac bitplanes
@@ -1424,7 +1693,7 @@ def run_qwen(n_layers: int, profile_steps: int) -> None:
                fused=False), tmac, "tmac unfused == tmac fused")
     ops.set_variant(None)
     ops.set_backend("ref")
-    same(serve(engine, V, "qwen tmac plain", 2), tmac,
+    same(serve(engine, V, "qwen tmac plain", 1), tmac,
          "tmac plain == tmac fused")
     ops.set_backend("cuda")
 
@@ -1499,7 +1768,7 @@ def run_bitnet(n_layers: int, profile_steps: int) -> None:
     fused = serve(engine, cfg.vocab, "bitnet tmac fused", 8, "lutmul_tmac")
     profile_engine(engine, "bitnet tmac", profile_steps)
     ops.set_backend("ref")
-    same(serve(engine, cfg.vocab, "bitnet tmac plain", 4), fused,
+    same(serve(engine, cfg.vocab, "bitnet tmac plain", 1), fused,
          "bitnet plain == bitnet fused")
     ops.set_backend(None)
     del engine

@@ -16,6 +16,12 @@
                    (finite logits, the in-round cache sweep, the pool
                    audit) raise CacheCorruption, and the Scheduler's
                    rolling snapshots give token-identical replay recovery
+    QoS: requests carry a logical-time ``deadline`` and a ``priority``; the
+                   Scheduler expires, sheds (``shed_watermark``,
+                   ``overload_queue``) and preempts by slack on the
+                   caller's ``now=`` clock, and ``Scheduler.save`` /
+                   ``load`` carry the serving state across a process
+                   restart through ``repro_torch.ckpt.checkpoint``
 """
 from repro_torch.serve.engine import Engine, ServeConfig, sample_logits
 from repro_torch.serve.faults import (CacheCorruption, EngineFault, Fault,

@@ -1,13 +1,27 @@
 """Request: the unit of work the continuous-batching scheduler admits (port
-of ``repro.serve.request`` without deadlines and priorities): the prompt, a
-decode budget, an optional EOS id, per-request sampling knobs (``None``:
-the engine's ServeConfig default) and an optional streaming callback.
+of ``repro.serve.request``): the prompt, a decode budget, an optional EOS
+id, per-request sampling knobs (``None``: the engine's ServeConfig default)
+and an optional streaming callback.
 
 Status moves QUEUED -> RUNNING -> FINISHED; ``finish_reason`` says why
-decode stopped ("eos" | "length").  A streaming callback that raises fails
-only its own request (status FAILED, reason "failed"), and so does a
-request that was in flight through more fault recoveries than the
-Scheduler's ``max_retries`` (``retries`` counts them).
+decode stopped ("eos" | "length").  The scheduler can impose three other
+terminal statuses:
+
+  * TIMED_OUT — the request's ``deadline`` passed, in the scheduler's
+    LOGICAL clock (the ``now=`` values the caller threads through
+    ``submit`` / ``step`` / ``run``, never the wall clock, so a run
+    replays exactly);
+  * SHED — overload shedding picked this request (lowest priority first,
+    then least deadline slack, then latest submitted);
+  * FAILED — its streaming callback raised, or it was in flight through
+    more fault recoveries than the Scheduler's ``max_retries`` (``retries``
+    counts them).
+
+``deadline`` is a logical-time instant (the units of ``now``) and
+``priority`` a number where HIGHER survives shedding longer; both must be
+finite, checked here and again at ``Scheduler.submit``.  The scheduler
+stamps ``arrival_time`` at submit and ``finish_time`` when the request
+ends (both ``None`` when the caller runs without a clock).
 """
 from __future__ import annotations
 
@@ -22,10 +36,20 @@ class RequestStatus(enum.Enum):
     QUEUED = "queued"
     RUNNING = "running"
     FINISHED = "finished"
+    TIMED_OUT = "timed_out"
+    SHED = "shed"
     FAILED = "failed"
 
 
-_TERMINAL = frozenset((RequestStatus.FINISHED, RequestStatus.FAILED))
+# finish_reason -> terminal status (anything else finishes FINISHED)
+_REASON_STATUS = {
+    "timed_out": RequestStatus.TIMED_OUT,
+    "shed": RequestStatus.SHED,
+    "failed": RequestStatus.FAILED,
+}
+
+_TERMINAL = frozenset((RequestStatus.FINISHED, RequestStatus.TIMED_OUT,
+                       RequestStatus.SHED, RequestStatus.FAILED))
 
 
 def _real(x) -> bool:
@@ -59,12 +83,17 @@ class Request:
     top_p: Optional[float] = None
     # streaming: called with (request, token) for every emitted token
     on_token: Optional[Callable[["Request", int], None]] = None
+    # QoS: logical-time deadline and shedding priority
+    deadline: Optional[float] = None
+    priority: int = 0
 
     # -- scheduler-managed state --------------------------------------------
     status: RequestStatus = RequestStatus.QUEUED
     tokens: List[int] = dataclasses.field(default_factory=list)
     finish_reason: Optional[str] = None
     slot: Optional[int] = None            # decode slot while RUNNING
+    arrival_time: Optional[float] = None  # set by the scheduler on submit
+    finish_time: Optional[float] = None
     retries: int = 0                      # fault recoveries survived in flight
 
     def __post_init__(self):
@@ -72,6 +101,10 @@ class Request:
             raise ValueError("max_new_tokens must be >= 0")
         if len(self.prompt) < 1:
             raise ValueError("prompt must be non-empty")
+        if self.deadline is not None and not math.isfinite(self.deadline):
+            raise ValueError(f"deadline must be finite, got {self.deadline}")
+        if not math.isfinite(self.priority):
+            raise ValueError(f"priority must be finite, got {self.priority}")
         check_sampling(self.temperature, self.top_k, self.top_p)
 
     @property
@@ -82,6 +115,15 @@ class Request:
     def remaining(self) -> int:
         return self.max_new_tokens - len(self.tokens)
 
+    def slack(self, now: Optional[float]) -> float:
+        """Logical time to spare before the deadline; +inf without a
+        deadline or a clock.  The scheduler preempts the MOST-slack slot
+        (it can be requeued and still make its deadline) and sheds the
+        LEAST-slack queued request (it was going to miss anyway)."""
+        if self.deadline is None or now is None:
+            return math.inf
+        return self.deadline - now
+
     def emit(self, token: int) -> None:
         """Record one generated token, then stream it (a raising callback
         propagates to the scheduler, which fails only this request)."""
@@ -89,8 +131,8 @@ class Request:
         if self.on_token is not None:
             self.on_token(self, int(token))
 
-    def finish(self, reason: str) -> None:
-        self.status = (RequestStatus.FAILED if reason == "failed"
-                       else RequestStatus.FINISHED)
+    def finish(self, reason: str, now: Optional[float] = None) -> None:
+        self.status = _REASON_STATUS.get(reason, RequestStatus.FINISHED)
         self.finish_reason = reason
+        self.finish_time = now
         self.slot = None

@@ -1,7 +1,8 @@
 """Continuous-batching scheduler with chunked prefill, per-request
 sampling, self-speculative rounds, paged block accounting and fault
-recovery from rolling snapshots (port of ``repro.serve.scheduler`` without
-deadlines, shedding and save/load).
+recovery from rolling snapshots, deadlines, deterministic overload
+shedding, slack-aware preemption and save/load (port of
+``repro.serve.scheduler``).
 
 A fixed pool of ``slots`` decode lanes over one set of live cache buffers.
 Requests queue FIFO; every round runs ONE ``Engine.step`` carrying up to
@@ -32,10 +33,11 @@ chunk lane, else 0), as the reference's does.
 With a paged engine (``ServeConfig(paged=True)``) the scheduler also runs
 the reference's block accounting on ``engine.pool``: every round first maps
 pages for the chunk ahead (``max(chunk, draft_k + 1)`` positions on a
-speculative engine); when the pool runs dry the youngest slot is
-preempted, its pages released, and it is requeued at the queue head with
-its emitted tokens, so its re-admission prefills prompt + emitted and
-continues exactly.  Admission is gated on free pages (FIFO, no
+speculative engine); when the pool runs dry the slot with the most
+deadline slack (youngest first among equals, and when no request carries a
+deadline) is preempted, its pages released, and it is requeued at the
+queue head with its emitted tokens, so its re-admission prefills prompt +
+emitted and continues exactly.  Admission is gated on free pages (FIFO, no
 skip-ahead) and maps every leading ready prefix page shared; a fresh row
 parks at ``(seq[p0], p0)``, its first entry after the shared prefix.
 Pages become shareable as each round's chunk lane commits, are released
@@ -66,15 +68,40 @@ streamed before the snapshot: at-least-once delivery).  The snapshot's
 device state goes into host buffers allocated once and reused, and
 :meth:`restore` copies it back into the live tensors in place, so the
 captured round graphs, keyed on the cache's addresses, replay as before.
+
+Logical time, as the reference's: every QoS decision reads the ``now=``
+the caller threads through :meth:`submit` / :meth:`step` / :meth:`run` (a
+value or a zero-argument callable), never the wall clock, so a run
+replays exactly; without a clock nothing expires.  A step first retires
+every request whose ``deadline`` passed (``timed_out``: queued ones with no
+tokens, running ones with their partial transcript), then, with
+``shed_watermark`` set, sheds the queue past ``overload_queue`` once the
+page pool (dense: the slot map) is that full — lowest priority first,
+then least slack, then latest submitted — and only then takes its
+snapshot, so a restore never brings back a retired request.  A callable
+clock is read at the top of the step and again after the round's one
+host read, to stamp finish times; ``stats["occupancy_sum"]`` adds each
+round's occupied share of the slots (:attr:`mean_occupancy`).
+
+:meth:`save` writes the whole serving state through ``ckpt.checkpoint``
+(the cache and slot vectors, the host mirrors, cursors, counters, the
+pool's state and every request); :meth:`load` reads it into a Scheduler of
+the same geometry, copying every tensor into the live ones in place, so a
+Scheduler whose rounds are already captured replays them after a load and
+a fresh process continues token-identically.  Divergence: :meth:`run`
+always ends with :meth:`check_drained` (the reference's only under its
+``guards``, which the port keeps always on).
 """
 from __future__ import annotations
 
 import collections
+import math
 from typing import Deque, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.ckpt import checkpoint as ckpt_lib
 from repro_torch.serve.engine import ChunkLane, Engine, unpack_round
 from repro_torch.serve.faults import (CacheCorruption, EngineFault,
                                       InjectedFault)
@@ -85,7 +112,9 @@ class Scheduler:
     """FIFO admission over a fixed slot map; ``Engine`` executes the batch."""
 
     def __init__(self, engine: Engine, slots: int = 4, chunk: int = 8, *,
-                 max_retries: int = 2, snapshot_interval: int = 0):
+                 max_retries: int = 2, snapshot_interval: int = 0,
+                 shed_watermark: Optional[float] = None,
+                 overload_queue: Optional[int] = None):
         if slots < 1 or chunk < 1:
             raise ValueError(f"slots and chunk must be >= 1, got slots="
                              f"{slots}, chunk={chunk}")
@@ -97,6 +126,11 @@ class Scheduler:
         # rolling snapshot every ``snapshot_interval`` rounds (0 = none)
         self.max_retries = max_retries
         self.snapshot_interval = snapshot_interval
+        # overload policy: shed the queue past ``overload_queue`` (default
+        # ``slots``) once the pool (dense: the slot map) is this full
+        self.shed_watermark = shed_watermark
+        self.overload_queue = slots if overload_queue is None else \
+            overload_queue
         dev = engine.device
         self.cache = engine.init_cache(slots)
         # per-slot device state ([slots] vectors; free slot: pos=-1, done)
@@ -133,12 +167,15 @@ class Scheduler:
         self._snap_bufs = None
         self._snap_gen = 0
         self._submit_log: List[Request] = []
+        self._submit_count = 0           # submissions so far (``_seq``)
         self._ticks = 0
         self._retries_since_progress = 0
+        # ``occupancy_sum``: each round's occupied share of the slots
         self.stats = {"rounds": 0, "admission_rounds": 0,
                       "prefill_tokens": 0,
                       "admitted_tokens": 0, "emitted_tokens": 0,
-                      "failed": 0, "preemptions": 0, "recoveries": 0,
+                      "occupancy_sum": 0.0, "preemptions": 0, "shed": 0,
+                      "timed_out": 0, "failed": 0, "recoveries": 0,
                       "dispatch_retries": 0, "spec_rounds": 0,
                       "spec_drafted": 0, "spec_accepted": 0}
 
@@ -150,13 +187,16 @@ class Scheduler:
         token already emitted (non-empty only on a preemption resume)."""
         return list(req.prompt) + [int(t) for t in req.tokens]
 
-    def _preempt_victim(self) -> tuple:
-        """Preempt the youngest slot by admission order (the reference's
-        pick when no request carries a deadline): its pages are released,
+    def _preempt_victim(self, now_v) -> tuple:
+        """Preempt the slot with the MOST deadline slack (it can be
+        requeued and still make its deadline; a request without a deadline
+        has infinite slack), the youngest by admission order among equals
+        and when no request carries a deadline: its pages are released,
         its sampling mirrors reset, and the request keeps its emitted
         tokens."""
         victim = max((s for s, r in enumerate(self.slots) if r is not None),
-                     key=lambda s: self._admit_seq[s])
+                     key=lambda s: (self.slots[s].slack(now_v),
+                                    self._admit_seq[s]))
         req = self.slots[victim]
         self.slots[victim] = None
         self.engine.pool.release(victim)
@@ -168,11 +208,11 @@ class Scheduler:
         self.engine.pool.preemptions += 1
         return victim, req
 
-    def _ensure_chunk_pages(self) -> None:
+    def _ensure_chunk_pages(self, now_v=None) -> None:
         """Grow every active slot's mapping to cover the round ahead; when
-        the pool runs dry, preempt and requeue youngest-first until the
-        rest fit (one sequence alone exhausting the pool is a configuration
-        error)."""
+        the pool runs dry, preempt and requeue (most slack, then youngest,
+        first) until the rest fit (one sequence alone exhausting the pool
+        is a configuration error)."""
         pool = self.engine.pool
         scfg = self.engine.scfg
         # a speculative round writes a draft_k+1-token block per slot:
@@ -198,20 +238,22 @@ class Scheduler:
                 raise RuntimeError(
                     "KV page pool exhausted by a single sequence — "
                     "raise ServeConfig.num_pages (or lower max_len)")
-            slot, req = self._preempt_victim()
+            slot, req = self._preempt_victim(now_v)
             evicted.append(req)
             freed.append(slot)
         if evicted:
-            # evicted youngest first: appendleft in eviction order puts the
-            # oldest evictee at the queue head, so FIFO order survives
+            # evicted most expendable first: appendleft in eviction order
+            # puts the least expendable evictee at the queue head
             for req in evicted:
                 self.queue.appendleft(req)
             self._free_on_device(freed)
 
     # -- admission -----------------------------------------------------------
 
-    def submit(self, request: Request) -> Request:
-        """Validate and queue a request (malformed ones raise here)."""
+    def submit(self, request: Request, now=None) -> Request:
+        """Validate and queue a request (malformed ones raise here) at
+        logical time ``now`` (a value or a zero-argument clock, read
+        here), stamped as its ``arrival_time``."""
         L = len(request.prompt)
         max_len = self.engine.scfg.max_len
         if request.max_new_tokens < 0:
@@ -224,7 +266,20 @@ class Scheduler:
             raise ValueError(
                 f"prompt ({L}) + max_new_tokens ({request.max_new_tokens}) "
                 f"exceeds max_len ({max_len})")
+        if request.deadline is not None and (
+                not isinstance(request.deadline, (int, float))
+                or not math.isfinite(request.deadline)):
+            raise ValueError(
+                f"deadline must be a finite logical time, got "
+                f"{request.deadline!r}")
+        if not isinstance(request.priority, (int, float)) or \
+                not math.isfinite(request.priority):
+            raise ValueError(
+                f"priority must be finite, got {request.priority!r}")
+        request.arrival_time = now() if callable(now) else now
         request.status = RequestStatus.QUEUED
+        self._submit_count += 1
+        request._seq = self._submit_count
         if self.snapshot_interval:
             self._submit_log.append(request)
         self.queue.append(request)
@@ -282,11 +337,11 @@ class Scheduler:
         mask = self._write_slots({s: (0, -1) for s in freed}, tok=False)
         self.done.logical_or_(mask)
 
-    def _retire(self, req: Request, reason: str) -> None:
-        """Finish ``req`` with ``reason`` and give back its slot: sampling
-        mirrors reset, cursors cleared, pages released."""
+    def _retire(self, req: Request, reason: str, now_v=None) -> None:
+        """Finish ``req`` with ``reason`` at ``now_v`` and give back its
+        slot: sampling mirrors reset, cursors cleared, pages released."""
         slot = req.slot
-        req.finish(reason)
+        req.finish(reason, now_v)
         self.finished.append(req)
         if slot is not None:
             self.slots[slot] = None
@@ -294,6 +349,60 @@ class Scheduler:
             self._progress[slot] = self._target[slot] = 0
             if self.engine.paged:
                 self.engine.pool.release(slot)
+
+    # -- deadlines and load shedding (logical time only) ---------------------
+
+    def _expire_deadlines(self, now_v) -> None:
+        """Finish every request whose deadline passed — queued ones without
+        a token, running ones with their partial transcript — as
+        ``timed_out``; nothing without a clock."""
+        if now_v is None:
+            return
+        expired = [r for r in self.queue
+                   if r.deadline is not None and r.deadline <= now_v]
+        if expired:
+            # Request compares by value: filter by identity
+            gone = set(map(id, expired))
+            self.queue = collections.deque(
+                r for r in self.queue if id(r) not in gone)
+        freed = []
+        for s, r in enumerate(self.slots):
+            if r is not None and r.deadline is not None \
+                    and r.deadline <= now_v:
+                expired.append(r)
+                freed.append(s)
+        for r in expired:
+            self._retire(r, "timed_out", now_v)
+            self.stats["timed_out"] += 1
+        if freed:
+            self._free_on_device(freed)
+
+    def _shed_overload(self, now_v) -> None:
+        """Deterministic admission control: once the page pool (dense: the
+        slot map) is ``shed_watermark`` full and more than
+        ``overload_queue`` requests wait, shed the excess — lowest priority
+        first, then least deadline slack, then latest submitted.  The same
+        state and clock shed the same set."""
+        if self.shed_watermark is None or not self.queue:
+            return
+        if self.engine.paged:
+            saturation = self.engine.pool.saturation
+        else:
+            saturation = sum(r is not None for r in self.slots) / self.n_slots
+        if saturation < self.shed_watermark:
+            return
+        excess = len(self.queue) - self.overload_queue
+        if excess <= 0:
+            return
+        order = sorted(self.queue,
+                       key=lambda r: (r.priority, r.slack(now_v),
+                                      -getattr(r, "_seq", 0)))
+        victims = set(map(id, order[:excess]))
+        self.queue = collections.deque(
+            r for r in self.queue if id(r) not in victims)
+        for r in order[:excess]:
+            self._retire(r, "shed", now_v)
+            self.stats["shed"] += 1
 
     # -- snapshot / restore / fault recovery ---------------------------------
 
@@ -337,7 +446,7 @@ class Scheduler:
             "slots": list(self.slots),
             "finished_len": len(self.finished),
             "req_state": [(r, r.status, list(r.tokens), r.finish_reason,
-                           r.slot) for r in reqs],
+                           r.finish_time, r.slot) for r in reqs],
             "pool": (self.engine.pool.state_dict()
                      if self.engine.paged else None),
             "stats": dict(self.stats),
@@ -371,10 +480,11 @@ class Scheduler:
         self.queue = collections.deque(snap["queue"])
         self.slots = list(snap["slots"])
         del self.finished[snap["finished_len"]:]
-        for r, status, toks, reason, slot in snap["req_state"]:
+        for r, status, toks, reason, ftime, slot in snap["req_state"]:
             r.status = status
             r.tokens = list(toks)
             r.finish_reason = reason
+            r.finish_time = ftime
             r.slot = slot
         if snap["pool"] is not None:
             self.engine.pool.load_state(snap["pool"])
@@ -383,10 +493,11 @@ class Scheduler:
             r.status = RequestStatus.QUEUED
             r.tokens = []
             r.finish_reason = None
+            r.finish_time = None
             r.slot = None
             self.queue.append(r)
 
-    def _recover(self, err: EngineFault) -> None:
+    def _recover(self, err: EngineFault, now_v) -> None:
         """Bounded-retry fault recovery.  A dispatch failure already rolled
         back locally: count it, and the next round re-dispatches.
         Corruption restores the rolling snapshot, charges one retry to
@@ -417,8 +528,96 @@ class Scheduler:
                         q for q in self.queue if q is not r)
                 if r.slot is not None and self.slots[r.slot] is r:
                     self._free_on_device([r.slot])
-                self._retire(r, "failed")
+                self._retire(r, "failed", now_v)
                 self.stats["failed"] += 1
+
+    # -- save / load (crash recovery across processes) -----------------------
+
+    def _tree(self) -> dict:
+        return {"cache": self.cache, "tok": self.tok, "pos": self.pos,
+                "done": self.done}
+
+    def save(self, ckpt_dir: str, step: Optional[int] = None):
+        """Write the whole serving state as a committed ``ckpt.checkpoint``
+        step (default: the round count): the cache and slot vectors (copied
+        to the host, which on the card waits for the device), the host
+        mirrors, draw counter, cursors, counters, the pool's state and
+        every queued, running and finished request.  Streaming callbacks
+        stay out: a loaded request streams nothing until a callback is set
+        again."""
+        recs = {
+            "queue": [_req_record(r) for r in self.queue],
+            "slots": [None if r is None else _req_record(r)
+                      for r in self.slots],
+            "finished": [_req_record(r) for r in self.finished],
+        }
+        extra = {"serving": {
+            "step": self._step, "ticks": self._ticks,
+            "eos_h": self._eos_h, "temp_h": self._temp_h,
+            "topk_h": self._topk_h, "topp_h": self._topp_h,
+            "admit_seq": self._admit_seq,
+            "admit_counter": self._admit_counter,
+            "progress": self._progress,
+            "target": self._target,
+            "submit_count": self._submit_count,
+            "stats": self.stats,
+            "pool": (self.engine.pool.state_dict()
+                     if self.engine.paged else None),
+            "geometry": self._geometry(),
+            **recs,
+        }}
+        return ckpt_lib.save(ckpt_dir, self._ticks if step is None
+                             else step, self._tree(), extra=extra)
+
+    def _geometry(self) -> dict:
+        return {"slots": self.n_slots, "chunk": self.chunk,
+                "max_len": self.engine.scfg.max_len,
+                "paged": self.engine.paged,
+                "prefill_chunk": self.engine.prefill_chunk}
+
+    def load(self, ckpt_dir: str, step: Optional[int] = None) -> None:
+        """Reinstate :meth:`save`'s state (default: the latest step) into
+        this Scheduler, whose engine must have the saving one's geometry
+        and cache layout.  Every tensor is copied into the live cache and
+        slot vectors IN PLACE, so captured round graphs replay as before;
+        the pool is reloaded and the requests are rebuilt as new
+        ``Request`` objects (in ``queue``, ``slots`` and ``finished``).  A
+        rolling snapshot taken before the load is dropped."""
+        geo = ckpt_lib.manifest(ckpt_dir, step)["extra"]["serving"][
+            "geometry"]
+        if geo != self._geometry():
+            raise ValueError(
+                f"serving-checkpoint geometry {geo} does not match this "
+                f"scheduler/engine {self._geometry()}")
+        restored, extra = ckpt_lib.restore(ckpt_dir, self._tree(), step)
+        s = extra["serving"]
+        for c, rc in zip(self.cache, restored["cache"]):
+            for k, t in c.items():
+                t.copy_(rc[k])
+        for name in ("tok", "pos", "done"):
+            getattr(self, name).copy_(restored[name])
+        self._eos_h = list(s["eos_h"])
+        self._temp_h = list(s["temp_h"])
+        self._topk_h = list(s["topk_h"])
+        self._topp_h = list(s["topp_h"])
+        self._push_sampling_state()
+        self._step = s["step"]
+        self._ticks = s["ticks"]
+        self._admit_seq = list(s["admit_seq"])
+        self._admit_counter = s["admit_counter"]
+        self._progress = list(s["progress"])
+        self._target = list(s["target"])
+        self._submit_count = s["submit_count"]
+        self.stats = dict(s["stats"])
+        if s["pool"] is not None:
+            self.engine.pool.load_state(s["pool"])
+        self.queue = collections.deque(
+            _req_from_record(d) for d in s["queue"])
+        self.slots = [None if d is None else _req_from_record(d)
+                      for d in s["slots"]]
+        self.finished = [_req_from_record(d) for d in s["finished"]]
+        self._snap = None
+        self._submit_log.clear()
 
     # -- the scheduling loop -------------------------------------------------
 
@@ -432,6 +631,12 @@ class Scheduler:
         carried a real prompt token)."""
         a = self.stats["admitted_tokens"]
         return self.stats["prefill_tokens"] / a if a else 0.0
+
+    @property
+    def mean_occupancy(self) -> float:
+        """Mean share of the slots holding a request, per round."""
+        n = self.stats["rounds"]
+        return self.stats["occupancy_sum"] / n if n else 0.0
 
     def _assemble_chunk(self):
         """This round's chunk-lane entries: continue mid-prefill slots in
@@ -523,7 +728,7 @@ class Scheduler:
                          lane[4] != 0)
         return lane, plan, fresh, completing, parks
 
-    def _admit(self) -> int:
+    def _admit(self, now=None) -> int:
         """Monolithic admission, as the reference's ``_admit``: fill free
         slots from the queue head with its leading run of equal-length
         requests in ONE ``Engine.admit_monolithic`` dispatch (batched
@@ -611,6 +816,8 @@ class Scheduler:
         if bad:
             raise CacheCorruption(
                 f"non-finite logits at admission for slots {bad}")
+        if callable(now):       # finish times stamp after the host read
+            now = now()
         for slot, req in admitted:
             req.status = RequestStatus.RUNNING
             req.slot = slot
@@ -622,13 +829,13 @@ class Scheduler:
                 cb_ok = self._deliver(req, int(tok0_h[slot]))
             if not cb_ok:
                 # a raising streaming callback fails only its request
-                self._retire(req, "failed")
+                self._retire(req, "failed", now)
                 self.stats["failed"] += 1
                 self._free_on_device([slot])
             elif done0_h[slot]:
                 eos = self._eos_h[slot]
                 self._retire(req, "eos" if eos >= 0 and req.tokens
-                             and req.tokens[-1] == eos else "length")
+                             and req.tokens[-1] == eos else "length", now)
             else:
                 self.slots[slot] = req
         return len(admitted)
@@ -639,39 +846,43 @@ class Scheduler:
         return all(t <= 0.0 and k == 0 and p >= 1.0 for t, k, p in
                    zip(self._temp_h, self._topk_h, self._topp_h))
 
-    def step(self) -> int:
-        """One round: (maybe) snapshot, map the pages of the round ahead
-        (paged), admit into free slots through the chunk lane, decode one
-        chunk, retire finished sequences.  Returns the tokens emitted (0 on
-        a recovered fault: the retry replays next round).  An engine that
-        requires monolithic admission admits first (:meth:`_admit`), then
-        maps the pages of the round ahead and decodes, with no chunk
-        lane."""
+    def step(self, now=None) -> int:
+        """One round at logical time ``now`` (a value or a zero-argument
+        clock): expire deadlines, shed overload, (maybe) snapshot, map the
+        pages of the round ahead (paged), admit into free slots through the
+        chunk lane, decode one chunk, retire finished sequences.  Returns
+        the tokens emitted (0 on a recovered fault: the retry replays next
+        round).  An engine that requires monolithic admission admits first
+        (:meth:`_admit`), then maps the pages of the round ahead and
+        decodes, with no chunk lane."""
+        now_v = now() if callable(now) else now
+        self._expire_deadlines(now_v)
+        self._shed_overload(now_v)
         if self.snapshot_interval and \
                 self._ticks % self.snapshot_interval == 0:
             self._snap = self.snapshot()
             self._submit_log.clear()
         self._ticks += 1
         try:
-            emitted = self._step_inner()
+            emitted = self._step_inner(now, now_v)
         except EngineFault as err:
-            self._recover(err)
+            self._recover(err, now_v)
             return 0
         self._retries_since_progress = 0
         return emitted
 
-    def _step_inner(self) -> int:
+    def _step_inner(self, now, now_v) -> int:
         paged = self.engine.paged
         if self.engine.requires_monolithic_admission:
-            self._admit()
+            self._admit(now)
             if not any(r is not None for r in self.slots):
                 return 0
             if paged:
-                self._ensure_chunk_pages()
+                self._ensure_chunk_pages(now_v)
             lane, plan, fresh, completing, parks = None, {}, [], set(), {}
         else:
             if paged:
-                self._ensure_chunk_pages()
+                self._ensure_chunk_pages(now_v)
             lane, plan, fresh, completing, parks = self._assemble_chunk()
         if not any(r is not None for r in self.slots):
             return 0
@@ -757,6 +968,8 @@ class Scheduler:
             self.stats["prefill_tokens"] += self.engine.prefill_chunk
             self.stats["admitted_tokens"] += lane.slot.shape[0]
         self.stats["rounds"] += 1
+        self.stats["occupancy_sum"] += (
+            sum(r is not None for r in self.slots) / self.n_slots)
         if use_spec:
             # every live decode row drafted draft_k tokens and committed
             # n_valid - 1 of them (the last is the verifier's own token)
@@ -764,6 +977,8 @@ class Scheduler:
             self.stats["spec_drafted"] += int((nv_h > 0).sum()) * \
                 scfg.draft_k
             self.stats["spec_accepted"] += int(np.maximum(nv_h - 1, 0).sum())
+        if callable(now):       # finish times stamp after the host read
+            now = now()
         emitted, freed = 0, []
         for slot, req in enumerate(self.slots):
             if req is None or self._progress[slot] < self._target[slot]:
@@ -777,7 +992,7 @@ class Scheduler:
                 if cb_ok and done0_h[slot]:
                     eos = self._eos_h[slot]
                     req.finish("eos" if eos >= 0 and req.tokens
-                               and req.tokens[-1] == eos else "length")
+                               and req.tokens[-1] == eos else "length", now)
             if cb_ok and not req.done:
                 # only the first n_valid columns of the row are real
                 for j in range(int(nv_h[slot])):
@@ -786,13 +1001,13 @@ class Scheduler:
                         break
                     emitted += 1
                     if dones_h[slot, j]:
-                        req.finish("eos")
+                        req.finish("eos", now)
                         break
                     if req.remaining <= 0:
-                        req.finish("length")
+                        req.finish("length", now)
                         break
             if not cb_ok:
-                req.finish("failed")
+                req.finish("failed", now)
                 self.stats["failed"] += 1
             if req.done:
                 self.finished.append(req)
@@ -825,14 +1040,15 @@ class Scheduler:
         except Exception:
             return False
 
-    def run(self, requests: Sequence[Request] = (),
+    def run(self, requests: Sequence[Request] = (), now=None,
             max_rounds: int = 100_000) -> List[Request]:
-        """Submit ``requests`` and drive rounds until everything finishes."""
+        """Submit ``requests`` and drive rounds (at logical time ``now``)
+        until everything finishes."""
         for r in requests:
-            self.submit(r)
+            self.submit(r, now)
         rounds = 0
         while self.has_work:
-            self.step()
+            self.step(now)
             rounds += 1
             if rounds > max_rounds:
                 raise RuntimeError("scheduler failed to drain "
@@ -852,3 +1068,32 @@ class Scheduler:
             raise RuntimeError(
                 f"page leak at drain: {pool.allocated_pages} pages still "
                 f"allocated, unreachable={leaked}")
+
+
+def _req_record(r: Request) -> dict:
+    """A JSON-able record of one request (``on_token`` left out)."""
+    return {"prompt": [int(t) for t in r.prompt],
+            "max_new_tokens": r.max_new_tokens,
+            "eos_id": r.eos_id, "temperature": r.temperature,
+            "top_k": r.top_k, "top_p": r.top_p,
+            "deadline": r.deadline, "priority": r.priority,
+            "status": r.status.value, "tokens": list(r.tokens),
+            "finish_reason": r.finish_reason, "slot": r.slot,
+            "arrival_time": r.arrival_time, "finish_time": r.finish_time,
+            "retries": r.retries, "seq": getattr(r, "_seq", 0)}
+
+
+def _req_from_record(d: dict) -> Request:
+    r = Request(prompt=d["prompt"], max_new_tokens=d["max_new_tokens"],
+                eos_id=d["eos_id"], temperature=d["temperature"],
+                top_k=d["top_k"], top_p=d["top_p"],
+                deadline=d["deadline"], priority=d["priority"])
+    r.status = RequestStatus(d["status"])
+    r.tokens = list(d["tokens"])
+    r.finish_reason = d["finish_reason"]
+    r.slot = d["slot"]
+    r.arrival_time = d["arrival_time"]
+    r.finish_time = d["finish_time"]
+    r.retries = d["retries"]
+    r._seq = d["seq"]
+    return r

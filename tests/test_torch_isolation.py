@@ -39,7 +39,7 @@ def test_port_has_modules():
     for mod in ("core/lut.py", "kernels/lutmul/ops.py",
                 "kernels/lutmul/kernel.py", "models/transformer.py",
                 "serve/engine.py", "serve/scheduler.py", "serve/paged.py",
-                "convert.py",
+                "ckpt/checkpoint.py", "convert.py",
                 "core/quantization.py", "core/thresholds.py",
                 "core/streamline.py", "kernels/thresholds/ref.py",
                 "kernels/thresholds/kernel.py", "kernels/thresholds/ops.py",
