@@ -20,8 +20,9 @@ Phases (any failure raises and exits non-zero):
    off where float32 is exact; else ``torch._int_mm`` on the rows
    zero-padded to 32).  Shape groups: qwen2-7b's 7 inner projections through
    the LUT kernel, the gather baseline and the T-MAC kernel (target P = 4,
-   drafter P = 2, verify M = 32), bitnet-3b's through the T-MAC kernel
-   (ternary, g = 1), and both models' int8 heads.
+   drafter P = 2, verify M = 32), gemma2-2b's and minicpm-2b's through the
+   LUT kernel, bitnet-3b's through the T-MAC kernel (ternary, g = 1), and
+   the int8 heads of qwen2-7b and bitnet-3b.
 3. serving qwen2-7b (28 layers, full width, random weights from a seeded
    generator) through ``make_engine`` + ``Scheduler(slots=8, chunk=8)``:
    w4a4_lut fused (8 requests), unfused (first 4), plain backend (first 1);
@@ -53,9 +54,11 @@ Phases (any failure raises and exits non-zero):
    sampling ops: a replayed sampled decode round against the greedy round
    from the same state (their device time's difference), and one
    ``sample_logits`` draw at [8, vocab] alone, every device row listed.
-   Then the paged KV cache on the same codes (``ServeConfig(paged=True,
-   page_size=4)``, engines built from the quantized codes, no second copy
-   of the weights): lut fused over the 8 prompts (== the dense lut run),
+   Then the paged KV cache (``ServeConfig(paged=True, page_size=4)``,
+   engines built from the quantized codes, no second copy of the
+   weights): lut fused over the 8 prompts (== the dense lut run) at 28
+   layers, right after the dense lut run, and again at 7 layers (see
+   below) with the rest of the paged stage:
    the sampled mix over the first 4 (== the dense sampled 4, no prefix
    hit), the plain backend over the first one (no graph), a shared 32-token
    prefix before each of the 8 prompts (== a dense run over the same
@@ -80,6 +83,10 @@ Phases (any failure raises and exits non-zero):
    admissions (dispatches, median host ms) and the share of int8 greedy
    tokens equal to the bf16 run's; ``int8 round[qwen lut]:`` a replayed
    int8 decode round's device ms against the bf16 round's from one state.
+   The paged stage above (but its 28-layer run), the faults stage and the
+   QoS stage below run on a qwen2-7b of full width and ``CUT_LAYERS`` (7) layers, seed-0 weights
+   of its own, after the tmac runs, with that depth's lut fused (8), the
+   sampled mix (4) and int8 KV (8) as the transcripts they equal.
    Then faults and recovery (``FAULT_CASES``) on fresh engines over the
    same lut codes, each through ``Scheduler(slots=8, chunk=8,
    snapshot_interval=1, max_retries=3)`` over the first 4 requests, first
@@ -115,7 +122,26 @@ Phases (any failure raises and exits non-zero):
    ``checkpoint[...]`` lines give bytes on disk and raw, the codec, the
    save and load host ms and whether msgpack and zstandard import.
 4. serving bitnet-3b (26 layers, full width) in ternary_a8_tmac: fused (8
-   requests) and plain (first 1), equal transcripts.
+   requests) and plain (first 1), equal transcripts.  Then gemma2-2b (26
+   layers, full width: local and global layers, window 4,096, soft-caps,
+   GeGLU, the tied 256,000-row head) in w4a4_lut at max_len 4,352:
+   8 requests (``gemma_requests``) in the order long pair, short pair,
+   long pair, short pair, the long prompts past the window (monolithic
+   admission, its rings wrapped), the short ones on the chunk lane; a
+   monolithic dispatch of two requests must have a chunk admission after
+   it in its step.  Fused graphs == ``Engine.generate`` on the long
+   requests and == ``chunked_generate`` (the chunk lane's arithmetic as a
+   static batch) on the short ones, both batches padded to 8 rows;
+   ``generate`` on the short ones is reported (a prefill reduces at other
+   shapes than decode on CUDA), and where the two part ``flip_report``
+   gives both paths' logits at that token and the first activation that
+   differs (at most ``FLIP_ULPS`` bf16 ulps, then A4 codes flip); a
+   decode step and a replayed round profiled at positions past the
+   window; the tied head timed (``tied head[gemma2]``); paged (64-token
+   pages, the first long pair), unfused (4) and the plain backend (one
+   short request), each equal to the fused run.  Then minicpm-2b (40 layers, full width, tied 122,753-row head) in
+   w4a4_lut: fused over the first 4 contract requests, profiled, its head
+   timed, and the plain backend over the first (8 new tokens) equal.
 5. the paper's CNN: full-width MobileNetV2 (224x224, width 1.0, 1000
    classes, random weights from seed 0) at batch 32 in float and QAT mode
    (cuDNN, TF32 off), the float logits of the first 4 images held against
@@ -138,6 +164,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -156,6 +183,12 @@ QWEN_INNER = {"wq": (3584, 3584), "wk": (3584, 512), "wv": (3584, 512),
 BITNET_INNER = {"wq": (3200, 3200), "wk": (3200, 3200), "wv": (3200, 3200),
                 "wo": (3200, 3200), "wi": (3200, 8640), "wg": (3200, 8640),
                 "mlp.wo": (8640, 3200)}
+GEMMA_INNER = {"wq": (2304, 2048), "wk": (2304, 1024), "wv": (2304, 1024),
+               "wo": (2048, 2304), "wi": (2304, 9216), "wg": (2304, 9216),
+               "mlp.wo": (9216, 2304)}
+MINICPM_INNER = {"wq": (2304, 2304), "wk": (2304, 2304), "wv": (2304, 2304),
+                 "wo": (2304, 2304), "wi": (2304, 5760), "wg": (2304, 5760),
+                 "mlp.wo": (5760, 2304)}
 QWEN_HEAD = (3584, 152064)
 BITNET_HEAD = (3200, 32000)
 F32_OPS_PER_S = 67e12             # H100 SXM float32 outside the tensor cores
@@ -168,7 +201,25 @@ MB_BATCH = 32
 MB_CHECK = 4                      # images held against the CPU forward
 MB_FLOAT_RTOL = 1e-3              # of max |logit|; see run_mobilenet
 MB_GROUP = "mobilenetv2 34 pointwise stages, batch 32"
-PHASES = ("kernels", "qwen", "bitnet", "mobilenetv2")
+PHASES = ("kernels", "qwen", "bitnet", "gemma2", "minicpm", "mobilenetv2")
+# the paged, faults and QoS stages run on qwen2-7b at this depth (full
+# width)
+CUT_LAYERS = 7
+# gemma2-2b: the window is 4096; two pairs of long prompts past it, two
+# pairs of short ones inside it; pages of 64 divide the ring and max_len
+GEMMA_LONG = (4104, 4152)
+GEMMA_SHORT = (24, 40)
+GEMMA_MAX_LEN = 4352
+GEMMA_PAGE = 64
+# the paged run serves the first long pair (monolithic admission, wrapped
+# rings through the ring table): a short request's 64-token chunk lane
+# takes a key a fill, each ~12 s to capture at 26 layers
+GEMMA_PAGED_REQUESTS = 2
+MINICPM_PLAIN_TOKENS = 8
+# where generate and the chunk lane part, the first activation that
+# differs between them may differ by at most this many bf16 ulps (a float
+# reduction run at another shape); the A4 codes amplify it from there
+FLIP_ULPS = 16
 CSRC = "src/repro_torch/csrc/"
 KPY = "src/repro/kernels/lutmul/kernel.py"
 # entry point: (source, TPU kernel it replaces, its main group)
@@ -396,31 +447,37 @@ def check_kernels(bench: Bench) -> None:
         w_s = torch.rand((1, N), generator=gen, device=dev) * 0.1 + 1e-3
         return a_s, w_s
 
-    # the LUT kernels and the gather baseline: qwen2-7b's inner
-    # projections at M = 8
+    # the LUT kernels at M = 8: qwen2-7b's inner projections (and the
+    # gather baseline), gemma2-2b's and minicpm-2b's (each a grid and
+    # K split of its own)
     M = SLOTS
-    group = KERNELS["lutmul"][2]
-    for K, N in QWEN_INNER.values():
-        a = torch.randint(0, 16, (M, K), generator=gen, device=dev,
-                          dtype=torch.uint8)
-        w = torch.randint(0, 256, (K // 2, N), generator=gen, device=dev,
-                          dtype=torch.uint8)
-        a_s, w_s = scales(M, N)
-        a8 = ref.decode_codes(a).to(torch.int8)
-        w8 = ref.decode_codes(ref.unpack_int4(w.T).T, 4).to(torch.int8) \
-            .contiguous()
-        lib = _library_ms(a8, w8, ref.lutmul_ref(a, w), flush, reps)
-        bench.lut("lutmul", group, lambda: kernel.lutmul(a, w),
-                  lambda: ref.lutmul_ref(a, w), lib, M, K, N)
-        bench.lut("lutmul_gather", group, lambda: kernel.lutmul_gather(a, w),
-                  lambda: ref.lutmul_ref(a, w), lib, M, K, N)
-        bench.lut("lutmul_fused", group,
-                  lambda: kernel.lutmul_fused(a, w, a_s, w_s,
-                                              out_dtype=torch.bfloat16),
-                  lambda: ref.scaled_lutmul_ref(a, w, a_s, w_s,
-                                                out_dtype=torch.bfloat16),
-                  lib, M, K, N, extra_in=4 * (M + N), out_bytes=M * N * 2)
-        del a, w, a8, w8
+    lut_groups = [(KERNELS["lutmul"][2], QWEN_INNER, True),
+                  ("gemma2-2b layer, M=8", GEMMA_INNER, False),
+                  ("minicpm-2b layer, M=8", MINICPM_INNER, False)]
+    for group, shapes, gather in lut_groups:
+        for K, N in shapes.values():
+            a = torch.randint(0, 16, (M, K), generator=gen, device=dev,
+                              dtype=torch.uint8)
+            w = torch.randint(0, 256, (K // 2, N), generator=gen, device=dev,
+                              dtype=torch.uint8)
+            a_s, w_s = scales(M, N)
+            a8 = ref.decode_codes(a).to(torch.int8)
+            w8 = ref.decode_codes(ref.unpack_int4(w.T).T, 4) \
+                .to(torch.int8).contiguous()
+            lib = _library_ms(a8, w8, ref.lutmul_ref(a, w), flush, reps)
+            bench.lut("lutmul", group, lambda: kernel.lutmul(a, w),
+                      lambda: ref.lutmul_ref(a, w), lib, M, K, N)
+            if gather:
+                bench.lut("lutmul_gather", group,
+                          lambda: kernel.lutmul_gather(a, w),
+                          lambda: ref.lutmul_ref(a, w), lib, M, K, N)
+            bench.lut("lutmul_fused", group,
+                      lambda: kernel.lutmul_fused(a, w, a_s, w_s,
+                                                  out_dtype=torch.bfloat16),
+                      lambda: ref.scaled_lutmul_ref(a, w, a_s, w_s,
+                                                    out_dtype=torch.bfloat16),
+                      lib, M, K, N, extra_in=4 * (M + N), out_bytes=M * N * 2)
+            del a, w, a8, w8
 
     # the T-MAC kernel: target, drafter and verify of qwen2-7b in
     # w4a4_tmac, and bitnet-3b's ternary_a8_tmac projections
@@ -559,15 +616,24 @@ def _graph_stats(engine, before: tuple, label: str, rounds: int,
     if st["replays"] != rounds or not ran:
         raise AssertionError(f"{label}: {st['replays']} of {rounds} rounds "
                              "were replayed graphs")
-    sfx = "_fused" if fused else ""
     for k, r in ran:
-        want = {inner + sfx: 7 * engine.cfg.n_layers * r.forwards,
-                "int_matmul" + sfx: r.forwards}
+        want = _want_launches(engine, inner, fused, r.forwards)
         if not r.forwards or r.launches != want:
             raise AssertionError(f"{label}: graph {k[:6]} captured launches "
                                  f"{r.launches} != {want} for forwards "
                                  f"{r.lanes}")
     return st
+
+
+def _want_launches(engine, inner: str, fused: bool, forwards: int) -> dict:
+    """The launches ``forwards`` forwards make: 7 a layer of the inner
+    kernel, and one of the int8 head kernel where the model has an untied
+    head (a tied head is a plain matrix product, as in the reference)."""
+    sfx = "_fused" if fused else ""
+    want = {inner + sfx: 7 * engine.cfg.n_layers * forwards}
+    if "lm_head" in engine.params:
+        want["int_matmul" + sfx] = forwards
+    return want
 
 
 def prefix_requests(vocab: int) -> list:
@@ -594,15 +660,31 @@ def equal_requests(vocab: int) -> list:
 
 def dense_kv_bytes(engine) -> int:
     """The dense cache's capacity at SLOTS slots: K and V of every layer,
-    [SLOTS, max_len, n_kv, head_dim] each."""
-    import torch
-    cfg = engine.cfg
-    return (2 * cfg.n_layers * SLOTS * engine.scfg.max_len * cfg.n_kv
-            * cfg.head_dim * torch.finfo(cfg.cdtype).bits // 8)
+    [SLOTS, T, n_kv, head_dim] each, T = max_len (a local layer's ring:
+    min(max_len, window))."""
+    from repro_torch.models import transformer
+    return transformer.dense_cache_bytes(engine.cfg, SLOTS,
+                                         engine.scfg.max_len)
 
 
 def _median(xs: list):
     return sorted(xs)[len(xs) // 2] if xs else None
+
+
+def reset_peak(empty: bool = False) -> None:
+    """Collect the garbage that earlier runs left (the wrappers ``serve``
+    and ``gemma_drive`` set on a Scheduler or a page pool close a reference
+    cycle over it, and so over its cache and graph pools), with ``empty``
+    give the freed blocks back to the card, then reset the peak-memory
+    counter, so a peak counts what is alive, not what waits for the
+    collector."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    if empty:
+        torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
 
 
 def serve(engine, vocab: int, label: str, n_requests: int,
@@ -649,12 +731,13 @@ def serve(engine, vocab: int, label: str, n_requests: int,
                 return out
             setattr(sched, name, timed)
     admissions = []
-    if engine.requires_monolithic_admission:
+    if engine.requires_monolithic_admission or \
+            engine.chunk_window_limit is not None:
         admit = sched._admit
 
-        def timed(*a):
+        def timed(*a, **k):
             t0 = time.perf_counter()
-            n = admit(*a)
+            n = admit(*a, **k)
             if n:
                 admissions.append((n, 1e3 * (time.perf_counter() - t0)))
             return n
@@ -686,8 +769,7 @@ def serve(engine, vocab: int, label: str, n_requests: int,
     engine.prefill_steps = 0
     engine.lane_steps = dict.fromkeys(engine.lane_steps, 0)
     graphs0 = _graph_state(engine)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     reset_launches()
     engine.step = dispatch
     engine.set_fault_plan(plan)
@@ -714,9 +796,7 @@ def serve(engine, vocab: int, label: str, n_requests: int,
     forwards = sum(lanes.values())
     want = dict.fromkeys(launches, 0)
     if inner is not None:
-        sfx = "_fused" if fused else ""
-        want[inner + sfx] = 7 * engine.cfg.n_layers * forwards
-        want["int_matmul" + sfx] = forwards
+        want.update(_want_launches(engine, inner, fused, forwards))
     if launches != want or not forwards:
         raise AssertionError(f"{label}: launches {launches} != {want} for "
                              f"forwards by lane {lanes}")
@@ -757,7 +837,7 @@ def serve(engine, vocab: int, label: str, n_requests: int,
         # the decode rounds alone: without captures and admissions
         st["ms_per_decode_step_after_capture_and_admissions"] = (
             1e3 * served - sum(ms)) / engine.decode_steps
-        if plan is None and \
+        if plan is None and engine.requires_monolithic_admission and \
                 len(admissions) != sched.stats["admission_rounds"]:
             raise AssertionError(f"{label}: {len(admissions)} admission "
                                  f"dispatches timed, the Scheduler counts "
@@ -853,18 +933,19 @@ def profile(label: str, fn, steps: int, forwards: int = 1,
 
 
 def profile_engine(engine, label: str, steps: int,
-                   detail: bool = False) -> None:
-    """At 8 slots, positions 16..23, op by op: a full-batch decode step
-    (``detail``: every device row), or for a spec engine a drafter step and
-    a verify forward; then one replayed round from the same state: 8 decode
-    iterations, or for a spec engine a speculative round."""
+                   detail: bool = False, pos0: int = 16) -> None:
+    """At 8 slots, positions pos0..pos0 + 7, op by op: a full-batch decode
+    step (``detail``: every device row), or for a spec engine a drafter
+    step and a verify forward; then one replayed round from the same
+    state: 8 decode iterations, or for a spec engine a speculative
+    round."""
     import torch
     if not steps:
         return
     spec = engine.scfg.spec_decode
     cache = engine.init_cache(SLOTS)
     tok = torch.zeros((SLOTS,), dtype=torch.int32, device="cuda")
-    pos = torch.arange(SLOTS, dtype=torch.int32, device="cuda") + 16
+    pos = torch.arange(SLOTS, dtype=torch.int32, device="cuda") + pos0
     if not spec:
         profile(f"{label} decode step",
                 lambda: engine._decode(tok, cache, pos), steps,
@@ -1619,11 +1700,9 @@ def run_qwen(n_layers: int, profile_steps: int) -> None:
     from repro_torch.models import transformer
     from repro_torch.serve import ServeConfig, make_engine
 
-    cfg = qwen2_7b.config(quant="w4a4_lut")
-    if n_layers != cfg.n_layers:
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    cfg = depth(qwen2_7b.config(quant="w4a4_lut"), n_layers)
     V = cfg.vocab
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak(empty=True)
     t0 = time.perf_counter()
     params = transformer.init_params(cfg, seed=0, device="cuda")
     engine = make_engine(params, cfg, ServeConfig(
@@ -1639,6 +1718,14 @@ def run_qwen(n_layers: int, profile_steps: int) -> None:
     ops.set_variant(None)
     lut = serve(engine, V, "qwen lut fused", 8, "lutmul")
     profile_engine(engine, "qwen lut", profile_steps, detail=True)
+    # the paged cache at the model's own depth (the rest of the paged
+    # stage runs at CUT_LAYERS, ``run_cut_depth``)
+    paged = make_engine(engine.params, cfg, ServeConfig(
+        max_len=256, seed=SAMPLE_SEED, paged=True, page_size=4))
+    same(serve(paged, V, f"qwen lut fused paged, {cfg.n_layers} layers", 8,
+               "lutmul"), lut,
+         f"lut fused paged == lut fused ({cfg.n_layers} layers)")
+    del paged
     # the sampled mix: 8 requests, then the first 4 for the comparisons
     check_mix(serve(engine, V, "qwen lut fused sampled", 8, "lutmul",
                     sampled=True), lut, "lut fused sampled")
@@ -1662,10 +1749,7 @@ def run_qwen(n_layers: int, profile_steps: int) -> None:
     same(serve(engine, V, "qwen lut plain sampled", 1, sampled=True), lut_s1,
          "lut plain sampled == lut fused sampled")
     ops.set_backend("cuda")
-    run_paged_lut(engine, cfg, V, lut, lut_s, profile_steps)
     lut8 = run_int8_lut(engine, cfg, V, lut, profile_steps)
-    run_faults(engine, cfg, V, lut, lut_s, lut8)
-    run_qos(engine, cfg, V, lut, lut_s, lut8)
     del engine
 
     # this slice: the same float weights as w4a4_tmac bitplanes
@@ -1731,7 +1815,6 @@ def run_qwen(n_layers: int, profile_steps: int) -> None:
                              f"rounds, {st['paged']['pages_trimmed']} pages "
                              "trimmed")
     del pspec
-    paged_summary([k for k in RUNS if "paged" in RUNS[k]])
     n = zero_low_planes(engine.params)
     log(f"zeroed the low 2 planes of {n} leaves in place")
     serve(spec, V, "qwen tmac spec, low planes zeroed", 4, "lutmul_tmac")
@@ -1741,6 +1824,450 @@ def run_qwen(n_layers: int, profile_steps: int) -> None:
                              f"{st['spec_accepted']} of {st['spec_drafted']}"
                              " drafts, expected all")
     del spec, engine
+    torch.cuda.empty_cache()
+    run_cut_depth(n_layers, profile_steps)
+
+
+def depth(cfg, n_layers):
+    """``cfg`` cut to ``n_layers`` layers (None: its own depth)."""
+    import dataclasses
+    if n_layers is None or n_layers >= cfg.n_layers:
+        return cfg
+    return dataclasses.replace(cfg, n_layers=n_layers)
+
+
+def new_engine(cfg, max_len: int, label: str):
+    """Seeded random float weights (seed 0) on the card, quantized to
+    ``cfg.quant`` by ``make_engine``; the float tree is dropped after (a
+    tied embedding stays, as the head reads it).  Logs the init and the
+    peak device memory after it."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.serve import ServeConfig, make_engine
+    reset_peak(empty=True)
+    held_gib = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_gib = torch.cuda.max_memory_allocated() / 2**30
+    engine = make_engine(params, cfg, ServeConfig(
+        quant=cfg.quant, max_len=max_len, seed=SAMPLE_SEED))
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"model: {label} {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.quant}; init + quantize "
+        f"{time.perf_counter() - t0:.1f}s, peak {init_gib:.2f} GiB after "
+        f"the float init ({held_gib:.2f} held before it), "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB with the codes; {torch.cuda.memory_allocated() / 2**30:.2f} "
+        "GiB held")
+    return engine
+
+
+def run_cut_depth(n_layers, profile_steps: int) -> None:
+    """The paged, faults and QoS stages (``run_paged_lut``, ``run_faults``,
+    ``run_qos``) on qwen2-7b at full width and ``CUT_LAYERS`` layers
+    (fewer under ``--layers``), with their own runs to equal: lut fused
+    over the 8 requests, the sampled mix over 4, int8 KV over 8."""
+    import dataclasses
+    from repro_torch.configs import qwen2_7b
+    from repro_torch.kernels.lutmul import ops
+    from repro_torch.serve import ServeConfig, make_engine
+    layers = min(CUT_LAYERS, n_layers or CUT_LAYERS)
+    cfg = dataclasses.replace(qwen2_7b.config(quant="w4a4_lut"),
+                              n_layers=layers)
+    V = cfg.vocab
+    engine = new_engine(cfg, 256, "qwen2-7b (paged, faults and QoS stages)")
+    ops.set_backend("cuda")
+    ops.set_variant(None)
+    lut = serve(engine, V, f"qwen{layers} lut fused", 8, "lutmul")
+    lut_s = serve(engine, V, f"qwen{layers} lut fused sampled, 4", 4,
+                  "lutmul", sampled=True)
+    e8 = make_engine(engine.params, dataclasses.replace(
+        cfg, kv_quant="int8"), ServeConfig(max_len=256, seed=SAMPLE_SEED))
+    lut8 = serve(e8, V, f"qwen{layers} lut fused int8", 8, "lutmul")
+    del e8
+    run_paged_lut(engine, cfg, V, lut, lut_s, profile_steps)
+    run_faults(engine, cfg, V, lut, lut_s, lut8)
+    run_qos(engine, cfg, V, lut, lut_s, lut8)
+    paged_summary([k for k in RUNS if "paged" in RUNS[k]])
+
+
+def gemma_requests(vocab: int) -> list:
+    """The gemma2 phase's 8 requests (numpy seed 3), 24-32 new tokens each,
+    in queue order: a pair of GEMMA_LONG[0]-token prompts, two of
+    GEMMA_SHORT[0], a pair of GEMMA_LONG[1], two of GEMMA_SHORT[1].  A long
+    pair (past the window) is one monolithic admission dispatch; the short
+    prompt behind it takes the chunk lane in the same step."""
+    import numpy as np
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(3)
+    lens = [GEMMA_LONG[0]] * 2 + [GEMMA_SHORT[0]] * 2 + \
+        [GEMMA_LONG[1]] * 2 + [GEMMA_SHORT[1]] * 2
+    return [Request(prompt=rng.integers(0, vocab, L).tolist(),
+                    max_new_tokens=int(rng.integers(24, 33))) for L in lens]
+
+
+def gemma_drive(events: list):
+    """A ``serve`` driver that submits every request, then steps to the end,
+    recording each step's admissions in ``events`` as (step, kind,
+    requests): ``"monolithic"`` from ``Scheduler._admit``, ``"chunk"`` for
+    fresh chunk-lane admissions."""
+    def drive(sched, reqs):
+        step = [0]
+        admit, assemble = sched._admit, sched._assemble_chunk
+
+        def monolithic(*a, **k):
+            n = admit(*a, **k)
+            if n:
+                events.append((step[0], "monolithic", n))
+            return n
+
+        def chunk(*a, **k):
+            out = assemble(*a, **k)
+            if out[2]:
+                events.append((step[0], "chunk", len(out[2])))
+            return out
+        sched._admit, sched._assemble_chunk = monolithic, chunk
+        for r in reqs:
+            sched.submit(r)
+        while sched.has_work:
+            sched.step()
+            step[0] += 1
+        sched.check_drained()
+        for r in reqs:
+            if len(r.tokens) != r.max_new_tokens:
+                raise AssertionError(f"request ended {r.finish_reason} with "
+                                     f"{len(r.tokens)}/{r.max_new_tokens}")
+    return drive
+
+
+def run_gemma2(n_layers, profile_steps: int) -> None:
+    """gemma2-2b at full width (GeGLU, soft-caps, gemma norms, local and
+    global layers, tied head) in w4a4_lut through the Scheduler, prompts
+    inside and past the window."""
+    import torch
+    from repro_torch.configs import gemma2_2b
+    from repro_torch.kernels.lutmul import ops
+    from repro_torch.serve import ServeConfig, make_engine
+    cfg = depth(gemma2_2b.config(quant="w4a4_lut"), n_layers)
+    V = cfg.vocab
+    engine = new_engine(cfg, GEMMA_MAX_LEN, "gemma2-2b")
+    ops.set_backend("cuda")
+    ops.set_variant(None)
+    reqs = gemma_requests(V)
+    if not all(len(r.prompt) > cfg.window for r in reqs[:2] + reqs[4:6]):
+        raise AssertionError("the long prompts do not pass the window")
+    log(f"gemma2 rings: prompts {sorted({len(r.prompt) for r in reqs})}, "
+        f"window {cfg.window}, max_len {GEMMA_MAX_LEN}: the long prompts "
+        "stitch wrapped rings and decode writes at pos % window")
+    events = []
+    fused = serve(engine, V, "gemma2 lut fused", 8, "lutmul", reqs=reqs,
+                  drive=gemma_drive(events))
+    RUNS["gemma2 lut fused"]["admissions_by_step"] = events
+    log(f"gemma2 admissions (step, kind, requests): {json.dumps(events)}")
+    pairs = [s for s, kind, n in events if kind == "monolithic" and n == 2]
+    chunk_after = [s for s in pairs if any(
+        e[0] == s and e[1] == "chunk" for e in events)]
+    if not chunk_after or not RUNS["gemma2 lut fused"]["launches"][
+            "lutmul_fused"]:
+        raise AssertionError(f"gemma2: no monolithic pair with a chunk "
+                             f"admission after it in its step ({events}), "
+                             "or no lutmul_fused launch")
+    log(f"gemma2: lutmul_fused launches "
+        f"{RUNS['gemma2 lut fused']['launches']['lutmul_fused']}; "
+        f"monolithic pairs at steps {pairs}, a chunk admission after it "
+        f"in steps {chunk_after}")
+    check_gemma_generate(engine, reqs, fused)
+    profile_engine(engine, "gemma2 lut", profile_steps, pos0=GEMMA_LONG[1])
+    time_tied_head(engine, "gemma2")
+
+    paged = make_engine(engine.params, cfg, ServeConfig(
+        max_len=GEMMA_MAX_LEN, seed=SAMPLE_SEED, paged=True,
+        page_size=GEMMA_PAGE, prefill_chunk=GEMMA_PAGE))
+    same(serve(paged, V, "gemma2 lut fused paged", GEMMA_PAGED_REQUESTS,
+               "lutmul", reqs=gemma_requests(V), drive=gemma_drive([])),
+         fused, "gemma2 paged == gemma2 dense")
+    del paged
+    torch.cuda.empty_cache()
+    ops.set_variant("unfused")
+    same(serve(engine, V, "gemma2 lut unfused", 4, "lutmul", fused=False,
+               reqs=gemma_requests(V)), fused,
+         "gemma2 unfused == gemma2 fused")
+    ops.set_variant(None)
+    ops.set_backend("ref")
+    short = gemma_requests(V)[2:3]
+    same(serve(engine, V, "gemma2 lut plain", 1, reqs=short), fused[2:3],
+         "gemma2 plain == gemma2 fused (a short request)")
+    ops.set_backend("cuda")
+    del engine
+    torch.cuda.empty_cache()
+
+
+def chunked_generate(engine, prompts, new: int) -> list:
+    """The chunk lane's arithmetic as a static batch: every prompt token
+    through ``decode_step`` at its position over a fresh dense cache, the
+    first token drawn from the last one's logits, then ``new - 1`` decode
+    steps (greedy).  [B, new] token lists."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import sample_logits
+    B, L = prompts.shape
+    cache = engine.init_cache(B)
+    i32 = dict(dtype=torch.int32, device=engine.device)
+    for p in range(L):
+        logits, cache = transformer.decode_step(
+            engine.params, engine.cfg, prompts[:, p].to(torch.int32), cache,
+            torch.full((B,), p, **i32))
+    tok = sample_logits(logits)
+    toks = [tok]
+    for i in range(1, new):
+        logits, cache = transformer.decode_step(
+            engine.params, engine.cfg, tok, cache,
+            torch.full((B,), L + i - 1, **i32))
+        tok = sample_logits(logits)
+        toks.append(tok)
+    return torch.stack(toks, 1).tolist()
+
+
+def _bf16_ulps(a, b):
+    """|a - b| in bf16 ulps of the larger magnitude, elementwise."""
+    import torch
+    big = torch.maximum(a.abs(), b.abs()).clamp_min(2.0 ** -126)
+    return (a - b).abs() / torch.exp2(torch.floor(torch.log2(big)) - 7)
+
+
+def flip_report(engine, prompts, forced: list, flips: dict) -> list:
+    """Where ``generate`` and the chunk lane part on a short prompt: for
+    each row j of ``flips`` {row: first token k that differs}, both static
+    paths teacher-forced on ``forced`` (each row's fused transcript):
+    ``generate``'s (a prefill, then ``decode_step``) and
+    ``chunked_generate``'s (every token through ``decode_step``).  Each
+    path's argmax must give its own transcript's token, and the first
+    activation that differs may differ by at most ``FLIP_ULPS``.  The
+    report gives the logits of token k (both top-2 margins, the largest
+    |logit difference|, the bf16 ulp at the largest logit: the logits are
+    bf16) and, from every activation quantizer's float input and A4 codes
+    over positions 0 .. L + k - 1 (``ops.quantize_activations`` tapped, 7
+    calls a layer), where the paths part first: the first call whose float
+    input differs (its largest difference in bf16 ulps), the first whose
+    codes differ, and the share of codes that differ in the last layer."""
+    import torch
+    from repro_torch.kernels.lutmul import ops
+    from repro_torch.models import transformer
+    params, cfg = engine.params, engine.cfg
+    B, L = prompts.shape
+    K = max(flips.values())
+    rows = sorted(flips)
+    i32 = dict(dtype=torch.int32, device=engine.device)
+    seq = torch.cat([prompts.to(torch.int32), torch.tensor(
+        [(f + [0] * K)[:K] for f in forced], **i32)], 1)
+    at = {k: {} for k in set(flips.values())}
+    taps = {"generate": [], "graph": []}
+    quantize = ops.quantize_activations
+
+    def tapped(x2, bits):
+        codes, scale = quantize(x2, bits)
+        n = x2.shape[0] // B
+        tape.append((x2.view(B, n, -1)[rows].clone(),
+                     codes.view(B, n, -1)[rows].clone()))
+        return codes, scale
+    ops.quantize_activations = tapped
+    try:
+        tape = taps["generate"]
+        logits, cache = transformer.prefill(params, cfg, prompts)
+        cache = engine._grow_cache(cache, L)
+        for i in range(K + 1):
+            if i in at:
+                at[i]["generate"] = logits.float()
+            if i < K:
+                logits, cache = transformer.decode_step(
+                    params, cfg, seq[:, L + i], cache,
+                    torch.full((B,), L + i, **i32))
+        tape = taps["graph"]
+        cache = engine.init_cache(B)
+        for p in range(L + K):
+            logits, cache = transformer.decode_step(
+                params, cfg, seq[:, p], cache, torch.full((B,), p, **i32))
+            if p - L + 1 in at:
+                at[p - L + 1]["graph"] = logits.float()
+    finally:
+        ops.quantize_activations = quantize
+    # each path's tape as one (inputs, codes) [R, L + K, K_c] pair a call
+    per_fwd = len(taps["generate"]) // (K + 1)
+    if per_fwd * (K + 1) != len(taps["generate"]) or \
+            per_fwd * (L + K) != len(taps["graph"]):
+        raise AssertionError(f"quantizer calls: {len(taps['generate'])} on "
+                             f"the generate path, {len(taps['graph'])} on "
+                             f"the chunk lane's")
+    calls = {}
+    for name, tp in taps.items():
+        fwds = [tp[f * per_fwd:(f + 1) * per_fwd]
+                for f in range(len(tp) // per_fwd)]
+        calls[name] = [(torch.cat([fw[c][0] for fw in fwds], 1),
+                        torch.cat([fw[c][1] for fw in fwds], 1))
+                       for c in range(per_fwd)]
+    per_layer = per_fwd // cfg.n_layers
+    out = []
+    for r, (j, k) in enumerate(sorted(flips.items())):
+        lg, lc = at[k]["generate"][j], at[k]["graph"][j]
+        rec = {"row": j, "token": k, "fused_token": forced[j][k],
+               "generate_token": int(torch.argmax(lg)),
+               "graph_token": int(torch.argmax(lc))}
+        for name, lo in (("generate", lg), ("graph", lc)):
+            v, ix = torch.topk(lo, 2)
+            rec[f"{name}_top2"] = [[int(ix[0]), float(v[0])],
+                                   [int(ix[1]), float(v[1])]]
+            rec[f"{name}_margin"] = float(v[0] - v[1])
+        d = (lg - lc).abs()
+        top = float(lg.abs().max())
+        rec.update(max_abs_dlogit=float(d.max()),
+                   logits_differing=int((d > 0).sum()), max_abs_logit=top,
+                   bf16_ulp_at_max=2.0 ** (math.floor(math.log2(top)) - 7))
+        if rec["graph_token"] != rec["fused_token"] or \
+                rec["generate_token"] == rec["fused_token"]:
+            raise AssertionError(f"gemma2 teacher-forced logits do not give "
+                                 f"the transcripts' tokens: {rec}")
+        first_in = first_code = None
+        for c in range(per_fwd):
+            (xg, qg), (xc, qc) = calls["generate"][c], calls["graph"][c]
+            xg, xc = xg[r, :L + k], xc[r, :L + k]
+            qg, qc = qg[r, :L + k], qc[r, :L + k]
+            where = {"layer": c // per_layer, "call": c % per_layer}
+            if first_in is None and not torch.equal(xg, xc):
+                diff = xg != xc
+                first_in = {**where,
+                            "positions": diff.any(1).nonzero()
+                            .flatten().tolist(),
+                            "elements": int(diff.sum()),
+                            "of": xg.numel(),
+                            "max_abs": float((xg - xc).abs().max()),
+                            "max_bf16_ulps": float(_bf16_ulps(xg, xc).max())}
+            if first_code is None and not torch.equal(qg, qc):
+                first_code = {**where, "codes": int((qg != qc).sum()),
+                              "of": qg.numel(),
+                              "max_step": int((qg.int() - qc.int()).abs()
+                                              .max())}
+        last = [c for c in range(per_fwd) if c // per_layer
+                == cfg.n_layers - 1]
+        flipped = sum(int((calls["generate"][c][1][r, :L + k]
+                           != calls["graph"][c][1][r, :L + k]).sum())
+                      for c in last)
+        total = sum(calls["generate"][c][1][r, :L + k].numel() for c in last)
+        rec.update(first_input_diff=first_in, first_code_diff=first_code,
+                   last_layer_codes_differing=flipped / total)
+        if first_in is None or first_in["max_bf16_ulps"] > FLIP_ULPS:
+            raise AssertionError(f"gemma2 generate and the chunk lane part "
+                                 f"at more than {FLIP_ULPS} bf16 ulps of an "
+                                 f"activation: {rec}")
+        out.append(rec)
+    return out
+
+
+def check_gemma_generate(engine, reqs: list, fused: list) -> None:
+    """The Scheduler's transcripts against static batches, one call per
+    prompt length, each batch padded to the Scheduler's 8 rows with copies
+    of its prompts (a CUDA reduction picks its strategy by the row count):
+    a prompt past the window (monolithic admission: a prefill, the rings
+    stitched) against ``Engine.generate`` (a prefill, the rings rolled);
+    a prompt inside it (the chunk lane: the prompt a token at a time)
+    against ``chunked_generate``, both exactly.  ``generate`` on a short
+    prompt is reported, not held: a prefill's float reductions run at
+    other shapes than a decode step's on CUDA, so their bits differ; where
+    they part, ``flip_report`` gives both paths' logits at that token."""
+    import torch
+    t0 = time.perf_counter()
+    by_len: dict = {}
+    bad, prefill_agree, flips = [], {}, []
+    for i, r in enumerate(reqs):
+        by_len.setdefault(len(r.prompt), []).append(i)
+    for L, idx in by_len.items():
+        rows = [reqs[idx[j % len(idx)]].prompt for j in range(SLOTS)]
+        new = max(reqs[i].max_new_tokens for i in idx)
+        prompts = torch.tensor(rows, device=engine.device)
+        gen = engine.generate(prompts, new)[:, L:].tolist()
+        want = gen if not engine.chunk_eligible(L) else \
+            chunked_generate(engine, prompts, new)
+        for j, i in enumerate(idx):
+            n = reqs[i].max_new_tokens
+            first = next((k for k, (x, y) in enumerate(
+                zip(want[j][:n], fused[i])) if x != y), None)
+            if first is not None:
+                bad.append((i, L, first))
+            if engine.chunk_eligible(L):
+                prefill_agree[i] = next((k for k, (x, y) in enumerate(
+                    zip(gen[j][:n], fused[i])) if x != y), None)
+        parted = {j: prefill_agree[i] for j, i in enumerate(idx)
+                  if prefill_agree.get(i) is not None}
+        if parted and not bad:
+            forced = [fused[idx[j % len(idx)]] for j in range(SLOTS)]
+            for rec in flip_report(engine, prompts, forced, parted):
+                flips.append({"request": idx[rec.pop("row")], **rec})
+    if bad:
+        raise AssertionError(f"gemma2 static batch != fused graphs for "
+                             f"(request, prompt, first token that differs) "
+                             f"{bad}")
+    log(f"transcripts identical: gemma2 fused graphs == Engine.generate "
+        f"(the 4 prompts past the window) and == chunked_generate (the 4 "
+        f"inside it) ({len(by_len)} lengths, "
+        f"{time.perf_counter() - t0:.1f}s)")
+    log("gemma2 Engine.generate on the chunk-lane requests (request: first "
+        "token that differs, None: all equal): " + json.dumps(prefill_agree))
+    log("gemma2 generate vs chunk lane at the token where they part: "
+        + json.dumps(flips))
+    RUNS["gemma2 lut fused"]["generate_first_diff_chunk_lane"] = \
+        prefill_agree
+    RUNS["gemma2 lut fused"]["generate_flips"] = flips
+
+
+def time_tied_head(engine, label: str) -> None:
+    """The tied head at the decode shape ([8, d_model] @ emb.T): the whole
+    call as ``transformer._lm_head`` runs it (the float32 embedding cast to
+    bf16 every call, then the product), the cast alone and the product
+    alone on a pre-cast copy, CUDA events (median of 20)."""
+    import torch
+    from repro_torch.models import transformer
+    cfg = engine.cfg
+    emb = engine.params["embed"]["emb"]
+    x = torch.randn((SLOTS, cfg.d_model), device=engine.device).to(
+        cfg.cdtype)
+    wb = emb.T.to(cfg.cdtype)
+    out = {"head": f"[{SLOTS}, {cfg.d_model}] @ [{cfg.d_model}, "
+                   f"{cfg.vocab}]",
+           "lm_head_ms": _event_ms(
+               lambda: transformer._lm_head(engine.params, cfg, x), 20),
+           "cast_ms": _event_ms(lambda: emb.T.to(cfg.cdtype), 20),
+           "matmul_ms": _event_ms(lambda: x @ wb, 20),
+           "float32_embedding_bytes": emb.numel() * emb.element_size()}
+    out["decode_step_device_ms"] = PROFILES.get(
+        f"{label} lut decode step", {}).get("device_ms_per_call")
+    log(f"tied head[{label}]: " + json.dumps(out))
+    del wb
+
+
+def run_minicpm(n_layers, profile_steps: int) -> None:
+    """minicpm-2b at full width (tied head, vocab 122,753) in w4a4_lut:
+    fused over the first 4 contract requests, and the plain backend over
+    the first one (8 new tokens) equal to it."""
+    import torch
+    from repro_torch.configs import minicpm_2b
+    from repro_torch.kernels.lutmul import ops
+    cfg = depth(minicpm_2b.config(quant="w4a4_lut"), n_layers)
+    V = cfg.vocab
+    engine = new_engine(cfg, 256, "minicpm-2b")
+    ops.set_backend("cuda")
+    ops.set_variant(None)
+    fused = serve(engine, V, "minicpm lut fused", 4, "lutmul")
+    profile_engine(engine, "minicpm lut", profile_steps)
+    time_tied_head(engine, "minicpm")
+    ops.set_backend("ref")
+    reqs = make_requests(V)[:1]
+    reqs[0].max_new_tokens = MINICPM_PLAIN_TOKENS
+    same(serve(engine, V, "minicpm lut plain", 1, reqs=reqs),
+         [fused[0][:MINICPM_PLAIN_TOKENS]], "minicpm plain == minicpm fused")
+    ops.set_backend("cuda")
+    del engine
     torch.cuda.empty_cache()
 
 
@@ -1752,9 +2279,7 @@ def run_bitnet(n_layers: int, profile_steps: int) -> None:
     from repro_torch.models import transformer
     from repro_torch.serve import ServeConfig, make_engine
 
-    cfg = bitnet_3b.config()
-    if n_layers < cfg.n_layers:
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    cfg = depth(bitnet_3b.config(), n_layers)
     t0 = time.perf_counter()
     params = transformer.init_params(cfg, seed=0, device="cuda")
     engine = make_engine(params, cfg,
@@ -2028,9 +2553,9 @@ def _searchsorted_ms(acc, thr, sign, want, bench: Bench):
 def main() -> int:
     t_start = time.perf_counter()
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--layers", type=int, default=28,
-                   help="model depth of both models (full width always); "
-                        "default 28 for qwen2-7b, bitnet-3b's 26 at most")
+    p.add_argument("--layers", type=int, default=None,
+                   help="cut every LM to at most this depth (full width "
+                        "always); default: each model's own depth")
     p.add_argument("--reps", type=int, default=50,
                    help="timed launches per kernel and shape")
     p.add_argument("--profile", type=int, default=4, metavar="STEPS",
@@ -2077,6 +2602,10 @@ def main() -> int:
                       ("qwen", lambda: run_qwen(args.layers, args.profile)),
                       ("bitnet",
                        lambda: run_bitnet(args.layers, args.profile)),
+                      ("gemma2",
+                       lambda: run_gemma2(args.layers, args.profile)),
+                      ("minicpm",
+                       lambda: run_minicpm(args.layers, args.profile)),
                       ("mobilenetv2", lambda: run_mobilenet(bench))):
         if phase in phases:
             t0 = time.perf_counter()

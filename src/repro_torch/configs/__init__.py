@@ -77,7 +77,8 @@ class ModelConfig:
 
 
 ALIASES = {"qwen2-7b": "qwen2_7b", "bitnet-3b": "bitnet_3b",
-           "mobilenetv2": "mobilenetv2"}
+           "gemma2-2b": "gemma2_2b", "phi3-medium-14b": "phi3_medium_14b",
+           "minicpm-2b": "minicpm_2b", "mobilenetv2": "mobilenetv2"}
 
 
 def get_config(arch: str, smoke: bool = False, **kw):

@@ -1,10 +1,12 @@
-"""Attention (port of ``repro.models.attention``, full-length layers): GQA
-with the reference's boolean position mask and ``NEG_INF`` fill,
-full-sequence prefill, single-token decode and the S-token
-speculative-verify block over a dense per-slot KV cache or, with a page
-``table``, over shared page pools (``paged_gather`` / ``paged_write``);
-and single-token decode over an int8 KV cache (``quantize_kv``,
-``int8_kv_attention``, ``decode_attention_int8``).
+"""Attention (port of ``repro.models.attention``): GQA with the
+reference's boolean position mask (causal, and a sliding window on local
+layers), gemma-2's logit soft-cap before the mask and the ``NEG_INF``
+fill; full-sequence prefill, single-token decode (over a full-length cache
+or a rolling ring of a local layer) and the S-token speculative-verify
+block over a dense per-slot KV cache or, with a page ``table``, over
+shared page pools (``paged_gather`` / ``paged_write``); and single-token
+decode over an int8 KV cache (``quantize_kv``, ``int8_kv_attention``,
+``decode_attention_int8``).
 
 Plain PyTorch ops throughout (the reference has no Pallas kernel here).
 Scores and the probability-value product accumulate in float32 on float32
@@ -20,7 +22,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models.layers import Params, apply_rope, init_linear, linear
+from repro_torch.models.layers import (Params, apply_rope, init_linear,
+                                       linear, stable_tanh)
 
 NEG_INF = -1e30
 
@@ -49,18 +52,33 @@ def _proj_out(p: Params, out: torch.Tensor, B: int, S: int, quant: str,
     return linear(p["wo"], out.reshape(B, S, -1).to(cd), quant, cd)
 
 
-def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
+def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
+          window: Optional[int] = None) -> torch.Tensor:
     """[..., q, k] causal boolean keep-mask from absolute positions; negative
-    key positions (padding / unwritten cache slots) are always masked."""
+    key positions (padding / unwritten cache slots) are always masked, and
+    with ``window`` so is every key ``window`` or more positions back."""
     m = (k_pos >= 0)[..., None, :]
     d = q_pos[..., :, None] - k_pos[..., None, :]
-    return m & (d >= 0)
+    m = m & (d >= 0)
+    if window is not None:
+        m = m & (d < window)
+    return m
+
+
+def _softcap_scores(s: torch.Tensor, cap: float) -> torch.Tensor:
+    """``cap * tanh(s / cap)`` on float32 scores, the reference's order
+    (the division by a device scalar: CUDA turns a division by a Python
+    number into a reciprocal multiply)."""
+    return cap * stable_tanh(_div(s, cap))
 
 
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
+                   q_pos: torch.Tensor, k_pos: torch.Tensor,
+                   window: Optional[int] = None,
+                   logit_softcap: Optional[float] = None) -> torch.Tensor:
     """Causal attention: q [B, S, Hq, D], k/v [B, T, Hkv, D] -> float32
-    [B, S, Hq, D]."""
+    [B, S, Hq, D]; ``window`` masks keys that far back, ``logit_softcap``
+    caps the scores before the mask."""
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
@@ -68,7 +86,9 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qg = q.reshape(B, S, Hkv, G, D) * scale
     s = torch.einsum("bshgd,bkhd->bshgk", qg.to(torch.float32),
                      k.to(torch.float32))
-    keep = _mask(q_pos, k_pos)
+    if logit_softcap is not None:
+        s = _softcap_scores(s, logit_softcap)
+    keep = _mask(q_pos, k_pos, window)
     s = s.masked_fill(~keep[:, :, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bshgk,bkhd->bshgd",
@@ -78,6 +98,8 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, *,
               n_heads: int, n_kv: int, head_dim: int,
+              window: Optional[int] = None,
+              logit_softcap: Optional[float] = None,
               rope_theta: float = 10000.0, quant: str = "none",
               compute_dtype=torch.bfloat16, return_kv: bool = False):
     """Causal self-attention over a full sequence (prefill).  Unblocked: the
@@ -90,7 +112,8 @@ def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, *,
     v = _proj_qkv(p, "wv", x, B, S, head_dim, quant, compute_dtype)
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
-    out = full_attention(q, k, v, positions, positions)
+    out = full_attention(q, k, v, positions, positions, window,
+                         logit_softcap)
     y = _proj_out(p, out.to(compute_dtype), B, S, quant, compute_dtype)
     if return_kv:
         return y, (k, v)
@@ -113,11 +136,18 @@ def _write_kv_slot(cache: torch.Tensor, new: torch.Tensor,
     return cache
 
 
-def decode_kv_positions(pos: torch.Tensor, T: int) -> torch.Tensor:
+def decode_kv_positions(pos: torch.Tensor, T: int,
+                        rolling: bool = False) -> torch.Tensor:
     """[B, T] absolute position of each cache slot (negative sentinel on
-    unwritten slots) for per-sequence decode at ``pos``."""
+    unwritten slots) for per-sequence decode at ``pos``.  ``rolling``: the
+    cache is a T-slot ring, slot i holding the largest position ``p <=
+    pos`` with ``p % T == i`` (a free row's negative ``pos`` leaves every
+    slot negative)."""
     idx = torch.arange(T, dtype=torch.int32, device=pos.device)[None]
     posb = pos[:, None]
+    if rolling:
+        k_pos = posb - torch.remainder(posb - idx, T)
+        return torch.where(k_pos < 0, -(10 ** 9), k_pos)
     return torch.where((idx <= posb) & (posb >= 0), idx, -(10 ** 9))
 
 
@@ -157,18 +187,23 @@ def paged_write(pool: torch.Tensor, table: torch.Tensor, slot: torch.Tensor,
 
 def decode_attention(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, pos, *, n_heads: int, n_kv: int,
-                     head_dim: int, rope_theta: float = 10000.0,
+                     head_dim: int, window: Optional[int] = None,
+                     logit_softcap: Optional[float] = None,
+                     rope_theta: float = 10000.0, rolling: bool = False,
                      quant: str = "none", compute_dtype=torch.bfloat16,
                      table: Optional[torch.Tensor] = None):
     """One decode step.  x [B, 1, d]; cache [B, T, Hkv, D]; pos scalar or
     [B] int32.  Returns (y, cache_k, cache_v) with the caches updated in
     place.  A negative ``pos[b]`` marks a free slot: its write lands inside
-    its own row (slot 0) and every key of that row stays masked.
+    its own row and every key of that row stays masked.  With ``rolling``
+    the cache is a T-slot ring (a local layer's): the token lands at ``pos
+    % T`` and each slot holds the latest position that maps there.
 
     ``table`` ([B, E] int32) makes the caches page pools ([P, page_size,
-    Hkv, D]): the token is written through the row's page table and the
-    attention runs over the ordered page gather, the dense path's buffer
-    at every unmasked position, so the output is the dense path's."""
+    Hkv, D]): the token is written through the row's page table (a ring's
+    table on a rolling layer) and the attention runs over the ordered page
+    gather, the dense path's buffer at every unmasked position, so the
+    output is the dense path's."""
     B = x.shape[0]
     paged = table is not None
     T = table.shape[1] * cache_k.shape[1] if paged else cache_k.shape[1]
@@ -179,7 +214,8 @@ def decode_attention(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
     posb = posv[:, None]
     q = apply_rope(q, posb, rope_theta)
     k = apply_rope(k, posb, rope_theta)
-    slot = torch.clamp(posv, 0, T - 1)
+    slot = torch.remainder(posv, T) if rolling else torch.clamp(posv, 0,
+                                                                 T - 1)
     if paged:
         paged_write(cache_k, table, slot, k)
         paged_write(cache_v, table, slot, v)
@@ -188,8 +224,9 @@ def decode_attention(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
     else:
         dense_k = _write_kv_slot(cache_k, k, slot)
         dense_v = _write_kv_slot(cache_v, v, slot)
-    k_pos = decode_kv_positions(posv, T)
-    out = full_attention(q, dense_k, dense_v, posb, k_pos)
+    k_pos = decode_kv_positions(posv, T, rolling)
+    out = full_attention(q, dense_k, dense_v, posb, k_pos, window,
+                         logit_softcap)
     y = _proj_out(p, out.to(compute_dtype), B, 1, quant, compute_dtype)
     return y, cache_k, cache_v
 
@@ -208,11 +245,14 @@ def _write_kv_block(cache: torch.Tensor, new: torch.Tensor,
 def decode_attention_multi(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
                            cache_v: torch.Tensor, pos, *, n_heads: int,
                            n_kv: int, head_dim: int,
+                           logit_softcap: Optional[float] = None,
                            rope_theta: float = 10000.0, quant: str = "none",
                            compute_dtype=torch.bfloat16,
                            table: Optional[torch.Tensor] = None):
-    """A contiguous S-token decode block (speculative verify).  x [B, S, d];
-    pos [B] int32 start positions, token i of a row at ``pos + i``.
+    """A contiguous S-token decode block (speculative verify) over a
+    full-length cache (a ring would wrap under the block: the engine
+    refuses speculation on sliding windows).  x [B, S, d]; pos [B] int32
+    start positions, token i of a row at ``pos + i``.
 
     The projections run once at M = B*S (the integer kernels are exact per
     row).  Rope and attention run per position i on [B, 1, ...] slices,
@@ -262,7 +302,8 @@ def decode_attention_multi(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
         pos_i = torch.where(posv >= 0, posv + i, posv)
         outs.append(full_attention(qs[i], dense_k, dense_v,
                                    q_pos[:, i:i + 1],
-                                   decode_kv_positions(pos_i, T)))
+                                   decode_kv_positions(pos_i, T),
+                                   logit_softcap=logit_softcap))
     out = torch.cat(outs, dim=1)
     y = _proj_out(p, out.to(compute_dtype), B, S, quant, compute_dtype)
     return y, cache_k, cache_v

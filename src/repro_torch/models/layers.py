@@ -1,5 +1,6 @@
 """Layer primitives (port of ``repro.models.layers``): quantizable linears,
-RMS norm, rotary embeddings, the SwiGLU MLP and the weight-code cache.
+RMS norm (plain or gemma's zero-centered scale), rotary embeddings, the
+SwiGLU and GeGLU MLPs, gemma-2's logit soft-cap and the weight-code cache.
 
 Parameters are plain dicts of tensors in the reference layout: a linear is
 ``{"w": [d_in, d_out]}`` (``x @ w``) with an optional ``"b"``, or its
@@ -12,6 +13,7 @@ from __future__ import annotations
 import math
 from typing import Any
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -85,11 +87,15 @@ def linear(p: Params, x: torch.Tensor, quant: str = "none",
 # norm + rotary embeddings
 # ---------------------------------------------------------------------------
 
-def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-6,
+             zero_centered: bool = False) -> torch.Tensor:
     xf = x.to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     xf = xf * torch.rsqrt(var + eps)
-    return (xf * p["scale"].to(torch.float32)).to(x.dtype)
+    scale = p["scale"].to(torch.float32)
+    if zero_centered:          # gemma-style (1 + scale)
+        scale = 1.0 + scale
+    return (xf * scale).to(x.dtype)
 
 
 _FREQS: dict[tuple, torch.Tensor] = {}
@@ -127,18 +133,56 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 def init_mlp(gen: torch.Generator, d: int, d_ff: int, dtype=torch.float32,
              device=None) -> Params:
-    """SwiGLU weights (the only MLP kind this slice serves)."""
+    """Gated MLP weights (SwiGLU and GeGLU, the kinds the port serves)."""
     return {"wi": init_linear(gen, d, d_ff, dtype=dtype, device=device),
             "wg": init_linear(gen, d, d_ff, dtype=dtype, device=device),
             "wo": init_linear(gen, d_ff, d, dtype=dtype, device=device)}
 
 
+_SQRT_2_OVER_PI = float(np.float32(math.sqrt(2.0 / math.pi)))
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=True)`` in its own op order, in x's
+    dtype.  Not ``F.gelu``: ATen's CPU kernel rounds the elements of a
+    tensor's scalar tail differently from its vectorized body, so the same
+    value gets other bits in a prefill and a decode tensor; ``tanh``,
+    products and sums give every element the same bits whatever the
+    shape."""
+    inner = _SQRT_2_OVER_PI * (x + 0.044715 * (x * x * x))
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
+
+
 def mlp(p: Params, x: torch.Tensor, quant: str = "none",
-        compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """SwiGLU: ``wo(silu(wg x) * wi x)``."""
-    h = F.silu(linear(p["wg"], x, quant, compute_dtype)) \
-        * linear(p["wi"], x, quant, compute_dtype)
+        compute_dtype=torch.bfloat16, kind: str = "swiglu") -> torch.Tensor:
+    """``wo(act(wg x) * wi x)``: SwiGLU (``silu``) or GeGLU (tanh GeLU)."""
+    g = linear(p["wg"], x, quant, compute_dtype)
+    if kind == "swiglu":
+        g = F.silu(g)
+    elif kind == "geglu":
+        g = gelu_tanh(g)
+    else:
+        raise ValueError(kind)
+    h = g * linear(p["wi"], x, quant, compute_dtype)
     return linear(p["wo"], h, quant, compute_dtype)
+
+
+def stable_tanh(x: torch.Tensor) -> torch.Tensor:
+    """tanh through exp, as the reference's: ``sign(x) * (1 - e) / (1 +
+    e)`` with ``e = exp(-2|x|)`` (the exponent is never positive).  The
+    reference routes tanh this way because exp's bits do not depend on the
+    tensor's shape, so prefill and decode agree."""
+    e = torch.exp(-2.0 * torch.abs(x))
+    return torch.sign(x) * (1.0 - e) / (1.0 + e)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """Gemma-2 logit soft-capping, ``cap * tanh(x / cap)`` in float32, in
+    x's dtype.  The division is by a device scalar: CUDA turns a division
+    by a Python number into a reciprocal multiply."""
+    xf = x.to(torch.float32)
+    c = torch.full((), cap, dtype=torch.float32, device=x.device)
+    return (cap * stable_tanh(xf / c)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

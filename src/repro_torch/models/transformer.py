@@ -1,15 +1,26 @@
-"""Dense decoder LM (port of ``repro.models.transformer``, attention-only
-patterns): ``embed -> layers -> final_norm -> lm_head``.
+"""Dense decoder LM (port of ``repro.models.transformer``, attention
+blocks): ``embed -> layers -> final_norm -> lm_head``.
 
 Layers are a per-layer list (``params["blocks"][i]``), not the reference's
-``[G, ...]`` stacks; layer ``g * len(pattern) + j`` is group ``g``'s pattern
-position ``j`` (``convert.params_from_jax`` unstacks in that order).  The
-decode cache is a list of per-layer ``{"k", "v"}`` buffers
-``[B, max_len, n_kv, head_dim]`` that ``decode_step`` and ``verify_step``
-update in place; the paged cache (``init_paged_cache``) is per-layer page
-pools ``[num_pages, page_size, n_kv, head_dim]`` addressed through the
-``tables`` those two take.  With ``cfg.kv_quant == "int8"`` the decode
-cache holds int8 ``k``/``v`` codes with float32 per-token-per-head
+``[G, ...]`` stacks; layer ``i`` takes the block spec ``cfg.pattern[i %
+len(cfg.pattern)]``, so layer ``g * len(pattern) + j`` is group ``g``'s
+pattern position ``j`` (``convert.params_from_jax`` unstacks in that
+order).  Gemma-2's features are here: local (sliding-window) layers beside
+global ones, attention and final logit soft-caps, zero-centered norms with
+post-attention and post-MLP norms, the embedding scaled by
+``sqrt(d_model)`` and the GeGLU MLP.
+
+The decode cache is a list of per-layer ``{"k", "v"}`` buffers ``[B, T,
+n_kv, head_dim]`` that ``decode_step`` and ``verify_step`` update in
+place, ``T = max_len`` for a global layer and the ring ``min(max_len,
+window)`` for a local one, which decode addresses at ``pos % T``.  The
+paged cache (``init_paged_cache``) is per-layer page pools ``[num_pages,
+page_size, n_kv, head_dim]`` addressed through the ``(full, ring)`` page
+tables those two take: global layers read the full table, local layers
+their ring table.  ``prefill`` returns every layer's K/V at full length;
+serving arranges the rings from them as it stitches (``generate`` through
+:func:`_roll_local`).  With ``cfg.kv_quant == "int8"`` the decode cache
+holds int8 ``k``/``v`` codes with float32 per-token-per-head
 ``k_scale``/``v_scale`` leaves (dense rows or page pools alike), which
 ``decode_step`` reads through ``attention.decode_attention_int8``; prefill
 still returns the float K/V, which serving quantizes as it stitches them
@@ -21,29 +32,31 @@ import math
 
 import torch
 
-from repro_torch.configs import ModelConfig
+from repro_torch.configs import BlockSpec, ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import (init_embedding, init_linear, init_mlp,
-                                       init_norm, mlp, rms_norm)
+                                       init_norm, mlp, rms_norm, softcap)
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for configuration features this slice does not port."""
+    """Raise for configuration features the port does not serve yet."""
     bad = []
     for spec in cfg.pattern:
         if spec.kind != "attn" or spec.shared_attn:
             bad.append(f"block kind {spec.kind!r}")
-        if spec.attn_type != "global" or cfg.window:
-            bad.append("sliding-window attention")
-        if spec.mlp != "swiglu":
+        if spec.mlp not in ("swiglu", "geglu"):
             bad.append(f"mlp {spec.mlp!r}")
-    for name, ok in (("attn_softcap", cfg.attn_softcap is None),
-                     ("final_softcap", cfg.final_softcap is None),
-                     ("rope_mode", cfg.rope_mode == "rope"),
+        if is_local(cfg, spec) and cfg.kv_quant == "int8":
+            bad.append(
+                "sliding-window attention with kv_quant='int8' (the "
+                "reference keeps the local layers' ring caches in float "
+                "under an int8 cache; the port's int8 cache holds "
+                "full-length layers only)")
+    if cfg.attn_softcap and cfg.kv_quant == "int8":
+        bad.append("attn_softcap with kv_quant='int8'")
+    for name, ok in (("rope_mode", cfg.rope_mode == "rope"),
                      ("norm", cfg.norm == "rmsnorm"),
-                     ("gemma_norms", not cfg.gemma_norms),
-                     ("embed_scale", not cfg.embed_scale),
                      ("moe", cfg.moe is None),
                      ("enc_dec", not cfg.enc_dec),
                      ("kv_quant", cfg.kv_quant in ("none", "int8")),
@@ -53,6 +66,35 @@ def check_supported(cfg: ModelConfig) -> None:
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: not ported yet: {', '.join(sorted(set(bad)))}")
+
+
+def layer_spec(cfg: ModelConfig, i: int) -> BlockSpec:
+    """Layer ``i``'s block spec: the pattern repeats over the layers."""
+    return cfg.pattern[i % len(cfg.pattern)]
+
+
+def is_local(cfg: ModelConfig, spec: BlockSpec) -> bool:
+    """A sliding-window layer (its cache is a ring)."""
+    return spec.attn_type == "local" and bool(cfg.window)
+
+
+def cache_len(cfg: ModelConfig, spec: BlockSpec, max_len: int) -> int:
+    """Positions a layer's dense cache holds: the ring ``min(max_len,
+    window)`` of a local layer, else ``max_len``."""
+    return min(max_len, cfg.window) if is_local(cfg, spec) else max_len
+
+
+def _window(cfg: ModelConfig, spec: BlockSpec):
+    return cfg.window if spec.attn_type == "local" else None
+
+
+def _norm(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return rms_norm(p, x, zero_centered=cfg.gemma_norms)
+
+
+def _final_softcap(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return softcap(logits, cfg.final_softcap) if cfg.final_softcap \
+        else logits
 
 
 # ---------------------------------------------------------------------------
@@ -68,14 +110,17 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     kw = dict(dtype=dt, device=dev)
     blocks = []
     for _ in range(cfg.n_layers):
-        blocks.append({
-            "ln1": init_norm(cfg.d_model, **kw),
-            "attn": attn_lib.init_attention(
-                gen, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim,
-                cfg.qkv_bias, **kw),
-            "ln2": init_norm(cfg.d_model, **kw),
-            "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, **kw),
-        })
+        bp = {"ln1": init_norm(cfg.d_model, **kw),
+              "attn": attn_lib.init_attention(
+                  gen, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim,
+                  cfg.qkv_bias, **kw)}
+        if cfg.gemma_norms:
+            bp["post_attn_ln"] = init_norm(cfg.d_model, **kw)
+        bp["ln2"] = init_norm(cfg.d_model, **kw)
+        bp["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, **kw)
+        if cfg.gemma_norms:
+            bp["post_mlp_ln"] = init_norm(cfg.d_model, **kw)
+        blocks.append(bp)
     params = {"embed": init_embedding(gen, cfg.vocab, cfg.d_model, **kw),
               "blocks": blocks,
               "final_norm": init_norm(cfg.d_model, **kw)}
@@ -91,7 +136,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
 def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
     # gather, then cast: the same values as the reference's cast-then-gather
     # without converting the whole table every call
-    return params["embed"]["emb"][tokens.long()].to(cfg.cdtype)
+    x = params["embed"]["emb"][tokens.long()].to(cfg.cdtype)
+    if cfg.embed_scale:         # gemma: times sqrt(d_model) in the dtype
+        x = x * torch.full((), math.sqrt(cfg.d_model), dtype=cfg.cdtype,
+                           device=x.device)
+    return x
 
 
 def _lm_head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -106,17 +155,31 @@ def _lm_head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return x @ lh["w"].to(x.dtype)
 
 
-def _block(bp: dict, cfg: ModelConfig, x: torch.Tensor,
+def _mlp_tail(bp: dict, spec: BlockSpec, cfg: ModelConfig, x: torch.Tensor,
+              norm=None) -> torch.Tensor:
+    """``x`` plus the block's MLP (and gemma's post-MLP norm); ``norm``
+    normalizes (``_norm`` unless given)."""
+    norm = norm or (lambda p, v: _norm(p, v, cfg))
+    h = norm(bp["ln2"], x)
+    y = mlp(bp["mlp"], h, quant=cfg.quant, compute_dtype=cfg.cdtype,
+            kind=spec.mlp)
+    if cfg.gemma_norms:
+        y = norm(bp["post_mlp_ln"], y)
+    return x + y
+
+
+def _block(bp: dict, spec: BlockSpec, cfg: ModelConfig, x: torch.Tensor,
            positions: torch.Tensor):
     cd = cfg.cdtype
-    h = rms_norm(bp["ln1"], x)
+    h = _norm(bp["ln1"], x, cfg)
     y, (k, v) = attn_lib.attention(
         bp["attn"], h, positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
-        head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+        head_dim=cfg.head_dim, window=_window(cfg, spec),
+        logit_softcap=cfg.attn_softcap, rope_theta=cfg.rope_theta,
         quant=cfg.quant, compute_dtype=cd, return_kv=True)
-    x = x + y
-    h = rms_norm(bp["ln2"], x)
-    x = x + mlp(bp["mlp"], h, quant=cfg.quant, compute_dtype=cd)
+    if cfg.gemma_norms:
+        y = _norm(bp["post_attn_ln"], y, cfg)
+    x = _mlp_tail(bp, spec, cfg, x + y)
     return x, {"k": k.to(cd), "v": v.to(cd)}
 
 
@@ -132,17 +195,21 @@ def forward(params: dict, cfg: ModelConfig,
     B, S = tokens.shape
     x = _embed(params, cfg, tokens)
     positions = _positions(B, S, x.device)
-    for bp in params["blocks"]:
-        x, _ = _block(bp, cfg, x, positions)
-    x = rms_norm(params["final_norm"], x)
-    logits = _lm_head(params, cfg, x.to(cfg.cdtype))
+    for i, bp in enumerate(params["blocks"]):
+        x, _ = _block(bp, layer_spec(cfg, i), cfg, x, positions)
+    x = _norm(params["final_norm"], x, cfg)
+    logits = _final_softcap(_lm_head(params, cfg, x.to(cfg.cdtype)), cfg)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             length=None):
     """Forward that also returns the decode cache: (logits [B, V] float32
-    at the last position, per-layer float {"k", "v"} of length S).
+    at the last position, per-layer float {"k", "v"} of length S).  Local
+    layers' K/V are full length too, as the reference's ``full_kv=True``:
+    serving arranges the ring from the true prompt length
+    (``engine._ring_from_full``), the static-batch oracle with
+    :func:`_roll_local`.
 
     ``length`` ([B] or scalar int) takes each row's logits at ``length -
     1`` (clipped into [0, S - 1]) instead: right-padded rows and the dummy
@@ -153,10 +220,10 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     x = _embed(params, cfg, tokens)
     positions = _positions(B, S, x.device)
     cache = []
-    for bp in params["blocks"]:
-        x, c = _block(bp, cfg, x, positions)
+    for i, bp in enumerate(params["blocks"]):
+        x, c = _block(bp, layer_spec(cfg, i), cfg, x, positions)
         cache.append(c)
-    x = rms_norm(params["final_norm"], x)
+    x = _norm(params["final_norm"], x, cfg)
     if length is None:
         xl = x[:, -1]
     else:
@@ -164,7 +231,20 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         last = torch.clamp(last.reshape(-1).expand(B) - 1, 0, S - 1)
         xl = x.gather(1, last[:, None, None].expand(B, 1, x.shape[-1]))[:, 0]
     logits = _lm_head(params, cfg, xl.to(cfg.cdtype)).to(torch.float32)
-    return logits, cache
+    return _final_softcap(logits, cfg), cache
+
+
+def _roll_local(k: torch.Tensor, S: int, W: int) -> torch.Tensor:
+    """A prefill's full-length K or V [B, S, ...] as a W-slot ring where
+    slot i holds the token whose position is i mod W (decode's rolling
+    addressing): the last W tokens rolled by S mod W, or, when S < W, the S
+    tokens zero-padded to W."""
+    tail = k[:, max(0, S - W):]
+    if S < W:
+        pad = torch.zeros((k.shape[0], W - S) + tuple(k.shape[2:]),
+                          dtype=k.dtype, device=k.device)
+        return torch.cat([tail, pad], 1)
+    return torch.roll(tail, S % W, dims=1)
 
 
 # ---------------------------------------------------------------------------
@@ -192,74 +272,92 @@ def kv_bytes_per_position(cfg: ModelConfig) -> int:
         for shape, dt in _kv_leaves(cfg, ()).values())
 
 
-def _zero_cache(cfg: ModelConfig, rows: tuple, device) -> list:
+def dense_cache_bytes(cfg: ModelConfig, batch: int, max_len: int) -> int:
+    """Bytes of :func:`init_cache`'s leaves: every layer's K/V (and int8
+    scales) over its own length, the ring of a local layer included."""
+    per_layer = kv_bytes_per_position(cfg) // cfg.n_layers
+    return batch * per_layer * sum(
+        cache_len(cfg, layer_spec(cfg, i), max_len)
+        for i in range(cfg.n_layers))
+
+
+def _zero_cache(cfg: ModelConfig, rows_of, device) -> list:
+    """Zero leaves for every layer; ``rows_of(spec)`` is a layer's leading
+    shape."""
     dev = resolve_device(device)
     return [{k: torch.zeros(shape, dtype=dt, device=dev)
-             for k, (shape, dt) in _kv_leaves(cfg, rows).items()}
-            for _ in range(cfg.n_layers)]
+             for k, (shape, dt) in _kv_leaves(
+                 cfg, rows_of(layer_spec(cfg, i))).items()}
+            for i in range(cfg.n_layers)]
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> list:
-    """Zero per-layer dense K/V buffers [batch, max_len, n_kv, head_dim]
-    (int8 KV: int8 codes and float32 scales [batch, max_len, n_kv])."""
+    """Zero per-layer dense K/V buffers [batch, T, n_kv, head_dim], T =
+    :func:`cache_len` (int8 KV: int8 codes and float32 scales [batch, T,
+    n_kv])."""
     check_supported(cfg)
-    return _zero_cache(cfg, (batch, max_len), device)
+    return _zero_cache(
+        cfg, lambda spec: (batch, cache_len(cfg, spec, max_len)), device)
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
                      num_pages: int, page_size: int, device=None) -> list:
     """Paged form of :func:`init_cache`: per layer, every leaf as a shared
     zero page pool ``[num_pages, page_size, ...]`` (int8 KV: the scales
-    page with their codes); the per-slot addressing lives in the
-    scheduler's page tables (``batch`` and ``max_len`` size the tables,
-    not the pools)."""
+    page with their codes), local layers' too (their rings are pages of
+    the ring table); the per-slot addressing lives in the scheduler's page
+    tables (``batch`` and ``max_len`` size the tables, not the pools)."""
     check_supported(cfg)
-    return _zero_cache(cfg, (num_pages, page_size), device)
-
-
-def _full_table(tables):
-    """The full-length layers' page table of a ``tables`` pair (the ring
-    table is unused: the port refuses sliding windows)."""
-    return None if tables is None else tables[0]
+    return _zero_cache(cfg, lambda spec: (num_pages, page_size), device)
 
 
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
                 cache: list, pos, tables=None) -> tuple[torch.Tensor, list]:
     """One token for the whole batch.  token [B] int; pos scalar or [B]
     int32 (each slot at its own depth; negative = free slot).  Returns
-    (logits [B, V] float32, cache) with the cache updated in place.
+    (logits [B, V] float32, cache) with the cache updated in place.  A
+    local layer's dense cache shorter than the window is a ring written at
+    ``pos % T``.
 
-    ``tables`` (paged serving): ``(full_table [B, E], ...)`` int32, the
-    reference's pair whose ring table the port leaves unused; the cache is
-    then :func:`init_paged_cache`'s page pools.  A cache with ``k_scale``
+    ``tables`` (paged serving): the ``(full_table [B, E], ring_table [B,
+    Er])`` int32 pair; the cache is then :func:`init_paged_cache`'s page
+    pools, global layers addressed through the full table and local layers,
+    always rolling, through the ring table.  A cache with ``k_scale``
     leaves (int8 KV) takes ``attention.decode_attention_int8``."""
     cd = cfg.cdtype
-    table = _full_table(tables)
     x = _embed(params, cfg, token)[:, None, :]                   # [B, 1, d]
     kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
-              rope_theta=cfg.rope_theta, quant=cfg.quant, compute_dtype=cd,
-              table=table)
-    for bp, c in zip(params["blocks"], cache):
-        h = rms_norm(bp["ln1"], x)
-        if "k_scale" in c:            # the int8 cache, as the reference
-            y, _ = attn_lib.decode_attention_int8(bp["attn"], h, c, pos, **kw)
+              rope_theta=cfg.rope_theta, quant=cfg.quant, compute_dtype=cd)
+    for i, (bp, c) in enumerate(zip(params["blocks"], cache)):
+        spec = layer_spec(cfg, i)
+        local = is_local(cfg, spec)
+        if tables is not None:
+            rolling, table = local, tables[1 if local else 0]
         else:
-            y, _, _ = attn_lib.decode_attention(bp["attn"], h, c["k"],
-                                                c["v"], pos, **kw)
-        x = x + y
-        h = rms_norm(bp["ln2"], x)
-        x = x + mlp(bp["mlp"], h, quant=cfg.quant, compute_dtype=cd)
-    x = rms_norm(params["final_norm"], x)
+            rolling, table = local and c["k"].shape[1] <= cfg.window, None
+        h = _norm(bp["ln1"], x, cfg)
+        if "k_scale" in c:            # the int8 cache, as the reference
+            y, _ = attn_lib.decode_attention_int8(bp["attn"], h, c, pos,
+                                                  table=table, **kw)
+        else:
+            y, _, _ = attn_lib.decode_attention(
+                bp["attn"], h, c["k"], c["v"], pos,
+                window=_window(cfg, spec), logit_softcap=cfg.attn_softcap,
+                rolling=rolling, table=table, **kw)
+        if cfg.gemma_norms:
+            y = _norm(bp["post_attn_ln"], y, cfg)
+        x = _mlp_tail(bp, spec, cfg, x + y)
+    x = _norm(params["final_norm"], x, cfg)
     logits = _lm_head(params, cfg, x[:, 0].to(cd)).to(torch.float32)
-    return logits, cache
+    return _final_softcap(logits, cfg), cache
 
 
-def _norm_rows(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """rms_norm of each position of x [B, S, d] on its own [B, 1, d] slice,
+def _norm_rows(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The norm of each position of x [B, S, d] on its own [B, 1, d] slice,
     the shape ``decode_step`` normalizes (the reduction strategy of a CUDA
     kernel depends on the shape, and verify must reproduce decode's bits)."""
-    return torch.cat([rms_norm(p, x[:, i:i + 1].contiguous())
+    return torch.cat([_norm(p, x[:, i:i + 1].contiguous(), cfg)
                       for i in range(x.shape[1])], dim=1)
 
 
@@ -273,26 +371,29 @@ def verify_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     landed in place: ``logits[:, i]`` has the bits of the i-th of S
     sequential :func:`decode_step` calls.  The projections and the head run
     once at M = B*S; norms, rope and attention run per position.
-    ``tables``: as in :func:`decode_step`.  An int8 cache raises, as the
-    reference's does: speculation needs a cache built a token at a time."""
+    ``tables``: as in :func:`decode_step`.  An int8 cache or a local
+    (sliding-window) layer raises, as the reference's does: speculation
+    needs full-length caches built a token at a time."""
     check_supported(cfg)
-    if any("k_scale" in c for c in cache):
-        raise ValueError(
-            f"verify_step cannot run block spec {cfg.pattern[0]} (kv_quant="
-            f"{cfg.kv_quant!r}): speculative decoding supports plain "
-            "full-length attention blocks only")
+    for spec, c in zip(cfg.pattern, cache):
+        if is_local(cfg, spec) or "k_scale" in c:
+            raise ValueError(
+                f"verify_step cannot run block spec {spec} (kv_quant="
+                f"{cfg.kv_quant!r}): speculative decoding supports plain "
+                "full-length attention blocks only")
     cd = cfg.cdtype
-    table = _full_table(tables)
+    table = None if tables is None else tables[0]
     x = _embed(params, cfg, tokens)                              # [B, S, d]
-    for bp, c in zip(params["blocks"], cache):
-        h = _norm_rows(bp["ln1"], x)
+    rows = lambda p, v: _norm_rows(p, v, cfg)                    # noqa: E731
+    for i, (bp, c) in enumerate(zip(params["blocks"], cache)):
         y, _, _ = attn_lib.decode_attention_multi(
-            bp["attn"], h, c["k"], c["v"], pos, n_heads=cfg.n_heads,
-            n_kv=cfg.n_kv, head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+            bp["attn"], rows(bp["ln1"], x), c["k"], c["v"], pos,
+            n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
+            logit_softcap=cfg.attn_softcap, rope_theta=cfg.rope_theta,
             quant=cfg.quant, compute_dtype=cd, table=table)
-        x = x + y
-        h = _norm_rows(bp["ln2"], x)
-        x = x + mlp(bp["mlp"], h, quant=cfg.quant, compute_dtype=cd)
-    x = _norm_rows(params["final_norm"], x)
+        if cfg.gemma_norms:
+            y = rows(bp["post_attn_ln"], y)
+        x = _mlp_tail(bp, layer_spec(cfg, i), cfg, x + y, norm=rows)
+    x = rows(params["final_norm"], x)
     logits = _lm_head(params, cfg, x.to(cd)).to(torch.float32)
-    return logits, cache
+    return _final_softcap(logits, cfg), cache

@@ -43,12 +43,15 @@ fixed address; every round first copies the pool's numpy table into it
 reads its pages through it.
 
 Where prompt state cannot be built one token at a time — an int8 KV cache,
-whose codes the reference quantizes from the batched prefill's K/V — the
+whose codes the reference quantizes from the batched prefill's K/V, or a
+prompt longer than a sliding window, whose ring the chunk lane would read
+in ring order where the oracle's prefill reads it in time order — the
 Scheduler admits through :meth:`Engine.admit_monolithic` instead of the
 chunk lane: one batched prefill of the admitted prompts, its K/V
-(quantized when the cache is int8) stitched into the masked slots of the
-live cache in place, the first tokens drawn, the slot state merged, and
-the results packed for one host read.  It runs eagerly; the decode rounds
+(quantized when the cache is int8, arranged into the ring on a local
+layer) stitched into the masked slots of the live cache in place, the
+first tokens drawn, the slot state merged, and the results packed for one
+host read.  It runs eagerly; the decode rounds
 after it are the same replayed graphs (the stitch moves no cache tensor).
 
 Faults and guards (``serve.faults``): an installed ``FaultPlan``
@@ -308,6 +311,31 @@ def unpack_round(packed):
             packed[:, 3 + 2 * W])
 
 
+def _ring_positions(lengths: torch.Tensor, T: int) -> torch.Tensor:
+    """[B, T] position each ring slot holds after a ``lengths``-token
+    prompt is stitched (negative: the slot is empty), the addressing
+    :func:`_ring_from_full` and the paged ring scatter share."""
+    i = torch.arange(T, dtype=lengths.dtype, device=lengths.device)[None]
+    last = lengths[:, None] - 1
+    return last - torch.remainder(last - i, T)
+
+
+def _ring_from_full(kv: torch.Tensor, lengths: torch.Tensor,
+                    T: int) -> torch.Tensor:
+    """Full-length prefill K/V [B, P, H, D] as per-row T-slot rings: slot i
+    holds the token at the largest position ``p < lengths[b]`` with ``p %
+    T == i``, decode's rolling addressing; a slot no token maps to (a
+    prompt shorter than T) is zero, and its position stays masked."""
+    B, P = kv.shape[:2]
+    p = _ring_positions(lengths, T)
+    idx = torch.clamp(p, 0, P - 1).long().reshape(
+        (B, T) + (1,) * (kv.dim() - 2)).expand((B, T) + tuple(kv.shape[2:]))
+    vals = kv.gather(1, idx)
+    keep = (p >= 0).reshape((B, T) + (1,) * (kv.dim() - 2))
+    return torch.where(keep, vals, torch.zeros((), dtype=kv.dtype,
+                                               device=kv.device))
+
+
 def _write_rows(live: torch.Tensor, part: torch.Tensor,
                 mask: torch.Tensor) -> None:
     """Masked multi-slot write, in place: rows of ``live`` [B, T, ...]
@@ -364,6 +392,7 @@ class Engine:
         # makes the PagePool and the device table (they need the slots)
         self.pool = None
         self.table = None
+        self.ring_table = None        # local layers' page table (SWA)
         if scfg.paged:
             paged_layout(cfg, scfg)          # raises on bad page geometry
             if scfg.num_pages and scfg.num_pages < 2:
@@ -386,6 +415,11 @@ class Engine:
                     "token at a time — recurrent layers, MoE routing, "
                     "int8-KV and enc-dec models cannot run draft/verify "
                     "rounds")
+            if self.chunk_window_limit is not None:
+                raise ValueError(
+                    "spec_decode does not support sliding-window attention: "
+                    "a draft_k+1-token speculative block would wrap the "
+                    "window ring before the verify pass could roll it back")
             from repro_torch.serve.quantize import (count_draftable_leaves,
                                                     draft_params_view)
             self.n_draftable_leaves = count_draftable_leaves(
@@ -426,16 +460,32 @@ class Engine:
         not run yet)."""
         return self.cfg.kv_quant == "int8"
 
+    @property
+    def chunk_window_limit(self) -> Optional[int]:
+        """The longest prompt the chunk lane may admit on a model with
+        local (sliding-window) layers: the window.  A longer prompt's ring
+        wraps while the chunk lane fills it, so decode reads its keys in
+        ring order where the oracle's prefill reads them in time order,
+        and float sums in another order differ in the last ulp.  None
+        without local layers."""
+        if any(transformer.is_local(self.cfg, spec)
+               for spec in self.cfg.pattern):
+            return int(self.cfg.window)
+        return None
+
     def chunk_eligible(self, seq_len: int) -> bool:
         """Can a ``seq_len``-token prompt be admitted through the chunk
-        lane (else the monolithic admission)?  The port has no sliding
-        windows, so this is the engine-wide answer for every length."""
-        return not self.requires_monolithic_admission
+        lane (else the monolithic admission)?"""
+        if self.requires_monolithic_admission:
+            return False
+        limit = self.chunk_window_limit
+        return limit is None or seq_len <= limit
 
     def init_cache(self, batch: int) -> list:
         """Zero decode buffers for ``batch`` slots.  Paged: page pools, a
         fresh ``PagePool`` under ``self.pool`` and the zeroed device table
-        ``self.table`` (made once per batch size)."""
+        ``self.table`` (made once per batch size), with the ring table
+        ``self.ring_table`` beside it on a model with local layers."""
         if not self.paged:
             return transformer.init_cache(self.cfg, batch, self.scfg.max_len,
                                           self.device)
@@ -444,14 +494,21 @@ class Engine:
         self.pool = PagePool(batch, paged_layout(self.cfg, self.scfg),
                              pages_per_shard=pages,
                              prefix_reuse=self.scfg.prefix_reuse)
-        if self.table is None or self.table.shape != self.pool.table.shape:
-            self.table = torch.zeros(self.pool.table.shape,
-                                     dtype=torch.int32, device=self.device)
-        else:       # one address per engine: its graphs stay valid
-            self.table.zero_()
+        self.table = self._zeroed(self.table, self.pool.table.shape)
+        if self.chunk_window_limit is not None:
+            self.ring_table = self._zeroed(self.ring_table,
+                                           self.pool.ring.shape)
         return transformer.init_paged_cache(
             self.cfg, batch, self.scfg.max_len, pages, self.scfg.page_size,
             self.device)
+
+    def _zeroed(self, table, shape) -> torch.Tensor:
+        """A zero int32 device table of ``shape``: ``table`` zeroed in place
+        when it has that shape (one address per engine: its graphs stay
+        valid), else a new one."""
+        if table is None or tuple(table.shape) != tuple(shape):
+            return torch.zeros(shape, dtype=torch.int32, device=self.device)
+        return table.zero_()
 
     # -- fault injection + invariant guards (serve.faults) -------------------
 
@@ -474,26 +531,29 @@ class Engine:
         return cache
 
     def _device_tables(self) -> tuple:
-        """The pool's table copied into the fixed device table (through
-        pinned memory on the card, asynchronously: the host allocator keeps
-        the pinned block until the copy has run), as the ``tables`` pair
-        the model takes."""
-        t = torch.from_numpy(self.pool.table)
-        if self.device.type == "cuda":
-            self.table.copy_(t.pin_memory(), non_blocking=True)
-        else:
-            self.table.copy_(t)
-        return (self.table,)
+        """The pool's full and ring tables copied into the fixed device
+        tables (through pinned memory on the card, asynchronously: the host
+        allocator keeps the pinned block until the copy has run), as the
+        ``(full, ring)`` pair the model takes (ring None without local
+        layers)."""
+        for dev, host in ((self.table, self.pool.table),
+                          (self.ring_table, self.pool.ring)):
+            if dev is not None:
+                t = torch.from_numpy(host)
+                if self.device.type == "cuda":
+                    dev.copy_(t.pin_memory(), non_blocking=True)
+                else:
+                    dev.copy_(t)
+        return self.table, self.ring_table
 
     def _kv_leaf_bytes(self, batch: int) -> int:
         """Bytes of every layer's KV leaves (K and V, and an int8 cache's
-        scales): the pools when paged, else the dense [batch, max_len]
-        buffers."""
+        scales): the pools when paged, else the dense buffers (a local
+        layer's ring included)."""
         cfg, sc = self.cfg, self.scfg
-        if self.paged:
-            rows = resolve_pages_per_shard(cfg, sc, batch, 1) * sc.page_size
-        else:
-            rows = batch * sc.max_len
+        if not self.paged:
+            return transformer.dense_cache_bytes(cfg, batch, sc.max_len)
+        rows = resolve_pages_per_shard(cfg, sc, batch, 1) * sc.page_size
         return rows * transformer.kv_bytes_per_position(cfg)
 
     def page_bytes(self, batch: int = 1) -> int:
@@ -719,25 +779,40 @@ class Engine:
         cache IN PLACE (the decode graphs hold its addresses), as the
         attention branch of the reference's ``_stitch_impl``: row b of
         ``pcache`` fills slot b where ``mask[b]``; an int8 cache takes the
-        K/V quantized here, codes and scales.  ``paged`` = (device table,
+        K/V quantized here, codes and scales; a local layer takes its
+        full-length K/V arranged into the ring from the true length
+        (:func:`_ring_from_full`).  ``paged`` = (device table, ring table,
         start_tok [B]): tokens [start_tok, length) of masked rows scatter
         into their pages (tokens below start_tok live in prefix-shared
-        pages an earlier admission filled)."""
+        pages an earlier admission filled); a local layer's ring scatters
+        whole through the ring table (ring pages are never shared)."""
+        cfg = self.cfg
         if paged is not None:
-            table, start = paged
+            table, ring, start = paged
             t = torch.arange(pcache[0]["k"].shape[1],
                              device=lengths.device)[None]
             valid = (mask[:, None] & (t >= start[:, None])
                      & (t < lengths[:, None]))
-        for live, part in zip(cache, pcache):
+            if ring is not None:
+                Tr = ring.shape[1] * self.scfg.page_size
+                ring_valid = mask[:, None] & (_ring_positions(lengths, Tr)
+                                              >= 0)
+        for i, (live, part) in enumerate(zip(cache, pcache)):
+            local = transformer.is_local(cfg, transformer.layer_spec(cfg, i))
             for key in ("k", "v"):
-                leaves = {key: part[key]}
+                piece = part[key]
+                if local:
+                    T = Tr if paged is not None else live[key].shape[1]
+                    piece = _ring_from_full(piece, lengths, T)
+                leaves = {key: piece}
                 if "k_scale" in live:
                     leaves[key], leaves[key + "_scale"] = \
-                        attn_lib.quantize_kv(part[key])
+                        attn_lib.quantize_kv(piece)
                 for name, val in leaves.items():
                     if paged is None:
                         _write_rows(live[name], val, mask)
+                    elif local:
+                        _scatter_pages(live[name], ring, val, ring_valid)
                     else:
                         _scatter_pages(live[name], table, val, valid)
         return cache
@@ -784,7 +859,7 @@ class Engine:
             dev = host
         lengths, mask = dev[:, P], dev[:, P + 1] != 0
         budget_one, start = dev[:, P + 2] != 0, dev[:, P + 3]
-        paged = (self._device_tables()[0], start) if self.paged else None
+        paged = (*self._device_tables(), start) if self.paged else None
         self.prefill_steps += 1
         logits, pcache = transformer.prefill(self.params, self.cfg,
                                              dev[:, :P], length=lengths)
@@ -807,14 +882,22 @@ class Engine:
 
     # -- static-batch oracle -------------------------------------------------
 
-    def _grow_cache(self, cache: list) -> list:
-        """Pad prefill caches (length S) into max_len buffers."""
-        M = self.scfg.max_len
+    def _grow_cache(self, cache: list, S: int) -> list:
+        """Prefill caches (length S) as decode buffers, as the reference's
+        prefill + ``_grow_cache``: zero-padded to ``max_len``, or on a
+        local layer to its ring, which a prompt longer than the window
+        fills rolled (``transformer._roll_local``)."""
+        cfg, M = self.cfg, self.scfg.max_len
         out = []
-        for c in cache:
+        for i, c in enumerate(cache):
+            spec = transformer.layer_spec(cfg, i)
+            T = transformer.cache_len(cfg, spec, M)
             g = {}
             for key, t in c.items():
-                buf = torch.zeros((t.shape[0], M) + tuple(t.shape[2:]),
+                if transformer.is_local(cfg, spec) and S > cfg.window:
+                    g[key] = transformer._roll_local(t, S, cfg.window)
+                    continue
+                buf = torch.zeros((t.shape[0], T) + tuple(t.shape[2:]),
                                   dtype=t.dtype, device=t.device)
                 buf[:, :t.shape[1]] = t
                 g[key] = buf
@@ -839,7 +922,7 @@ class Engine:
         prompts = torch.as_tensor(prompts, device=self.device)
         B, S = prompts.shape
         logits, cache = transformer.prefill(self.params, self.cfg, prompts)
-        cache = self._grow_cache(cache)
+        cache = self._grow_cache(cache, S)
         tok = draw(logits, 0)
         pos = torch.full((B,), S, dtype=torch.int32, device=self.device)
         toks = [tok]

@@ -11,7 +11,7 @@ replays it, so a round costs the host a few copies and one graph launch.
 * **Key:** (n_real, chunk, spec, greedy) — the reference's (C, chunk,
   greedy, spec) with the lane's real entries for C — and what the graph was
   captured over: the batch, the cache tensors' shape and addresses, a
-  paged engine's page table's shape and address (None on a dense one),
+  paged engine's page tables' shapes and addresses (None on a dense one),
   and the kernel backend and variant.  ``ops.set_backend`` and
   ``ops.set_variant`` are module globals read while the round is
   captured, so a graph captured under one never replays under another.
@@ -24,10 +24,11 @@ replays it, so a round costs the host a few copies and one graph launch.
   the new tok, pos and done back into them and the packed result
   (``engine.pack_round``) into its static output.  A greedy key's graph
   has no draw in it.
-* **Page tables:** a paged round reads the engine's one device table
-  (``Engine.table``, int32 ``[slots, E]``) where it lies, like the cache:
-  ``Engine.step`` copies the pool's mapping into it before each round, so
-  a graph captured under one mapping replays under any other.
+* **Page tables:** a paged round reads the engine's device tables
+  (``Engine.table``, int32 ``[slots, E]``, and on a model with local
+  layers ``Engine.ring_table``, ``[slots, Er]``) where they lie, like the
+  cache: ``Engine.step`` copies the pool's mapping into them before each
+  round, so a graph captured under one mapping replays under any other.
 * **Workspaces:** graphs record addresses, so the K-split kernels'
   workspaces of a batch size are allocated once, before its first
   capture, at the largest (rows, columns) the engine's leaves give
@@ -37,9 +38,14 @@ replays it, so a round costs the host a few copies and one graph launch.
 * **Warm-up:** each key first runs once eagerly on the capture stream, as
   ``torch.cuda.graphs`` asks: the cuBLAS handle and workspace of that
   stream, the rope table, the kernels' selection words and ctypes entries
-  are made there, outside the capture.  Its cache writes are the ones the
-  replay then makes again, bit for bit (the same inputs at the same
-  positions).
+  are made there, outside the capture.  On a full-length cache its writes
+  are the ones the replay then makes again, bit for bit (the same inputs
+  at the same positions), and a later iteration's write lies behind an
+  earlier query's mask.  A local layer's ring is not like that: iteration
+  ``j`` writes slot ``(pos + j) % T``, where the earlier iterations of the
+  replay still read the window's oldest keys.  So the warm-up saves the
+  local layers' cache leaves and puts them back after it (a copy of the
+  rings, made only while a key is captured).
 * **Garbage collection:** the collector is off during each capture
   (:func:`no_gc`): cyclic garbage released inside a capture (seen after
   torch.profiler sessions) calls the runtime in ways a capture forbids,
@@ -60,6 +66,7 @@ import time
 import torch
 
 from repro_torch.kernels.lutmul import kernel, ops
+from repro_torch.models import transformer
 
 
 class _Round:
@@ -105,6 +112,14 @@ def _restore(engine, saved) -> None:
     kernel.LAUNCHES.update(launches)
     engine.decode_steps = steps
     engine.lane_steps.update(lanes)
+
+
+def _ring_leaves(eng, cache) -> list:
+    """The cache leaves of the engine's local (sliding-window) layers."""
+    cfg = eng.cfg
+    return [t for i, c in enumerate(cache)
+            if transformer.is_local(cfg, transformer.layer_spec(cfg, i))
+            for t in c.values()]
 
 
 def _leaf_widths(tree) -> set:
@@ -156,8 +171,10 @@ class RoundGraphs:
     def key(self, cache, lane, tok, chunk: int, spec: bool,
             greedy: bool, tables=None) -> tuple:
         be = ops.get_backend()
-        table = None if tables is None else (tuple(tables[0].shape),
-                                             tables[0].data_ptr())
+        table = None
+        if tables is not None:
+            table = sum(((tuple(t.shape), t.data_ptr()) for t in tables
+                         if t is not None), ())
         return (0 if lane is None else lane.slot.shape[0], chunk, spec,
                 greedy, be, ops.pick_variant(be), tok.shape[0],
                 tuple(cache[0]["k"].shape), table,
@@ -168,7 +185,8 @@ class RoundGraphs:
         """Replay the round of this key of engine ``eng``, capturing it
         first when it is new: (tok, pos, done, packed), the graph's static
         buffers.  ``samp``: the sampled round's ``engine.Sampling``, None
-        on a greedy round; ``tables``: a paged round's ``(Engine.table,)``,
+        on a greedy round; ``tables``: a paged round's ``(Engine.table,
+        Engine.ring_table)`` (the ring table None without local layers),
         read in place."""
         key = self.key(cache, lane, tok, chunk, spec, samp is None, tables)
         r = self.rounds.get(key)
@@ -210,11 +228,16 @@ class RoundGraphs:
             with kernel.graph_workspaces(
                     self._reserve(eng, tok.shape[0], tok.device)):
                 current = torch.cuda.current_stream(tok.device)
+                rings = _ring_leaves(eng, cache)
+                kept = [t.clone() for t in rings]
                 stream.wait_stream(current)
                 with torch.cuda.stream(stream):
                     eng._round(cache, lane, tok, pos, done, eos, chunk,
                                spec, samp, tables)
                 current.wait_stream(stream)
+                for t, k in zip(rings, kept):
+                    t.copy_(k)
+                del kept
                 _restore(eng, saved)
                 r = _Round(lane, tok, pos, done, eos, samp)
                 with no_gc(), torch.cuda.graph(r.graph, pool=self._pool,

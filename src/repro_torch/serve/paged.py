@@ -12,8 +12,9 @@ This module is the host-side half: allocation, refcounts, hash-chained
 prefix identity and the numpy page tables.  The device-side half (the
 ordered gather and the per-token scatter, so the attention reads the dense
 buffer's values) lives in ``models.attention``; ``serve.engine`` copies
-the full table into one device tensor at a fixed address before every
-round, which the captured round graphs read.
+the full table (and the ring table of a model with local layers) into
+device tensors at fixed addresses before every round, which the captured
+round graphs read.
 
 Design points:
 
@@ -33,10 +34,10 @@ Design points:
     because every per-token computation in prefill is causal and row-wise.
   * **SWA rings are page-aligned**: local-attention layers keep their
     rolling ``min(max_len, window)``-slot ring in pool pages addressed
-    through a separate per-slot ring table (never shared).  The port's
-    models refuse sliding windows, so its device side reads only the full
-    table; the allocator keeps the rings and the shards of the reference
-    all the same.
+    through a separate per-slot ring table (never shared), which the
+    engine copies into a second device tensor (``Engine.ring_table``)
+    beside the full one.  The allocator keeps the reference's shards too;
+    the port runs one.
   * **Sharding**: page ids are SHARD-LOCAL: each shard runs an
     independent allocator and prefix registry over its own slots.
 """

@@ -52,7 +52,13 @@ across all ``slots`` rows, dummy rows for the empty ones; a paged engine
 maps each request's pages first, FIFO, no skip-ahead), reads its
 (tok0, done0, ok0) once, then maps the pages of the round ahead and runs a
 pure-decode round.  An admission advances the draw counter by one: its
-first tokens are draw ``fold_in(key, _step)``.
+first tokens are draw ``fold_in(key, _step)``.  On a model with sliding
+windows admission is decided per request (``Engine.chunk_eligible``): when
+the queue head's prompt is longer than the window, the round first admits
+the head's equal-length run of such prompts monolithically
+(``_admit(only_ineligible=True)``), and the chunk lane then admits only if
+the new head is eligible (no skip-ahead past a blocked head); its chunk
+admissions on a paged pool share no prefix pages.
 
 Detection and recovery, as the reference's: the engine's finite-logits
 column (ANDed with its cache sweep) and, paged, ``PagePool.validate()``
@@ -640,11 +646,12 @@ class Scheduler:
 
     def _assemble_chunk(self):
         """This round's chunk-lane entries: continue mid-prefill slots in
-        admission order, then admit from the queue head (no skip-ahead)
-        while budget and free slots last.  Returns (the lane's real entries
-        as a ``ChunkLane`` of device vectors | None, plan {slot: new
-        progress}, fresh [(slot, req)], completing {slots whose last prompt
-        token lands this round}, parks {slot: (tok, pos)})."""
+        admission order, then admit from the queue head (no skip-ahead, and
+        never a head the chunk lane may not admit) while budget and free
+        slots last.  Returns (the lane's real
+        entries as a ``ChunkLane`` of device vectors | None, plan {slot:
+        new progress}, fresh [(slot, req)], completing {slots whose last
+        prompt token lands this round}, parks {slot: (tok, pos)})."""
         C = self.engine.prefill_chunk
         e_slot: List[int] = []
         e_tok: List[int] = []
@@ -679,17 +686,23 @@ class Scheduler:
                 break
             feed(slot, self.slots[slot], self._progress[slot])
         pool = self.engine.pool
+        # SWA admissions share no prefix pages: they replay the window from
+        # position 0, and their chunk-lane bits must never mix with a
+        # monolithic sharer's
+        share = self.engine.chunk_window_limit is None
         while len(e_slot) < C and self.queue:
             req = self.queue[0]
             seq = self._seq(req)
             L = len(seq)
+            if not self.engine.chunk_eligible(L):
+                break               # the head takes the monolithic admission
             slot = next((s for s in range(self.n_slots)
                          if self.slots[s] is None), None)
             if slot is None:
                 break
             p0 = 0
             if self.engine.paged:
-                start = pool.admit(slot, seq, fills_now=False)
+                start = pool.admit(slot, seq, fills_now=False, share=share)
                 if start is None:
                     if (not any(r is not None for r in self.slots)
                             and pool.allocated_pages == 0):
@@ -728,18 +741,23 @@ class Scheduler:
                          lane[4] != 0)
         return lane, plan, fresh, completing, parks
 
-    def _admit(self, now=None) -> int:
+    def _admit(self, now=None, only_ineligible: bool = False) -> int:
         """Monolithic admission, as the reference's ``_admit``: fill free
         slots from the queue head with its leading run of equal-length
         requests in ONE ``Engine.admit_monolithic`` dispatch (batched
         exact-length prefill, masked stitch, first-token draw, slot-state
-        merge), read once; returns the requests admitted.  A paged engine
-        maps each candidate's pages first; those that do not fit go back
-        to the queue head in FIFO order."""
+        merge), read once; returns the requests admitted.  With
+        ``only_ineligible`` (an engine with a chunk lane) the run also
+        stops at the first request the chunk lane may admit.  A paged
+        engine maps each candidate's pages first; those that do not fit go
+        back to the queue head in FIFO order."""
         free = [s for s in range(self.n_slots) if self.slots[s] is None]
         take: List[Request] = []
         for r in self.queue:
             if len(take) >= len(free):
+                break
+            if only_ineligible and self.engine.chunk_eligible(
+                    len(self._seq(r))):
                 break
             if take and len(self._seq(r)) != len(self._seq(take[0])):
                 break
@@ -854,7 +872,9 @@ class Scheduler:
         the tokens emitted (0 on a recovered fault: the retry replays next
         round).  An engine that requires monolithic admission admits first
         (:meth:`_admit`), then maps the pages of the round ahead and
-        decodes, with no chunk lane."""
+        decodes, with no chunk lane; on an engine with sliding windows a
+        queue head longer than the window admits monolithically first, and
+        the chunk lane admits after it only if the new head is eligible."""
         now_v = now() if callable(now) else now
         self._expire_deadlines(now_v)
         self._shed_overload(now_v)
@@ -881,6 +901,12 @@ class Scheduler:
                 self._ensure_chunk_pages(now_v)
             lane, plan, fresh, completing, parks = None, {}, [], set(), {}
         else:
+            if self.queue and not self.engine.chunk_eligible(
+                    len(self._seq(self.queue[0]))):
+                # the head's prompt is past the window: admit its
+                # equal-length run first; the chunk lane's admission loop
+                # then stops at a head it may not admit (no skip-ahead)
+                self._admit(now, only_ineligible=True)
             if paged:
                 self._ensure_chunk_pages(now_v)
             lane, plan, fresh, completing, parks = self._assemble_chunk()

@@ -8,7 +8,8 @@ threefry stream gives the same bits on the card as on the CPU; a paged
 round replays under page tables changed since its capture; an int8-KV
 round (four cache leaves a layer) replays as its eager round does, dense
 and paged, and a round after a monolithic admission replays the graph it
-already has; graphs never
+already has; gemma2-2b's rounds past the window (a ring's later writes
+land on the window's oldest keys) replay as their eager rounds; graphs never
 move a workspace, never replay under another kernel variant, and a
 capture that fails raises.  Faults: a NaN poisoning whose round is a new
 key is warmed up, captured and replayed on the poisoned cache, detected and
@@ -25,7 +26,7 @@ import warnings
 import pytest
 import torch
 
-from repro_torch.configs import bitnet_3b, qwen2_7b
+from repro_torch.configs import bitnet_3b, gemma2_2b, qwen2_7b
 from repro_torch.core import prng
 from repro_torch.kernels.lutmul import kernel, ops
 from repro_torch.models import transformer
@@ -166,6 +167,46 @@ def test_replayed_round_equals_eager_round(name, variant, spec):
         assert got_launches == want_launches and sum(want_launches.values())
         s_eager, s_graph = tuple(want[:3]), tuple(got[:3])
     assert eng.graphs.replays == replays + 3
+
+
+def test_ring_round_replays_as_eager_past_the_window():
+    """gemma2-2b at 2 layers, full width (a local layer and a global one),
+    rows past the 4,096-token window: a round's 8 decode iterations write
+    ring slots whose window keys its earlier iterations still read, so the
+    capture's warm-up must leave the rings as it found them.  Two rounds,
+    the first captured, the second replayed: state, packed results and
+    cache bytes equal the eager rounds'."""
+    cfg = dataclasses.replace(gemma2_2b.config(quant="w4a4_lut"),
+                              n_layers=2)
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    eng = make_engine(params, cfg, ServeConfig(quant="w4a4_lut",
+                                               max_len=4352))
+    del params
+    g = torch.Generator(device="cuda").manual_seed(4)
+    cache = eng.init_cache(SLOTS)
+    for c in cache:
+        for v in c.values():
+            v.normal_(generator=g)
+    assert [c["k"].shape[1] for c in cache] == [4096, 4352]
+    tok = torch.randint(0, cfg.vocab, (SLOTS,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    pos = torch.tensor([4100, 4200, 5, 4095, 4096, 300, 4330, 4097],
+                       dtype=torch.int32, device="cuda")
+    done = torch.zeros((SLOTS,), dtype=torch.bool, device="cuda")
+    eos = torch.full((SLOTS,), -1, dtype=torch.int32, device="cuda")
+    c_eager = _copy(cache)
+    s_eager = s_graph = (tok, pos, done)
+    for i in range(2):
+        want, _ = _round(eng, c_eager, None, s_eager, eos, 8, False, True)
+        got, _ = _round(eng, cache, None, s_graph, eos, 8, False, False)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), i
+        for a, b in zip(cache, c_eager):
+            assert torch.equal(_bits(a["k"]), _bits(b["k"])), i
+            assert torch.equal(_bits(a["v"]), _bits(b["v"])), i
+        s_eager, s_graph = tuple(want[:3]), tuple(got[:3])
+    del eng, cache, c_eager
+    torch.cuda.empty_cache()
 
 
 def _knobs(step0: int) -> dict:

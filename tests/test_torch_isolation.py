@@ -43,7 +43,9 @@ def test_port_has_modules():
                 "core/quantization.py", "core/thresholds.py",
                 "core/streamline.py", "kernels/thresholds/ref.py",
                 "kernels/thresholds/kernel.py", "kernels/thresholds/ops.py",
-                "models/mobilenet.py", "configs/mobilenetv2.py"):
+                "models/mobilenet.py", "configs/mobilenetv2.py",
+                "configs/gemma2_2b.py", "configs/phi3_medium_14b.py",
+                "configs/minicpm_2b.py"):
         assert f"src/repro_torch/{mod}" in names, mod
     for src in ("thresholds.cu", "lutmul_gather.cu"):
         assert (ROOT / "src" / "repro_torch" / "csrc" / src).is_file(), src

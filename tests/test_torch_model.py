@@ -359,11 +359,26 @@ def test_default_device_needs_a_gpu(monkeypatch):
 
 
 def test_unported_features_raise():
+    """Soft-caps, sliding windows, gemma norms, the embedding scale and
+    GeGLU are served now (``tests/test_torch_gemma2.py``); these are not."""
     _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="final_softcap"):
-        TT.check_supported(dataclasses.replace(tcfg, final_softcap=30.0))
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        TT.check_supported(dataclasses.replace(tcfg, window=8))
+    local = (tconfigs.BlockSpec(attn_type="local"),)
+    for over, match in (
+            (dict(norm="layernorm"), "norm"),
+            (dict(rope_mode="mrope"), "rope_mode"),
+            (dict(enc_dec=True), "enc_dec"),
+            (dict(split_head_params=True), "split_head_params"),
+            (dict(pattern=(tconfigs.BlockSpec(kind="mamba2"),)),
+             "block kind"),
+            (dict(pattern=(tconfigs.BlockSpec(mlp="gelu"),)), "mlp"),
+            (dict(pattern=local, window=8, kv_quant="int8"),
+             "sliding-window"),
+            (dict(attn_softcap=50.0, kv_quant="int8"), "attn_softcap")):
+        with pytest.raises(NotImplementedError, match=match):
+            TT.check_supported(dataclasses.replace(tcfg, **over))
+    # a window without local layers changes nothing, as in the reference
+    TT.check_supported(dataclasses.replace(tcfg, window=8,
+                                           final_softcap=30.0))
 
 
 def test_quantized_params_serve_same_logits_through_both_walks():

@@ -221,7 +221,7 @@ def test_stitch_matches_reference_in_place(paged, kv_quant):
         table, start = extra
         jextra = (jnp.asarray(table), jnp.zeros((3, 1), jnp.int32),
                   jnp.asarray(start))
-        textra = (torch.from_numpy(table), torch.from_numpy(start))
+        textra = (torch.from_numpy(table), None, torch.from_numpy(start))
     (want,) = je._stitch_impl(jcache, jpart, jnp.asarray(lengths),
                               jnp.asarray(mask), jextra)
     got = te._stitch(tcache, tpart, torch.from_numpy(lengths),
