@@ -21,8 +21,11 @@ Phases (any failure raises and exits non-zero):
    zero-padded to 32).  Shape groups: qwen2-7b's 7 inner projections through
    the LUT kernel, the gather baseline and the T-MAC kernel (target P = 4,
    drafter P = 2, verify M = 32), gemma2-2b's and minicpm-2b's through the
-   LUT kernel, bitnet-3b's through the T-MAC kernel (ternary, g = 1), and
-   the int8 heads of qwen2-7b and bitnet-3b.
+   LUT kernel, bitnet-3b's through the T-MAC kernel (ternary, g = 1), the
+   int8 heads of qwen2-7b and bitnet-3b, and qwen2-moe-a2.7b's experts
+   through the LUT kernel: one expert of each bank shape at M = 1 (decode's
+   capacity at 8 slots) and M = 42 (an admission of 8 rows of 64), and the
+   shared expert's three projections at M = 8.
 3. serving qwen2-7b (28 layers, full width, random weights from a seeded
    generator) through ``make_engine`` + ``Scheduler(slots=8, chunk=8)``:
    w4a4_lut fused (8 requests), unfused (first 4), plain backend (first 1);
@@ -142,6 +145,21 @@ Phases (any failure raises and exits non-zero):
    short request), each equal to the fused run.  Then minicpm-2b (40 layers, full width, tied 122,753-row head) in
    w4a4_lut: fused over the first 4 contract requests, profiled, its head
    timed, and the plain backend over the first (8 new tokens) equal.
+   Then qwen2-moe-a2.7b (24 layers, full width: 60 routed experts top-4
+   under global dispatch, capacity factor 1.25, the shared expert behind
+   its sigmoid gate, qkv bias, the untied 151,936-row head) in w4a4_lut,
+   its served tree built a layer at a time (``init_served_params``):
+   every admission monolithic (one eager prefill a distinct prompt
+   length, the 7 dummy rows routed with the live one), every decode round
+   a replayed graph whose steps route at the deterministic capacity
+   C = 1.  Fused over the 8 requests; the same requests again op by op
+   (equal), counting the routes the capacity keeps in decode and in the
+   admissions (``routes[qwen2moe]``); fused over the first 4 == unfused
+   over the first 4; fused over the first one == the plain backend over it
+   (8 new tokens); one decode step and one replayed round profiled.  Every
+   forward launches the LUT kernel 4 + 3 + 3 * 60 = 187 times a layer
+   (attention, the shared expert, one launch per expert of each bank)
+   and the head kernel once.
 5. the paper's CNN: full-width MobileNetV2 (224x224, width 1.0, 1000
    classes, random weights from seed 0) at batch 32 in float and QAT mode
    (cuDNN, TF32 off), the float logits of the first 4 images held against
@@ -189,6 +207,17 @@ GEMMA_INNER = {"wq": (2304, 2048), "wk": (2304, 1024), "wv": (2304, 1024),
 MINICPM_INNER = {"wq": (2304, 2304), "wk": (2304, 2304), "wv": (2304, 2304),
                  "wo": (2304, 2304), "wi": (2304, 5760), "wg": (2304, 5760),
                  "mlp.wo": (5760, 2304)}
+# qwen2-moe-a2.7b: its 60 experts and one expert's bank shapes (wi, wg,
+# wo), the shared expert's (wi, wg, wo), and expert capacities its path
+# launches at: a decode step's 1, and an admission's at its shortest
+# prompt (8 rows of 8 tokens: int(64 * 4 / 60 * 1.25) = 5) and its
+# longest (8 rows of 64: int(512 * 4 / 60 * 1.25) = 42)
+QWEN2MOE_EXPERTS = 60
+QWEN2MOE_EXPERT = {"wi": (2048, 1408), "wg": (2048, 1408),
+                   "wo": (1408, 2048)}
+QWEN2MOE_SHARED = {"wi": (2048, 5632), "wg": (2048, 5632),
+                   "wo": (5632, 2048)}
+QWEN2MOE_BANK_C = (1, 5, 42)
 QWEN_HEAD = (3584, 152064)
 BITNET_HEAD = (3200, 32000)
 F32_OPS_PER_S = 67e12             # H100 SXM float32 outside the tensor cores
@@ -201,7 +230,8 @@ MB_BATCH = 32
 MB_CHECK = 4                      # images held against the CPU forward
 MB_FLOAT_RTOL = 1e-3              # of max |logit|; see run_mobilenet
 MB_GROUP = "mobilenetv2 34 pointwise stages, batch 32"
-PHASES = ("kernels", "qwen", "bitnet", "gemma2", "minicpm", "mobilenetv2")
+PHASES = ("kernels", "qwen", "bitnet", "gemma2", "minicpm", "qwen2moe",
+          "mobilenetv2")
 # the paged, faults and QoS stages run on qwen2-7b at this depth (full
 # width)
 CUT_LAYERS = 7
@@ -293,6 +323,26 @@ def _time(fn, reps: int, flush) -> float:
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def _library_bmm_ms(a8, w8, want, flush, reps):
+    """The library yardstick of a stack of expert products, held to the
+    plain int32 result ``want``: one float32 cuBLAS batched GEMM of the
+    decoded codes (TF32 is off), exact where |acc| < 2^24 (ATen has no
+    batched int8 GEMM).  Returns (ms, note)."""
+    import torch
+    bound = int(a8.abs().max()) * int(w8.abs().max()) * a8.shape[-1]
+    if bound >= 2 ** 24:
+        raise AssertionError(f"float32 sums are not exact here (|acc| up to "
+                             f"{bound})")
+    af, wf = a8.float(), w8.float()
+    fn = lambda: torch.bmm(af, wf)                          # noqa: E731
+    if not torch.equal(fn().to(torch.int32), want):
+        raise AssertionError("library yardstick (torch.bmm) disagrees with "
+                             "the plain version")
+    return _time(fn, reps, flush), (
+        f"torch.bmm, float32 cuBLAS batched GEMM of the decoded codes, TF32 "
+        f"off, exact (|acc| <= {bound} < 2^24), no epilogue")
 
 
 def _library_ms(a8, w8, want, flush, reps):
@@ -448,14 +498,17 @@ def check_kernels(bench: Bench) -> None:
         return a_s, w_s
 
     # the LUT kernels at M = 8: qwen2-7b's inner projections (and the
-    # gather baseline), gemma2-2b's and minicpm-2b's (each a grid and
-    # K split of its own)
-    M = SLOTS
-    lut_groups = [(KERNELS["lutmul"][2], QWEN_INNER, True),
-                  ("gemma2-2b layer, M=8", GEMMA_INNER, False),
-                  ("minicpm-2b layer, M=8", MINICPM_INNER, False)]
+    # gather baseline), gemma2-2b's, minicpm-2b's and qwen2-moe-a2.7b's
+    # shared expert (each a grid and K split of its own)
+    def at(M, shapes):
+        return [(M, K, N) for K, N in shapes.values()]
+    lut_groups = [(KERNELS["lutmul"][2], at(SLOTS, QWEN_INNER), True),
+                  ("gemma2-2b layer, M=8", at(SLOTS, GEMMA_INNER), False),
+                  ("minicpm-2b layer, M=8", at(SLOTS, MINICPM_INNER), False),
+                  ("qwen2-moe shared expert, M=8", at(SLOTS, QWEN2MOE_SHARED),
+                   False)]
     for group, shapes, gather in lut_groups:
-        for K, N in shapes.values():
+        for M, K, N in shapes:
             a = torch.randint(0, 16, (M, K), generator=gen, device=dev,
                               dtype=torch.uint8)
             w = torch.randint(0, 256, (K // 2, N), generator=gen, device=dev,
@@ -478,6 +531,7 @@ def check_kernels(bench: Bench) -> None:
                                                     out_dtype=torch.bfloat16),
                       lib, M, K, N, extra_in=4 * (M + N), out_bytes=M * N * 2)
             del a, w, a8, w8
+    check_expert_banks(bench, gen)
 
     # the T-MAC kernel: target, drafter and verify of qwen2-7b in
     # w4a4_tmac, and bitnet-3b's ternary_a8_tmac projections
@@ -547,6 +601,51 @@ def check_kernels(bench: Bench) -> None:
                   2.0 * M * K * N)
         del a, w
     torch.cuda.empty_cache()
+
+
+def check_expert_banks(bench: Bench, gen) -> None:
+    """qwen2-moe-a2.7b's expert banks as its MoE path launches them: one
+    ``lutmul_experts`` call on [60, C, K] codes and a [60, K//2, N] bank
+    (60 launches at per-expert offsets), int32 and fused, each held bitwise
+    against its plain version on all 60 experts; a group is one layer's
+    three banks at one capacity C."""
+    import torch
+    from repro_torch.kernels.lutmul import kernel, ref
+    from repro_torch.models import moe
+    dev = torch.device("cuda")
+    E = QWEN2MOE_EXPERTS
+    for C in QWEN2MOE_BANK_C:
+        group = f"qwen2-moe expert banks, E={E} M={C}"
+        for K, N in QWEN2MOE_EXPERT.values():
+            a = torch.randint(0, 16, (E, C, K), generator=gen, device=dev,
+                              dtype=torch.uint8)
+            w = torch.randint(0, 256, (E, K // 2, N), generator=gen,
+                              device=dev, dtype=torch.uint8)
+            a_s = torch.rand((E, C, 1), generator=gen, device=dev) * 0.1 \
+                + 1e-3
+            w_s = torch.rand((E, 1, N), generator=gen, device=dev) * 0.1 \
+                + 1e-3
+            a8 = ref.decode_codes(a).to(torch.int8)
+            bank = {"w_q": w, "w_scale": w_s}
+
+            def plain():
+                return torch.stack([ref.lutmul_ref(a[e], w[e])
+                                    for e in range(E)])
+            lib = _library_bmm_ms(a8, moe._bank_codes(bank), plain(),
+                                  bench.flush, bench.reps)
+            shape = {"E": E, "M": C, "K": K, "N": N}
+            in_bytes = E * (C * K + K * N // 2) + 16 * 4
+            ops = 2.0 * E * C * K * N
+            bench.one("lutmul", group, lambda: kernel.lutmul_experts(a, w),
+                      plain, lib, shape, in_bytes + E * C * N * 4, ops)
+            bench.one("lutmul_fused", group,
+                      lambda: kernel.lutmul_experts(
+                          a, w, a_s, w_s, out_dtype=torch.bfloat16),
+                      lambda: moe.expert_matmul_ref(a8, a_s, bank,
+                                                    torch.bfloat16),
+                      lib, shape, in_bytes + 4 * E * (C + N) + E * C * N * 2,
+                      ops)
+            del a, w, a8, bank
 
 
 # ---------------------------------------------------------------------------
@@ -625,12 +724,26 @@ def _graph_stats(engine, before: tuple, label: str, rounds: int,
     return st
 
 
+def inner_per_forward(cfg) -> int:
+    """The inner kernel's launches in one forward: 7 a dense layer (4
+    attention projections, 3 MLP ones), 4 + 3 * n_experts (+ 3 with a
+    shared expert) a MoE layer: one launch per expert of each bank."""
+    n = 0
+    for i in range(cfg.n_layers):
+        if cfg.pattern[i % len(cfg.pattern)].mlp != "moe":
+            n += 7
+        else:
+            n += 4 + 3 * cfg.moe.n_experts + (3 if cfg.moe.shared_ff else 0)
+    return n
+
+
 def _want_launches(engine, inner: str, fused: bool, forwards: int) -> dict:
-    """The launches ``forwards`` forwards make: 7 a layer of the inner
-    kernel, and one of the int8 head kernel where the model has an untied
-    head (a tied head is a plain matrix product, as in the reference)."""
+    """The launches ``forwards`` forwards make: :func:`inner_per_forward`
+    of the inner kernel, and one of the int8 head kernel where the model
+    has an untied head (a tied head is a plain matrix product, as in the
+    reference)."""
     sfx = "_fused" if fused else ""
-    want = {inner + sfx: 7 * engine.cfg.n_layers * forwards}
+    want = {inner + sfx: inner_per_forward(engine.cfg) * forwards}
     if "lm_head" in engine.params:
         want["int_matmul" + sfx] = forwards
     return want
@@ -1837,19 +1950,18 @@ def depth(cfg, n_layers):
 
 
 def new_engine(cfg, max_len: int, label: str):
-    """Seeded random float weights (seed 0) on the card, quantized to
-    ``cfg.quant`` by ``make_engine``; the float tree is dropped after (a
-    tied embedding stays, as the head reads it).  Logs the init and the
-    peak device memory after it."""
+    """Seeded random weights (seed 0) on the card, each layer quantized to
+    ``cfg.quant`` as it is made (``serve.quantize.init_served_params``: the
+    codes of quantizing ``init_params``' tree, which is never whole on the
+    card; a tied embedding stays float, as the head reads it), served by
+    ``make_engine``.  Logs the init and the peak device memory in it."""
     import torch
-    from repro_torch.models import transformer
     from repro_torch.serve import ServeConfig, make_engine
+    from repro_torch.serve.quantize import init_served_params
     reset_peak(empty=True)
     held_gib = torch.cuda.memory_allocated() / 2**30
     t0 = time.perf_counter()
-    params = transformer.init_params(cfg, seed=0, device="cuda")
-    torch.cuda.synchronize()
-    init_gib = torch.cuda.max_memory_allocated() / 2**30
+    params = init_served_params(cfg, cfg.quant, seed=0, device="cuda")
     engine = make_engine(params, cfg, ServeConfig(
         quant=cfg.quant, max_len=max_len, seed=SAMPLE_SEED))
     del params
@@ -1857,11 +1969,10 @@ def new_engine(cfg, max_len: int, label: str):
     torch.cuda.empty_cache()
     log(f"model: {label} {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.quant}; init + quantize "
-        f"{time.perf_counter() - t0:.1f}s, peak {init_gib:.2f} GiB after "
-        f"the float init ({held_gib:.2f} held before it), "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} "
-        f"GiB with the codes; {torch.cuda.memory_allocated() / 2**30:.2f} "
-        "GiB held")
+        f"{time.perf_counter() - t0:.1f}s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB while the "
+        f"served tree was made ({held_gib:.2f} held before it); "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held")
     return engine
 
 
@@ -2271,6 +2382,91 @@ def run_minicpm(n_layers, profile_steps: int) -> None:
     torch.cuda.empty_cache()
 
 
+def route_shares(engine, V: int, fused: list) -> None:
+    """The contract's 8 requests again, every round op by op
+    (``Engine.step(_eager=True)``), transcripts equal to the replayed
+    graphs' ``fused``; ``moe.route`` wrapped to count the routes each call
+    keeps under the capacity, summed on the card and read once at the end:
+    decode steps (8 rows) and admission prefills (8 rows of P tokens)
+    apart."""
+    import functools
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.serve import Scheduler
+    counts = {"decode": [], "admission": []}
+    routed = dict.fromkeys(counts, 0)
+    route = moe.route
+
+    def counting(p, xf, cfg, C):
+        out = route(p, xf, cfg, C)
+        site = "decode" if xf.shape[1] == SLOTS else "admission"
+        counts[site].append(out[3].sum())
+        routed[site] += out[3].numel()
+        return out
+    reqs = make_requests(V)
+    sched = Scheduler(engine, slots=SLOTS, chunk=8)
+    engine.step = functools.partial(engine.step, _eager=True)
+    moe.route = counting
+    t0 = time.perf_counter()
+    try:
+        sched.run(reqs)
+        torch.cuda.synchronize()
+    finally:
+        moe.route = route
+        del engine.step
+    dt = time.perf_counter() - t0
+    same([list(r.tokens) for r in reqs], fused,
+         "qwen2moe op by op == qwen2moe replayed graphs")
+    if not all(counts.values()):
+        raise AssertionError(f"routes counted: {routed}")
+    out = {"seconds": dt}
+    for site, c in counts.items():
+        kept = int(torch.stack(c).sum())
+        out[site] = {"calls": len(c), "routes": routed[site], "kept": kept,
+                     "kept_share": kept / routed[site]}
+    log(f"routes[qwen2moe]: {json.dumps(out)}")
+
+
+def run_qwen2moe(n_layers, profile_steps: int) -> None:
+    """qwen2-moe-a2.7b at full width in w4a4_lut (the served tree built a
+    layer at a time): fused over the 8 contract requests and again op by
+    op (``route_shares``), fused over the first 4 == unfused over them,
+    fused over the first one == the plain backend (8 new tokens), and a
+    profile.  Capacity couples the rows of a forward, so only runs over
+    the same requests are compared."""
+    import torch
+    from repro_torch.configs import qwen2_moe_a2p7b
+    from repro_torch.kernels.lutmul import ops
+    cfg = depth(qwen2_moe_a2p7b.config(quant="w4a4_lut"), n_layers)
+    V = cfg.vocab
+    engine = new_engine(cfg, 256, "qwen2-moe-a2.7b")
+    ops.set_backend("cuda")
+    ops.set_variant(None)
+    fused = serve(engine, V, "qwen2moe lut fused", 8, "lutmul")
+    route_shares(engine, V, fused)
+    fused4 = serve(engine, V, "qwen2moe lut fused, 4", 4, "lutmul")
+    ops.set_variant("unfused")
+    same(serve(engine, V, "qwen2moe lut unfused", 4, "lutmul", fused=False),
+         fused4, "qwen2moe unfused == qwen2moe fused (4)")
+    ops.set_variant(None)
+
+    def first():
+        reqs = make_requests(V)[:1]
+        reqs[0].max_new_tokens = MINICPM_PLAIN_TOKENS
+        return reqs
+    fused1 = serve(engine, V, "qwen2moe lut fused, 1", 1, "lutmul",
+                   reqs=first())
+    ops.set_backend("ref")
+    same(serve(engine, V, "qwen2moe lut plain", 1, reqs=first()), fused1,
+         "qwen2moe plain == qwen2moe fused (1)")
+    ops.set_backend("cuda")
+    # one call of each: a replayed round is ~36,000 kernels, and the
+    # profiler's trace of four is slow to read
+    profile_engine(engine, "qwen2moe lut", min(profile_steps, 1))
+    del engine
+    torch.cuda.empty_cache()
+
+
 def run_bitnet(n_layers: int, profile_steps: int) -> None:
     import dataclasses
     import torch
@@ -2606,6 +2802,8 @@ def main() -> int:
                        lambda: run_gemma2(args.layers, args.profile)),
                       ("minicpm",
                        lambda: run_minicpm(args.layers, args.profile)),
+                      ("qwen2moe",
+                       lambda: run_qwen2moe(args.layers, args.profile)),
                       ("mobilenetv2", lambda: run_mobilenet(bench))):
         if phase in phases:
             t0 = time.perf_counter()

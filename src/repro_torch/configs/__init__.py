@@ -42,7 +42,7 @@ class ModelConfig:
     gemma_norms: bool = False
     tie_embeddings: bool = False
     embed_scale: bool = False
-    moe: Optional[object] = None
+    moe: Optional[object] = None   # models.moe.MoEConfig
     d_inner: int = 0
     d_state: int = 0
     ssm_heads: int = 0
@@ -78,7 +78,8 @@ class ModelConfig:
 
 ALIASES = {"qwen2-7b": "qwen2_7b", "bitnet-3b": "bitnet_3b",
            "gemma2-2b": "gemma2_2b", "phi3-medium-14b": "phi3_medium_14b",
-           "minicpm-2b": "minicpm_2b", "mobilenetv2": "mobilenetv2"}
+           "minicpm-2b": "minicpm_2b", "qwen2-moe-a2.7b": "qwen2_moe_a2p7b",
+           "mixtral-8x22b": "mixtral_8x22b", "mobilenetv2": "mobilenetv2"}
 
 
 def get_config(arch: str, smoke: bool = False, **kw):

@@ -36,6 +36,12 @@ Bound on the H100 at decode (M = 8): the weight bytes over 3.35 TB/s (the
 CNN stages the LUT kernel's M*N*4 output bytes (the source notes in
 ``csrc/`` say what each design does about its bound).
 
+``lutmul_experts`` and ``int_matmul_experts`` launch the LUT and int8
+kernels once per expert of a MoE bank (``models.moe.expert_matmul``): a
+stack of E operands, expert e's addresses offsets into the stacks, so the
+checks and the output allocation run once for the E launches; each launch
+counts under its entry point's name.
+
 A tensor on the CPU takes the plain version from ``ref.py``; a CUDA tensor
 launches the kernel on the current stream or raises — there is no fallback.
 The wrappers check device, dtype, shape and contiguity, allocate the output
@@ -203,48 +209,54 @@ def _raise_on(code: int, name: str) -> None:
 
 
 def _lut_shapes(a_codes, w_packed) -> tuple[int, int, int]:
-    M, K = a_codes.shape
-    if K % 2 or w_packed.shape[0] * 2 != K:
+    """(M, K, N) of a_codes [.., M, K] and w_packed [.., K//2, N]."""
+    M, K = a_codes.shape[-2:]
+    if K % 2 or w_packed.shape[-2] * 2 != K:
         raise ValueError(
             f"w_packed [K//2, N] = {tuple(w_packed.shape)} does not match "
             f"activation K = {K} (K must be even)")
-    return M, K, w_packed.shape[1]
+    return M, K, w_packed.shape[-1]
+
+
+def _launch(name: str, lib: str, operands: list, M: int, K: int, N: int,
+            epi: int) -> None:
+    """``lib``'s launch entry on ``operands`` (tensors or None), the
+    workspace after them, once for each expert of a stacked call: where
+    the first operand is [E, M, K], launch e takes every 3D operand's
+    e-th slice (its pointer plus e times its leading stride) and every
+    other operand whole.  A 2D call is one launch.  Each launch counts."""
+    dev = operands[0].device
+    E = operands[0].shape[0] if operands[0].dim() == 3 else 1
+    if E == 0 or M == 0 or N == 0:
+        return
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    work = _workspace(lib, M, N, dev, stream).data_ptr()
+    fn = _entry(lib, f"{lib}_launch", _launch_args(len(operands) + 1))
+    bases = [None if t is None else t.data_ptr() for t in operands]
+    steps = [t.stride(0) * t.element_size() if t is not None and t.dim() == 3
+             else 0 for t in operands]
+    for e in range(E):
+        ptrs = [None if b is None else b + e * st
+                for b, st in zip(bases, steps)]
+        _raise_on(fn(*ptrs, work, M, K, N, epi, stream), name)
+        LAUNCHES[name] += 1
 
 
 def _lut_launch(a_codes, w_packed, a_scale, w_scale, out, epi: int,
                 a_signed: bool, name: str) -> None:
     M, K, N = _lut_shapes(a_codes, w_packed)
-    if M == 0 or N == 0:
-        return
-    words = product_words(a_signed, a_codes.device)
-    stream = torch.cuda.current_stream(a_codes.device).cuda_stream
-    work = _workspace("lutmul", M, N, a_codes.device, stream)
-    fn = _entry("lutmul", "lutmul_launch", _launch_args(7))
-    code = fn(a_codes.data_ptr(), w_packed.data_ptr(), words.data_ptr(),
-              a_scale.data_ptr() if a_scale is not None else None,
-              w_scale.data_ptr() if w_scale is not None else None,
-              out.data_ptr(), work.data_ptr(), M, K, N, epi, stream)
-    _raise_on(code, name)
-    LAUNCHES[name] += 1
+    _launch(name, "lutmul",
+            [a_codes, w_packed, product_words(a_signed, a_codes.device),
+             a_scale, w_scale, out], M, K, N, epi)
 
 
 def _int_launch(a, w, a_scale, w_scale, out, epi: int, name: str) -> None:
-    M, K = a.shape
-    if w.shape[0] != K:
+    M, K = a.shape[-2:]
+    if w.shape[-2] != K:
         raise ValueError(f"w [K, N] = {tuple(w.shape)} does not match "
                          f"activation K = {K}")
-    N = w.shape[1]
-    if M == 0 or N == 0:
-        return
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    work = _workspace("int_matmul", M, N, a.device, stream)
-    fn = _entry("int_matmul", "int_matmul_launch", _launch_args(6))
-    code = fn(a.data_ptr(), w.data_ptr(),
-              a_scale.data_ptr() if a_scale is not None else None,
-              w_scale.data_ptr() if w_scale is not None else None,
-              out.data_ptr(), work.data_ptr(), M, K, N, epi, stream)
-    _raise_on(code, name)
-    LAUNCHES[name] += 1
+    _launch(name, "int_matmul", [a, w, a_scale, w_scale, out], M, K,
+            w.shape[-1], epi)
 
 
 def _tmac_shapes(a_q, w_planes) -> tuple[int, int, int, int]:
@@ -418,4 +430,85 @@ def int_matmul_fused(a: torch.Tensor, w: torch.Tensor,
     epi = _out_dtype(out_dtype)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     _int_launch(a, w, a_scale, w_scale, out, epi, "int_matmul_fused")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# one launch per expert of a MoE bank
+# ---------------------------------------------------------------------------
+
+def _expert_stacks(a, w, a_scale, w_scale, kind: str, w_rows: int):
+    """Checks of an expert launch's stacks: a [E, M, K], w [E, w_rows, N],
+    the optional scales [E, M, 1] and [E, 1, N] float32; (E, M, K, N)."""
+    dev = a.device
+    adt = torch.uint8 if kind == "lut" else torch.int8
+    _check("a", a, adt, 3, dev)
+    _check("w", w, adt, 3, dev)
+    E, M, K = a.shape
+    if w.shape[0] != E or w.shape[1] != w_rows:
+        raise ValueError(f"w {tuple(w.shape)} does not match a "
+                         f"{tuple(a.shape)}: expected [{E}, {w_rows}, N]")
+    N = w.shape[2]
+    if a_scale is not None:
+        _check("a_scale", a_scale, torch.float32, 3, dev)
+        _check("w_scale", w_scale, torch.float32, 3, dev)
+        if tuple(a_scale.shape) != (E, M, 1) or \
+                tuple(w_scale.shape) != (E, 1, N):
+            raise ValueError(
+                f"scales must be a_scale [E, M, 1] = [{E}, {M}, 1] and "
+                f"w_scale [E, 1, N] = [{E}, 1, {N}], got "
+                f"{tuple(a_scale.shape)} and {tuple(w_scale.shape)}")
+    return E, M, K, N
+
+
+def _expert_out(a_scale, out_dtype, E, M, N, device):
+    """(output [E, M, N], epilogue code): int32 without scales."""
+    epi = 0 if a_scale is None else _out_dtype(out_dtype)
+    dtype = torch.int32 if a_scale is None else out_dtype
+    return torch.empty((E, M, N), dtype=dtype, device=device), epi
+
+
+def lutmul_experts(a_codes: torch.Tensor, w_packed: torch.Tensor,
+                   a_scale: torch.Tensor | None = None,
+                   w_scale: torch.Tensor | None = None, *,
+                   a_signed: bool = True,
+                   out_dtype=torch.bfloat16) -> torch.Tensor:
+    """The LUT kernel once per expert: a_codes [E, M, K] uint8 4-bit codes,
+    w_packed [E, K//2, N] uint8 -> int32 [E, M, N] (``lutmul``), or with
+    a_scale [E, M, 1] and w_scale [E, 1, N] float32 the fused epilogue in
+    ``out_dtype`` (``lutmul_fused``)."""
+    fused = a_scale is not None
+    if a_codes.device.type == "cpu":
+        return torch.stack([
+            lutmul_fused(a_codes[e], w_packed[e], a_scale[e], w_scale[e],
+                         a_signed=a_signed, out_dtype=out_dtype) if fused
+            else lutmul(a_codes[e], w_packed[e], a_signed=a_signed)
+            for e in range(a_codes.shape[0])])
+    dev = a_codes.device
+    E, M, K, N = _expert_stacks(a_codes, w_packed, a_scale, w_scale, "lut",
+                                a_codes.shape[2] // 2)
+    out, epi = _expert_out(a_scale, out_dtype, E, M, N, dev)
+    _lut_launch(a_codes, w_packed, a_scale, w_scale, out, epi, a_signed,
+                "lutmul_fused" if fused else "lutmul")
+    return out
+
+
+def int_matmul_experts(a: torch.Tensor, w: torch.Tensor,
+                       a_scale: torch.Tensor | None = None,
+                       w_scale: torch.Tensor | None = None, *,
+                       out_dtype=torch.bfloat16) -> torch.Tensor:
+    """The int8 kernel once per expert: a [E, M, K] int8, w [E, K, N] int8
+    -> int32 [E, M, N] (``int_matmul``), or with the scales the fused
+    epilogue in ``out_dtype`` (``int_matmul_fused``)."""
+    fused = a_scale is not None
+    if a.device.type == "cpu":
+        return torch.stack([
+            int_matmul_fused(a[e], w[e], a_scale[e], w_scale[e],
+                             out_dtype=out_dtype) if fused
+            else int_matmul(a[e], w[e]) for e in range(a.shape[0])])
+    dev = a.device
+    E, M, K, N = _expert_stacks(a, w, a_scale, w_scale, "int", a.shape[2])
+    out, epi = _expert_out(a_scale, out_dtype, E, M, N, dev)
+    _int_launch(a, w, a_scale, w_scale, out, epi,
+                "int_matmul_fused" if fused else "int_matmul")
     return out

@@ -8,7 +8,12 @@ pattern position ``j`` (``convert.params_from_jax`` unstacks in that
 order).  Gemma-2's features are here: local (sliding-window) layers beside
 global ones, attention and final logit soft-caps, zero-centered norms with
 post-attention and post-MLP norms, the embedding scaled by
-``sqrt(d_model)`` and the GeGLU MLP.
+``sqrt(d_model)`` and the GeGLU MLP.  A ``mlp="moe"`` block takes the
+Mixture-of-Experts FFN (``models.moe``): ``forward`` sums its aux loss over
+the layers, prefill routes with the capacity of all its tokens, and
+``decode_step`` under global dispatch with the reference's deterministic
+capacity ``max(1, int(B * k / E * cf) + 1)``, so every slot's row, a free
+one's too, routes and competes for it.
 
 The decode cache is a list of per-layer ``{"k", "v"}`` buffers ``[B, T,
 n_kv, head_dim]`` that ``decode_step`` and ``verify_step`` update in
@@ -35,6 +40,7 @@ import torch
 from repro_torch.configs import BlockSpec, ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (init_embedding, init_linear, init_mlp,
                                        init_norm, mlp, rms_norm, softcap)
 
@@ -45,8 +51,13 @@ def check_supported(cfg: ModelConfig) -> None:
     for spec in cfg.pattern:
         if spec.kind != "attn" or spec.shared_attn:
             bad.append(f"block kind {spec.kind!r}")
-        if spec.mlp not in ("swiglu", "geglu"):
+        if spec.mlp not in ("swiglu", "geglu", "moe"):
             bad.append(f"mlp {spec.mlp!r}")
+        if spec.mlp == "moe" and (cfg.moe is None or cfg.moe.dispatch
+                                  not in ("global", "grouped")):
+            bad.append("mlp 'moe' without a global or grouped MoEConfig")
+        if spec.mlp == "moe" and cfg.kv_quant == "int8":
+            bad.append("moe with kv_quant='int8'")
         if is_local(cfg, spec) and cfg.kv_quant == "int8":
             bad.append(
                 "sliding-window attention with kv_quant='int8' (the "
@@ -57,7 +68,6 @@ def check_supported(cfg: ModelConfig) -> None:
         bad.append("attn_softcap with kv_quant='int8'")
     for name, ok in (("rope_mode", cfg.rope_mode == "rope"),
                      ("norm", cfg.norm == "rmsnorm"),
-                     ("moe", cfg.moe is None),
                      ("enc_dec", not cfg.enc_dec),
                      ("kv_quant", cfg.kv_quant in ("none", "int8")),
                      ("split_head_params", not cfg.split_head_params)):
@@ -101,26 +111,41 @@ def _final_softcap(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 # init
 # ---------------------------------------------------------------------------
 
-def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
-    """Random parameters from a seeded ``torch.Generator`` on ``device``."""
+def init_block(gen: torch.Generator, cfg: ModelConfig, spec: BlockSpec,
+               device) -> dict:
+    """One layer's random parameters (the reference's ``_init_block``):
+    norms, attention, and the MLP or the MoE FFN."""
+    kw = dict(dtype=cfg.pdtype, device=device)
+    bp = {"ln1": init_norm(cfg.d_model, **kw),
+          "attn": attn_lib.init_attention(
+              gen, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim,
+              cfg.qkv_bias, **kw)}
+    if cfg.gemma_norms:
+        bp["post_attn_ln"] = init_norm(cfg.d_model, **kw)
+    bp["ln2"] = init_norm(cfg.d_model, **kw)
+    if spec.mlp == "moe":
+        bp["moe"] = moe_lib.init_moe(gen, cfg.d_model, cfg.moe, **kw)
+        return bp
+    bp["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, **kw)
+    if cfg.gemma_norms:
+        bp["post_mlp_ln"] = init_norm(cfg.d_model, **kw)
+    return bp
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None,
+                block_hook=None) -> dict:
+    """Random parameters from a seeded ``torch.Generator`` on ``device``.
+    ``block_hook(i, block)`` replaces layer ``i``'s parameters as soon as
+    they are made (``serve.quantize.init_served_params`` quantizes them
+    there, so the float tree is never whole)."""
     check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    dt = cfg.pdtype
-    kw = dict(dtype=dt, device=dev)
+    kw = dict(dtype=cfg.pdtype, device=dev)
     blocks = []
-    for _ in range(cfg.n_layers):
-        bp = {"ln1": init_norm(cfg.d_model, **kw),
-              "attn": attn_lib.init_attention(
-                  gen, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim,
-                  cfg.qkv_bias, **kw)}
-        if cfg.gemma_norms:
-            bp["post_attn_ln"] = init_norm(cfg.d_model, **kw)
-        bp["ln2"] = init_norm(cfg.d_model, **kw)
-        bp["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, **kw)
-        if cfg.gemma_norms:
-            bp["post_mlp_ln"] = init_norm(cfg.d_model, **kw)
-        blocks.append(bp)
+    for i in range(cfg.n_layers):
+        bp = init_block(gen, cfg, layer_spec(cfg, i), dev)
+        blocks.append(bp if block_hook is None else block_hook(i, bp))
     params = {"embed": init_embedding(gen, cfg.vocab, cfg.d_model, **kw),
               "blocks": blocks,
               "final_norm": init_norm(cfg.d_model, **kw)}
@@ -156,16 +181,22 @@ def _lm_head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _mlp_tail(bp: dict, spec: BlockSpec, cfg: ModelConfig, x: torch.Tensor,
-              norm=None) -> torch.Tensor:
-    """``x`` plus the block's MLP (and gemma's post-MLP norm); ``norm``
-    normalizes (``_norm`` unless given)."""
+              norm=None, capacity=None):
+    """(``x`` plus the block's MLP (and gemma's post-MLP norm) or MoE FFN,
+    the MoE aux loss or None); ``norm`` normalizes (``_norm`` unless
+    given), ``capacity`` is the MoE's deterministic capacity."""
     norm = norm or (lambda p, v: _norm(p, v, cfg))
     h = norm(bp["ln2"], x)
+    if spec.mlp == "moe":
+        y, aux = moe_lib.moe_ffn(bp["moe"], h, cfg.moe, quant=cfg.quant,
+                                 compute_dtype=cfg.cdtype,
+                                 deterministic_capacity=capacity)
+        return x + y, aux
     y = mlp(bp["mlp"], h, quant=cfg.quant, compute_dtype=cfg.cdtype,
             kind=spec.mlp)
     if cfg.gemma_norms:
         y = norm(bp["post_mlp_ln"], y)
-    return x + y
+    return x + y, None
 
 
 def _block(bp: dict, spec: BlockSpec, cfg: ModelConfig, x: torch.Tensor,
@@ -179,8 +210,8 @@ def _block(bp: dict, spec: BlockSpec, cfg: ModelConfig, x: torch.Tensor,
         quant=cfg.quant, compute_dtype=cd, return_kv=True)
     if cfg.gemma_norms:
         y = _norm(bp["post_attn_ln"], y, cfg)
-    x = _mlp_tail(bp, spec, cfg, x + y)
-    return x, {"k": k.to(cd), "v": v.to(cd)}
+    x, aux = _mlp_tail(bp, spec, cfg, x + y)
+    return x, {"k": k.to(cd), "v": v.to(cd)}, aux
 
 
 def _positions(B: int, S: int, device) -> torch.Tensor:
@@ -190,16 +221,20 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 
 def forward(params: dict, cfg: ModelConfig,
             tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward: (logits [B, S, V] compute dtype, aux 0.0)."""
+    """Full-sequence forward: (logits [B, S, V] compute dtype, aux float32:
+    the MoE layers' aux losses summed, 0.0 without any)."""
     check_supported(cfg)
     B, S = tokens.shape
     x = _embed(params, cfg, tokens)
     positions = _positions(B, S, x.device)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, bp in enumerate(params["blocks"]):
-        x, _ = _block(bp, layer_spec(cfg, i), cfg, x, positions)
+        x, _, aux = _block(bp, layer_spec(cfg, i), cfg, x, positions)
+        if aux is not None:
+            total = total + aux
     x = _norm(params["final_norm"], x, cfg)
     logits = _final_softcap(_lm_head(params, cfg, x.to(cfg.cdtype)), cfg)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, total
 
 
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -221,7 +256,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     positions = _positions(B, S, x.device)
     cache = []
     for i, bp in enumerate(params["blocks"]):
-        x, c = _block(bp, layer_spec(cfg, i), cfg, x, positions)
+        x, c, _ = _block(bp, layer_spec(cfg, i), cfg, x, positions)
         cache.append(c)
     x = _norm(params["final_norm"], x, cfg)
     if length is None:
@@ -329,6 +364,8 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     x = _embed(params, cfg, token)[:, None, :]                   # [B, 1, d]
     kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
               rope_theta=cfg.rope_theta, quant=cfg.quant, compute_dtype=cd)
+    cap = (None if cfg.moe is None
+           else moe_lib.decode_capacity(cfg.moe, x.shape[0]))
     for i, (bp, c) in enumerate(zip(params["blocks"], cache)):
         spec = layer_spec(cfg, i)
         local = is_local(cfg, spec)
@@ -347,7 +384,7 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
                 rolling=rolling, table=table, **kw)
         if cfg.gemma_norms:
             y = _norm(bp["post_attn_ln"], y, cfg)
-        x = _mlp_tail(bp, spec, cfg, x + y)
+        x, _ = _mlp_tail(bp, spec, cfg, x + y, capacity=cap)
     x = _norm(params["final_norm"], x, cfg)
     logits = _lm_head(params, cfg, x[:, 0].to(cd)).to(torch.float32)
     return _final_softcap(logits, cfg), cache
@@ -373,10 +410,11 @@ def verify_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     once at M = B*S; norms, rope and attention run per position.
     ``tables``: as in :func:`decode_step`.  An int8 cache or a local
     (sliding-window) layer raises, as the reference's does: speculation
-    needs full-length caches built a token at a time."""
+    needs full-length caches built a token at a time (MoE blocks raise too:
+    routing couples the tokens of a forward)."""
     check_supported(cfg)
     for spec, c in zip(cfg.pattern, cache):
-        if is_local(cfg, spec) or "k_scale" in c:
+        if is_local(cfg, spec) or "k_scale" in c or spec.mlp == "moe":
             raise ValueError(
                 f"verify_step cannot run block spec {spec} (kv_quant="
                 f"{cfg.kv_quant!r}): speculative decoding supports plain "
@@ -393,7 +431,7 @@ def verify_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             quant=cfg.quant, compute_dtype=cd, table=table)
         if cfg.gemma_norms:
             y = rows(bp["post_attn_ln"], y)
-        x = _mlp_tail(bp, layer_spec(cfg, i), cfg, x + y, norm=rows)
+        x, _ = _mlp_tail(bp, layer_spec(cfg, i), cfg, x + y, norm=rows)
     x = rows(params["final_norm"], x)
     logits = _lm_head(params, cfg, x.to(cd)).to(torch.float32)
     return _final_softcap(logits, cfg), cache

@@ -455,10 +455,13 @@ class Engine:
         """True when prompt state cannot be built one token at a time and
         the Scheduler admits through :meth:`admit_monolithic`: an int8 KV
         cache, whose codes the reference quantizes from the batched
-        prefill's K/V (the other cases of the reference — recurrent
-        layers, MoE routing, enc-dec — are model families the port does
-        not run yet)."""
-        return self.cfg.kv_quant == "int8"
+        prefill's K/V, and MoE routing, whose capacity (and under grouped
+        dispatch the groups) depend on the whole batched prompt, so a chunk
+        lane would keep and drop other routes than the prefill the oracle
+        runs (the reference's other cases, recurrent layers and enc-dec,
+        are model families the port does not run yet)."""
+        return self.cfg.kv_quant == "int8" or any(
+            spec.mlp == "moe" for spec in self.cfg.pattern)
 
     @property
     def chunk_window_limit(self) -> Optional[int]:

@@ -66,7 +66,7 @@ import time
 import torch
 
 from repro_torch.kernels.lutmul import kernel, ops
-from repro_torch.models import transformer
+from repro_torch.models import moe, transformer
 
 
 class _Round:
@@ -204,10 +204,13 @@ class RoundGraphs:
 
     def _reserve(self, eng, batch: int, device) -> dict:
         """The workspaces of a batch size: the rows of a decode step (and
-        of a verify forward) times every leaf width of the engine."""
+        of a verify forward, and a MoE decode step's expert capacity)
+        times every leaf width of the engine."""
         ws = self._workspaces.get(batch)
         if ws is None:
             rows = {batch}
+            if eng.cfg.moe is not None:
+                rows.add(moe.decode_rows(eng.cfg.moe, batch))
             if eng.scfg.spec_decode:
                 rows.add(batch * (eng.scfg.draft_k + 1))
             ws = kernel.reserve_workspaces(

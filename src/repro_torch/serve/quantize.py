@@ -13,7 +13,12 @@ or, for the T-MAC bitplane family (w1/w2/w3/w4/ternary weights)::
      "w_tern": uint8 [0]}          # present iff ternary (P = 2 is ambiguous)
 
 Inner projections take the mode's codes; the untied lm_head is always w8a8
-(the paper's first/last-layer rule).  ``draft_params_view`` is the
+(the paper's first/last-layer rule).  MoE expert banks (``['moe']['wi' |
+'wg' | 'wo']``, [E, K, N]) become stacks of the legacy format, ``w_q``
+[E, K//2, N] nibbles (or [E, K, N] int8) and ``w_scale`` [E, 1, N]: a tmac
+mode is coerced to ``w4a4_mxu`` (``w8a8`` at a8), since
+``models.moe.expert_matmul`` consumes nibble or int8 stacks; the router and
+the shared expert's gate stay float.  ``draft_params_view`` is the
 self-speculative drafter: the top planes of every draftable bitplane leaf.
 """
 from __future__ import annotations
@@ -28,6 +33,7 @@ from repro_torch.kernels.lutmul import ops as lut_ops
 # projection leaves eligible for low-bit quantization (trailing ['w'])
 _INNER_W = re.compile(
     r"\['(wq|wk|wv|wo|wi|wg|wr|in_proj|out_proj)'\]\['w'\]$")
+_MOE_W = re.compile(r"\['moe'\]\['w[igo]'\]$")
 _HEAD_W = re.compile(r"\['lm_head'\]\['w'\]$")
 
 
@@ -62,15 +68,27 @@ def quantize_leaf_mode(w: torch.Tensor, mode: str) -> dict:
     return leaf
 
 
-def quantize_params_for_serving(params, mode: str = "w4a4_mxu"):
+def legacy_mode(mode: str) -> str:
+    """The mode of a MoE expert bank: ``mode`` itself where it stores
+    nibbles or int8, else (tmac family) ``w4a4_mxu``, or ``w8a8`` at a8."""
+    form, _, abits = lut_ops.parse_mode(mode)
+    if form in ("int", "onehot"):
+        return mode
+    return "w8a8" if abits >= 8 else "w4a4_mxu"
+
+
+def quantize_params_for_serving(params, mode: str = "w4a4_mxu",
+                                path: str = ""):
     """Replace eligible projection weights with integer codes + scales
     (through ``models.layers.QuantizedLinear``: quantize + pack once).
 
     mode: w4a4_lut | w4a4_mxu -> int4 inner, int8 head; w8a8 -> int8 all;
     tmac family (``w{1,2,3,4}a{4,8}[_tmac]``, ``ternary_a{4,8}[_tmac]``) ->
-    bitplane leaves, int8 head.
+    bitplane leaves, int8 head; MoE expert banks in :func:`legacy_mode`.
     Walk paths are the reference's ``"['blocks'][i]['attn']['wq']['w']"``
-    strings, so the same rules pick the same leaves.
+    strings, so the same rules pick the same leaves; ``path`` is the
+    subtree's own (``"['blocks'][3]"`` for one layer's parameters).  Leaves
+    that are codes already stay as they are.
     """
     from repro_torch.models.layers import QuantizedLinear
 
@@ -85,6 +103,8 @@ def quantize_params_for_serving(params, mode: str = "w4a4_mxu"):
                 if isinstance(v, dict) and "w" in v and _INNER_W.search(
                         sub + "['w']") and v["w"].dim() >= 2:
                     out[k] = codes(v, mode)
+                elif _MOE_W.search(sub) and not isinstance(v, dict):
+                    out[k] = codes({"w": v}, legacy_mode(mode))
                 elif isinstance(v, dict) and "w" in v and _HEAD_W.search(
                         sub + "['w']"):
                     out[k] = codes(v, "w8a8")     # paper: last layer 8-bit
@@ -96,7 +116,19 @@ def quantize_params_for_serving(params, mode: str = "w4a4_mxu"):
                               for i, v in enumerate(tree))
         return tree
 
-    return walk(params)
+    return walk(params, path)
+
+
+def init_served_params(cfg, mode: str, seed: int = 0, device=None) -> dict:
+    """``quantize_params_for_serving(transformer.init_params(cfg, seed,
+    device), mode)``, bit for bit, with each layer quantized as soon as it
+    is made: the device holds the served tree plus one float layer (and the
+    float head until the end), never the whole float tree."""
+    from repro_torch.models import transformer
+    params = transformer.init_params(
+        cfg, seed, device, block_hook=lambda i, bp:
+        quantize_params_for_serving(bp, mode, path=f"['blocks'][{i}]"))
+    return quantize_params_for_serving(params, mode)
 
 
 def _draftable(leaf, draft_planes: int) -> bool:

@@ -946,3 +946,56 @@ def test_cuda_mobilenet_forward_matches_cpu(cuda_device):
     err = float((got.cpu() - want).abs().max())
     assert err <= 1e-4 * float(want.abs().max())
     assert bool(torch.isfinite(qat).all()) and qat.shape == (4, 10)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [1, 42])
+@pytest.mark.parametrize("K,N", [(2048, 1408), (1408, 2048)])
+@pytest.mark.parametrize("variant", ["fused", "unfused"])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_cuda_expert_matmul_matches_plain(cuda_device, bits, K, N, C,
+                                          variant):
+    """qwen2-moe-a2.7b's expert banks (60 experts) at decode's capacity
+    (C = 1) and an admission's (C = 42), nibble banks through the LUT
+    kernel and int8 banks (w8a8) through the int8 kernel, one launch per
+    expert: bf16 outputs bitwise equal to the plain version on the card,
+    and the quantizer's codes and scales equal to the CPU's."""
+    from repro_torch.models import moe
+    from repro_torch.serve.quantize import quantize_leaf
+    g = torch.Generator().manual_seed(C + K + bits)
+    bank = quantize_leaf(torch.randn((60, K, N), generator=g)
+                         .to(cuda_device), bits)
+    a = (torch.randn((60, C, K), generator=g) * 2).to(cuda_device,
+                                                       torch.bfloat16)
+    kernel.reset_launches()
+    ops.set_variant(variant)
+    try:
+        got = moe.expert_matmul(a, bank, torch.bfloat16, backend="cuda")
+    finally:
+        ops.set_variant(None)
+    name = ("lutmul" if bits == 4 else "int_matmul") + (
+        "_fused" if variant == "fused" else "")
+    assert kernel.LAUNCHES[name] == 60
+    assert sum(kernel.LAUNCHES.values()) == 60
+    want = moe.expert_matmul(a, bank, torch.bfloat16, backend="ref")
+    assert got.dtype == torch.bfloat16 and got.shape == (60, C, N)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    qmax = 7 if bits == 4 else 127
+    q_gpu, s_gpu = moe.quantize_experts(a, qmax)
+    q_cpu, s_cpu = moe.quantize_experts(a.cpu(), qmax)
+    assert torch.equal(q_gpu.cpu(), q_cpu)
+    assert torch.equal(s_gpu.cpu().view(torch.int32), s_cpu.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_cuda_expert_wrappers_reject_bad_stacks(cuda_device):
+    a = torch.zeros((3, 2, 64), dtype=torch.uint8, device=cuda_device)
+    w = torch.zeros((3, 32, 16), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError, match="does not match"):
+        kernel.lutmul_experts(a, w[:2].contiguous())
+    with pytest.raises(ValueError, match="scales"):
+        kernel.lutmul_experts(
+            a, w, torch.ones((3, 2, 1), device=cuda_device),
+            torch.ones((3, 1, 8), device=cuda_device))
+    with pytest.raises(TypeError):
+        kernel.int_matmul_experts(a, w)

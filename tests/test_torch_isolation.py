@@ -45,7 +45,8 @@ def test_port_has_modules():
                 "kernels/thresholds/kernel.py", "kernels/thresholds/ops.py",
                 "models/mobilenet.py", "configs/mobilenetv2.py",
                 "configs/gemma2_2b.py", "configs/phi3_medium_14b.py",
-                "configs/minicpm_2b.py"):
+                "configs/minicpm_2b.py", "models/moe.py",
+                "configs/qwen2_moe_a2p7b.py", "configs/mixtral_8x22b.py"):
         assert f"src/repro_torch/{mod}" in names, mod
     for src in ("thresholds.cu", "lutmul_gather.cu"):
         assert (ROOT / "src" / "repro_torch" / "csrc" / src).is_file(), src
