@@ -22,26 +22,29 @@ Phases (any failure raises and exits non-zero):
    the LUT kernel, the gather baseline and the T-MAC kernel (target P = 4,
    drafter P = 2, verify M = 32), gemma2-2b's and minicpm-2b's through the
    LUT kernel, bitnet-3b's through the T-MAC kernel (ternary, g = 1), the
-   int8 heads of qwen2-7b and bitnet-3b, and qwen2-moe-a2.7b's experts
-   through the LUT kernel: one expert of each bank shape at M = 1 (decode's
-   capacity at 8 slots) and M = 42 (an admission of 8 rows of 64), and the
-   shared expert's three projections at M = 8.
+   int8 heads of qwen2-7b, bitnet-3b, rwkv6-1.6b and zamba2-2.7b,
+   qwen2-moe-a2.7b's experts through the LUT kernel: one expert of each
+   bank shape at M = 1 (decode's capacity at 8 slots) and M = 42 (an
+   admission of 8 rows of 64), and the shared expert's three projections
+   at M = 8; zamba2-2.7b's mamba layer (in_proj's 10,448 columns end in a
+   ragged tile) and shared block, and rwkv6-1.6b's layer through the LUT
+   kernel.
 3. serving qwen2-7b (28 layers, full width, random weights from a seeded
    generator) through ``make_engine`` + ``Scheduler(slots=8, chunk=8)``:
-   w4a4_lut fused (8 requests), unfused (first 4), plain backend (first 1);
-   then the SAME float weights quantized to w4a4_tmac: fused (8, transcripts
-   equal to the LUT run's: w4 bitplanes decode to the nibble codes), unfused
-   (4), plain (1), bitplane self-speculative decoding on the same codes (8,
-   equal to the plain tmac run's), and speculation after zeroing the low two
-   planes in place (4; every draft accepted).  Then the sampled mix
-   (``SAMPLED_MIX``: per-request temperature / top-k / top-p, greedy rows
-   among them, ``ServeConfig(seed=SAMPLE_SEED)``) on the same engines: lut
-   fused over the 8 prompts (its greedy rows equal the all-greedy run, a
-   sampled row leaves it), then over the first 4: lut fused, unfused and
-   tmac fused, all equal, and over the first one: lut fused and plain,
-   equal; speculative on the first one (the
-   plain backend's speculative rounds take ~1.7 s each), the graph equal
-   to the plain backend, its accept rate printed.  A sampled transcript
+   w4a4_lut fused (8 requests); then the SAME float weights quantized to
+   w4a4_tmac: fused (8, transcripts equal to the LUT run's: w4 bitplanes
+   decode to the nibble codes), unfused (4), bitplane self-speculative
+   decoding on the same codes (8, equal to the fused tmac run's), and
+   speculation after zeroing the low two planes in place (4; every draft
+   accepted).  Then the sampled mix (``SAMPLED_MIX``: per-request
+   temperature / top-k / top-p, greedy rows among them,
+   ``ServeConfig(seed=SAMPLE_SEED)``) on the same engines: lut fused over
+   the 8 prompts (its greedy rows equal the all-greedy run, a sampled row
+   leaves it), then over the first 4: lut fused and tmac fused, equal.
+   The lut unfused runs (4, greedy and sampled), the plain lut runs (1,
+   greedy and sampled), the plain tmac run (1) and speculative sampling
+   over one request (graph == plain backend, its accept rate printed) run
+   on the ``CUT_LAYERS`` model below.  A sampled transcript
    depends on the batch's global draw counter, so only runs over the same
    requests are compared.  On the kernel backend every
    round is a replayed CUDA graph, one captured per round key
@@ -87,9 +90,13 @@ Phases (any failure raises and exits non-zero):
    tokens equal to the bf16 run's; ``int8 round[qwen lut]:`` a replayed
    int8 decode round's device ms against the bf16 round's from one state.
    The paged stage above (but its 28-layer run), the faults stage and the
-   QoS stage below run on a qwen2-7b of full width and ``CUT_LAYERS`` (7) layers, seed-0 weights
-   of its own, after the tmac runs, with that depth's lut fused (8), the
-   sampled mix (4) and int8 KV (8) as the transcripts they equal.
+   QoS stage below run on a qwen2-7b of full width and ``CUT_LAYERS`` (7)
+   layers, seed-0 weights of its own, after the tmac runs, with that
+   depth's lut fused (8), the sampled mix (4) and int8 KV (8) as the
+   transcripts they equal; before them, at that depth, lut unfused (4,
+   greedy and sampled), plain (1, greedy and sampled), and on w4a4_tmac
+   codes of the same float weights fused == plain (1) and speculative
+   sampled graph == plain (1).
    Then faults and recovery (``FAULT_CASES``) on fresh engines over the
    same lut codes, each through ``Scheduler(slots=8, chunk=8,
    snapshot_interval=1, max_retries=3)`` over the first 4 requests, first
@@ -159,7 +166,21 @@ Phases (any failure raises and exits non-zero):
    (8 new tokens); one decode step and one replayed round profiled.  Every
    forward launches the LUT kernel 4 + 3 + 3 * 60 = 187 times a layer
    (attention, the shared expert, one launch per expert of each bank)
-   and the head kernel once.
+   and the head kernel once.  Then the recurrent families at full width
+   and depth in w4a4_lut (``run_recurrent``), every admission monolithic
+   at the prompt's exact length: rwkv6-1.6b (24 layers: RWKV6 time and
+   channel mix, layer norms, the untied 65,536-row head; 8 LUT launches a
+   layer) and zamba2-2.7b (54 Mamba2 layers, the shared attention + SwiGLU
+   block before every sixth; 2 LUT launches a mamba layer, 7 a shared
+   block; the untied 32,000-row head).  Each: fused over the 8 requests;
+   the first replay of a newly captured round against the op-by-op round
+   from one admitted state, tokens and every cache leaf bitwise
+   (``first replay[...]``: the warm-up must leave the recurrent state as
+   it found it); unfused over the first 4 and the plain backend over the
+   first one (8 new tokens), equal to the fused run; zamba2 also one
+   sampled request fused == plain backend, and paged (shared K/V in pages
+   of 4, mamba state dense per slot) over the first 4 == dense; one
+   decode step and one replayed round profiled.
 5. the paper's CNN: full-width MobileNetV2 (224x224, width 1.0, 1000
    classes, random weights from seed 0) at batch 32 in float and QAT mode
    (cuDNN, TF32 off), the float logits of the first 4 images held against
@@ -175,8 +196,9 @@ Phases (any failure raises and exits non-zero):
 6. the script's total time, the ``kernels`` JSON line, the ``nvidia-smi``
    line, and last the ``{"ok": true, ...}`` line.
 
-Options cut the run for debugging (``--layers`` cuts both LMs' depth,
+Options cut the run for debugging (``--layers`` cuts every LM's depth,
 ``--reps``, ``--profile``, ``--phases``); the contract run takes none.
+Every log line begins with the seconds since the script started.
 """
 from __future__ import annotations
 
@@ -218,8 +240,21 @@ QWEN2MOE_EXPERT = {"wi": (2048, 1408), "wg": (2048, 1408),
 QWEN2MOE_SHARED = {"wi": (2048, 5632), "wg": (2048, 5632),
                    "wo": (5632, 2048)}
 QWEN2MOE_BANK_C = (1, 5, 42)
+# zamba2-2.7b: a mamba layer's in_proj (N = 2 * 5120 + 2 * 64 + 80 =
+# 10,448, not a multiple of the kernel's column tile) and out_proj; the
+# shared block's attention and SwiGLU.  rwkv6-1.6b: a layer's time mix (r,
+# k, v, g, o) and channel mix (r, k, v)
+ZAMBA2_MAMBA = {"in_proj": (2560, 10448), "out_proj": (5120, 2560)}
+ZAMBA2_SHARED = {"wq": (2560, 2560), "wk": (2560, 2560), "wv": (2560, 2560),
+                 "wo": (2560, 2560), "wi": (2560, 10240), "wg": (2560, 10240),
+                 "mlp.wo": (10240, 2560)}
+RWKV6_INNER = {"wr": (2048, 2048), "wk": (2048, 2048), "wv": (2048, 2048),
+               "wg": (2048, 2048), "wo": (2048, 2048), "cm.wr": (2048, 2048),
+               "cm.wk": (2048, 7168), "cm.wv": (7168, 2048)}
 QWEN_HEAD = (3584, 152064)
 BITNET_HEAD = (3200, 32000)
+RWKV6_HEAD = (2048, 65536)
+ZAMBA2_HEAD = (2560, 32000)
 F32_OPS_PER_S = 67e12             # H100 SXM float32 outside the tensor cores
 SAMPLE_SEED = 1234
 # per-request (temperature, top_k, top_p) of the sampled mix, by prompt:
@@ -231,7 +266,7 @@ MB_CHECK = 4                      # images held against the CPU forward
 MB_FLOAT_RTOL = 1e-3              # of max |logit|; see run_mobilenet
 MB_GROUP = "mobilenetv2 34 pointwise stages, batch 32"
 PHASES = ("kernels", "qwen", "bitnet", "gemma2", "minicpm", "qwen2moe",
-          "mobilenetv2")
+          "rwkv6", "zamba2", "mobilenetv2")
 # the paged, faults and QoS stages run on qwen2-7b at this depth (full
 # width)
 CUT_LAYERS = 7
@@ -268,17 +303,22 @@ KERNELS = {
                   MB_GROUP),
 }
 # the run whose launch count each entry point reports
-MAIN_RUN = {"lutmul_fused": "qwen lut fused", "lutmul": "qwen lut unfused",
+MAIN_RUN = {"lutmul_fused": "qwen lut fused",
+            "lutmul": f"qwen{CUT_LAYERS} lut unfused",
             "int_matmul_fused": "qwen lut fused",
-            "int_matmul": "qwen lut unfused",
+            "int_matmul": f"qwen{CUT_LAYERS} lut unfused",
             "lutmul_tmac_fused": "qwen tmac spec",
             "lutmul_tmac": "qwen tmac unfused",
             "lutmul_gather": "mobilenetv2 gather pass",
             "threshold": "mobilenetv2 integer pass"}
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A line of the run's log, after the seconds since the script began."""
+    print(f"[{time.perf_counter() - T_START:7.1f}s] {msg}", flush=True)
 
 
 def smi_line(query: str = "name,power.limit") -> str:
@@ -506,7 +546,12 @@ def check_kernels(bench: Bench) -> None:
                   ("gemma2-2b layer, M=8", at(SLOTS, GEMMA_INNER), False),
                   ("minicpm-2b layer, M=8", at(SLOTS, MINICPM_INNER), False),
                   ("qwen2-moe shared expert, M=8", at(SLOTS, QWEN2MOE_SHARED),
-                   False)]
+                   False),
+                  ("zamba2-2.7b mamba layer, M=8", at(SLOTS, ZAMBA2_MAMBA),
+                   False),
+                  ("zamba2-2.7b shared block, M=8", at(SLOTS, ZAMBA2_SHARED),
+                   False),
+                  ("rwkv6-1.6b layer, M=8", at(SLOTS, RWKV6_INNER), False)]
     for group, shapes, gather in lut_groups:
         for M, K, N in shapes:
             a = torch.randint(0, 16, (M, K), generator=gen, device=dev,
@@ -577,11 +622,14 @@ def check_kernels(bench: Bench) -> None:
                       2.0 * M * K * N)
             del a, planes, w8
 
-    # the int8 heads: qwen2-7b at M = 8 and at M = 32 (verify), bitnet-3b
+    # the int8 heads: qwen2-7b at M = 8 and at M = 32 (verify), bitnet-3b,
+    # rwkv6-1.6b and zamba2-2.7b
     for group, (K, N), M in (("qwen2-7b head, M=8", QWEN_HEAD, SLOTS),
                              ("qwen2-7b verify head, M=32", QWEN_HEAD,
                               VERIFY_M),
-                             ("bitnet-3b head, M=8", BITNET_HEAD, SLOTS)):
+                             ("bitnet-3b head, M=8", BITNET_HEAD, SLOTS),
+                             ("rwkv6-1.6b head, M=8", RWKV6_HEAD, SLOTS),
+                             ("zamba2-2.7b head, M=8", ZAMBA2_HEAD, SLOTS)):
         a = torch.randint(-128, 128, (M, K), generator=gen, device=dev,
                           dtype=torch.int8)
         w = torch.randint(-128, 128, (K, N), generator=gen, device=dev,
@@ -725,15 +773,21 @@ def _graph_stats(engine, before: tuple, label: str, rounds: int,
 
 
 def inner_per_forward(cfg) -> int:
-    """The inner kernel's launches in one forward: 7 a dense layer (4
-    attention projections, 3 MLP ones), 4 + 3 * n_experts (+ 3 with a
-    shared expert) a MoE layer: one launch per expert of each bank."""
+    """The inner kernel's launches in one forward, by layer: 4 attention
+    projections, 2 a Mamba2 mixer (in_proj, out_proj), 5 an RWKV6 time mix
+    (r, k, v, g, o); then 3 an MLP or an RWKV6 channel mix, 3 * n_experts
+    (+ 3 with a shared expert) a MoE FFN (one launch per expert of each
+    bank), none without; and 7 where the shared block runs first
+    (zamba2)."""
     n = 0
     for i in range(cfg.n_layers):
-        if cfg.pattern[i % len(cfg.pattern)].mlp != "moe":
-            n += 7
-        else:
-            n += 4 + 3 * cfg.moe.n_experts + (3 if cfg.moe.shared_ff else 0)
+        spec = cfg.pattern[i % len(cfg.pattern)]
+        n += {"attn": 4, "mamba2": 2, "rwkv6": 5}[spec.kind]
+        n += 7 if spec.shared_attn else 0
+        if spec.mlp == "moe":
+            n += 3 * cfg.moe.n_experts + (3 if cfg.moe.shared_ff else 0)
+        elif spec.mlp != "none":
+            n += 3
     return n
 
 
@@ -1045,6 +1099,14 @@ def profile(label: str, fn, steps: int, forwards: int = 1,
     PROFILES[label] = out
 
 
+def round_calls(steps: int) -> int:
+    """Calls a replayed round's profile reads: half of ``steps`` (rounded
+    up).  A round is 8 forwards (a speculative one 4) of tens of thousands
+    of kernels whose device time is steady from call to call; reading the
+    profiler's trace of each takes seconds."""
+    return (steps + 1) // 2
+
+
 def profile_engine(engine, label: str, steps: int,
                    detail: bool = False, pos0: int = 16) -> None:
     """At 8 slots, positions pos0..pos0 + 7, op by op: a full-batch decode
@@ -1075,7 +1137,7 @@ def profile_engine(engine, label: str, steps: int,
     kind = "speculative" if spec else "decode"
     profile(f"{label} {kind} round, replayed",
             lambda: engine.step(cache, None, tok, pos, done, eos, 8,
-                                spec=spec), steps,
+                                spec=spec), round_calls(steps),
             forwards=engine.scfg.draft_k + 1 if spec else 8)
     del cache
 
@@ -1116,8 +1178,8 @@ def profile_sampling(engine, label: str, steps: int) -> None:
         "sampled": lambda: engine.step(cache, None, tok, pos, done, eos, 8,
                                        **knobs)}
     for kind, fn in rounds.items():
-        profile(f"{label} {kind} decode round, replayed", fn, steps,
-                forwards=8)
+        profile(f"{label} {kind} decode round, replayed", fn,
+                round_calls(steps), forwards=8)
     wall = {kind: [] for kind in rounds}
     for _ in range(3):
         for kind, fn in rounds.items():
@@ -1203,7 +1265,7 @@ def profile_paged_round(dense, paged, steps: int) -> None:
                 eng.pool.ensure(s, 40)
         label = f"qwen lut {kind} decode round, replayed"
         profile(label, lambda: eng.step(cache, None, tok, pos, done, eos, 8),
-                steps, forwards=8)
+                round_calls(steps), forwards=8)
         dev[kind] = PROFILES[label]["device_ms_per_call"]
         del cache
     log(f"paged round[qwen lut]: device ms per replayed 8-iteration round "
@@ -1317,7 +1379,7 @@ def profile_int8_round(bf16, int8, steps: int) -> None:
         cache = eng.init_cache(SLOTS)
         label = f"qwen lut {kind} KV decode round, replayed"
         profile(label, lambda: eng.step(cache, None, tok, pos, done, eos, 8),
-                steps, forwards=8)
+                round_calls(steps), forwards=8)
         dev[kind] = PROFILES[label]["device_ms_per_call"]
         del cache
     INT8["round_device_ms"] = dev
@@ -1845,23 +1907,7 @@ def run_qwen(n_layers: int, profile_steps: int) -> None:
     profile_sampling(engine, "qwen lut", profile_steps)
     lut_s = serve(engine, V, "qwen lut fused sampled, 4", 4, "lutmul",
                   sampled=True)
-    ops.set_variant("unfused")
-    same(serve(engine, V, "qwen lut unfused", 4, "lutmul", fused=False),
-         lut, "lut unfused == lut fused")
-    same(serve(engine, V, "qwen lut unfused sampled", 4, "lutmul",
-               fused=False, sampled=True), lut_s,
-         "lut unfused sampled == lut fused sampled")
-    ops.set_variant(None)
-    # a sampled transcript depends on the batch: the plain backend's
-    # sampled request is held against a fused run of the same one
-    lut_s1 = serve(engine, V, "qwen lut fused sampled, 1", 1, "lutmul",
-                   sampled=True)
-    ops.set_backend("ref")
-    same(serve(engine, V, "qwen lut plain", 1), lut,
-         "lut plain == lut fused")
-    same(serve(engine, V, "qwen lut plain sampled", 1, sampled=True), lut_s1,
-         "lut plain sampled == lut fused sampled")
-    ops.set_backend("cuda")
+    # the unfused and plain lut runs are at CUT_LAYERS (run_cut_depth)
     lut8 = run_int8_lut(engine, cfg, V, lut, profile_steps)
     del engine
 
@@ -1889,10 +1935,6 @@ def run_qwen(n_layers: int, profile_steps: int) -> None:
     same(serve(engine, V, "qwen tmac unfused", 4, "lutmul_tmac",
                fused=False), tmac, "tmac unfused == tmac fused")
     ops.set_variant(None)
-    ops.set_backend("ref")
-    same(serve(engine, V, "qwen tmac plain", 1), tmac,
-         "tmac plain == tmac fused")
-    ops.set_backend("cuda")
 
     # bitplane self-speculative decoding on the same codes
     spec = make_engine(engine.params, tcfg, ServeConfig(
@@ -1904,19 +1946,6 @@ def run_qwen(n_layers: int, profile_steps: int) -> None:
     if RUNS["qwen tmac spec"]["spec_rounds"] < 1:
         raise AssertionError("the spec run made no speculative round")
     profile_engine(spec, "qwen tmac", profile_steps)
-    # speculation at temperature > 0: drafts and verify columns draw their
-    # own keys, so the accept rate is reported, not asserted
-    spec_s = serve(spec, V, "qwen tmac spec sampled", 1, "lutmul_tmac",
-                   sampled=True)
-    st = RUNS["qwen tmac spec sampled"]
-    if st["spec_rounds"] < 1:
-        raise AssertionError("the sampled spec run made no speculative round")
-    log(f"tmac spec sampled: accept rate {st['accept_rate']} "
-        f"({st['spec_accepted']} of {st['spec_drafted']} drafts)")
-    ops.set_backend("ref")
-    same(serve(spec, V, "qwen tmac spec sampled plain", 1, sampled=True),
-         spec_s, "tmac spec sampled plain == tmac spec sampled graph")
-    ops.set_backend("cuda")
     # speculation on the paged cache: rejected blocks trimmed
     pspec = make_engine(engine.params, tcfg, dataclasses.replace(
         spec.scfg, paged=True, page_size=4))
@@ -1977,10 +2006,14 @@ def new_engine(cfg, max_len: int, label: str):
 
 
 def run_cut_depth(n_layers, profile_steps: int) -> None:
-    """The paged, faults and QoS stages (``run_paged_lut``, ``run_faults``,
-    ``run_qos``) on qwen2-7b at full width and ``CUT_LAYERS`` layers
-    (fewer under ``--layers``), with their own runs to equal: lut fused
-    over the 8 requests, the sampled mix over 4, int8 KV over 8."""
+    """qwen2-7b at full width and ``CUT_LAYERS`` layers (fewer under
+    ``--layers``): lut fused over the 8 requests, the sampled mix over 4,
+    int8 KV over 8; the lut unfused runs (4, greedy and sampled) and the
+    plain lut runs (1, greedy and sampled) against them; w4a4_tmac codes of
+    the same float weights (``init_served_params``) fused and plain over
+    one request, and speculative sampled over one request, graph and plain;
+    then the paged, faults and QoS stages (``run_paged_lut``,
+    ``run_faults``, ``run_qos``)."""
     import dataclasses
     from repro_torch.configs import qwen2_7b
     from repro_torch.kernels.lutmul import ops
@@ -1989,20 +2022,74 @@ def run_cut_depth(n_layers, profile_steps: int) -> None:
     cfg = dataclasses.replace(qwen2_7b.config(quant="w4a4_lut"),
                               n_layers=layers)
     V = cfg.vocab
+    q = f"qwen{layers}"
     engine = new_engine(cfg, 256, "qwen2-7b (paged, faults and QoS stages)")
     ops.set_backend("cuda")
     ops.set_variant(None)
-    lut = serve(engine, V, f"qwen{layers} lut fused", 8, "lutmul")
-    lut_s = serve(engine, V, f"qwen{layers} lut fused sampled, 4", 4,
+    lut = serve(engine, V, f"{q} lut fused", 8, "lutmul")
+    lut_s = serve(engine, V, f"{q} lut fused sampled, 4", 4,
                   "lutmul", sampled=True)
     e8 = make_engine(engine.params, dataclasses.replace(
         cfg, kv_quant="int8"), ServeConfig(max_len=256, seed=SAMPLE_SEED))
-    lut8 = serve(e8, V, f"qwen{layers} lut fused int8", 8, "lutmul")
+    lut8 = serve(e8, V, f"{q} lut fused int8", 8, "lutmul")
     del e8
+    ops.set_variant("unfused")
+    same(serve(engine, V, f"{q} lut unfused", 4, "lutmul", fused=False),
+         lut, f"{q} lut unfused == {q} lut fused")
+    same(serve(engine, V, f"{q} lut unfused sampled", 4, "lutmul",
+               fused=False, sampled=True), lut_s,
+         f"{q} lut unfused sampled == {q} lut fused sampled")
+    ops.set_variant(None)
+    # a sampled transcript depends on the batch: the plain backend's
+    # sampled request is held against a fused run of the same one
+    lut_s1 = serve(engine, V, f"{q} lut fused sampled, 1", 1, "lutmul",
+                   sampled=True)
+    ops.set_backend("ref")
+    same(serve(engine, V, f"{q} lut plain", 1), lut,
+         f"{q} lut plain == {q} lut fused")
+    same(serve(engine, V, f"{q} lut plain sampled", 1, sampled=True), lut_s1,
+         f"{q} lut plain sampled == {q} lut fused sampled")
+    ops.set_backend("cuda")
+    run_cut_tmac(cfg, V, q)
     run_paged_lut(engine, cfg, V, lut, lut_s, profile_steps)
     run_faults(engine, cfg, V, lut, lut_s, lut8)
     run_qos(engine, cfg, V, lut, lut_s, lut8)
     paged_summary([k for k in RUNS if "paged" in RUNS[k]])
+
+
+def run_cut_tmac(cfg, V: int, q: str) -> None:
+    """w4a4_tmac bitplanes of the cut model's float weights (seed 0, made a
+    layer at a time): fused and the plain backend over one request; then
+    bitplane self-speculative decoding at temperature > 0 over one request,
+    graph and plain (drafts and verify columns draw their own keys, so the
+    accept rate is reported, not asserted)."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels.lutmul import ops
+    from repro_torch.serve import ServeConfig, make_engine
+    tmac = new_engine(dataclasses.replace(cfg, quant="w4a4_tmac"), 256,
+                      "qwen2-7b (cut, w4a4_tmac)")
+    fused = serve(tmac, V, f"{q} tmac fused, 1", 1, "lutmul_tmac")
+    ops.set_backend("ref")
+    same(serve(tmac, V, f"{q} tmac plain", 1), fused,
+         f"{q} tmac plain == {q} tmac fused")
+    ops.set_backend("cuda")
+    spec = make_engine(tmac.params, tmac.cfg, ServeConfig(
+        max_len=256, spec_decode=True, draft_planes=2, draft_k=3,
+        seed=SAMPLE_SEED))
+    label = f"{q} tmac spec sampled"
+    spec_s = serve(spec, V, label, 1, "lutmul_tmac", sampled=True)
+    st = RUNS[label]
+    if st["spec_rounds"] < 1:
+        raise AssertionError("the sampled spec run made no speculative round")
+    log(f"tmac spec sampled: accept rate {st['accept_rate']} "
+        f"({st['spec_accepted']} of {st['spec_drafted']} drafts)")
+    ops.set_backend("ref")
+    same(serve(spec, V, f"{label} plain", 1, sampled=True), spec_s,
+         f"{label} plain == {label} graph")
+    ops.set_backend("cuda")
+    del spec, tmac
+    torch.cuda.empty_cache()
 
 
 def gemma_requests(vocab: int) -> list:
@@ -2467,6 +2554,113 @@ def run_qwen2moe(n_layers, profile_steps: int) -> None:
     torch.cuda.empty_cache()
 
 
+def check_first_replay(engine, V: int, label: str) -> None:
+    """From one state (8 equal-length prompts admitted by
+    ``admit_monolithic``), an 8-iteration round op by op and the first
+    replay of a key captured for this cache (its warm-up round ran just
+    before) give the same tokens, packed results and cache bits: the
+    capture puts back the recurrent state its warm-up advanced."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer
+    cache = engine.init_cache(SLOTS)
+    dev = engine.device
+    prompts = np.random.default_rng(5).integers(0, V, (SLOTS, 16))
+    eos = torch.full((SLOTS,), -1, dtype=torch.int32, device=dev)
+    zeros = torch.zeros((SLOTS,), dtype=torch.int32, device=dev)
+    _, tok, pos, done, _ = engine.admit_monolithic(
+        cache, prompts, np.full(SLOTS, 16), np.ones(SLOTS, bool),
+        np.zeros(SLOTS, bool), eos, zeros, zeros.clone(),
+        torch.zeros((SLOTS,), dtype=torch.bool, device=dev))
+    leaves = [t for c in cache for t in c.values()]
+    start = [t.clone() for t in leaves]
+    results = {}
+    for mode in ("op by op", "first replay"):
+        for t, s0 in zip(leaves, start):
+            t.copy_(s0)
+        keys = len(engine.graphs.rounds)
+        out = engine.step(cache, None, tok.clone(), pos.clone(),
+                          done.clone(), eos, 8, _eager=mode == "op by op")
+        torch.cuda.synchronize()
+        if mode == "first replay" and len(engine.graphs.rounds) != keys + 1:
+            raise AssertionError(f"{label}: the replayed round captured no "
+                                 "key of its own")
+        results[mode] = [t.clone() for t in out[1:]] + [
+            t.clone() for t in leaves]
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    for i, (a, b) in enumerate(zip(*results.values())):
+        if not torch.equal(a.view(bits.get(a.dtype, a.dtype)),
+                           b.view(bits.get(b.dtype, b.dtype))):
+            raise AssertionError(f"{label}: the first replayed round differs "
+                                 f"from the op-by-op round at output {i}")
+    log(f"first replay[{label}]: the op-by-op round and the first replay "
+        f"of a new key are bitwise equal ({len(leaves)} cache leaves, "
+        f"{transformer.state_bytes(engine.cfg, SLOTS) / 2**20:.1f} MiB of "
+        "recurrent state)")
+    del cache, leaves, start, results
+
+
+def run_recurrent(arch: str, n_layers, profile_steps: int) -> None:
+    """rwkv6-1.6b or zamba2-2.7b at full width in w4a4_lut (the served
+    tree built a layer at a time), every admission monolithic at the
+    prompt's exact length: fused over the 8 contract requests; the first
+    replayed round against the op-by-op round from one state
+    (``check_first_replay``); unfused over the first 4 and the plain
+    backend over the first one (8 new tokens), each equal to the fused
+    run; zamba2 also a sampled request fused == plain backend, and paged
+    (shared-attention K/V in pages of 4, mamba state dense) over the first
+    4 == dense; one decode step (every device row listed) and one replayed
+    round profiled."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.lutmul import ops
+    from repro_torch.models import transformer
+    from repro_torch.serve import ServeConfig, make_engine
+    name = arch.split("-")[0]
+    cfg = depth(get_config(arch, quant="w4a4_lut"), n_layers)
+    V = cfg.vocab
+    engine = new_engine(cfg, 256, arch)
+    log(f"{name} state: {transformer.state_bytes(cfg, SLOTS)} B of "
+        f"recurrent state and {engine.kv_cache_bytes(SLOTS)} B of K/V at "
+        f"{SLOTS} slots, max_len 256; {inner_per_forward(cfg)} LUT launches "
+        "a forward")
+    ops.set_backend("cuda")
+    ops.set_variant(None)
+    fused = serve(engine, V, f"{name} lut fused", 8, "lutmul")
+    check_first_replay(engine, V, name)
+    ops.set_variant("unfused")
+    same(serve(engine, V, f"{name} lut unfused", 4, "lutmul", fused=False),
+         fused, f"{name} unfused == {name} fused")
+    ops.set_variant(None)
+
+    def first(sampled=False):
+        reqs = make_requests(V, sampled=sampled)[:1]
+        reqs[0].max_new_tokens = MINICPM_PLAIN_TOKENS
+        return reqs
+    ops.set_backend("ref")
+    same(serve(engine, V, f"{name} lut plain", 1, reqs=first()),
+         [fused[0][:MINICPM_PLAIN_TOKENS]], f"{name} plain == {name} fused")
+    ops.set_backend("cuda")
+    if cfg.family == "hybrid":
+        sampled = serve(engine, V, f"{name} lut fused sampled, 1", 1,
+                        "lutmul", reqs=first(sampled=True))
+        ops.set_backend("ref")
+        same(serve(engine, V, f"{name} lut plain sampled", 1,
+                   reqs=first(sampled=True)), sampled,
+             f"{name} plain sampled == {name} fused sampled")
+        ops.set_backend("cuda")
+        paged = make_engine(engine.params, cfg, ServeConfig(
+            max_len=256, seed=SAMPLE_SEED, paged=True, page_size=4))
+        same(serve(paged, V, f"{name} lut fused paged", 4, "lutmul"), fused,
+             f"{name} paged == {name} dense")
+        del paged
+    # one call of each: a replayed round is tens of thousands of kernels;
+    # the decode step lists every device row (the scan's ATen ops)
+    profile_engine(engine, f"{name} lut", min(profile_steps, 1), detail=True)
+    del engine
+    torch.cuda.empty_cache()
+
+
 def run_bitnet(n_layers: int, profile_steps: int) -> None:
     import dataclasses
     import torch
@@ -2755,7 +2949,8 @@ def main() -> int:
     p.add_argument("--reps", type=int, default=50,
                    help="timed launches per kernel and shape")
     p.add_argument("--profile", type=int, default=4, metavar="STEPS",
-                   help="calls profiled per forward kind (0: none)")
+                   help="calls profiled per forward kind, half of them "
+                        "(rounded up) for a replayed round (0: none)")
     p.add_argument("--phases", default=",".join(PHASES),
                    help="comma-separated subset of " + ",".join(PHASES))
     args = p.parse_args()
@@ -2804,6 +2999,10 @@ def main() -> int:
                        lambda: run_minicpm(args.layers, args.profile)),
                       ("qwen2moe",
                        lambda: run_qwen2moe(args.layers, args.profile)),
+                      ("rwkv6", lambda: run_recurrent(
+                          "rwkv6-1.6b", args.layers, args.profile)),
+                      ("zamba2", lambda: run_recurrent(
+                          "zamba2-2.7b", args.layers, args.profile)),
                       ("mobilenetv2", lambda: run_mobilenet(bench))):
         if phase in phases:
             t0 = time.perf_counter()

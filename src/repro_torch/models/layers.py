@@ -1,6 +1,7 @@
 """Layer primitives (port of ``repro.models.layers``): quantizable linears,
-RMS norm (plain or gemma's zero-centered scale), rotary embeddings, the
-SwiGLU and GeGLU MLPs, gemma-2's logit soft-cap and the weight-code cache.
+RMS norm (plain or gemma's zero-centered scale), layer norm, rotary
+embeddings, the SwiGLU and GeGLU MLPs, gemma-2's logit soft-cap and the
+weight-code cache.
 
 Parameters are plain dicts of tensors in the reference layout: a linear is
 ``{"w": [d_in, d_out]}`` (``x @ w``) with an optional ``"b"``, or its
@@ -96,6 +97,18 @@ def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-6,
     if zero_centered:          # gemma-style (1 + scale)
         scale = 1.0 + scale
     return (xf * scale).to(x.dtype)
+
+
+def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in float32 with the population variance, times ``scale``
+    plus the optional ``bias``, in x's dtype."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    out = (xf - mu) * torch.rsqrt(var + eps) * p["scale"].to(torch.float32)
+    if "bias" in p:
+        out = out + p["bias"].to(torch.float32)
+    return out.to(x.dtype)
 
 
 _FREQS: dict[tuple, torch.Tensor] = {}

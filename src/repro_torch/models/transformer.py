@@ -1,5 +1,5 @@
-"""Dense decoder LM (port of ``repro.models.transformer``, attention
-blocks): ``embed -> layers -> final_norm -> lm_head``.
+"""Decoder LM (port of ``repro.models.transformer``): ``embed -> layers
+-> final_norm -> lm_head``.
 
 Layers are a per-layer list (``params["blocks"][i]``), not the reference's
 ``[G, ...]`` stacks; layer ``i`` takes the block spec ``cfg.pattern[i %
@@ -13,7 +13,12 @@ Mixture-of-Experts FFN (``models.moe``): ``forward`` sums its aux loss over
 the layers, prefill routes with the capacity of all its tokens, and
 ``decode_step`` under global dispatch with the reference's deterministic
 capacity ``max(1, int(B * k / E * cf) + 1)``, so every slot's row, a free
-one's too, routes and competes for it.
+one's too, routes and competes for it.  The recurrent families
+(``models.ssm``): a ``kind="mamba2"`` layer mixes with Mamba2's SSD, a
+``kind="rwkv6"`` layer with RWKV6's time mix, ``mlp="rwkv_cm"`` is RWKV6's
+channel mix and ``mlp="none"`` leaves the FFN out; ``norm="layernorm"``
+takes the layer norm; a ``shared_attn`` layer first runs the one shared
+block (zamba2: attention and a SwiGLU, ``params["shared_attn"]``).
 
 The decode cache is a list of per-layer ``{"k", "v"}`` buffers ``[B, T,
 n_kv, head_dim]`` that ``decode_step`` and ``verify_step`` update in
@@ -29,29 +34,37 @@ holds int8 ``k``/``v`` codes with float32 per-token-per-head
 ``k_scale``/``v_scale`` leaves (dense rows or page pools alike), which
 ``decode_step`` reads through ``attention.decode_attention_int8``; prefill
 still returns the float K/V, which serving quantizes as it stitches them
-into the live cache.
+into the live cache.  A recurrent layer's entry is its state
+(``STATE_KEYS``: Mamba2's ``h`` and ``conv``, RWKV6's ``S``, ``xt`` and
+``xc``), [B, ...] with no sequence axis, dense per slot even in a paged
+cache, overwritten in place at every decode step; a ``shared_attn``
+layer adds the shared block's ``shared_k``/``shared_v``, full length (or
+pages of the full table).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs import BlockSpec, ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (init_embedding, init_linear, init_mlp,
-                                       init_norm, mlp, rms_norm, softcap)
+                                       init_norm, layer_norm, mlp, rms_norm,
+                                       softcap)
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for configuration features the port does not serve yet."""
     bad = []
     for spec in cfg.pattern:
-        if spec.kind != "attn" or spec.shared_attn:
+        if spec.kind not in ("attn", "mamba2", "rwkv6"):
             bad.append(f"block kind {spec.kind!r}")
-        if spec.mlp not in ("swiglu", "geglu", "moe"):
+        if spec.mlp not in ("swiglu", "geglu", "moe", "rwkv_cm", "none"):
             bad.append(f"mlp {spec.mlp!r}")
         if spec.mlp == "moe" and (cfg.moe is None or cfg.moe.dispatch
                                   not in ("global", "grouped")):
@@ -64,10 +77,17 @@ def check_supported(cfg: ModelConfig) -> None:
                 "reference keeps the local layers' ring caches in float "
                 "under an int8 cache; the port's int8 cache holds "
                 "full-length layers only)")
+        if (spec.kind != "attn" or spec.shared_attn) \
+                and cfg.kv_quant == "int8":
+            bad.append(
+                "recurrent or shared-attention blocks with kv_quant='int8' "
+                "(the reference keeps their caches in float)")
     if cfg.attn_softcap and cfg.kv_quant == "int8":
         bad.append("attn_softcap with kv_quant='int8'")
-    for name, ok in (("rope_mode", cfg.rope_mode == "rope"),
-                     ("norm", cfg.norm == "rmsnorm"),
+    # rope_mode "none" is served where no layer attends (rwkv6)
+    for name, ok in (("rope_mode", cfg.rope_mode == "rope"
+                      or (cfg.rope_mode == "none" and not has_attention(cfg))),
+                     ("norm", cfg.norm in ("rmsnorm", "layernorm")),
                      ("enc_dec", not cfg.enc_dec),
                      ("kv_quant", cfg.kv_quant in ("none", "int8")),
                      ("split_head_params", not cfg.split_head_params)):
@@ -76,6 +96,12 @@ def check_supported(cfg: ModelConfig) -> None:
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: not ported yet: {', '.join(sorted(set(bad)))}")
+
+
+def has_attention(cfg: ModelConfig) -> bool:
+    """Does any layer attend (an attention block or the shared block)?"""
+    return any(spec.kind == "attn" or spec.shared_attn
+               for spec in cfg.pattern)
 
 
 def layer_spec(cfg: ModelConfig, i: int) -> BlockSpec:
@@ -99,6 +125,8 @@ def _window(cfg: ModelConfig, spec: BlockSpec):
 
 
 def _norm(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.norm == "layernorm":
+        return layer_norm(p, x)
     return rms_norm(p, x, zero_centered=cfg.gemma_norms)
 
 
@@ -114,21 +142,34 @@ def _final_softcap(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def init_block(gen: torch.Generator, cfg: ModelConfig, spec: BlockSpec,
                device) -> dict:
     """One layer's random parameters (the reference's ``_init_block``):
-    norms, attention, and the MLP or the MoE FFN."""
+    norms, the attention, Mamba2 or RWKV6 time mix, and the MLP, MoE FFN or
+    RWKV6 channel mix (none with ``mlp="none"``)."""
     kw = dict(dtype=cfg.pdtype, device=device)
-    bp = {"ln1": init_norm(cfg.d_model, **kw),
-          "attn": attn_lib.init_attention(
-              gen, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim,
-              cfg.qkv_bias, **kw)}
-    if cfg.gemma_norms:
-        bp["post_attn_ln"] = init_norm(cfg.d_model, **kw)
+    bp = {"ln1": init_norm(cfg.d_model, **kw)}
+    if spec.kind == "attn":
+        bp["attn"] = attn_lib.init_attention(
+            gen, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim,
+            cfg.qkv_bias, **kw)
+        if cfg.gemma_norms:
+            bp["post_attn_ln"] = init_norm(cfg.d_model, **kw)
+    elif spec.kind == "mamba2":
+        bp["mamba"] = ssm_lib.init_mamba2(gen, cfg.d_model, cfg.d_inner,
+                                          cfg.d_state, cfg.ssm_heads, **kw)
+    else:
+        bp["tmix"] = ssm_lib.init_rwkv6(gen, cfg.d_model, cfg.rwkv_heads,
+                                        **kw)
+    if spec.mlp == "none":
+        return bp
     bp["ln2"] = init_norm(cfg.d_model, **kw)
     if spec.mlp == "moe":
         bp["moe"] = moe_lib.init_moe(gen, cfg.d_model, cfg.moe, **kw)
-        return bp
-    bp["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, **kw)
-    if cfg.gemma_norms:
-        bp["post_mlp_ln"] = init_norm(cfg.d_model, **kw)
+    elif spec.mlp == "rwkv_cm":
+        bp["cmix"] = ssm_lib.init_rwkv6_chanmix(gen, cfg.d_model, cfg.d_ff,
+                                                **kw)
+    else:
+        bp["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, **kw)
+        if cfg.gemma_norms:
+            bp["post_mlp_ln"] = init_norm(cfg.d_model, **kw)
     return bp
 
 
@@ -137,7 +178,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
     """Random parameters from a seeded ``torch.Generator`` on ``device``.
     ``block_hook(i, block)`` replaces layer ``i``'s parameters as soon as
     they are made (``serve.quantize.init_served_params`` quantizes them
-    there, so the float tree is never whole)."""
+    there, so the float tree is never whole).  A pattern with
+    ``shared_attn`` adds the one shared block (zamba2: attention and a
+    SwiGLU MLP, each behind its own norm)."""
     check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -151,6 +194,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
               "final_norm": init_norm(cfg.d_model, **kw)}
     if not cfg.tie_embeddings:
         params["lm_head"] = init_linear(gen, cfg.d_model, cfg.vocab, **kw)
+    if any(spec.shared_attn for spec in cfg.pattern):
+        params["shared_attn"] = {
+            "ln": init_norm(cfg.d_model, **kw),
+            "attn": attn_lib.init_attention(
+                gen, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim,
+                cfg.qkv_bias, **kw),
+            "mlp_ln": init_norm(cfg.d_model, **kw),
+            "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, **kw)}
     return params
 
 
@@ -184,7 +235,10 @@ def _mlp_tail(bp: dict, spec: BlockSpec, cfg: ModelConfig, x: torch.Tensor,
               norm=None, capacity=None):
     """(``x`` plus the block's MLP (and gemma's post-MLP norm) or MoE FFN,
     the MoE aux loss or None); ``norm`` normalizes (``_norm`` unless
-    given), ``capacity`` is the MoE's deterministic capacity."""
+    given), ``capacity`` is the MoE's deterministic capacity.  A block with
+    ``mlp="none"`` adds nothing."""
+    if spec.mlp == "none":
+        return x, None
     norm = norm or (lambda p, v: _norm(p, v, cfg))
     h = norm(bp["ln2"], x)
     if spec.mlp == "moe":
@@ -199,19 +253,61 @@ def _mlp_tail(bp: dict, spec: BlockSpec, cfg: ModelConfig, x: torch.Tensor,
     return x + y, None
 
 
+def _shared_mlp(shared: dict, cfg: ModelConfig, x: torch.Tensor):
+    """The shared block's tail: ``x`` plus its SwiGLU behind ``mlp_ln``."""
+    h = _norm(shared["mlp_ln"], x, cfg)
+    return x + mlp(shared["mlp"], h, quant=cfg.quant,
+                   compute_dtype=cfg.cdtype)
+
+
 def _block(bp: dict, spec: BlockSpec, cfg: ModelConfig, x: torch.Tensor,
-           positions: torch.Tensor):
+           positions: torch.Tensor, shared=None):
+    """One layer over a full sequence: (x, the layer's decode-cache entry,
+    the MoE aux or None).  The entry holds the attention K/V of the S
+    positions, or the recurrent state after them (Mamba2 ``h`` and
+    ``conv``; RWKV6 ``S``, ``xt`` and with the channel mix ``xc``), and on
+    a ``shared_attn`` layer the shared block's ``shared_k``/``shared_v``
+    (the shared block runs first, as the reference's)."""
     cd = cfg.cdtype
+    kw = dict(quant=cfg.quant, compute_dtype=cd)
+    cache = {}
+    if spec.shared_attn and shared is not None:
+        h = _norm(shared["ln"], x, cfg)
+        y, (sk, sv) = attn_lib.attention(
+            shared["attn"], h, positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
+            head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+            return_kv=True, **kw)
+        x = _shared_mlp(shared, cfg, x + y)
+        cache["shared_k"], cache["shared_v"] = sk.to(cd), sv.to(cd)
     h = _norm(bp["ln1"], x, cfg)
-    y, (k, v) = attn_lib.attention(
-        bp["attn"], h, positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
-        head_dim=cfg.head_dim, window=_window(cfg, spec),
-        logit_softcap=cfg.attn_softcap, rope_theta=cfg.rope_theta,
-        quant=cfg.quant, compute_dtype=cd, return_kv=True)
-    if cfg.gemma_norms:
-        y = _norm(bp["post_attn_ln"], y, cfg)
-    x, aux = _mlp_tail(bp, spec, cfg, x + y)
-    return x, {"k": k.to(cd), "v": v.to(cd)}, aux
+    if spec.kind == "attn":
+        y, (k, v) = attn_lib.attention(
+            bp["attn"], h, positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
+            head_dim=cfg.head_dim, window=_window(cfg, spec),
+            logit_softcap=cfg.attn_softcap, rope_theta=cfg.rope_theta,
+            return_kv=True, **kw)
+        if cfg.gemma_norms:
+            y = _norm(bp["post_attn_ln"], y, cfg)
+        cache["k"], cache["v"] = k.to(cd), v.to(cd)
+    elif spec.kind == "mamba2":
+        y, st = ssm_lib.mamba2(bp["mamba"], h, d_inner=cfg.d_inner,
+                               d_state=cfg.d_state, n_heads=cfg.ssm_heads,
+                               return_state=True, **kw)
+        cache["h"], cache["conv"] = st.h, st.conv.to(cd)
+    else:
+        y, (S, xlast) = ssm_lib.rwkv6_timemix(
+            bp["tmix"], h, n_heads=cfg.rwkv_heads, chunk=cfg.rwkv_chunk,
+            return_state=True, **kw)
+        cache["S"], cache["xt"] = S, xlast.to(cd)
+    x = x + y
+    if spec.mlp == "rwkv_cm":
+        h = _norm(bp["ln2"], x, cfg)
+        h_prev = F.pad(h, (0, 0, 1, 0))[:, :-1]
+        cache["xc"] = h[:, -1:].to(cd)
+        return x + ssm_lib.rwkv6_chanmix(bp["cmix"], h, h_prev, **kw), \
+            cache, None
+    x, aux = _mlp_tail(bp, spec, cfg, x)
+    return x, cache, aux
 
 
 def _positions(B: int, S: int, device) -> torch.Tensor:
@@ -228,8 +324,9 @@ def forward(params: dict, cfg: ModelConfig,
     x = _embed(params, cfg, tokens)
     positions = _positions(B, S, x.device)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
+    shared = params.get("shared_attn")
     for i, bp in enumerate(params["blocks"]):
-        x, _, aux = _block(bp, layer_spec(cfg, i), cfg, x, positions)
+        x, _, aux = _block(bp, layer_spec(cfg, i), cfg, x, positions, shared)
         if aux is not None:
             total = total + aux
     x = _norm(params["final_norm"], x, cfg)
@@ -240,8 +337,9 @@ def forward(params: dict, cfg: ModelConfig,
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             length=None):
     """Forward that also returns the decode cache: (logits [B, V] float32
-    at the last position, per-layer float {"k", "v"} of length S).  Local
-    layers' K/V are full length too, as the reference's ``full_kv=True``:
+    at the last position, per-layer entries of :func:`_block`: float K/V of
+    length S, or the recurrent state after the S tokens).  Local layers'
+    K/V are full length too, as the reference's ``full_kv=True``:
     serving arranges the ring from the true prompt length
     (``engine._ring_from_full``), the static-batch oracle with
     :func:`_roll_local`.
@@ -249,14 +347,17 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     ``length`` ([B] or scalar int) takes each row's logits at ``length -
     1`` (clipped into [0, S - 1]) instead: right-padded rows and the dummy
     rows of a batched admission (pad tokens sit after the prompt, so the
-    causal mask keeps them out of every real token)."""
+    causal mask keeps them out of every real token).  A recurrent state
+    integrates every token it is given, pads too: serving prefills those
+    models at the prompts' exact length."""
     check_supported(cfg)
     B, S = tokens.shape
     x = _embed(params, cfg, tokens)
     positions = _positions(B, S, x.device)
     cache = []
+    shared = params.get("shared_attn")
     for i, bp in enumerate(params["blocks"]):
-        x, c, _ = _block(bp, layer_spec(cfg, i), cfg, x, positions)
+        x, c, _ = _block(bp, layer_spec(cfg, i), cfg, x, positions, shared)
         cache.append(c)
     x = _norm(params["final_norm"], x, cfg)
     if length is None:
@@ -286,10 +387,14 @@ def _roll_local(k: torch.Tensor, S: int, W: int) -> torch.Tensor:
 # decode
 # ---------------------------------------------------------------------------
 
+STATE_KEYS = ("h", "conv", "S", "xt", "xc")     # recurrent leaves
+SHARED_KEYS = ("shared_k", "shared_v")
+
+
 def _kv_leaves(cfg: ModelConfig, rows: tuple) -> dict:
-    """One layer's decode-cache leaves over the leading shape ``rows``:
-    (shape tail, dtype) by name — float ``k``/``v``, or int8 codes and
-    float32 per-head scales under ``kv_quant == "int8"``."""
+    """An attention layer's decode-cache leaves over the leading shape
+    ``rows``: (shape tail, dtype) by name — float ``k``/``v``, or int8
+    codes and float32 per-head scales under ``kv_quant == "int8"``."""
     kv = (cfg.n_kv, cfg.head_dim)
     if cfg.kv_quant == "int8":
         return {"k": (rows + kv, torch.int8), "v": (rows + kv, torch.int8),
@@ -298,93 +403,193 @@ def _kv_leaves(cfg: ModelConfig, rows: tuple) -> dict:
     return {"k": (rows + kv, cfg.cdtype), "v": (rows + kv, cfg.cdtype)}
 
 
+def _state_leaves(cfg: ModelConfig, spec: BlockSpec, batch: int) -> dict:
+    """A recurrent layer's state leaves (no sequence axis): Mamba2's ``h``
+    [B, H, N, P] float32 and conv tail ``conv`` [B, 3, d_inner + 2N];
+    RWKV6's ``S`` [B, H, K, K] float32 and the time- and channel-mix
+    shifts ``xt``, ``xc`` [B, 1, d] (the reference keeps ``xc`` on every
+    rwkv6 layer)."""
+    cd = cfg.cdtype
+    if spec.kind == "mamba2":
+        P = cfg.d_inner // cfg.ssm_heads
+        return {"h": ((batch, cfg.ssm_heads, cfg.d_state, P), torch.float32),
+                "conv": ((batch, ssm_lib.D_CONV - 1,
+                          cfg.d_inner + 2 * cfg.d_state), cd)}
+    if spec.kind == "rwkv6":
+        K = cfg.d_model // cfg.rwkv_heads
+        return {"S": ((batch, cfg.rwkv_heads, K, K), torch.float32),
+                "xt": ((batch, 1, cfg.d_model), cd),
+                "xc": ((batch, 1, cfg.d_model), cd)}
+    return {}
+
+
+def _layer_leaves(cfg: ModelConfig, spec: BlockSpec, rows: tuple,
+                  shared_rows: tuple, batch: int) -> dict:
+    """Every decode-cache leaf of a layer: the attention leaves over
+    ``rows`` or the recurrent state of ``batch`` slots, then on a
+    ``shared_attn`` layer the shared block's float K/V over
+    ``shared_rows``."""
+    out = (_kv_leaves(cfg, rows) if spec.kind == "attn"
+           else _state_leaves(cfg, spec, batch))
+    if spec.shared_attn:
+        kv = (cfg.n_kv, cfg.head_dim)
+        out.update({k: (shared_rows + kv, cfg.cdtype) for k in SHARED_KEYS})
+    return out
+
+
+def _nbytes(shape: tuple, dt: torch.dtype) -> int:
+    bits = torch.finfo(dt).bits if dt.is_floating_point \
+        else torch.iinfo(dt).bits
+    return math.prod(shape) * bits // 8
+
+
 def kv_bytes_per_position(cfg: ModelConfig) -> int:
     """Bytes one cache position (a dense row's slot or a page's token)
-    holds summed over every layer's leaves, scales included."""
-    return cfg.n_layers * sum(
-        math.prod(shape) * (torch.finfo(dt).bits if dt.is_floating_point
-                            else torch.iinfo(dt).bits) // 8
-        for shape, dt in _kv_leaves(cfg, ()).values())
+    holds summed over every layer's sequence leaves: K/V and int8 scales,
+    and the shared block's K/V (recurrent state is per slot:
+    :func:`state_bytes`)."""
+    return sum(_nbytes(shape, dt)
+               for i in range(cfg.n_layers)
+               for k, (shape, dt) in _layer_leaves(
+                   cfg, layer_spec(cfg, i), (), (), 0).items()
+               if k not in STATE_KEYS)
 
 
 def dense_cache_bytes(cfg: ModelConfig, batch: int, max_len: int) -> int:
-    """Bytes of :func:`init_cache`'s leaves: every layer's K/V (and int8
-    scales) over its own length, the ring of a local layer included."""
-    per_layer = kv_bytes_per_position(cfg) // cfg.n_layers
-    return batch * per_layer * sum(
-        cache_len(cfg, layer_spec(cfg, i), max_len)
-        for i in range(cfg.n_layers))
+    """Bytes of :func:`init_cache`'s sequence leaves: every layer's K/V
+    (and int8 scales) over its own length, the ring of a local layer
+    included, and the shared block's K/V at ``max_len``."""
+    total = 0
+    for i in range(cfg.n_layers):
+        spec = layer_spec(cfg, i)
+        T = cache_len(cfg, spec, max_len)
+        for k, (shape, dt) in _layer_leaves(cfg, spec, (), (), 0).items():
+            if k in SHARED_KEYS:
+                total += batch * max_len * _nbytes(shape, dt)
+            elif k not in STATE_KEYS:
+                total += batch * T * _nbytes(shape, dt)
+    return total
 
 
-def _zero_cache(cfg: ModelConfig, rows_of, device) -> list:
-    """Zero leaves for every layer; ``rows_of(spec)`` is a layer's leading
-    shape."""
+def state_bytes(cfg: ModelConfig, batch: int) -> int:
+    """Bytes of the recurrent state of ``batch`` slots over every layer
+    (dense per slot, paged engine or not)."""
+    return sum(_nbytes(shape, dt) for i in range(cfg.n_layers)
+               for shape, dt in _state_leaves(cfg, layer_spec(cfg, i),
+                                              batch).values())
+
+
+def _zero_cache(cfg: ModelConfig, rows_of, shared_rows: tuple, batch: int,
+                device) -> list:
+    """Zero leaves for every layer; ``rows_of(spec)`` is an attention
+    layer's leading shape, ``shared_rows`` the shared block's."""
     dev = resolve_device(device)
-    return [{k: torch.zeros(shape, dtype=dt, device=dev)
-             for k, (shape, dt) in _kv_leaves(
-                 cfg, rows_of(layer_spec(cfg, i))).items()}
-            for i in range(cfg.n_layers)]
+    out = []
+    for i in range(cfg.n_layers):
+        spec = layer_spec(cfg, i)
+        out.append({k: torch.zeros(shape, dtype=dt, device=dev)
+                    for k, (shape, dt) in _layer_leaves(
+                        cfg, spec, rows_of(spec), shared_rows,
+                        batch).items()})
+    return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> list:
-    """Zero per-layer dense K/V buffers [batch, T, n_kv, head_dim], T =
-    :func:`cache_len` (int8 KV: int8 codes and float32 scales [batch, T,
-    n_kv])."""
+    """Zero per-layer dense decode buffers: an attention layer's K/V
+    [batch, T, n_kv, head_dim], T = :func:`cache_len` (int8 KV: int8 codes
+    and float32 scales [batch, T, n_kv]); a recurrent layer's state
+    (:func:`_state_leaves`); the shared block's K/V [batch, max_len, n_kv,
+    head_dim] on a ``shared_attn`` layer."""
     check_supported(cfg)
     return _zero_cache(
-        cfg, lambda spec: (batch, cache_len(cfg, spec, max_len)), device)
+        cfg, lambda spec: (batch, cache_len(cfg, spec, max_len)),
+        (batch, max_len), batch, device)
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
                      num_pages: int, page_size: int, device=None) -> list:
-    """Paged form of :func:`init_cache`: per layer, every leaf as a shared
-    zero page pool ``[num_pages, page_size, ...]`` (int8 KV: the scales
-    page with their codes), local layers' too (their rings are pages of
-    the ring table); the per-slot addressing lives in the scheduler's page
-    tables (``batch`` and ``max_len`` size the tables, not the pools)."""
+    """Paged form of :func:`init_cache`: per layer, every sequence leaf as
+    a shared zero page pool ``[num_pages, page_size, ...]`` (int8 KV: the
+    scales page with their codes; the shared block's K/V page through the
+    full table), local layers' too (their rings are pages of the ring
+    table); the per-slot addressing lives in the scheduler's page tables.
+    Recurrent state has no sequence axis and stays dense, ``batch`` rows."""
     check_supported(cfg)
-    return _zero_cache(cfg, lambda spec: (num_pages, page_size), device)
+    rows = (num_pages, page_size)
+    return _zero_cache(cfg, lambda spec: rows, rows, batch, device)
 
 
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
                 cache: list, pos, tables=None) -> tuple[torch.Tensor, list]:
     """One token for the whole batch.  token [B] int; pos scalar or [B]
     int32 (each slot at its own depth; negative = free slot).  Returns
-    (logits [B, V] float32, cache) with the cache updated in place.  A
-    local layer's dense cache shorter than the window is a ring written at
-    ``pos % T``.
+    (logits [B, V] float32, cache) with the cache updated in place: K/V
+    written at each row's position, a recurrent state copied into its
+    leaves (every row's, a free row's too, as in the reference).  A local
+    layer's dense cache shorter than the window is a ring written at ``pos
+    % T``.
 
     ``tables`` (paged serving): the ``(full_table [B, E], ring_table [B,
     Er])`` int32 pair; the cache is then :func:`init_paged_cache`'s page
-    pools, global layers addressed through the full table and local layers,
-    always rolling, through the ring table.  A cache with ``k_scale``
-    leaves (int8 KV) takes ``attention.decode_attention_int8``."""
+    pools, global layers and the shared block addressed through the full
+    table and local layers, always rolling, through the ring table.  A
+    cache with ``k_scale`` leaves (int8 KV) takes
+    ``attention.decode_attention_int8``."""
     cd = cfg.cdtype
     x = _embed(params, cfg, token)[:, None, :]                   # [B, 1, d]
     kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
               rope_theta=cfg.rope_theta, quant=cfg.quant, compute_dtype=cd)
+    qkw = dict(quant=cfg.quant, compute_dtype=cd)
     cap = (None if cfg.moe is None
            else moe_lib.decode_capacity(cfg.moe, x.shape[0]))
+    shared = params.get("shared_attn")
+    full = None if tables is None else tables[0]
     for i, (bp, c) in enumerate(zip(params["blocks"], cache)):
         spec = layer_spec(cfg, i)
-        local = is_local(cfg, spec)
-        if tables is not None:
-            rolling, table = local, tables[1 if local else 0]
-        else:
-            rolling, table = local and c["k"].shape[1] <= cfg.window, None
-        h = _norm(bp["ln1"], x, cfg)
-        if "k_scale" in c:            # the int8 cache, as the reference
-            y, _ = attn_lib.decode_attention_int8(bp["attn"], h, c, pos,
-                                                  table=table, **kw)
-        else:
+        if spec.shared_attn and shared is not None:
             y, _, _ = attn_lib.decode_attention(
-                bp["attn"], h, c["k"], c["v"], pos,
-                window=_window(cfg, spec), logit_softcap=cfg.attn_softcap,
-                rolling=rolling, table=table, **kw)
-        if cfg.gemma_norms:
-            y = _norm(bp["post_attn_ln"], y, cfg)
-        x, _ = _mlp_tail(bp, spec, cfg, x + y, capacity=cap)
+                shared["attn"], _norm(shared["ln"], x, cfg), c["shared_k"],
+                c["shared_v"], pos, table=full, **kw)
+            x = _shared_mlp(shared, cfg, x + y)
+        h = _norm(bp["ln1"], x, cfg)
+        if spec.kind == "mamba2":
+            y, st = ssm_lib.mamba2_decode(
+                bp["mamba"], h, ssm_lib.Mamba2State(c["h"], c["conv"]),
+                d_inner=cfg.d_inner, d_state=cfg.d_state,
+                n_heads=cfg.ssm_heads, **qkw)
+            c["h"].copy_(st.h)
+            c["conv"].copy_(st.conv)
+        elif spec.kind == "rwkv6":
+            y, st = ssm_lib.rwkv6_timemix_decode(
+                bp["tmix"], h, ssm_lib.RWKVState(c["S"], c["xt"], c["xc"]),
+                n_heads=cfg.rwkv_heads, **qkw)
+            c["S"].copy_(st.S)
+            c["xt"].copy_(st.x_prev_t)
+        else:
+            local = is_local(cfg, spec)
+            if tables is not None:
+                rolling, table = local, tables[1 if local else 0]
+            else:
+                rolling, table = local and c["k"].shape[1] <= cfg.window, None
+            if "k_scale" in c:            # the int8 cache, as the reference
+                y, _ = attn_lib.decode_attention_int8(bp["attn"], h, c, pos,
+                                                      table=table, **kw)
+            else:
+                y, _, _ = attn_lib.decode_attention(
+                    bp["attn"], h, c["k"], c["v"], pos,
+                    window=_window(cfg, spec),
+                    logit_softcap=cfg.attn_softcap, rolling=rolling,
+                    table=table, **kw)
+            if cfg.gemma_norms:
+                y = _norm(bp["post_attn_ln"], y, cfg)
+        x = x + y
+        if spec.mlp == "rwkv_cm":
+            h = _norm(bp["ln2"], x, cfg)
+            x = x + ssm_lib.rwkv6_chanmix(bp["cmix"], h, c["xc"], **qkw)
+            c["xc"].copy_(h)
+        else:
+            x, _ = _mlp_tail(bp, spec, cfg, x, capacity=cap)
     x = _norm(params["final_norm"], x, cfg)
     logits = _lm_head(params, cfg, x[:, 0].to(cd)).to(torch.float32)
     return _final_softcap(logits, cfg), cache
@@ -411,10 +616,12 @@ def verify_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     ``tables``: as in :func:`decode_step`.  An int8 cache or a local
     (sliding-window) layer raises, as the reference's does: speculation
     needs full-length caches built a token at a time (MoE blocks raise too:
-    routing couples the tokens of a forward)."""
+    routing couples the tokens of a forward; so do recurrent and
+    shared-attention blocks)."""
     check_supported(cfg)
     for spec, c in zip(cfg.pattern, cache):
-        if is_local(cfg, spec) or "k_scale" in c or spec.mlp == "moe":
+        if (spec.kind != "attn" or spec.shared_attn or is_local(cfg, spec)
+                or "k_scale" in c or spec.mlp in ("moe", "rwkv_cm")):
             raise ValueError(
                 f"verify_step cannot run block spec {spec} (kv_quant="
                 f"{cfg.kv_quant!r}): speculative decoding supports plain "

@@ -42,14 +42,16 @@ fixed address; every round first copies the pool's numpy table into it
 (through pinned memory on the card), and the round, replayed or eager,
 reads its pages through it.
 
-Where prompt state cannot be built one token at a time — an int8 KV cache,
-whose codes the reference quantizes from the batched prefill's K/V, or a
-prompt longer than a sliding window, whose ring the chunk lane would read
-in ring order where the oracle's prefill reads it in time order — the
-Scheduler admits through :meth:`Engine.admit_monolithic` instead of the
-chunk lane: one batched prefill of the admitted prompts, its K/V
-(quantized when the cache is int8, arranged into the ring on a local
-layer) stitched into the masked slots of the live cache in place, the
+Where prompt state cannot be built one token at a time — a recurrent
+state (Mamba2, RWKV6), which the prefill's chunked scan builds at the
+prompt's exact length, MoE routing, an int8 KV cache, whose codes the
+reference quantizes from the batched prefill's K/V, or a prompt longer
+than a sliding window, whose ring the chunk lane would read in ring order
+where the oracle's prefill reads it in time order — the Scheduler admits
+through :meth:`Engine.admit_monolithic` instead of the chunk lane: one
+batched prefill of the admitted prompts, its K/V (quantized when the
+cache is int8, arranged into the ring on a local layer) and recurrent
+state stitched into the masked slots of the live cache in place, the
 first tokens drawn, the slot state merged, and the results packed for one
 host read.  It runs eagerly; the decode rounds
 after it are the same replayed graphs (the stitch moves no cache tensor).
@@ -193,12 +195,13 @@ def resolve_pages_per_shard(cfg, scfg: ServeConfig, batch: int,
     return lay.auto_pages_per_shard(batch // n_shards)
 
 
-_FLOAT_KV_KEYS = ("k", "v", "k_scale", "v_scale")
+_FLOAT_KV_KEYS = ("k", "v", "shared_k", "shared_v", "k_scale", "v_scale")
 
 
 def _cache_finite(cache) -> torch.Tensor:
     """Scalar AND of ``isfinite`` over every floating cache leaf among K,
-    V and the int8 cache's scales.  The finite-logits guard sees only what
+    V, the shared block's K/V and the int8 cache's scales (the reference's
+    sweep: no recurrent state).  The finite-logits guard sees only what
     reaches a live row's logits: a NaN whose score the position mask drops,
     or one an integer-code path quantizes into finite codes, slips past
     it, so every round audits the cache itself.  Integer leaves (int8 KV
@@ -207,7 +210,9 @@ def _cache_finite(cache) -> torch.Tensor:
 
     One pass over all leaves of a dtype: a leaf's max-abs norm is finite
     exactly when the leaf is (NaN propagates, +-Inf gives Inf, and a max
-    cannot overflow), so a round adds a few graph nodes, not two a leaf."""
+    cannot overflow), so a round adds a few graph nodes, not two a leaf.
+    A cache without such leaves (RWKV6 holds only recurrent state) is
+    finite: True."""
     groups: dict = {}
     for layer in cache:
         for key in _FLOAT_KV_KEYS:
@@ -219,7 +224,7 @@ def _cache_finite(cache) -> torch.Tensor:
         norms = torch._foreach_norm(leaves, float("inf"))
         fin = torch.isfinite(torch.stack(norms)).all()
         ok = fin if ok is None else ok & fin
-    return ok
+    return True if ok is None else ok
 
 
 def _per_row(x, dtype, B: int, device) -> torch.Tensor:
@@ -420,6 +425,9 @@ class Engine:
                     "spec_decode does not support sliding-window attention: "
                     "a draft_k+1-token speculative block would wrap the "
                     "window ring before the verify pass could roll it back")
+            if any(spec.shared_attn for spec in cfg.pattern):
+                raise ValueError(
+                    "spec_decode does not support shared-attention patterns")
             from repro_torch.serve.quantize import (count_draftable_leaves,
                                                     draft_params_view)
             self.n_draftable_leaves = count_draftable_leaves(
@@ -451,17 +459,25 @@ class Engine:
         return self.scfg.chunk_tokens
 
     @property
+    def has_recurrent_state(self) -> bool:
+        """Mamba2 / RWKV6 layers: their state integrates every token it is
+        given, pads too, so their prompts are prefilled at exact length."""
+        return any(spec.kind != "attn" for spec in self.cfg.pattern)
+
+    @property
     def requires_monolithic_admission(self) -> bool:
         """True when prompt state cannot be built one token at a time and
-        the Scheduler admits through :meth:`admit_monolithic`: an int8 KV
-        cache, whose codes the reference quantizes from the batched
-        prefill's K/V, and MoE routing, whose capacity (and under grouped
+        the Scheduler admits through :meth:`admit_monolithic` (in runs of
+        equal-length prompts, so no row is padded): recurrent layers, whose
+        state the prefill's chunked scan builds, not a token at a time; an
+        int8 KV cache, whose codes the reference quantizes from the batched
+        prefill's K/V; and MoE routing, whose capacity (and under grouped
         dispatch the groups) depend on the whole batched prompt, so a chunk
         lane would keep and drop other routes than the prefill the oracle
-        runs (the reference's other cases, recurrent layers and enc-dec,
-        are model families the port does not run yet)."""
-        return self.cfg.kv_quant == "int8" or any(
-            spec.mlp == "moe" for spec in self.cfg.pattern)
+        runs (the reference's other case, enc-dec, is a model family the
+        port does not run yet)."""
+        return self.has_recurrent_state or self.cfg.kv_quant == "int8" \
+            or any(spec.mlp == "moe" for spec in self.cfg.pattern)
 
     @property
     def chunk_window_limit(self) -> Optional[int]:
@@ -550,9 +566,10 @@ class Engine:
         return self.table, self.ring_table
 
     def _kv_leaf_bytes(self, batch: int) -> int:
-        """Bytes of every layer's KV leaves (K and V, and an int8 cache's
-        scales): the pools when paged, else the dense buffers (a local
-        layer's ring included)."""
+        """Bytes of every layer's KV leaves (K and V, the shared block's
+        K and V, and an int8 cache's scales): the pools when paged, else the
+        dense buffers (a local layer's ring included).  Recurrent state is
+        ``transformer.state_bytes``, as the reference counts KV bytes."""
         cfg, sc = self.cfg, self.scfg
         if not self.paged:
             return transformer.dense_cache_bytes(cfg, batch, sc.max_len)
@@ -780,43 +797,57 @@ class Engine:
                 mask: torch.Tensor, paged=None) -> list:
         """Write freshly prefilled rows into the masked slots of the live
         cache IN PLACE (the decode graphs hold its addresses), as the
-        attention branch of the reference's ``_stitch_impl``: row b of
-        ``pcache`` fills slot b where ``mask[b]``; an int8 cache takes the
-        K/V quantized here, codes and scales; a local layer takes its
-        full-length K/V arranged into the ring from the true length
-        (:func:`_ring_from_full`).  ``paged`` = (device table, ring table,
-        start_tok [B]): tokens [start_tok, length) of masked rows scatter
-        into their pages (tokens below start_tok live in prefix-shared
-        pages an earlier admission filled); a local layer's ring scatters
-        whole through the ring table (ring pages are never shared)."""
+        reference's ``_stitch_impl``: row b of ``pcache`` fills slot b
+        where ``mask[b]``; an int8 cache takes the K/V quantized here,
+        codes and scales; a local layer takes its full-length K/V arranged
+        into the ring from the true length (:func:`_ring_from_full`); the
+        shared block's K/V are written as a global layer's; recurrent state
+        is a dense masked row write, paged or not (an RWKV6 prefill without
+        the channel mix leaves ``xc`` zero).  ``paged`` = (device table,
+        ring table, start_tok [B]): tokens [start_tok, length) of masked
+        rows scatter into their pages (tokens below start_tok live in
+        prefix-shared pages an earlier admission filled); a local layer's
+        ring scatters whole through the ring table (ring pages are never
+        shared)."""
         cfg = self.cfg
+        valid = None                  # paged: the tokens to write
         if paged is not None:
             table, ring, start = paged
-            t = torch.arange(pcache[0]["k"].shape[1],
-                             device=lengths.device)[None]
-            valid = (mask[:, None] & (t >= start[:, None])
-                     & (t < lengths[:, None]))
             if ring is not None:
                 Tr = ring.shape[1] * self.scfg.page_size
                 ring_valid = mask[:, None] & (_ring_positions(lengths, Tr)
                                               >= 0)
         for i, (live, part) in enumerate(zip(cache, pcache)):
             local = transformer.is_local(cfg, transformer.layer_spec(cfg, i))
-            for key in ("k", "v"):
+            for key in transformer.STATE_KEYS:
+                if key in live:
+                    piece = part.get(key)
+                    if piece is None:
+                        piece = torch.zeros_like(live[key])
+                    _write_rows(live[key], piece, mask)
+            for key in ("k", "v") + transformer.SHARED_KEYS:
+                if key not in part:
+                    continue
                 piece = part[key]
-                if local:
+                ring_leaf = local and key in ("k", "v")
+                if ring_leaf:
                     T = Tr if paged is not None else live[key].shape[1]
                     piece = _ring_from_full(piece, lengths, T)
                 leaves = {key: piece}
-                if "k_scale" in live:
+                if "k_scale" in live and key in ("k", "v"):
                     leaves[key], leaves[key + "_scale"] = \
                         attn_lib.quantize_kv(piece)
                 for name, val in leaves.items():
                     if paged is None:
                         _write_rows(live[name], val, mask)
-                    elif local:
+                    elif ring_leaf:
                         _scatter_pages(live[name], ring, val, ring_valid)
                     else:
+                        if valid is None:
+                            t = torch.arange(val.shape[1],
+                                             device=lengths.device)[None]
+                            valid = (mask[:, None] & (t >= start[:, None])
+                                     & (t < lengths[:, None]))
                         _scatter_pages(live[name], table, val, valid)
         return cache
 
@@ -887,19 +918,26 @@ class Engine:
 
     def _grow_cache(self, cache: list, S: int) -> list:
         """Prefill caches (length S) as decode buffers, as the reference's
-        prefill + ``_grow_cache``: zero-padded to ``max_len``, or on a
-        local layer to its ring, which a prompt longer than the window
-        fills rolled (``transformer._roll_local``)."""
+        prefill + ``_grow_cache``: K/V zero-padded to ``max_len`` (the
+        shared block's too), or on a local layer to its ring, which a
+        prompt longer than the window fills rolled
+        (``transformer._roll_local``); recurrent state has no sequence axis
+        and is taken as it is."""
         cfg, M = self.cfg, self.scfg.max_len
         out = []
         for i, c in enumerate(cache):
             spec = transformer.layer_spec(cfg, i)
-            T = transformer.cache_len(cfg, spec, M)
             g = {}
             for key, t in c.items():
-                if transformer.is_local(cfg, spec) and S > cfg.window:
+                if key in transformer.STATE_KEYS:
+                    g[key] = t
+                    continue
+                shared = key in transformer.SHARED_KEYS
+                if not shared and transformer.is_local(cfg, spec) \
+                        and S > cfg.window:
                     g[key] = transformer._roll_local(t, S, cfg.window)
                     continue
+                T = M if shared else transformer.cache_len(cfg, spec, M)
                 buf = torch.zeros((t.shape[0], T) + tuple(t.shape[2:]),
                                   dtype=t.dtype, device=t.device)
                 buf[:, :t.shape[1]] = t

@@ -43,9 +43,12 @@ replays it, so a round costs the host a few copies and one graph launch.
   at the same positions), and a later iteration's write lies behind an
   earlier query's mask.  A local layer's ring is not like that: iteration
   ``j`` writes slot ``(pos + j) % T``, where the earlier iterations of the
-  replay still read the window's oldest keys.  So the warm-up saves the
-  local layers' cache leaves and puts them back after it (a copy of the
-  rings, made only while a key is captured).
+  replay still read the window's oldest keys.  Nor is a recurrent state
+  (Mamba2's ``h`` and ``conv``, RWKV6's ``S``, ``xt``, ``xc``): every step
+  overwrites it whole, so after a warm-up every slot's state would be a
+  round ahead.  So the warm-up saves the local layers' cache leaves and
+  every recurrent leaf and puts them back after it, in place (a copy made
+  only while a key is captured).
 * **Garbage collection:** the collector is off during each capture
   (:func:`no_gc`): cyclic garbage released inside a capture (seen after
   torch.profiler sessions) calls the runtime in ways a capture forbids,
@@ -114,12 +117,16 @@ def _restore(engine, saved) -> None:
     engine.lane_steps.update(lanes)
 
 
-def _ring_leaves(eng, cache) -> list:
-    """The cache leaves of the engine's local (sliding-window) layers."""
+def _warmup_leaves(eng, cache) -> list:
+    """The cache leaves a warm-up round would leave other than the replay
+    finds them: every leaf of a local (sliding-window) layer, and every
+    recurrent state leaf (``transformer.STATE_KEYS``, overwritten whole at
+    every step)."""
     cfg = eng.cfg
     return [t for i, c in enumerate(cache)
-            if transformer.is_local(cfg, transformer.layer_spec(cfg, i))
-            for t in c.values()]
+            for k, t in c.items()
+            if k in transformer.STATE_KEYS
+            or transformer.is_local(cfg, transformer.layer_spec(cfg, i))]
 
 
 def _leaf_widths(tree) -> set:
@@ -177,7 +184,7 @@ class RoundGraphs:
                          if t is not None), ())
         return (0 if lane is None else lane.slot.shape[0], chunk, spec,
                 greedy, be, ops.pick_variant(be), tok.shape[0],
-                tuple(cache[0]["k"].shape), table,
+                tuple(tuple(t.shape) for t in cache[0].values()), table,
                 tuple(t.data_ptr() for c in cache for t in c.values()))
 
     def run(self, eng, cache, lane, tok, pos, done, eos, chunk: int,
@@ -231,14 +238,14 @@ class RoundGraphs:
             with kernel.graph_workspaces(
                     self._reserve(eng, tok.shape[0], tok.device)):
                 current = torch.cuda.current_stream(tok.device)
-                rings = _ring_leaves(eng, cache)
-                kept = [t.clone() for t in rings]
+                rewound = _warmup_leaves(eng, cache)
+                kept = [t.clone() for t in rewound]
                 stream.wait_stream(current)
                 with torch.cuda.stream(stream):
                     eng._round(cache, lane, tok, pos, done, eos, chunk,
                                spec, samp, tables)
                 current.wait_stream(stream)
-                for t, k in zip(rings, kept):
+                for t, k in zip(rewound, kept):
                     t.copy_(k)
                 del kept
                 _restore(eng, saved)

@@ -21,6 +21,8 @@ import torch
 from repro.ckpt import checkpoint as jckpt
 from repro_torch.ckpt import checkpoint as tckpt
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 
 @pytest.mark.parametrize("sizes", [
     [0], [1], [15], [16], [70_000], [0, 1, 15, 16, 255, 256, 65_535,

@@ -9,7 +9,9 @@ round replays under page tables changed since its capture; an int8-KV
 round (four cache leaves a layer) replays as its eager round does, dense
 and paged, and a round after a monolithic admission replays the graph it
 already has; gemma2-2b's rounds past the window (a ring's later writes
-land on the window's oldest keys) replay as their eager rounds; graphs never
+land on the window's oldest keys) replay as their eager rounds, and so do
+rwkv6-1.6b's and zamba2-2.7b's (each step overwrites the recurrent state
+whole); graphs never
 move a workspace, never replay under another kernel variant, and a
 capture that fails raises.  Faults: a NaN poisoning whose round is a new
 key is warmed up, captured and replayed on the poisoned cache, detected and
@@ -26,7 +28,8 @@ import warnings
 import pytest
 import torch
 
-from repro_torch.configs import bitnet_3b, gemma2_2b, qwen2_7b
+from repro_torch.configs import (bitnet_3b, gemma2_2b, qwen2_7b, rwkv6_1p6b,
+                                  zamba2_2p7b)
 from repro_torch.core import prng
 from repro_torch.kernels.lutmul import kernel, ops
 from repro_torch.models import transformer
@@ -205,6 +208,47 @@ def test_ring_round_replays_as_eager_past_the_window():
             assert torch.equal(_bits(a["k"]), _bits(b["k"])), i
             assert torch.equal(_bits(a["v"]), _bits(b["v"])), i
         s_eager, s_graph = tuple(want[:3]), tuple(got[:3])
+    del eng, cache, c_eager
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("mod,layers", [(rwkv6_1p6b, 2), (zamba2_2p7b, 6)],
+                         ids=["rwkv6", "zamba2"])
+def test_recurrent_round_replays_as_eager(mod, layers):
+    """rwkv6-1.6b and zamba2-2.7b (a shared block, then mamba layers) at
+    full width: every decode step overwrites the recurrent state whole, so
+    the capture's warm-up must put it back.  Two rounds, the first
+    captured (its warm-up just before it), the second replayed: state,
+    packed results and every cache leaf equal the eager rounds'."""
+    cfg = dataclasses.replace(mod.config(quant="w4a4_lut"), n_layers=layers)
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    eng = make_engine(params, cfg, ServeConfig(quant="w4a4_lut",
+                                               max_len=MAX_LEN))
+    del params
+    g = torch.Generator(device="cuda").manual_seed(4)
+    cache = eng.init_cache(SLOTS)
+    for c in cache:
+        for v in c.values():
+            v.normal_(generator=g)
+    tok = torch.randint(0, cfg.vocab, (SLOTS,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    pos = torch.tensor([5, 9, -1, 0, 12, 3, 7, 20], dtype=torch.int32,
+                       device="cuda")
+    done = torch.tensor([0, 0, 1, 0, 0, 0, 0, 0], dtype=torch.bool,
+                        device="cuda")
+    eos = torch.full((SLOTS,), -1, dtype=torch.int32, device="cuda")
+    c_eager = _copy(cache)
+    s_eager = s_graph = (tok, pos, done)
+    for i in range(2):
+        want, _ = _round(eng, c_eager, None, s_eager, eos, 8, False, True)
+        got, _ = _round(eng, cache, None, s_graph, eos, 8, False, False)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), i
+        for a, b in zip(cache, c_eager):
+            for k in a:
+                assert torch.equal(_bits(a[k]), _bits(b[k])), (i, k)
+        s_eager, s_graph = tuple(want[:3]), tuple(got[:3])
+    assert len(eng.graphs.rounds) == 1
     del eng, cache, c_eager
     torch.cuda.empty_cache()
 

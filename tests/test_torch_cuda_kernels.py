@@ -102,6 +102,37 @@ def test_cuda_lutmul_tiles_match_plain(cuda_device, M, K, N):
     assert kernel.LAUNCHES["lutmul_fused"] == 6
 
 
+# the recurrent families' projections (K, N): zamba2-2.7b's in_proj (N =
+# 10,448, a ragged last column tile) and out_proj, its shared block's
+# attention and SwiGLU; rwkv6-1.6b's time and channel mix
+RECURRENT_KN = [(2560, 10448), (5120, 2560), (2560, 2560), (2560, 10240),
+                (10240, 2560), (2048, 2048), (2048, 7168), (7168, 2048)]
+RECURRENT_HEADS = [(2048, 65536), (2560, 32000)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,N", RECURRENT_KN)
+@pytest.mark.parametrize("M", [8, 512])
+def test_cuda_lutmul_recurrent_family_shapes(cuda_device, M, K, N):
+    """At a decode step's 8 rows and an admission's 8 x 64."""
+    a, w, _, _, a_s, w_s = (torch.from_numpy(v).to(cuda_device)
+                            for v in _inputs(M, K, N, seed=K + N))
+    _lut_equal(a, w, True, a_s, w_s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,N", RECURRENT_HEADS)
+@pytest.mark.parametrize("M", [8, 512])
+def test_cuda_int_matmul_recurrent_family_heads(cuda_device, M, K, N):
+    _, _, a8, w8, a_s, w_s = (torch.from_numpy(v).to(cuda_device)
+                              for v in _inputs(M, K, N, seed=K))
+    assert torch.equal(kernel.int_matmul(a8, w8), ref.int_matmul_ref(a8, w8))
+    got = kernel.int_matmul_fused(a8, w8, a_s, w_s, out_dtype=torch.bfloat16)
+    want = ref.scaled_int_matmul_ref(a8, w8, a_s, w_s,
+                                     out_dtype=torch.bfloat16)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("M", [8, 1568])
 @pytest.mark.parametrize("a_code", [8, 15])

@@ -20,6 +20,8 @@ from repro_torch import serve as tserve
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels.lutmul import ops
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 ARCHS = ["gemma2-2b", "phi3-medium-14b", "minicpm-2b"]
 LENS = [6, 3, 9, 1, 7]
 BUDGETS = [5, 6, 4, 3, 6]

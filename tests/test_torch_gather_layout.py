@@ -18,6 +18,8 @@ from repro.core import lut as jlut
 from repro.kernels.lutmul import kernel as jkernel
 from repro_torch.kernels.lutmul import kernel, ops, ref
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 # (bm, bk, bn) blocks of the reference kernel, and (M, K, N) in real rows,
 # depth and columns: M and N are padded to the blocks with code 0 (the
 # padded outputs are dropped), K is a multiple of bk (a padded k would add

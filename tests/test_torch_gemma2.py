@@ -38,6 +38,8 @@ from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
 from repro_torch.serve import engine as TE
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 ELEM = dict(rtol=2.4e-7, atol=1e-7)
 MODEL_ATOL = 1e-5
 W = 8                         # the smoke config's window

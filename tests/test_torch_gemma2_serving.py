@@ -29,6 +29,8 @@ from repro_torch.convert import params_from_jax
 from repro_torch.kernels.lutmul import ops
 from repro_torch.serve import faults as tfaults
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 MAX_LEN = 32
 W = 8
 LAYOUTS = {"dense": {}, "paged": dict(paged=True, page_size=4)}

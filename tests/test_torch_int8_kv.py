@@ -35,6 +35,8 @@ from repro_torch.kernels.lutmul import ops
 from repro_torch.models import attention as TA
 from repro_torch.models import transformer as TT
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 TOL = dict(atol=1e-5, rtol=1e-5)
 MARGIN = 1e-5
 

@@ -46,7 +46,9 @@ def test_port_has_modules():
                 "models/mobilenet.py", "configs/mobilenetv2.py",
                 "configs/gemma2_2b.py", "configs/phi3_medium_14b.py",
                 "configs/minicpm_2b.py", "models/moe.py",
-                "configs/qwen2_moe_a2p7b.py", "configs/mixtral_8x22b.py"):
+                "configs/qwen2_moe_a2p7b.py", "configs/mixtral_8x22b.py",
+                "models/ssm.py", "configs/rwkv6_1p6b.py",
+                "configs/zamba2_2p7b.py"):
         assert f"src/repro_torch/{mod}" in names, mod
     for src in ("thresholds.cu", "lutmul_gather.cu"):
         assert (ROOT / "src" / "repro_torch" / "csrc" / src).is_file(), src
@@ -105,3 +107,17 @@ def test_mobilenetv2_config_fields_match_reference(fn, quant):
     assert get_config("mobilenetv2", smoke=smoke, quant=quant) == got
     assert dataclasses.asdict(jget_config("mobilenetv2", smoke=smoke,
                                           quant=quant)) == want
+
+
+@pytest.mark.parametrize("fn", ["config", "smoke_config"])
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-2.7b"])
+def test_recurrent_config_fields_match_reference(arch, fn):
+    from repro.configs import get_config as jget_config
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import check_supported
+    smoke = fn == "smoke_config"
+    want = dataclasses.asdict(jget_config(arch, smoke=smoke,
+                                          quant="w4a4_lut"))
+    got = get_config(arch, smoke=smoke, quant="w4a4_lut")
+    assert dataclasses.asdict(got) == want
+    check_supported(got)

@@ -11,6 +11,8 @@ from repro.kernels.lutmul import ref as jref
 from repro_torch.core import lut as tlut
 from repro_torch.kernels.lutmul import ref as tref
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 
 @pytest.mark.parametrize("a_signed", [False, True])
 def test_contraction_table_matches(a_signed):

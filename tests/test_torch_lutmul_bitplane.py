@@ -23,6 +23,8 @@ from repro.kernels.lutmul import ref as jref
 from repro_torch.core import lut as tlut
 from repro_torch.kernels.lutmul import kernel, ref
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 # ragged and CNN-like shapes: K = 16 is MobileNetV2's b1_0 expand, N = 96
 # its expand width
 SHAPES = [(9, K, N) for K in (16, 30, 96) for N in (1, 17, 96)] + [

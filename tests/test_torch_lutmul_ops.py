@@ -18,6 +18,8 @@ from repro.kernels.lutmul import ref as jref
 from repro.serve.quantize import quantize_leaf as jquantize_leaf
 from repro_torch.kernels.lutmul import kernel, ops, ref
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 SHAPES = [(1, 2, 1), (5, 6, 3), (8, 128, 128), (13, 130, 70), (3, 258, 129)]
 
 

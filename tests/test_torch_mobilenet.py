@@ -36,6 +36,8 @@ from repro_torch.core import thresholds as tth
 from repro_torch.core.quantization import A4, quantize
 from repro_torch.models import mobilenet as tm
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 FLOAT_RTOL = 1e-4
 
 

@@ -28,6 +28,8 @@ from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
 from repro_torch.serve.quantize import quantize_params_for_serving
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 
@@ -360,16 +362,21 @@ def test_default_device_needs_a_gpu(monkeypatch):
 
 def test_unported_features_raise():
     """Soft-caps, sliding windows, gemma norms, the embedding scale and
-    GeGLU are served now (``tests/test_torch_gemma2.py``); these are not."""
+    GeGLU are served now (``tests/test_torch_gemma2.py``), and so are the
+    layer norm and the Mamba2 / RWKV6 blocks (``tests/test_torch_ssm*.py``);
+    these are not."""
     _, tcfg = _cfgs()
     local = (tconfigs.BlockSpec(attn_type="local"),)
     for over, match in (
-            (dict(norm="layernorm"), "norm"),
+            (dict(norm="groupnorm"), "norm"),
             (dict(rope_mode="mrope"), "rope_mode"),
+            (dict(rope_mode="none"), "rope_mode"),
             (dict(enc_dec=True), "enc_dec"),
             (dict(split_head_params=True), "split_head_params"),
-            (dict(pattern=(tconfigs.BlockSpec(kind="mamba2"),)),
+            (dict(pattern=(tconfigs.BlockSpec(kind="s4"),)),
              "block kind"),
+            (dict(pattern=(tconfigs.BlockSpec(kind="mamba2"),),
+                  kv_quant="int8"), "kv_quant='int8'"),
             (dict(pattern=(tconfigs.BlockSpec(mlp="gelu"),)), "mlp"),
             (dict(pattern=local, window=8, kv_quant="int8"),
              "sliding-window"),

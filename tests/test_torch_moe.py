@@ -38,6 +38,8 @@ from repro_torch.models import transformer as TT
 from repro_torch.serve.quantize import (init_served_params,
                                         quantize_params_for_serving)
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 ARCHS = ["qwen2-moe-a2.7b", "mixtral-8x22b"]
 TOL = 1e-5                    # of max |y|: float32 sums in other orders
 GAP = 1e-6                    # least top-k margin of the seeded inputs

@@ -13,7 +13,8 @@ versions.
   monolithic, a dispatch per equal-length run, its dummy rows routed with
   the live ones;
 * within the port: paged == dense, and the refusals (speculative decoding,
-  the verify forward, SSM and enc-dec blocks, MoE with an int8 cache).
+  the verify forward, SSM blocks with an int8 cache, enc-dec blocks, MoE
+  with an int8 cache).
 """
 import dataclasses
 
@@ -33,6 +34,8 @@ from repro_torch.configs import BlockSpec
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels.lutmul import ops
 from repro_torch.models import transformer as TT
+
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ARCHS = ["qwen2-moe-a2.7b", "mixtral-8x22b"]
 ATOL = 1e-5                   # float32 sums in other orders
@@ -216,8 +219,8 @@ def test_check_supported_still_refuses_ssm_encdec_and_int8_moe():
     base = tconfigs.get_config("qwen2-moe-a2.7b", smoke=True)
     TT.check_supported(base)
     for bad, what in (
-            (dict(pattern=(BlockSpec(kind="mamba2", mlp="none"),)),
-             "block kind"),
+            (dict(pattern=(BlockSpec(kind="mamba2", mlp="none"),),
+                  kv_quant="int8"), "recurrent or shared-attention"),
             (dict(enc_dec=True), "enc_dec"),
             (dict(kv_quant="int8"), "kv_quant='int8'"),
             (dict(moe=None), "MoEConfig")):

@@ -33,6 +33,8 @@ from repro_torch.models import attention as TA
 from repro_torch.models import transformer as TT
 from repro_torch.serve import paged as tpaged
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 

@@ -25,6 +25,8 @@ from repro_torch import serve as tserve
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels.lutmul import ops
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 MAX_LEN = 32
 PS = 4
 LENS = [6, 5, 3, 9, 1, 2, 7, 4]

@@ -14,6 +14,8 @@ import torch
 
 from repro_torch.core import prng
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 SEEDS = [0, 1, 7, 42, 1234, 99991, 2 ** 31 - 1, -1, -77, 123456789]
 SHAPES = [(1, 7), (3, 64), (8, 1000)]
 GUMBEL_ATOL = 1e-6

@@ -17,6 +17,8 @@ import torch
 from repro.core import quantization as jq
 from repro_torch.core import quantization as tq
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 CFGS = {"W4": (jq.W4, tq.W4), "A4": (jq.A4, tq.A4), "W8": (jq.W8, tq.W8),
         "A8": (jq.A8, tq.A8)}
 SHAPES = {"2d": (16, 24), "nhwc": (2, 5, 5, 8)}

@@ -23,6 +23,8 @@ from repro_torch.convert import params_from_jax
 from repro_torch.kernels.lutmul import ops
 from repro_torch.serve.faults import Fault, FaultPlan
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 MAX_LEN = 32
 PAGED = dict(paged=True, page_size=4)
 KNOBS = [(0.9, 0, 1.0), (1.0, 40, 0.95), (0.0, 0, 1.0), (0.8, 5, 0.9)]

@@ -26,6 +26,8 @@ from repro_torch.models import transformer as TT
 from repro_torch.serve import graphs
 from repro_torch.serve.engine import ChunkLane, pack_round, unpack_round
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 MAX_LEN = 40
 CHUNK_LANE = 4
 LENS = [6, 5, 3, 3, 1, 1, 1]

@@ -38,6 +38,8 @@ from repro_torch.kernels.lutmul import ops
 from repro_torch.models import transformer as TT
 from repro_torch.serve.engine import ChunkLane, unpack_round
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 MAX_LEN = 40
 CHUNK_LANE = 4
 TOP_P_MARGIN = 1e-4

@@ -31,6 +31,8 @@ from repro_torch import serve as tserve
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels.lutmul import ops
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 MAX_LEN = 32
 CONFIGS = {

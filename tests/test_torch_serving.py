@@ -28,6 +28,8 @@ from repro_torch.kernels.lutmul import ops
 from repro_torch.models import transformer as TT
 from repro_torch.serve import quantize as tquant
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 TOL = dict(atol=1e-5, rtol=1e-5)
 MAX_LEN = 40
 

@@ -27,6 +27,8 @@ from repro_torch.core.quantization import A4
 from repro_torch.kernels.lutmul import ops as lops
 from repro_torch.kernels.thresholds import kernel, ops, ref
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 
 def _eq(t, j):
     np.testing.assert_array_equal(t.numpy(), np.asarray(j))

@@ -24,6 +24,8 @@ from repro_torch.core.lut import plane_decomposition
 from repro_torch.kernels.lutmul import kernel, ops, ref
 from repro_torch.serve import quantize as tquant
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 SPECS = [1, "ternary", 2, 3, 4]
 SHAPES = [(1, 8, 1), (5, 16, 3), (8, 64, 40), (3, 136, 17)]
 

@@ -23,6 +23,8 @@ from repro_torch.core.lut import (decode_planes, plane_decomposition,
                                   unpack_bitplanes)
 from repro_torch.kernels.lutmul import ops, ref
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 SPECS = [1, "ternary", 2, 3, 4]
 # K = 40, 72, 136 are not multiples of the kernel's 32-deep step
 SHAPES = [(1, 8, 1), (3, 40, 20), (9, 72, 17), (5, 136, 33)]
