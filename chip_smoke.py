@@ -28,23 +28,26 @@ Phases (any failure raises and exits non-zero):
    admission of 8 rows of 64), and the shared expert's three projections
    at M = 8; zamba2-2.7b's mamba layer (in_proj's 10,448 columns end in a
    ragged tile) and shared block, and rwkv6-1.6b's layer through the LUT
-   kernel.
+   kernel; whisper-large-v3's decoder layer at M = 8 (8 projections), its
+   encoder layer and cross K/V at an encoder prefill's M = 6,000, and
+   qwen2-vl-72b's layer (M = 8) through the LUT kernel, its 152,064-column
+   int8 head.
 3. serving qwen2-7b (28 layers, full width, random weights from a seeded
    generator) through ``make_engine`` + ``Scheduler(slots=8, chunk=8)``:
    w4a4_lut fused (8 requests); then the SAME float weights quantized to
    w4a4_tmac: fused (8, transcripts equal to the LUT run's: w4 bitplanes
-   decode to the nibble codes), unfused (4), bitplane self-speculative
-   decoding on the same codes (8, equal to the fused tmac run's), and
-   speculation after zeroing the low two planes in place (4; every draft
-   accepted).  Then the sampled mix (``SAMPLED_MIX``: per-request
+   decode to the nibble codes) and unfused (4); bitplane self-speculative
+   decoding (8, equal to the fused tmac run's) and speculation after
+   zeroing the low two planes in place (4; every draft accepted) run on
+   the ``CUT_LAYERS`` model below.  Then the sampled mix (``SAMPLED_MIX``: per-request
    temperature / top-k / top-p, greedy rows among them,
    ``ServeConfig(seed=SAMPLE_SEED)``) on the same engines: lut fused over
    the 8 prompts (its greedy rows equal the all-greedy run, a sampled row
    leaves it), then over the first 4: lut fused and tmac fused, equal.
    The lut unfused runs (4, greedy and sampled), the plain lut runs (1,
-   greedy and sampled), the plain tmac run (1) and speculative sampling
-   over one request (graph == plain backend, its accept rate printed) run
-   on the ``CUT_LAYERS`` model below.  A sampled transcript
+   greedy and sampled), the plain tmac run (1), the int8 KV stage and
+   speculative sampling over one request (graph == plain backend, its
+   accept rate printed) run on the ``CUT_LAYERS`` model below.  A sampled transcript
    depends on the batch's global draw counter, so only runs over the same
    requests are compared.  On the kernel backend every
    round is a replayed CUDA graph, one captured per round key
@@ -89,14 +92,16 @@ Phases (any failure raises and exits non-zero):
    admissions (dispatches, median host ms) and the share of int8 greedy
    tokens equal to the bf16 run's; ``int8 round[qwen lut]:`` a replayed
    int8 decode round's device ms against the bf16 round's from one state.
-   The paged stage above (but its 28-layer run), the faults stage and the
-   QoS stage below run on a qwen2-7b of full width and ``CUT_LAYERS`` (7)
-   layers, seed-0 weights of its own, after the tmac runs, with that
-   depth's lut fused (8), the sampled mix (4) and int8 KV (8) as the
-   transcripts they equal; before them, at that depth, lut unfused (4,
-   greedy and sampled), plain (1, greedy and sampled), and on w4a4_tmac
-   codes of the same float weights fused == plain (1) and speculative
-   sampled graph == plain (1).
+   The paged stage above (but its 28-layer run), the int8 KV stage, the
+   speculative runs, the faults stage and the QoS stage below run on a
+   qwen2-7b of full width and ``CUT_LAYERS`` (7) layers, seed-0 weights of
+   its own, after the 28-layer tmac runs, with that depth's lut fused (8),
+   the sampled mix (4) and int8 KV (8) as the transcripts they equal;
+   before them, at that depth, lut unfused (4, greedy and sampled), plain
+   (1, greedy and sampled), and on w4a4_tmac codes of the same float
+   weights fused (8) == plain (1), int8 KV (4), speculation greedy (8),
+   paged (4), sampled graph == plain (1) and with the low planes zeroed
+   (4).
    Then faults and recovery (``FAULT_CASES``) on fresh engines over the
    same lut codes, each through ``Scheduler(slots=8, chunk=8,
    snapshot_interval=1, max_retries=3)`` over the first 4 requests, first
@@ -180,7 +185,23 @@ Phases (any failure raises and exits non-zero):
    first one (8 new tokens), equal to the fused run; zamba2 also one
    sampled request fused == plain backend, and paged (shared K/V in pages
    of 4, mamba state dense per slot) over the first 4 == dense; one
-   decode step and one replayed round profiled.
+   decode step and one replayed round profiled.  Then whisper-large-v3
+   (32 encoder and 32 decoder layers, full width, enc_seq 1500) in
+   w4a4_lut through ``Engine.generate(frames=)`` (``run_whisper``): 8
+   requests of 4-token prompts over one batch of stub frames, 64 new
+   tokens, fused; unfused over the first 2 and the plain backend over the
+   first one (8 tokens), in batches padded to 8 rows, each equal to the
+   fused transcripts; 576 LUT launches a prefill (32 x 6 encoder, 32 x 10
+   decoder, 32 x 2 for the second cross K/V pass) and 256 a decode step;
+   the prefill's parts timed (encode, decoder, the second cross-K/V pass);
+   8 decode steps through a page table == dense, logits and K/V bitwise.
+   Then qwen2-vl-72b (80 layers, full width; 41 GB of served codes built a
+   layer at a time) in w4a4_lut (``run_qwen2vl``): the Scheduler over the
+   8 requests fused, the plain backend over the first one (4 tokens)
+   equal; the stub vision frontend (embeddings [2, 272, 8192] at a 16 x 16
+   patch grid's M-RoPE positions, then 8 decode steps) fused == plain
+   bitwise; a text prefill under M-RoPE == ``rope_mode="rope"`` bitwise;
+   a replayed round profiled.
 5. the paper's CNN: full-width MobileNetV2 (224x224, width 1.0, 1000
    classes, random weights from seed 0) at batch 32 in float and QAT mode
    (cuDNN, TF32 off), the float logits of the first 4 images held against
@@ -251,6 +272,26 @@ ZAMBA2_SHARED = {"wq": (2560, 2560), "wk": (2560, 2560), "wv": (2560, 2560),
 RWKV6_INNER = {"wr": (2048, 2048), "wk": (2048, 2048), "wv": (2048, 2048),
                "wg": (2048, 2048), "wo": (2048, 2048), "cm.wr": (2048, 2048),
                "cm.wk": (2048, 7168), "cm.wv": (7168, 2048)}
+# whisper-large-v3: a decoder layer's 8 projections of a decode step
+# (self-attention q, k, v, o; cross-attention q, o; the GELU MLP), an
+# encoder layer's 6 and the cross K/V projections (``precompute_cross_kv``)
+# at the whisper phase's prefill rows (8 requests x 1,500 frames); the
+# decoder layer's 8 again at its prompt forward's rows (8 requests x
+# WHISPER_PROMPT tokens); qwen2-vl-72b's layer (877,658,112 weights) and
+# head
+WHISPER_DEC = {"wq": (1280, 1280), "wk": (1280, 1280), "wv": (1280, 1280),
+               "wo": (1280, 1280), "x.wq": (1280, 1280),
+               "x.wo": (1280, 1280), "wi": (1280, 5120),
+               "mlp.wo": (5120, 1280)}
+WHISPER_ENC = {"wq": (1280, 1280), "wk": (1280, 1280), "wv": (1280, 1280),
+               "wo": (1280, 1280), "wi": (1280, 5120),
+               "mlp.wo": (5120, 1280)}
+WHISPER_XKV = {"x.wk": (1280, 1280), "x.wv": (1280, 1280)}
+WHISPER_ENC_M = SLOTS * 1500
+QWEN2VL_INNER = {"wq": (8192, 8192), "wk": (8192, 1024), "wv": (8192, 1024),
+                 "wo": (8192, 8192), "wi": (8192, 29568),
+                 "wg": (8192, 29568), "mlp.wo": (29568, 8192)}
+QWEN2VL_HEAD = (8192, 152064)
 QWEN_HEAD = (3584, 152064)
 BITNET_HEAD = (3200, 32000)
 RWKV6_HEAD = (2048, 65536)
@@ -266,7 +307,7 @@ MB_CHECK = 4                      # images held against the CPU forward
 MB_FLOAT_RTOL = 1e-3              # of max |logit|; see run_mobilenet
 MB_GROUP = "mobilenetv2 34 pointwise stages, batch 32"
 PHASES = ("kernels", "qwen", "bitnet", "gemma2", "minicpm", "qwen2moe",
-          "rwkv6", "zamba2", "mobilenetv2")
+          "rwkv6", "zamba2", "whisper", "qwen2vl", "mobilenetv2")
 # the paged, faults and QoS stages run on qwen2-7b at this depth (full
 # width)
 CUT_LAYERS = 7
@@ -280,7 +321,23 @@ GEMMA_PAGE = 64
 # rings through the ring table): a short request's 64-token chunk lane
 # takes a key a fill, each ~12 s to capture at 26 layers
 GEMMA_PAGED_REQUESTS = 2
-MINICPM_PLAIN_TOKENS = 8
+# new tokens of a plain-backend run (minicpm, qwen2moe, rwkv6, zamba2,
+# whisper)
+PLAIN_TOKENS = 8
+# whisper-large-v3 through Engine.generate: 8 requests of 4-token prompts
+# and 64 new tokens over one batch of stub frames; the unfused run serves
+# all 8 with 64 tokens, the plain run all 8 with PLAIN_TOKENS
+WHISPER_PROMPT = 4
+WHISPER_NEW = 64
+WHISPER_MAX_LEN = 448
+WHISPER_PAGE = 16
+# qwen2-vl-72b: the vision stub's rows (8 text tokens, a 16 x 16 patch
+# grid, 8 text tokens) and decode steps; the plain Scheduler run's tokens
+QWEN2VL_TEXT = 8
+QWEN2VL_GRID = 16
+QWEN2VL_STUB_ROWS = 2
+QWEN2VL_STUB_STEPS = 8
+QWEN2VL_PLAIN_TOKENS = 4
 # where generate and the chunk lane part, the first activation that
 # differs between them may differ by at most this many bf16 ulps (a float
 # reduction run at another shape); the A4 codes amplify it from there
@@ -307,7 +364,7 @@ MAIN_RUN = {"lutmul_fused": "qwen lut fused",
             "lutmul": f"qwen{CUT_LAYERS} lut unfused",
             "int_matmul_fused": "qwen lut fused",
             "int_matmul": f"qwen{CUT_LAYERS} lut unfused",
-            "lutmul_tmac_fused": "qwen tmac spec",
+            "lutmul_tmac_fused": f"qwen{CUT_LAYERS} tmac spec",
             "lutmul_tmac": "qwen tmac unfused",
             "lutmul_gather": "mobilenetv2 gather pass",
             "threshold": "mobilenetv2 integer pass"}
@@ -344,6 +401,16 @@ def gather_floor_ms(products: int, sm_hz: float) -> float:
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
+
+def _bits_equal(a, b) -> bool:
+    """Tensors of one dtype and shape equal bit for bit."""
+    import torch
+    view = {torch.bfloat16: torch.int16, torch.float16: torch.int16,
+            torch.float32: torch.int32}
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.view(view.get(a.dtype, a.dtype)), b.view(view.get(b.dtype,
+                                                             b.dtype)))
+
 
 def _time(fn, reps: int, flush) -> float:
     """Median ms of ``reps`` launches, each after an L2 flush, timed with
@@ -452,9 +519,7 @@ class Bench:
                                  f"{tuple(got.shape)} vs plain {want.dtype}"
                                  f"{tuple(want.shape)}")
         # int32 exactly; fused outputs bitwise (compare the raw bits)
-        bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
-        same = torch.equal(got.view(bits.get(got.dtype, got.dtype)),
-                           want.view(bits.get(want.dtype, want.dtype)))
+        same = _bits_equal(got, want)
         err = float((got.to(torch.float64) - want.to(torch.float64))
                     .abs().max())
         if not same:
@@ -551,7 +616,18 @@ def check_kernels(bench: Bench) -> None:
                    False),
                   ("zamba2-2.7b shared block, M=8", at(SLOTS, ZAMBA2_SHARED),
                    False),
-                  ("rwkv6-1.6b layer, M=8", at(SLOTS, RWKV6_INNER), False)]
+                  ("rwkv6-1.6b layer, M=8", at(SLOTS, RWKV6_INNER), False),
+                  ("whisper-large-v3 decoder layer, M=8",
+                   at(SLOTS, WHISPER_DEC), False),
+                  (f"whisper-large-v3 decoder layer, "
+                   f"M={SLOTS * WHISPER_PROMPT}",
+                   at(SLOTS * WHISPER_PROMPT, WHISPER_DEC), False),
+                  (f"whisper-large-v3 encoder layer, M={WHISPER_ENC_M}",
+                   at(WHISPER_ENC_M, WHISPER_ENC), False),
+                  (f"whisper-large-v3 cross K/V, M={WHISPER_ENC_M}",
+                   at(WHISPER_ENC_M, WHISPER_XKV), False),
+                  ("qwen2-vl-72b layer, M=8", at(SLOTS, QWEN2VL_INNER),
+                   False)]
     for group, shapes, gather in lut_groups:
         for M, K, N in shapes:
             a = torch.randint(0, 16, (M, K), generator=gen, device=dev,
@@ -629,7 +705,9 @@ def check_kernels(bench: Bench) -> None:
                               VERIFY_M),
                              ("bitnet-3b head, M=8", BITNET_HEAD, SLOTS),
                              ("rwkv6-1.6b head, M=8", RWKV6_HEAD, SLOTS),
-                             ("zamba2-2.7b head, M=8", ZAMBA2_HEAD, SLOTS)):
+                             ("zamba2-2.7b head, M=8", ZAMBA2_HEAD, SLOTS),
+                             ("qwen2-vl-72b head, M=8", QWEN2VL_HEAD,
+                              SLOTS)):
         a = torch.randint(-128, 128, (M, K), generator=gen, device=dev,
                           dtype=torch.int8)
         w = torch.randint(-128, 128, (K, N), generator=gen, device=dev,
@@ -1108,12 +1186,13 @@ def round_calls(steps: int) -> int:
 
 
 def profile_engine(engine, label: str, steps: int,
-                   detail: bool = False, pos0: int = 16) -> None:
-    """At 8 slots, positions pos0..pos0 + 7, op by op: a full-batch decode
-    step (``detail``: every device row), or for a spec engine a drafter
-    step and a verify forward; then one replayed round from the same
-    state: 8 decode iterations, or for a spec engine a speculative
-    round."""
+                   detail: bool = False, pos0: int = 16,
+                   eager: bool = True) -> None:
+    """At 8 slots, positions pos0..pos0 + 7, op by op (unless ``eager`` is
+    False): a full-batch decode step (``detail``: every device row), or
+    for a spec engine a drafter step and a verify forward; then one
+    replayed round from the same state: 8 decode iterations, or for a spec
+    engine a speculative round."""
     import torch
     if not steps:
         return
@@ -1121,11 +1200,11 @@ def profile_engine(engine, label: str, steps: int,
     cache = engine.init_cache(SLOTS)
     tok = torch.zeros((SLOTS,), dtype=torch.int32, device="cuda")
     pos = torch.arange(SLOTS, dtype=torch.int32, device="cuda") + pos0
-    if not spec:
+    if eager and not spec:
         profile(f"{label} decode step",
                 lambda: engine._decode(tok, cache, pos), steps,
                 detail=detail)
-    else:
+    elif eager:
         toks = torch.zeros((SLOTS, engine.scfg.draft_k + 1),
                            dtype=torch.int32, device="cuda")
         profile(f"{label} drafter step",
@@ -1387,10 +1466,11 @@ def profile_int8_round(bf16, int8, steps: int) -> None:
         f"{json.dumps(dev)}, int8 - bf16 {dev['int8'] - dev['bf16']}")
 
 
-def int8_summary(cfg, int8, paged, lut8: list, lut: list) -> None:
+def int8_summary(cfg, int8, paged, lut8: list, lut: list,
+                 bf16_label: str) -> None:
     """The int8 runs' figures on one line, beside the bf16 run's."""
     from repro_torch.models import transformer
-    bf16 = dict(RUNS["qwen lut fused"])
+    bf16 = dict(RUNS[bf16_label])
     toks = [(a, b) for x, y in zip(lut8, lut) for a, b in zip(x, y)]
     first = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b),
                   len(x)) for x, y in zip(lut8, lut)]
@@ -1417,14 +1497,14 @@ def int8_summary(cfg, int8, paged, lut8: list, lut: list) -> None:
     log("int8 runs: " + json.dumps(INT8))
 
 
-def run_int8_lut(engine, cfg, V: int, lut: list,
-                 profile_steps: int) -> list:
+def run_int8_lut(engine, cfg, V: int, lut: list, profile_steps: int,
+                 bf16_label: str) -> list:
     """The int8 KV cache (``kv_quant="int8"``, max_len 256) on the lut
     codes of the bf16 ``engine``, every request admitted monolithically:
     the 8 contract requests dense and paged (equal), 8 equal-length prompts
     filling all 8 slots in one admission dispatch (dense == paged), the
-    plain backend over the first one (== fused).  Returns the int8 lut
-    transcripts."""
+    plain backend over the first one (== fused).  ``bf16_label`` names the
+    bf16 run of ``lut``.  Returns the int8 lut transcripts."""
     import dataclasses
     from repro_torch.kernels.lutmul import ops
     from repro_torch.serve import ServeConfig, make_engine
@@ -1455,7 +1535,7 @@ def run_int8_lut(engine, cfg, V: int, lut: list,
     same(serve(int8, V, "qwen lut int8 plain", 1), lut8,
          "lut int8 plain == lut fused int8")
     ops.set_backend("cuda")
-    int8_summary(cfg, int8, paged, lut8, lut)
+    int8_summary(cfg, int8, paged, lut8, lut, bf16_label)
     del int8, paged
     return lut8
 
@@ -1907,8 +1987,8 @@ def run_qwen(n_layers: int, profile_steps: int) -> None:
     profile_sampling(engine, "qwen lut", profile_steps)
     lut_s = serve(engine, V, "qwen lut fused sampled, 4", 4, "lutmul",
                   sampled=True)
-    # the unfused and plain lut runs are at CUT_LAYERS (run_cut_depth)
-    lut8 = run_int8_lut(engine, cfg, V, lut, profile_steps)
+    # the int8 KV stage, the unfused and plain lut runs are at CUT_LAYERS
+    # (run_cut_depth)
     del engine
 
     # this slice: the same float weights as w4a4_tmac bitplanes
@@ -1923,11 +2003,6 @@ def run_qwen(n_layers: int, profile_steps: int) -> None:
         f"{time.perf_counter() - t0:.1f}s")
     tmac = serve(engine, V, "qwen tmac fused", 8, "lutmul_tmac")
     same(tmac, lut, "tmac fused == lut fused")
-    tmac8 = make_engine(engine.params, dataclasses.replace(
-        tcfg, kv_quant="int8"), ServeConfig(max_len=256, seed=SAMPLE_SEED))
-    same(serve(tmac8, V, "qwen tmac fused int8", 4, "lutmul_tmac"), lut8,
-         "tmac fused int8 == lut fused int8")
-    del tmac8
     same(serve(engine, V, "qwen tmac fused sampled", 4, "lutmul_tmac",
                sampled=True), lut_s, "tmac fused sampled == lut fused sampled")
     profile_engine(engine, "qwen tmac", profile_steps)
@@ -1935,47 +2010,21 @@ def run_qwen(n_layers: int, profile_steps: int) -> None:
     same(serve(engine, V, "qwen tmac unfused", 4, "lutmul_tmac",
                fused=False), tmac, "tmac unfused == tmac fused")
     ops.set_variant(None)
-
-    # bitplane self-speculative decoding on the same codes
-    spec = make_engine(engine.params, tcfg, ServeConfig(
-        max_len=256, spec_decode=True, draft_planes=2, draft_k=3,
-        seed=SAMPLE_SEED))
-    log(f"spec engine: {spec.n_draftable_leaves} draftable leaves")
-    same(serve(spec, V, "qwen tmac spec", 8, "lutmul_tmac"), tmac,
-         "tmac spec == tmac fused")
-    if RUNS["qwen tmac spec"]["spec_rounds"] < 1:
-        raise AssertionError("the spec run made no speculative round")
-    profile_engine(spec, "qwen tmac", profile_steps)
-    # speculation on the paged cache: rejected blocks trimmed
-    pspec = make_engine(engine.params, tcfg, dataclasses.replace(
-        spec.scfg, paged=True, page_size=4))
-    same(serve(pspec, V, "qwen tmac spec paged", 4, "lutmul_tmac"), tmac,
-         "tmac spec paged == tmac fused")
-    st = RUNS["qwen tmac spec paged"]
-    if st["spec_rounds"] < 1 or st["paged"]["pages_trimmed"] < 1:
-        raise AssertionError(f"tmac spec paged: {st['spec_rounds']} spec "
-                             f"rounds, {st['paged']['pages_trimmed']} pages "
-                             "trimmed")
-    del pspec
-    n = zero_low_planes(engine.params)
-    log(f"zeroed the low 2 planes of {n} leaves in place")
-    serve(spec, V, "qwen tmac spec, low planes zeroed", 4, "lutmul_tmac")
-    st = RUNS["qwen tmac spec, low planes zeroed"]
-    if not st["spec_drafted"] or st["spec_accepted"] != st["spec_drafted"]:
-        raise AssertionError(f"low planes zeroed: accepted "
-                             f"{st['spec_accepted']} of {st['spec_drafted']}"
-                             " drafts, expected all")
-    del spec, engine
+    # the speculative stage is at CUT_LAYERS (run_cut_tmac)
+    del engine
     torch.cuda.empty_cache()
     run_cut_depth(n_layers, profile_steps)
 
 
 def depth(cfg, n_layers):
-    """``cfg`` cut to ``n_layers`` layers (None: its own depth)."""
+    """``cfg`` cut to ``n_layers`` layers (None: its own depth), an
+    encoder's too."""
     import dataclasses
     if n_layers is None or n_layers >= cfg.n_layers:
         return cfg
-    return dataclasses.replace(cfg, n_layers=n_layers)
+    return dataclasses.replace(
+        cfg, n_layers=n_layers,
+        n_enc_layers=min(cfg.n_enc_layers, n_layers))
 
 
 def new_engine(cfg, max_len: int, label: str):
@@ -2008,16 +2057,14 @@ def new_engine(cfg, max_len: int, label: str):
 def run_cut_depth(n_layers, profile_steps: int) -> None:
     """qwen2-7b at full width and ``CUT_LAYERS`` layers (fewer under
     ``--layers``): lut fused over the 8 requests, the sampled mix over 4,
-    int8 KV over 8; the lut unfused runs (4, greedy and sampled) and the
-    plain lut runs (1, greedy and sampled) against them; w4a4_tmac codes of
-    the same float weights (``init_served_params``) fused and plain over
-    one request, and speculative sampled over one request, graph and plain;
-    then the paged, faults and QoS stages (``run_paged_lut``,
-    ``run_faults``, ``run_qos``)."""
+    the int8 KV stage (``run_int8_lut``); the lut unfused runs (4, greedy
+    and sampled) and the plain lut runs (1, greedy and sampled) against
+    them; w4a4_tmac codes of the same float weights and the speculative
+    stage (``run_cut_tmac``); then the paged, faults and QoS stages
+    (``run_paged_lut``, ``run_faults``, ``run_qos``)."""
     import dataclasses
     from repro_torch.configs import qwen2_7b
     from repro_torch.kernels.lutmul import ops
-    from repro_torch.serve import ServeConfig, make_engine
     layers = min(CUT_LAYERS, n_layers or CUT_LAYERS)
     cfg = dataclasses.replace(qwen2_7b.config(quant="w4a4_lut"),
                               n_layers=layers)
@@ -2029,10 +2076,7 @@ def run_cut_depth(n_layers, profile_steps: int) -> None:
     lut = serve(engine, V, f"{q} lut fused", 8, "lutmul")
     lut_s = serve(engine, V, f"{q} lut fused sampled, 4", 4,
                   "lutmul", sampled=True)
-    e8 = make_engine(engine.params, dataclasses.replace(
-        cfg, kv_quant="int8"), ServeConfig(max_len=256, seed=SAMPLE_SEED))
-    lut8 = serve(e8, V, f"{q} lut fused int8", 8, "lutmul")
-    del e8
+    lut8 = run_int8_lut(engine, cfg, V, lut, profile_steps, f"{q} lut fused")
     ops.set_variant("unfused")
     same(serve(engine, V, f"{q} lut unfused", 4, "lutmul", fused=False),
          lut, f"{q} lut unfused == {q} lut fused")
@@ -2050,33 +2094,61 @@ def run_cut_depth(n_layers, profile_steps: int) -> None:
     same(serve(engine, V, f"{q} lut plain sampled", 1, sampled=True), lut_s1,
          f"{q} lut plain sampled == {q} lut fused sampled")
     ops.set_backend("cuda")
-    run_cut_tmac(cfg, V, q)
+    run_cut_tmac(cfg, V, q, lut8, profile_steps)
     run_paged_lut(engine, cfg, V, lut, lut_s, profile_steps)
     run_faults(engine, cfg, V, lut, lut_s, lut8)
     run_qos(engine, cfg, V, lut, lut_s, lut8)
     paged_summary([k for k in RUNS if "paged" in RUNS[k]])
 
 
-def run_cut_tmac(cfg, V: int, q: str) -> None:
+def run_cut_tmac(cfg, V: int, q: str, lut8: list,
+                 profile_steps: int) -> None:
     """w4a4_tmac bitplanes of the cut model's float weights (seed 0, made a
-    layer at a time): fused and the plain backend over one request; then
-    bitplane self-speculative decoding at temperature > 0 over one request,
-    graph and plain (drafts and verify columns draw their own keys, so the
-    accept rate is reported, not asserted)."""
+    layer at a time): fused over the 8 requests and the plain backend over
+    the first; int8 KV over 4 (== the int8 lut run ``lut8``); bitplane
+    self-speculative decoding on the same codes, greedy over the 8 (== the
+    fused run, with a drafter step, a verify forward and a speculative
+    round profiled) and paged over 4 (rejected blocks trimmed), and at
+    temperature > 0 over one request, graph and plain (drafts and verify
+    columns draw their own keys, so the accept rate is reported, not
+    asserted); last, speculation after zeroing the low two planes in place
+    (4 requests, every draft accepted)."""
     import dataclasses
     import torch
     from repro_torch.kernels.lutmul import ops
     from repro_torch.serve import ServeConfig, make_engine
     tmac = new_engine(dataclasses.replace(cfg, quant="w4a4_tmac"), 256,
                       "qwen2-7b (cut, w4a4_tmac)")
-    fused = serve(tmac, V, f"{q} tmac fused, 1", 1, "lutmul_tmac")
+    fused = serve(tmac, V, f"{q} tmac fused", 8, "lutmul_tmac")
     ops.set_backend("ref")
     same(serve(tmac, V, f"{q} tmac plain", 1), fused,
          f"{q} tmac plain == {q} tmac fused")
     ops.set_backend("cuda")
+    tmac8 = make_engine(tmac.params, dataclasses.replace(
+        tmac.cfg, kv_quant="int8"), ServeConfig(max_len=256,
+                                                seed=SAMPLE_SEED))
+    same(serve(tmac8, V, f"{q} tmac fused int8", 4, "lutmul_tmac"), lut8,
+         f"{q} tmac fused int8 == {q} lut fused int8")
+    del tmac8
     spec = make_engine(tmac.params, tmac.cfg, ServeConfig(
         max_len=256, spec_decode=True, draft_planes=2, draft_k=3,
         seed=SAMPLE_SEED))
+    log(f"spec engine: {spec.n_draftable_leaves} draftable leaves")
+    same(serve(spec, V, f"{q} tmac spec", 8, "lutmul_tmac"), fused,
+         f"{q} tmac spec == {q} tmac fused")
+    if RUNS[f"{q} tmac spec"]["spec_rounds"] < 1:
+        raise AssertionError("the spec run made no speculative round")
+    profile_engine(spec, f"{q} tmac", profile_steps)
+    pspec = make_engine(tmac.params, tmac.cfg, dataclasses.replace(
+        spec.scfg, paged=True, page_size=4))
+    same(serve(pspec, V, f"{q} tmac spec paged", 4, "lutmul_tmac"), fused,
+         f"{q} tmac spec paged == {q} tmac fused")
+    st = RUNS[f"{q} tmac spec paged"]
+    if st["spec_rounds"] < 1 or st["paged"]["pages_trimmed"] < 1:
+        raise AssertionError(f"tmac spec paged: {st['spec_rounds']} spec "
+                             f"rounds, {st['paged']['pages_trimmed']} pages "
+                             "trimmed")
+    del pspec
     label = f"{q} tmac spec sampled"
     spec_s = serve(spec, V, label, 1, "lutmul_tmac", sampled=True)
     st = RUNS[label]
@@ -2088,6 +2160,15 @@ def run_cut_tmac(cfg, V: int, q: str) -> None:
     same(serve(spec, V, f"{label} plain", 1, sampled=True), spec_s,
          f"{label} plain == {label} graph")
     ops.set_backend("cuda")
+    n = zero_low_planes(tmac.params)
+    log(f"zeroed the low 2 planes of {n} leaves in place")
+    label = f"{q} tmac spec, low planes zeroed"
+    serve(spec, V, label, 4, "lutmul_tmac")
+    st = RUNS[label]
+    if not st["spec_drafted"] or st["spec_accepted"] != st["spec_drafted"]:
+        raise AssertionError(f"low planes zeroed: accepted "
+                             f"{st['spec_accepted']} of {st['spec_drafted']}"
+                             " drafts, expected all")
     del spec, tmac
     torch.cuda.empty_cache()
 
@@ -2461,9 +2542,9 @@ def run_minicpm(n_layers, profile_steps: int) -> None:
     time_tied_head(engine, "minicpm")
     ops.set_backend("ref")
     reqs = make_requests(V)[:1]
-    reqs[0].max_new_tokens = MINICPM_PLAIN_TOKENS
+    reqs[0].max_new_tokens = PLAIN_TOKENS
     same(serve(engine, V, "minicpm lut plain", 1, reqs=reqs),
-         [fused[0][:MINICPM_PLAIN_TOKENS]], "minicpm plain == minicpm fused")
+         [fused[0][:PLAIN_TOKENS]], "minicpm plain == minicpm fused")
     ops.set_backend("cuda")
     del engine
     torch.cuda.empty_cache()
@@ -2539,7 +2620,7 @@ def run_qwen2moe(n_layers, profile_steps: int) -> None:
 
     def first():
         reqs = make_requests(V)[:1]
-        reqs[0].max_new_tokens = MINICPM_PLAIN_TOKENS
+        reqs[0].max_new_tokens = PLAIN_TOKENS
         return reqs
     fused1 = serve(engine, V, "qwen2moe lut fused, 1", 1, "lutmul",
                    reqs=first())
@@ -2587,10 +2668,8 @@ def check_first_replay(engine, V: int, label: str) -> None:
                                  "key of its own")
         results[mode] = [t.clone() for t in out[1:]] + [
             t.clone() for t in leaves]
-    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
     for i, (a, b) in enumerate(zip(*results.values())):
-        if not torch.equal(a.view(bits.get(a.dtype, a.dtype)),
-                           b.view(bits.get(b.dtype, b.dtype))):
+        if not _bits_equal(a, b):
             raise AssertionError(f"{label}: the first replayed round differs "
                                  f"from the op-by-op round at output {i}")
     log(f"first replay[{label}]: the op-by-op round and the first replay "
@@ -2635,11 +2714,11 @@ def run_recurrent(arch: str, n_layers, profile_steps: int) -> None:
 
     def first(sampled=False):
         reqs = make_requests(V, sampled=sampled)[:1]
-        reqs[0].max_new_tokens = MINICPM_PLAIN_TOKENS
+        reqs[0].max_new_tokens = PLAIN_TOKENS
         return reqs
     ops.set_backend("ref")
     same(serve(engine, V, f"{name} lut plain", 1, reqs=first()),
-         [fused[0][:MINICPM_PLAIN_TOKENS]], f"{name} plain == {name} fused")
+         [fused[0][:PLAIN_TOKENS]], f"{name} plain == {name} fused")
     ops.set_backend("cuda")
     if cfg.family == "hybrid":
         sampled = serve(engine, V, f"{name} lut fused sampled, 1", 1,
@@ -2657,6 +2736,302 @@ def run_recurrent(arch: str, n_layers, profile_steps: int) -> None:
     # one call of each: a replayed round is tens of thousands of kernels;
     # the decode step lists every device row (the scan's ATen ops)
     profile_engine(engine, f"{name} lut", min(profile_steps, 1), detail=True)
+    del engine
+    torch.cuda.empty_cache()
+
+
+def whisper_generate(engine, prompts, frames, new: int, label: str,
+                     inner: str = None) -> list:
+    """``Engine.generate(frames=)`` over every request, ``new`` tokens
+    each, the launch counters zeroed just before and read just after;
+    ``inner`` names the LUT entry point every forward launches (None: the
+    plain backend, no launch).  Returns the transcripts."""
+    import torch
+    cfg = engine.cfg
+    reset_peak()
+    engine.decode_steps = 0
+    reset_launches()
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, new, frames=frames)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = all_launches()
+    per_prefill = 6 * cfg.n_enc_layers + 12 * cfg.n_layers
+    want = dict.fromkeys(launches, 0)
+    if inner is not None:
+        want[inner] = per_prefill + 8 * cfg.n_layers * (new - 1)
+    if launches != want or engine.decode_steps != new - 1:
+        raise AssertionError(f"{label}: launches {launches} != {want} "
+                             f"({engine.decode_steps} decode steps)")
+    toks = out[:, prompts.shape[1]:].tolist()
+    n = len(toks)
+    st = {"label": label, "requests": n, "seconds": dt,
+          "new_tokens": new, "emitted_tokens": n * new,
+          "tokens_per_s": n * new / dt,
+          "decode_steps": engine.decode_steps, "launches": launches,
+          "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"serving[{label}]: {json.dumps(st)}")
+    RUNS[label] = st
+    return toks
+
+
+def whisper_prefill_parts(engine, prompts, frames,
+                          profile_steps: int) -> dict:
+    """CUDA-event ms of a full-batch prefill and of its parts: the encoder,
+    the decoder forward (whose cross-attention projects the encoder output
+    a layer at a time), ``precompute_cross_kv`` (the reference's second
+    projection of the same K/V) and one decode step; the LUT launches of a
+    prefill and of a decode step; the eager decode step profiled (its
+    device-busy share)."""
+    import torch
+    from repro_torch.models import encdec
+    p, cfg = engine.params, engine.cfg
+    enc = encdec.encode(p, cfg, frames)
+    logits, cache = encdec.prefill(p, cfg, frames, prompts)
+    cache = engine._grow_cache(cache, prompts.shape[1])
+    tok = logits.argmax(-1).to(torch.int32)
+    pos = torch.full((SLOTS,), prompts.shape[1], dtype=torch.int32,
+                     device="cuda")
+    counts = {}
+    for name, fn in (("prefill", lambda: encdec.prefill(p, cfg, frames,
+                                                        prompts)),
+                     ("decode step", lambda: encdec.decode_step(
+                         p, cfg, tok, cache, pos))):
+        reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        counts[name] = {k: v for k, v in all_launches().items() if v}
+    out = {"launches": counts,
+           "prefill_ms": _event_ms(lambda: encdec.prefill(p, cfg, frames,
+                                                          prompts), 3),
+           "encode_ms": _event_ms(lambda: encdec.encode(p, cfg, frames), 3),
+           "decoder_forward_ms": _event_ms(lambda: encdec.dec_forward(
+               p, cfg, prompts, enc), 3),
+           "cross_kv_second_pass_ms": _event_ms(
+               lambda: encdec.precompute_cross_kv(
+                   p, cfg, enc, [{} for _ in range(cfg.n_layers)]), 3),
+           "decode_step_ms": _event_ms(lambda: encdec.decode_step(
+               p, cfg, tok, cache, pos), 5)}
+    out["cross_kv_second_pass_share"] = (out["cross_kv_second_pass_ms"]
+                                         / out["prefill_ms"])
+    if profile_steps:
+        profile("whisper lut decode step", lambda: encdec.decode_step(
+            p, cfg, tok, cache, pos), profile_steps)
+    del enc, cache
+    return out
+
+
+def whisper_paged_check(engine, prompts, frames) -> None:
+    """8 ``encdec.decode_step``s from one prefill, over the dense cache and
+    through a page table (pages of WHISPER_PAGE tokens, each slot its own
+    run of pages): logits and every layer's self-attention K/V bitwise
+    equal."""
+    import torch
+    from repro_torch.models import attention, encdec
+    p, cfg = engine.params, engine.cfg
+    M = engine.scfg.max_len
+    logits, cache = encdec.prefill(p, cfg, frames, prompts)
+    dense = engine._grow_cache(cache, prompts.shape[1])
+    E = M // WHISPER_PAGE
+    table = (torch.arange(SLOTS * E, dtype=torch.int32, device="cuda")
+             .reshape(SLOTS, E) + 1)
+    pools = encdec.init_paged_cache(cfg, SLOTS, M, SLOTS * E + 1,
+                                    WHISPER_PAGE, "cuda")
+    for d, pc in zip(dense, pools):
+        for key in ("k", "v"):
+            pc[key][table.reshape(-1).long()] = d[key].reshape(
+                (SLOTS * E, WHISPER_PAGE) + tuple(d[key].shape[2:]))
+        pc["xk"].copy_(d["xk"])
+        pc["xv"].copy_(d["xv"])
+    tok = logits.argmax(-1).to(torch.int32)
+    pos = torch.full((SLOTS,), prompts.shape[1], dtype=torch.int32,
+                     device="cuda")
+    for step in range(8):
+        ld, dense = encdec.decode_step(p, cfg, tok, dense, pos)
+        lp, pools = encdec.decode_step(p, cfg, tok, pools, pos, (table, None))
+        if not _bits_equal(ld, lp):
+            raise AssertionError(f"whisper paged decode step {step}: logits "
+                                 "differ from the dense step's")
+        tok = ld.argmax(-1).to(torch.int32)
+        pos = pos + 1
+    for i, (d, pc) in enumerate(zip(dense, pools)):
+        for key in ("k", "v"):
+            if not _bits_equal(attention.paged_gather(pc[key], table),
+                               d[key]):
+                raise AssertionError(f"whisper paged K/V differ: layer {i} "
+                                     f"{key}")
+    log(f"whisper paged: 8 decode steps through a page table of "
+        f"{WHISPER_PAGE}-token pages ({SLOTS * E + 1} pages) == dense, "
+        f"logits and {2 * cfg.n_layers} K/V leaves bitwise")
+    del dense, pools
+
+
+def run_whisper(n_layers, profile_steps: int) -> None:
+    """whisper-large-v3 at full width (32 encoder and 32 decoder layers, d
+    1280, enc_seq 1500) in w4a4_lut through ``Engine.generate(frames=)``:
+    8 requests of 4-token prompts over stub frames [8, 1500, 1280] (seed
+    0), 64 new tokens, fused; unfused (64 new tokens) and the plain
+    backend (PLAIN_TOKENS) over all 8, every transcript equal to the fused
+    one; the prefill's parts timed (the second cross-K/V pass apart), its
+    launches and a decode step's counted, the decode step profiled; 8
+    decode steps through a page table == dense, bitwise."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import whisper_large_v3
+    from repro_torch.kernels.lutmul import ops
+    cfg = depth(whisper_large_v3.config(quant="w4a4_lut"), n_layers)
+    engine = new_engine(cfg, WHISPER_MAX_LEN, "whisper-large-v3")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    frames = torch.randn((SLOTS, cfg.enc_seq, cfg.d_model), generator=gen,
+                         device="cuda")
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (SLOTS, WHISPER_PROMPT)).astype(np.int32)).cuda()
+    ops.set_backend("cuda")
+    ops.set_variant(None)
+    fused = whisper_generate(engine, prompts, frames, WHISPER_NEW,
+                             "whisper lut fused", "lutmul_fused")
+    parts = whisper_prefill_parts(engine, prompts, frames,
+                                  min(profile_steps, 1))
+    log(f"whisper prefill: {json.dumps(parts)}")
+    ops.set_variant("unfused")
+    same(whisper_generate(engine, prompts, frames, WHISPER_NEW,
+                          "whisper lut unfused", "lutmul"),
+         fused, "whisper unfused == whisper fused")
+    ops.set_variant(None)
+    ops.set_backend("ref")
+    same(whisper_generate(engine, prompts, frames, PLAIN_TOKENS,
+                          "whisper lut plain"),
+         [t[:PLAIN_TOKENS] for t in fused], "whisper plain == whisper fused")
+    ops.set_backend("cuda")
+    whisper_paged_check(engine, prompts, frames)
+    del engine, frames
+    torch.cuda.empty_cache()
+
+
+def vision_positions(B: int, text: int, grid: int):
+    """[B, 2 * text + grid^2, 3] int32 M-RoPE ids on the card: ``text``
+    tokens, a ``grid`` x ``grid`` patch grid (t fixed, h the row, w the
+    column, offset by the text before it), then ``text`` tokens from the
+    grid's max + 1."""
+    import torch
+    ids = [[i] * 3 for i in range(text)]
+    ids += [[text, text + r, text + c] for r in range(grid)
+            for c in range(grid)]
+    ids += [[text + grid + i] * 3 for i in range(text)]
+    return torch.tensor(ids, dtype=torch.int32, device="cuda")[None].expand(
+        B, len(ids), 3).contiguous()
+
+
+def vision_stub(engine, emb, mpos) -> list:
+    """At model level on the served tree: a prefill of the stub frontend's
+    embeddings at their 3-D positions, then QWEN2VL_STUB_STEPS greedy
+    decode steps (positions ``pos``, as the reference's decode); returns
+    every logits tensor and the final K/V."""
+    import torch
+    from repro_torch.models import transformer
+    p, cfg = engine.params, engine.cfg
+    B, S = emb.shape[:2]
+    logits, pre = transformer.prefill(p, cfg, embeddings=emb,
+                                      mrope_positions=mpos)
+    T = S + QWEN2VL_STUB_STEPS
+    cache = transformer.init_cache(cfg, B, T, "cuda")
+    for c, q in zip(cache, pre):
+        c["k"][:, :S] = q["k"]
+        c["v"][:, :S] = q["v"]
+    del pre
+    outs = [logits]
+    pos = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    for _ in range(QWEN2VL_STUB_STEPS):
+        tok = outs[-1].argmax(-1).to(torch.int32)
+        logits, cache = transformer.decode_step(p, cfg, tok, cache, pos)
+        outs.append(logits)
+        pos = pos + 1
+    return outs, cache
+
+
+def run_qwen2vl(n_layers, profile_steps: int) -> None:
+    """qwen2-vl-72b at full width (d 8192, 64 / 8 heads, d_ff 29568, vocab
+    152064) in w4a4_lut, its served tree built a layer at a time: the
+    Scheduler over the 8 contract requests (text: M-RoPE at t = h = w),
+    fused; the plain backend over the first one (4 new tokens) equal to
+    it; the vision stub (``vision_stub``: embeddings [2, 272, 8192] at a
+    16 x 16 patch grid's positions, then 8 decode steps) fused == plain,
+    every logit and the K/V bitwise; a text prefill under M-RoPE == the
+    same under ``rope_mode="rope"`` bitwise; a profile."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import qwen2_vl_72b
+    from repro_torch.kernels.lutmul import ops
+    from repro_torch.models import transformer
+    cfg = depth(qwen2_vl_72b.config(quant="w4a4_lut"), n_layers)
+    V = cfg.vocab
+    engine = new_engine(cfg, 256, "qwen2-vl-72b")
+    log(f"qwen2vl KV: {engine.kv_cache_bytes(SLOTS)} B at {SLOTS} slots, "
+        f"max_len 256; {inner_per_forward(cfg)} LUT launches a forward")
+    ops.set_backend("cuda")
+    ops.set_variant(None)
+    fused = serve(engine, V, "qwen2vl lut fused", 8, "lutmul")
+    ops.set_backend("ref")
+    reqs = make_requests(V)[:1]
+    reqs[0].max_new_tokens = QWEN2VL_PLAIN_TOKENS
+    same(serve(engine, V, "qwen2vl lut plain", 1, reqs=reqs),
+         [fused[0][:QWEN2VL_PLAIN_TOKENS]], "qwen2vl plain == qwen2vl fused")
+    ops.set_backend("cuda")
+    # the vision stub, fused and plain
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    mpos = vision_positions(QWEN2VL_STUB_ROWS, QWEN2VL_TEXT, QWEN2VL_GRID)
+    emb = torch.randn((QWEN2VL_STUB_ROWS, mpos.shape[1], cfg.d_model),
+                      generator=gen, device="cuda") * 0.02
+    reset_launches()
+    t0 = time.perf_counter()
+    f_logits, f_cache = vision_stub(engine, emb, mpos)
+    torch.cuda.synchronize()
+    f_s = time.perf_counter() - t0
+    launches = {k: v for k, v in all_launches().items() if v}
+    want = {"lutmul_fused": inner_per_forward(cfg) * (
+        1 + QWEN2VL_STUB_STEPS), "int_matmul_fused": 1 + QWEN2VL_STUB_STEPS}
+    if launches != want:
+        raise AssertionError(f"qwen2vl vision stub: launches {launches} != "
+                             f"{want}")
+    ops.set_backend("ref")
+    t0 = time.perf_counter()
+    p_logits, p_cache = vision_stub(engine, emb, mpos)
+    torch.cuda.synchronize()
+    p_s = time.perf_counter() - t0
+    ops.set_backend("cuda")
+    for i, (a, b) in enumerate(zip(f_logits, p_logits)):
+        if not _bits_equal(a, b):
+            raise AssertionError(f"qwen2vl vision stub: logits {i} fused != "
+                                 "plain")
+    for i, (a, b) in enumerate(zip(f_cache, p_cache)):
+        if not (_bits_equal(a["k"], b["k"]) and _bits_equal(a["v"],
+                                                            b["v"])):
+            raise AssertionError(f"qwen2vl vision stub: layer {i} K/V fused "
+                                 "!= plain")
+    log(f"qwen2vl vision stub: prefill of embeddings {list(emb.shape)} at "
+        f"a {QWEN2VL_GRID}x{QWEN2VL_GRID} patch grid's 3-D positions + "
+        f"{QWEN2VL_STUB_STEPS} decode steps, fused == plain bitwise (every "
+        f"logit, {2 * cfg.n_layers} K/V leaves); launches {launches}; "
+        f"fused {f_s:.2f}s, plain {p_s:.2f}s; greedy tokens "
+        f"{[t.argmax(-1).tolist() for t in f_logits]}")
+    del f_logits, f_cache, p_logits, p_cache, emb
+    # M-RoPE at t = h = w is RoPE, bitwise
+    toks = torch.tensor([r.prompt[:8] for r in make_requests(V)],
+                        dtype=torch.int32, device="cuda")
+    lm, cm = transformer.prefill(engine.params, cfg, toks)
+    lr, cr = transformer.prefill(engine.params,
+                                 dataclasses.replace(cfg, rope_mode="rope"),
+                                 toks)
+    if not _bits_equal(lm, lr) or not all(
+            _bits_equal(a["k"], b["k"]) for a, b in zip(cm, cr)):
+        raise AssertionError("qwen2vl: a text prefill under M-RoPE differs "
+                             "from rope_mode='rope'")
+    log(f"qwen2vl text prefill {list(toks.shape)}: M-RoPE == rope bitwise "
+        f"(logits and {cfg.n_layers} rotated K leaves)")
+    del lm, cm, lr, cr
+    # the replayed round alone: the profiler's trace of an eager 80-layer
+    # step takes ~20 s to read
+    profile_engine(engine, "qwen2vl lut", min(profile_steps, 1), eager=False)
     del engine
     torch.cuda.empty_cache()
 
@@ -2948,7 +3323,7 @@ def main() -> int:
                         "always); default: each model's own depth")
     p.add_argument("--reps", type=int, default=50,
                    help="timed launches per kernel and shape")
-    p.add_argument("--profile", type=int, default=4, metavar="STEPS",
+    p.add_argument("--profile", type=int, default=2, metavar="STEPS",
                    help="calls profiled per forward kind, half of them "
                         "(rounded up) for a replayed round (0: none)")
     p.add_argument("--phases", default=",".join(PHASES),
@@ -3003,6 +3378,10 @@ def main() -> int:
                           "rwkv6-1.6b", args.layers, args.profile)),
                       ("zamba2", lambda: run_recurrent(
                           "zamba2-2.7b", args.layers, args.profile)),
+                      ("whisper",
+                       lambda: run_whisper(args.layers, args.profile)),
+                      ("qwen2vl",
+                       lambda: run_qwen2vl(args.layers, args.profile)),
                       ("mobilenetv2", lambda: run_mobilenet(bench))):
         if phase in phases:
             t0 = time.perf_counter()

@@ -80,7 +80,9 @@ ALIASES = {"qwen2-7b": "qwen2_7b", "bitnet-3b": "bitnet_3b",
            "gemma2-2b": "gemma2_2b", "phi3-medium-14b": "phi3_medium_14b",
            "minicpm-2b": "minicpm_2b", "qwen2-moe-a2.7b": "qwen2_moe_a2p7b",
            "mixtral-8x22b": "mixtral_8x22b", "rwkv6-1.6b": "rwkv6_1p6b",
-           "zamba2-2.7b": "zamba2_2p7b", "mobilenetv2": "mobilenetv2"}
+           "zamba2-2.7b": "zamba2_2p7b",
+           "whisper-large-v3": "whisper_large_v3",
+           "qwen2-vl-72b": "qwen2_vl_72b", "mobilenetv2": "mobilenetv2"}
 
 
 def get_config(arch: str, smoke: bool = False, **kw):

@@ -8,9 +8,11 @@ per-layer list (layer ``g * len(pattern) + j``), every leaf keeps its
 ``[K, N]`` / ``[K//2, N]`` / ``[P, K//8, N]`` layout and dtype (the
 zero-size ``w_tmac`` / ``w_tern`` markers become shape-``(0,)`` tensors),
 so both packages compute the same function from the same weights and
-codes.  ``mobilenet_params_from_jax`` does the same for the reference's
-MobileNetV2 tree (``{name: {"w", "bn_*"}, "fc": {"w", "b"}}``, HWIO
-weights).
+codes.  An encoder-decoder tree (whisper: ``enc_blocks`` /
+``dec_blocks``, one ``[L, ...]`` stack each) becomes ``models.encdec``'s
+two per-layer lists.  ``mobilenet_params_from_jax`` does the same for the
+reference's MobileNetV2 tree (``{name: {"w", "bn_*"}, "fc": {"w", "b"}}``,
+HWIO weights).
 """
 from __future__ import annotations
 
@@ -32,8 +34,21 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def _unstack(stack, n: int, dev) -> list:
+    """Layer i of every ``[n, ...]`` leaf of ``stack``, for i < n."""
+    return [_map(stack, lambda a, i=i: _tensor(a[i], dev)) for i in range(n)]
+
+
 def params_from_jax(tree: dict, cfg, device=None) -> dict:
     dev = resolve_device(device)
+    if "enc_blocks" in tree:
+        out = {k: _map(v, lambda a: _tensor(a, dev))
+               for k, v in tree.items() if k not in ("enc_blocks",
+                                                     "dec_blocks")}
+        out["enc_blocks"] = _unstack(tree["enc_blocks"], cfg.n_enc_layers,
+                                     dev)
+        out["dec_blocks"] = _unstack(tree["dec_blocks"], cfg.n_layers, dev)
+        return out
     P = len(cfg.pattern)
     G = cfg.n_layers // P
     stacks = tree["blocks"]

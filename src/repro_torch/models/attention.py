@@ -1,12 +1,14 @@
 """Attention (port of ``repro.models.attention``): GQA with the
-reference's boolean position mask (causal, and a sliding window on local
-layers), gemma-2's logit soft-cap before the mask and the ``NEG_INF``
-fill; full-sequence prefill, single-token decode (over a full-length cache
-or a rolling ring of a local layer) and the S-token speculative-verify
-block over a dense per-slot KV cache or, with a page ``table``, over
-shared page pools (``paged_gather`` / ``paged_write``); and single-token
-decode over an int8 KV cache (``quantize_kv``, ``int8_kv_attention``,
-``decode_attention_int8``).
+reference's boolean position mask (causal or, for whisper's encoder,
+bidirectional, and a sliding window on local layers), gemma-2's logit
+soft-cap before the mask and the ``NEG_INF`` fill; RoPE, Qwen2-VL's M-RoPE
+or no rotation (``rope_mode``); full-sequence prefill, single-token decode
+(over a full-length cache or a rolling ring of a local layer) and the
+S-token speculative-verify block over a dense per-slot KV cache or, with a
+page ``table``, over shared page pools (``paged_gather`` /
+``paged_write``); single-token decode over an int8 KV cache
+(``quantize_kv``, ``int8_kv_attention``, ``decode_attention_int8``); and
+whisper's encoder-decoder ``cross_attention``.
 
 Plain PyTorch ops throughout (the reference has no Pallas kernel here).
 Scores and the probability-value product accumulate in float32 on float32
@@ -22,8 +24,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models.layers import (Params, apply_rope, init_linear,
-                                       linear, stable_tanh)
+from repro_torch.models.layers import (Params, init_linear, linear, rotate,
+                                       stable_tanh)
 
 NEG_INF = -1e30
 
@@ -53,13 +55,15 @@ def _proj_out(p: Params, out: torch.Tensor, B: int, S: int, quant: str,
 
 
 def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
-          window: Optional[int] = None) -> torch.Tensor:
-    """[..., q, k] causal boolean keep-mask from absolute positions; negative
-    key positions (padding / unwritten cache slots) are always masked, and
-    with ``window`` so is every key ``window`` or more positions back."""
+          window: Optional[int] = None, causal: bool = True) -> torch.Tensor:
+    """[..., q, k] boolean keep-mask from absolute positions; negative key
+    positions (padding / unwritten cache slots) are always masked; with
+    ``causal`` so is every key past its query, and with ``window`` every
+    key ``window`` or more positions back."""
     m = (k_pos >= 0)[..., None, :]
     d = q_pos[..., :, None] - k_pos[..., None, :]
-    m = m & (d >= 0)
+    if causal:
+        m = m & (d >= 0)
     if window is not None:
         m = m & (d < window)
     return m
@@ -75,10 +79,11 @@ def _softcap_scores(s: torch.Tensor, cap: float) -> torch.Tensor:
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    q_pos: torch.Tensor, k_pos: torch.Tensor,
                    window: Optional[int] = None,
-                   logit_softcap: Optional[float] = None) -> torch.Tensor:
-    """Causal attention: q [B, S, Hq, D], k/v [B, T, Hkv, D] -> float32
-    [B, S, Hq, D]; ``window`` masks keys that far back, ``logit_softcap``
-    caps the scores before the mask."""
+                   logit_softcap: Optional[float] = None,
+                   causal: bool = True) -> torch.Tensor:
+    """Attention: q [B, S, Hq, D], k/v [B, T, Hkv, D] -> float32 [B, S, Hq,
+    D]; causal unless ``causal`` is False, ``window`` masks keys that far
+    back, ``logit_softcap`` caps the scores before the mask."""
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
@@ -88,7 +93,7 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      k.to(torch.float32))
     if logit_softcap is not None:
         s = _softcap_scores(s, logit_softcap)
-    keep = _mask(q_pos, k_pos, window)
+    keep = _mask(q_pos, k_pos, window, causal)
     s = s.masked_fill(~keep[:, :, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bshgk,bkhd->bshgd",
@@ -97,27 +102,39 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, *,
-              n_heads: int, n_kv: int, head_dim: int,
+              n_heads: int, n_kv: int, head_dim: int, causal: bool = True,
               window: Optional[int] = None,
               logit_softcap: Optional[float] = None,
-              rope_theta: float = 10000.0, quant: str = "none",
-              compute_dtype=torch.bfloat16, return_kv: bool = False):
-    """Causal self-attention over a full sequence (prefill).  Unblocked: the
-    score tensor is [B, S, H, S] (the reference switches to a blocked scan
-    above 2 * kv_block tokens, with the same result up to float summation
-    order)."""
+              rope_theta: float = 10000.0, rope_mode: str = "rope",
+              mrope_sections: tuple = (), mrope_positions=None,
+              quant: str = "none", compute_dtype=torch.bfloat16,
+              return_kv: bool = False):
+    """Self-attention over a full sequence (prefill; ``causal=False`` for
+    whisper's encoder).  ``rope_mode`` "rope", "mrope" (at
+    ``mrope_positions`` [B, S, 3], ``positions`` in all three components
+    when None) or "none".  Unblocked: the score tensor is [B, S, H, S] (the
+    reference switches to a blocked scan above 2 * kv_block tokens, with
+    the same result up to float summation order)."""
     B, S, _ = x.shape
     q = _proj_qkv(p, "wq", x, B, S, head_dim, quant, compute_dtype)
     k = _proj_qkv(p, "wk", x, B, S, head_dim, quant, compute_dtype)
     v = _proj_qkv(p, "wv", x, B, S, head_dim, quant, compute_dtype)
-    q = apply_rope(q, positions, rope_theta)
-    k = apply_rope(k, positions, rope_theta)
+    rot = dict(rope_mode=rope_mode, theta=rope_theta,
+               sections=mrope_sections, mrope_positions=mrope_positions)
+    q = rotate(q, positions, **rot)
+    k = rotate(k, positions, **rot)
     out = full_attention(q, k, v, positions, positions, window,
-                         logit_softcap)
+                         logit_softcap, causal)
     y = _proj_out(p, out.to(compute_dtype), B, S, quant, compute_dtype)
     if return_kv:
         return y, (k, v)
     return y
+
+
+def arange_positions(B: int, S: int, device) -> torch.Tensor:
+    """[B, S] int32 positions 0..S-1 in every row."""
+    return torch.arange(S, dtype=torch.int32, device=device)[None].expand(
+        B, S)
 
 
 def _pos_vec(pos, B: int, device) -> torch.Tensor:
@@ -189,7 +206,8 @@ def decode_attention(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, pos, *, n_heads: int, n_kv: int,
                      head_dim: int, window: Optional[int] = None,
                      logit_softcap: Optional[float] = None,
-                     rope_theta: float = 10000.0, rolling: bool = False,
+                     rope_theta: float = 10000.0, rope_mode: str = "rope",
+                     mrope_sections: tuple = (), rolling: bool = False,
                      quant: str = "none", compute_dtype=torch.bfloat16,
                      table: Optional[torch.Tensor] = None):
     """One decode step.  x [B, 1, d]; cache [B, T, Hkv, D]; pos scalar or
@@ -198,6 +216,8 @@ def decode_attention(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
     its own row and every key of that row stays masked.  With ``rolling``
     the cache is a T-slot ring (a local layer's): the token lands at ``pos
     % T`` and each slot holds the latest position that maps there.
+    ``rope_mode="mrope"`` rotates at ``pos`` in all three components, as
+    the reference does (not at a vision prompt's max + 1).
 
     ``table`` ([B, E] int32) makes the caches page pools ([P, page_size,
     Hkv, D]): the token is written through the row's page table (a ring's
@@ -212,8 +232,8 @@ def decode_attention(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
     v = _proj_qkv(p, "wv", x, B, 1, head_dim, quant, compute_dtype)
     posv = _pos_vec(pos, B, x.device)
     posb = posv[:, None]
-    q = apply_rope(q, posb, rope_theta)
-    k = apply_rope(k, posb, rope_theta)
+    q = rotate(q, posb, rope_mode, rope_theta, mrope_sections)
+    k = rotate(k, posb, rope_mode, rope_theta, mrope_sections)
     slot = torch.remainder(posv, T) if rolling else torch.clamp(posv, 0,
                                                                  T - 1)
     if paged:
@@ -246,7 +266,9 @@ def decode_attention_multi(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
                            cache_v: torch.Tensor, pos, *, n_heads: int,
                            n_kv: int, head_dim: int,
                            logit_softcap: Optional[float] = None,
-                           rope_theta: float = 10000.0, quant: str = "none",
+                           rope_theta: float = 10000.0,
+                           rope_mode: str = "rope",
+                           mrope_sections: tuple = (), quant: str = "none",
                            compute_dtype=torch.bfloat16,
                            table: Optional[torch.Tensor] = None):
     """A contiguous S-token decode block (speculative verify) over a
@@ -279,10 +301,12 @@ def decode_attention_multi(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
     posv = _pos_vec(pos, B, x.device)
     q_pos = posv[:, None] + torch.arange(S, dtype=torch.int32,
                                          device=x.device)[None]   # [B, S]
-    qs = [apply_rope(q[:, i:i + 1].contiguous(), q_pos[:, i:i + 1],
-                     rope_theta) for i in range(S)]
-    k = torch.cat([apply_rope(k[:, i:i + 1].contiguous(), q_pos[:, i:i + 1],
-                              rope_theta) for i in range(S)], dim=1)
+    rot = dict(rope_mode=rope_mode, theta=rope_theta,
+               sections=mrope_sections)
+    qs = [rotate(q[:, i:i + 1].contiguous(), q_pos[:, i:i + 1], **rot)
+          for i in range(S)]
+    k = torch.cat([rotate(k[:, i:i + 1].contiguous(), q_pos[:, i:i + 1],
+                          **rot) for i in range(S)], dim=1)
     if paged:
         for i in range(S):
             slot = torch.clamp(posv + i, 0, T - 1)
@@ -410,8 +434,9 @@ KV_INT8_LEAVES = ("k", "v", "k_scale", "v_scale")
 
 def decode_attention_int8(p: Params, x: torch.Tensor, cache: dict, pos, *,
                           n_heads: int, n_kv: int, head_dim: int,
-                          rope_theta: float = 10000.0, quant: str = "none",
-                          compute_dtype=torch.bfloat16,
+                          rope_theta: float = 10000.0,
+                          rope_mode: str = "rope", mrope_sections: tuple = (),
+                          quant: str = "none", compute_dtype=torch.bfloat16,
                           table: Optional[torch.Tensor] = None):
     """One decode step over an int8 cache: ``cache`` {"k", "v": int8 [B,
     T, Hkv, D], "k_scale", "v_scale": float32 [B, T, Hkv]}, written in
@@ -428,8 +453,8 @@ def decode_attention_int8(p: Params, x: torch.Tensor, cache: dict, pos, *,
     v = _proj_qkv(p, "wv", x, B, 1, head_dim, quant, compute_dtype)
     posv = _pos_vec(pos, B, x.device)
     posb = posv[:, None]
-    q = apply_rope(q, posb, rope_theta)
-    k = apply_rope(k, posb, rope_theta)
+    q = rotate(q, posb, rope_mode, rope_theta, mrope_sections)
+    k = rotate(k, posb, rope_mode, rope_theta, mrope_sections)
     k_new, ks_new = quantize_kv(k)
     v_new, vs_new = quantize_kv(v)
     slot = torch.clamp(posv, 0, T - 1)
@@ -445,3 +470,19 @@ def decode_attention_int8(p: Params, x: torch.Tensor, cache: dict, pos, *,
                             decode_kv_positions(posv, T))
     y = _proj_out(p, out.to(compute_dtype), B, 1, quant, compute_dtype)
     return y, cache
+
+
+def cross_attention(p: Params, x: torch.Tensor, enc: torch.Tensor, *,
+                    n_heads: int, n_kv: int, head_dim: int,
+                    quant: str = "none", compute_dtype=torch.bfloat16):
+    """Encoder-decoder cross attention (whisper's decoder): queries from x
+    [B, S, d], keys and values projected from the encoder output ``enc``
+    [B, T, d], every key visible (no rotation, no causal mask)."""
+    B, S, _ = x.shape
+    T = enc.shape[1]
+    q = _proj_qkv(p, "wq", x, B, S, head_dim, quant, compute_dtype)
+    k = _proj_qkv(p, "wk", enc, B, T, head_dim, quant, compute_dtype)
+    v = _proj_qkv(p, "wv", enc, B, T, head_dim, quant, compute_dtype)
+    out = full_attention(q, k, v, arange_positions(B, S, x.device),
+                         arange_positions(B, T, x.device), causal=False)
+    return _proj_out(p, out.to(compute_dtype), B, S, quant, compute_dtype)

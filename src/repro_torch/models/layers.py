@@ -1,7 +1,7 @@
 """Layer primitives (port of ``repro.models.layers``): quantizable linears,
 RMS norm (plain or gemma's zero-centered scale), layer norm, rotary
-embeddings, the SwiGLU and GeGLU MLPs, gemma-2's logit soft-cap and the
-weight-code cache.
+embeddings (standard and Qwen2-VL's M-RoPE), the SwiGLU, GeGLU and plain
+GELU MLPs, gemma-2's logit soft-cap and the weight-code cache.
 
 Parameters are plain dicts of tensors in the reference layout: a linear is
 ``{"w": [d_in, d_out]}`` (``x @ w``) with an optional ``"b"``, or its
@@ -140,16 +140,74 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+_MROPE_IDS: dict[tuple, torch.Tensor] = {}
+
+
+def _mrope_ids(sections: tuple, half: int, device) -> torch.Tensor:
+    """[half] component (0, 1, 2) of each frequency channel, made on the
+    CPU once per device (a round's capture copies nothing from the host)."""
+    key = (sections, half, str(device))
+    ids = _MROPE_IDS.get(key)
+    if ids is None:
+        ids = torch.repeat_interleave(torch.arange(len(sections)),
+                                      torch.tensor(sections))[:half]
+        if ids.numel() < half:
+            ids = torch.cat([ids, ids[-1:].expand(half - ids.numel())])
+        ids = _MROPE_IDS[key] = (ids % 3).to(device)
+    return ids
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
+                sections: tuple, theta: float = 1_000_000.0) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE.  x [B, S, H, D]; positions [B, S, 3]
+    (temporal, height, width ids).  ``sections`` splits the D/2 frequency
+    channels among the three components in order (the last one repeated
+    to fill D/2, or cut, as ``jnp.repeat(..., total_repeat_length=)``),
+    channel j takes component ``id % 3`` of its position as float32, then
+    the rotation is :func:`apply_rope`'s.  With equal t/h/w ids every
+    channel's angle is ``apply_rope``'s, bit for bit."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    ids = _mrope_ids(tuple(sections), x.shape[-1] // 2, x.device)
+    pos = positions.to(torch.float32).index_select(-1, ids)   # [B, S, D/2]
+    angles = pos * freqs
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def rotate(x: torch.Tensor, positions: torch.Tensor, rope_mode: str,
+           theta: float, sections: tuple = (),
+           mrope_positions=None) -> torch.Tensor:
+    """The rotation of ``rope_mode``: ``"rope"`` at ``positions`` [B, S],
+    ``"mrope"`` at ``mrope_positions`` [B, S, 3] (``positions`` in all
+    three components when None), ``"none"`` leaves x as it is."""
+    if rope_mode == "mrope":
+        if mrope_positions is None:
+            mrope_positions = positions[..., None].expand(
+                tuple(positions.shape) + (3,))
+        return apply_mrope(x, mrope_positions, sections, theta)
+    if rope_mode == "rope":
+        return apply_rope(x, positions, theta)
+    return x
+
+
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
 
 def init_mlp(gen: torch.Generator, d: int, d_ff: int, dtype=torch.float32,
-             device=None) -> Params:
-    """Gated MLP weights (SwiGLU and GeGLU, the kinds the port serves)."""
-    return {"wi": init_linear(gen, d, d_ff, dtype=dtype, device=device),
-            "wg": init_linear(gen, d, d_ff, dtype=dtype, device=device),
-            "wo": init_linear(gen, d_ff, d, dtype=dtype, device=device)}
+             device=None, kind: str = "swiglu") -> Params:
+    """MLP weights: ``wi``, ``wg`` and ``wo`` for the gated kinds (SwiGLU,
+    GeGLU), ``wi`` and ``wo`` for the plain GELU MLP."""
+    kw = dict(dtype=dtype, device=device)
+    if kind == "gelu":
+        return {"wi": init_linear(gen, d, d_ff, **kw),
+                "wo": init_linear(gen, d_ff, d, **kw)}
+    return {"wi": init_linear(gen, d, d_ff, **kw),
+            "wg": init_linear(gen, d, d_ff, **kw),
+            "wo": init_linear(gen, d_ff, d, **kw)}
 
 
 _SQRT_2_OVER_PI = float(np.float32(math.sqrt(2.0 / math.pi)))
@@ -168,7 +226,11 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 
 def mlp(p: Params, x: torch.Tensor, quant: str = "none",
         compute_dtype=torch.bfloat16, kind: str = "swiglu") -> torch.Tensor:
-    """``wo(act(wg x) * wi x)``: SwiGLU (``silu``) or GeGLU (tanh GeLU)."""
+    """``wo(act(wg x) * wi x)``: SwiGLU (``silu``) or GeGLU (tanh GeLU);
+    ``kind="gelu"`` is the plain ``wo(gelu_tanh(wi x))`` (whisper)."""
+    if kind == "gelu":
+        h = gelu_tanh(linear(p["wi"], x, quant, compute_dtype))
+        return linear(p["wo"], h, quant, compute_dtype)
     g = linear(p["wg"], x, quant, compute_dtype)
     if kind == "swiglu":
         g = F.silu(g)

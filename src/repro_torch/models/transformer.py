@@ -19,6 +19,11 @@ one's too, routes and competes for it.  The recurrent families
 channel mix and ``mlp="none"`` leaves the FFN out; ``norm="layernorm"``
 takes the layer norm; a ``shared_attn`` layer first runs the one shared
 block (zamba2: attention and a SwiGLU, ``params["shared_attn"]``).
+``rope_mode="mrope"`` is Qwen2-VL's M-RoPE: ``forward`` and ``prefill``
+take the stub vision frontend's ``embeddings`` [B, S, d] in place of the
+token embedding and its 3-D ``mrope_positions`` [B, S, 3]; without them
+every position rotates at its index in all three components, which is
+RoPE bit for bit.  Whisper's encoder-decoder is ``models.encdec``.
 
 The decode cache is a list of per-layer ``{"k", "v"}`` buffers ``[B, T,
 n_kv, head_dim]`` that ``decode_step`` and ``verify_step`` update in
@@ -85,7 +90,7 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.attn_softcap and cfg.kv_quant == "int8":
         bad.append("attn_softcap with kv_quant='int8'")
     # rope_mode "none" is served where no layer attends (rwkv6)
-    for name, ok in (("rope_mode", cfg.rope_mode == "rope"
+    for name, ok in (("rope_mode", cfg.rope_mode in ("rope", "mrope")
                       or (cfg.rope_mode == "none" and not has_attention(cfg))),
                      ("norm", cfg.norm in ("rmsnorm", "layernorm")),
                      ("enc_dec", not cfg.enc_dec),
@@ -209,10 +214,17 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
 # forward / prefill
 # ---------------------------------------------------------------------------
 
-def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
-    # gather, then cast: the same values as the reference's cast-then-gather
-    # without converting the whole table every call
-    x = params["embed"]["emb"][tokens.long()].to(cfg.cdtype)
+def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+           embeddings=None):
+    """The token embedding of ``tokens`` or, when given, the frontend's
+    ``embeddings`` [B, S, d] in the compute dtype; times sqrt(d_model)
+    under ``embed_scale`` either way, as the reference's."""
+    if embeddings is not None:
+        x = embeddings.to(cfg.cdtype)
+    else:
+        # gather, then cast: the reference's cast-then-gather's values
+        # without converting the whole table every call
+        x = params["embed"]["emb"][tokens.long()].to(cfg.cdtype)
     if cfg.embed_scale:         # gemma: times sqrt(d_model) in the dtype
         x = x * torch.full((), math.sqrt(cfg.d_model), dtype=cfg.cdtype,
                            device=x.device)
@@ -261,13 +273,14 @@ def _shared_mlp(shared: dict, cfg: ModelConfig, x: torch.Tensor):
 
 
 def _block(bp: dict, spec: BlockSpec, cfg: ModelConfig, x: torch.Tensor,
-           positions: torch.Tensor, shared=None):
+           positions: torch.Tensor, shared=None, mrope_positions=None):
     """One layer over a full sequence: (x, the layer's decode-cache entry,
     the MoE aux or None).  The entry holds the attention K/V of the S
     positions, or the recurrent state after them (Mamba2 ``h`` and
     ``conv``; RWKV6 ``S``, ``xt`` and with the channel mix ``xc``), and on
     a ``shared_attn`` layer the shared block's ``shared_k``/``shared_v``
-    (the shared block runs first, as the reference's)."""
+    (the shared block runs first, as the reference's).  ``mrope_positions``
+    [B, S, 3] rotate the layer's attention under ``rope_mode="mrope"``."""
     cd = cfg.cdtype
     kw = dict(quant=cfg.quant, compute_dtype=cd)
     cache = {}
@@ -276,7 +289,7 @@ def _block(bp: dict, spec: BlockSpec, cfg: ModelConfig, x: torch.Tensor,
         y, (sk, sv) = attn_lib.attention(
             shared["attn"], h, positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
             head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
-            return_kv=True, **kw)
+            rope_mode=cfg.rope_mode, return_kv=True, **kw)
         x = _shared_mlp(shared, cfg, x + y)
         cache["shared_k"], cache["shared_v"] = sk.to(cd), sv.to(cd)
     h = _norm(bp["ln1"], x, cfg)
@@ -285,7 +298,8 @@ def _block(bp: dict, spec: BlockSpec, cfg: ModelConfig, x: torch.Tensor,
             bp["attn"], h, positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
             head_dim=cfg.head_dim, window=_window(cfg, spec),
             logit_softcap=cfg.attn_softcap, rope_theta=cfg.rope_theta,
-            return_kv=True, **kw)
+            rope_mode=cfg.rope_mode, mrope_sections=cfg.mrope_sections,
+            mrope_positions=mrope_positions, return_kv=True, **kw)
         if cfg.gemma_norms:
             y = _norm(bp["post_attn_ln"], y, cfg)
         cache["k"], cache["v"] = k.to(cd), v.to(cd)
@@ -310,23 +324,22 @@ def _block(bp: dict, spec: BlockSpec, cfg: ModelConfig, x: torch.Tensor,
     return x, cache, aux
 
 
-def _positions(B: int, S: int, device) -> torch.Tensor:
-    return torch.arange(S, dtype=torch.int32,
-                        device=device)[None].expand(B, S)
-
-
-def forward(params: dict, cfg: ModelConfig,
-            tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor = None,
+            embeddings: torch.Tensor = None, mrope_positions=None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward: (logits [B, S, V] compute dtype, aux float32:
-    the MoE layers' aux losses summed, 0.0 without any)."""
+    the MoE layers' aux losses summed, 0.0 without any).  ``embeddings``
+    [B, S, d] (the stub modality frontend's output) replace the token
+    embedding; ``mrope_positions`` [B, S, 3] rotate under M-RoPE."""
     check_supported(cfg)
-    B, S = tokens.shape
-    x = _embed(params, cfg, tokens)
-    positions = _positions(B, S, x.device)
+    x = _embed(params, cfg, tokens, embeddings)
+    B, S = x.shape[:2]
+    positions = attn_lib.arange_positions(B, S, x.device)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     shared = params.get("shared_attn")
     for i, bp in enumerate(params["blocks"]):
-        x, _, aux = _block(bp, layer_spec(cfg, i), cfg, x, positions, shared)
+        x, _, aux = _block(bp, layer_spec(cfg, i), cfg, x, positions, shared,
+                           mrope_positions)
         if aux is not None:
             total = total + aux
     x = _norm(params["final_norm"], x, cfg)
@@ -334,8 +347,9 @@ def forward(params: dict, cfg: ModelConfig,
     return logits, total
 
 
-def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-            length=None):
+def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor = None,
+            length=None, embeddings: torch.Tensor = None,
+            mrope_positions=None):
     """Forward that also returns the decode cache: (logits [B, V] float32
     at the last position, per-layer entries of :func:`_block`: float K/V of
     length S, or the recurrent state after the S tokens).  Local layers'
@@ -349,15 +363,17 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     rows of a batched admission (pad tokens sit after the prompt, so the
     causal mask keeps them out of every real token).  A recurrent state
     integrates every token it is given, pads too: serving prefills those
-    models at the prompts' exact length."""
+    models at the prompts' exact length.  ``embeddings`` and
+    ``mrope_positions``: as in :func:`forward`."""
     check_supported(cfg)
-    B, S = tokens.shape
-    x = _embed(params, cfg, tokens)
-    positions = _positions(B, S, x.device)
+    x = _embed(params, cfg, tokens, embeddings)
+    B, S = x.shape[:2]
+    positions = attn_lib.arange_positions(B, S, x.device)
     cache = []
     shared = params.get("shared_attn")
     for i, bp in enumerate(params["blocks"]):
-        x, c, _ = _block(bp, layer_spec(cfg, i), cfg, x, positions, shared)
+        x, c, _ = _block(bp, layer_spec(cfg, i), cfg, x, positions, shared,
+                         mrope_positions)
         cache.append(c)
     x = _norm(params["final_norm"], x, cfg)
     if length is None:
@@ -539,7 +555,9 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     cd = cfg.cdtype
     x = _embed(params, cfg, token)[:, None, :]                   # [B, 1, d]
     kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
-              rope_theta=cfg.rope_theta, quant=cfg.quant, compute_dtype=cd)
+              rope_theta=cfg.rope_theta, rope_mode=cfg.rope_mode,
+              mrope_sections=cfg.mrope_sections, quant=cfg.quant,
+              compute_dtype=cd)
     qkw = dict(quant=cfg.quant, compute_dtype=cd)
     cap = (None if cfg.moe is None
            else moe_lib.decode_capacity(cfg.moe, x.shape[0]))
@@ -635,6 +653,7 @@ def verify_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             bp["attn"], rows(bp["ln1"], x), c["k"], c["v"], pos,
             n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
             logit_softcap=cfg.attn_softcap, rope_theta=cfg.rope_theta,
+            rope_mode=cfg.rope_mode, mrope_sections=cfg.mrope_sections,
             quant=cfg.quant, compute_dtype=cd, table=table)
         if cfg.gemma_norms:
             y = rows(bp["post_attn_ln"], y)

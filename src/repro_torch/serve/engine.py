@@ -67,9 +67,13 @@ the same host read.
 
 ``generate`` is the static-batch oracle: prefill, then a per-token loop
 that draws token ``i`` with ``fold_in(PRNGKey(seed), i)`` under the
-ServeConfig's scalars.  Positions are per-sequence ``pos: [B]`` int32; a
-negative position is the free-slot sentinel (every key of the row masked,
-writes inside its row).
+ServeConfig's scalars.  It is the only way an encoder-decoder model
+(whisper, ``models.encdec``) is served, as in the reference:
+``generate(prompts, n, frames=)`` encodes the frames in its prefill, and
+the Scheduler, ``step``, ``admit_monolithic``, a paged engine and
+speculative decoding refuse enc-dec with the reference's errors.
+Positions are per-sequence ``pos: [B]`` int32; a negative position is the
+free-slot sentinel (every key of the row masked, writes inside its row).
 """
 from __future__ import annotations
 
@@ -83,7 +87,7 @@ import torch
 from repro_torch.core import prng
 from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as attn_lib
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.serve import graphs
 from repro_torch.serve.faults import CacheCorruption
 from repro_torch.serve.request import check_sampling
@@ -196,6 +200,8 @@ def resolve_pages_per_shard(cfg, scfg: ServeConfig, batch: int,
 
 
 _FLOAT_KV_KEYS = ("k", "v", "shared_k", "shared_v", "k_scale", "v_scale")
+_ENCDEC_ROUNDS = ("continuous batching serves decoder-only LMs; enc-dec "
+                  "uses Engine.generate")
 
 
 def _cache_finite(cache) -> torch.Tensor:
@@ -382,7 +388,9 @@ def _to_device(params, device):
 class Engine:
     def __init__(self, cfg, params, scfg: ServeConfig = ServeConfig(), *,
                  device=None):
-        transformer.check_supported(cfg)
+        self.is_encdec = bool(cfg.enc_dec)
+        self._mod = encdec if self.is_encdec else transformer
+        self._mod.check_supported(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         params = _to_device(params, self.device)
@@ -399,6 +407,11 @@ class Engine:
         self.table = None
         self.ring_table = None        # local layers' page table (SWA)
         if scfg.paged:
+            if self.is_encdec:
+                raise NotImplementedError(
+                    "paged serving drives decoder-only LMs through the "
+                    "scheduler; enc-dec decode supports page tables at the "
+                    "encdec.decode_step level only")
             paged_layout(cfg, scfg)          # raises on bad page geometry
             if scfg.num_pages and scfg.num_pages < 2:
                 raise ValueError(
@@ -462,7 +475,8 @@ class Engine:
     def has_recurrent_state(self) -> bool:
         """Mamba2 / RWKV6 layers: their state integrates every token it is
         given, pads too, so their prompts are prefilled at exact length."""
-        return any(spec.kind != "attn" for spec in self.cfg.pattern)
+        return not self.is_encdec and any(spec.kind != "attn"
+                                          for spec in self.cfg.pattern)
 
     @property
     def requires_monolithic_admission(self) -> bool:
@@ -474,9 +488,10 @@ class Engine:
         prefill's K/V; and MoE routing, whose capacity (and under grouped
         dispatch the groups) depend on the whole batched prompt, so a chunk
         lane would keep and drop other routes than the prefill the oracle
-        runs (the reference's other case, enc-dec, is a model family the
-        port does not run yet)."""
-        return self.has_recurrent_state or self.cfg.kv_quant == "int8" \
+        runs; and enc-dec, whose prompt needs the encoder (served by
+        ``generate`` only)."""
+        return self.is_encdec or self.has_recurrent_state \
+            or self.cfg.kv_quant == "int8" \
             or any(spec.mlp == "moe" for spec in self.cfg.pattern)
 
     @property
@@ -504,10 +519,11 @@ class Engine:
         """Zero decode buffers for ``batch`` slots.  Paged: page pools, a
         fresh ``PagePool`` under ``self.pool`` and the zeroed device table
         ``self.table`` (made once per batch size), with the ring table
-        ``self.ring_table`` beside it on a model with local layers."""
+        ``self.ring_table`` beside it on a model with local layers.  An
+        enc-dec engine's is ``encdec.init_cache``'s."""
         if not self.paged:
-            return transformer.init_cache(self.cfg, batch, self.scfg.max_len,
-                                          self.device)
+            return self._mod.init_cache(self.cfg, batch, self.scfg.max_len,
+                                        self.device)
         from repro_torch.serve.paged import PagePool
         pages = resolve_pages_per_shard(self.cfg, self.scfg, batch, 1)
         self.pool = PagePool(batch, paged_layout(self.cfg, self.scfg),
@@ -571,6 +587,8 @@ class Engine:
         dense buffers (a local layer's ring included).  Recurrent state is
         ``transformer.state_bytes``, as the reference counts KV bytes."""
         cfg, sc = self.cfg, self.scfg
+        if self.is_encdec:             # self and cross K/V (never paged)
+            return encdec.cache_bytes(cfg, batch, sc.max_len)
         if not self.paged:
             return transformer.dense_cache_bytes(cfg, batch, sc.max_len)
         rows = resolve_pages_per_shard(cfg, sc, batch, 1) * sc.page_size
@@ -596,8 +614,8 @@ class Engine:
         self.decode_steps += 1
         self.lane_steps[lane] += 1
         params = self.draft_params if lane == "draft" else self.params
-        return transformer.decode_step(params, self.cfg, tok, cache, pos,
-                                       tables)
+        return self._mod.decode_step(params, self.cfg, tok, cache, pos,
+                                     tables)
 
     def _verify(self, toks, cache, pos, tables=None):
         self.lane_steps["verify"] += 1
@@ -651,6 +669,8 @@ class Engine:
         paged engine's ``cache`` is the page pools of its ``init_cache``,
         addressed through ``self.pool``'s table as it stands at the call.
         """
+        if self.is_encdec:
+            raise NotImplementedError(_ENCDEC_ROUNDS)
         if spec and not self.scfg.spec_decode:
             raise ValueError(
                 "spec=True requires ServeConfig(spec_decode=True)")
@@ -875,6 +895,8 @@ class Engine:
         take the free sentinel — and one int32 [slots, 3] tensor of
         (tok0, done0, ok0) for the caller's one host read (ok0: finite
         logits on the admitted rows)."""
+        if self.is_encdec:
+            raise NotImplementedError(_ENCDEC_ROUNDS)
         if not greedy and (temperature is None or top_k is None
                            or top_p is None):
             raise ValueError("a sampled admission (greedy=False) needs the "
@@ -922,9 +944,20 @@ class Engine:
         shared block's too), or on a local layer to its ring, which a
         prompt longer than the window fills rolled
         (``transformer._roll_local``); recurrent state has no sequence axis
-        and is taken as it is."""
+        and is taken as it is.  Enc-dec: the self-attention K/V grow to
+        ``max_len``, the cross K/V keep the encoder's length."""
         cfg, M = self.cfg, self.scfg.max_len
         out = []
+        if self.is_encdec:
+            for c in cache:
+                g = dict(c)
+                for key in ("k", "v"):
+                    t = c[key]
+                    g[key] = torch.zeros((t.shape[0], M) + tuple(t.shape[2:]),
+                                         dtype=t.dtype, device=t.device)
+                    g[key][:, :t.shape[1]] = t
+                out.append(g)
+            return out
         for i, c in enumerate(cache):
             spec = transformer.layer_spec(cfg, i)
             g = {}
@@ -945,13 +978,15 @@ class Engine:
             out.append(g)
         return out
 
-    def generate(self, prompts: torch.Tensor,
-                 max_new_tokens: int) -> torch.Tensor:
+    def generate(self, prompts: torch.Tensor, max_new_tokens: int,
+                 frames: Optional[torch.Tensor] = None) -> torch.Tensor:
         """prompts [B, S] int -> [B, S + max_new_tokens]: the static-batch
         oracle (prefill, then a per-token loop, token ``i`` drawn with
         ``fold_in(self.key, i)`` under the ServeConfig's sampling), as the
         reference's ``generate(use_scan=False)``; over a dense cache on a
-        paged engine too."""
+        paged engine too.  An enc-dec engine prefills through
+        ``encdec.prefill(params, cfg, frames, prompts)``: ``frames`` [B,
+        enc_seq, d_model], the stub frontend's frame embeddings."""
         sc = self.scfg
         greedy = sc.temperature <= 0.0
 
@@ -962,7 +997,16 @@ class Engine:
 
         prompts = torch.as_tensor(prompts, device=self.device)
         B, S = prompts.shape
-        logits, cache = transformer.prefill(self.params, self.cfg, prompts)
+        if self.is_encdec:
+            if frames is None:
+                raise ValueError("an enc-dec engine's generate needs the "
+                                 "frames [B, enc_seq, d_model]")
+            logits, cache = encdec.prefill(
+                self.params, self.cfg,
+                torch.as_tensor(frames, device=self.device), prompts)
+        else:
+            logits, cache = transformer.prefill(self.params, self.cfg,
+                                                prompts)
         cache = self._grow_cache(cache, S)
         tok = draw(logits, 0)
         pos = torch.full((B,), S, dtype=torch.int32, device=self.device)

@@ -18,8 +18,12 @@ Inner projections take the mode's codes; the untied lm_head is always w8a8
 [E, K//2, N] nibbles (or [E, K, N] int8) and ``w_scale`` [E, 1, N]: a tmac
 mode is coerced to ``w4a4_mxu`` (``w8a8`` at a8), since
 ``models.moe.expert_matmul`` consumes nibble or int8 stacks; the router and
-the shared expert's gate stay float.  ``draft_params_view`` is the
-self-speculative drafter: the top planes of every draftable bitplane leaf.
+the shared expert's gate stay float.  An encoder-decoder tree (whisper)
+walks the same way: every ``wq``/``wk``/``wv``/``wo``/``wi`` of the
+encoder, the decoder's self- and cross-attention and both MLPs takes the
+mode's codes, and the tied embedding stays float (no head to quantize).
+``draft_params_view`` is the self-speculative drafter: the top planes of
+every draftable bitplane leaf.
 """
 from __future__ import annotations
 
@@ -121,10 +125,16 @@ def quantize_params_for_serving(params, mode: str = "w4a4_mxu",
 
 def init_served_params(cfg, mode: str, seed: int = 0, device=None) -> dict:
     """``quantize_params_for_serving(transformer.init_params(cfg, seed,
-    device), mode)``, bit for bit, with each layer quantized as soon as it
-    is made: the device holds the served tree plus one float layer (and the
-    float head until the end), never the whole float tree."""
-    from repro_torch.models import transformer
+    device), mode)`` (``encdec.init_params`` for an enc-dec config), bit
+    for bit, with each layer quantized as soon as it is made: the device
+    holds the served tree plus one float layer (and the float head until
+    the end), never the whole float tree."""
+    from repro_torch.models import encdec, transformer
+    if cfg.enc_dec:
+        params = encdec.init_params(
+            cfg, seed, device, block_hook=lambda stack, i, bp:
+            quantize_params_for_serving(bp, mode, path=f"['{stack}'][{i}]"))
+        return quantize_params_for_serving(params, mode)
     params = transformer.init_params(
         cfg, seed, device, block_hook=lambda i, bp:
         quantize_params_for_serving(bp, mode, path=f"['blocks'][{i}]"))

@@ -121,6 +121,9 @@ class Scheduler:
                  max_retries: int = 2, snapshot_interval: int = 0,
                  shed_watermark: Optional[float] = None,
                  overload_queue: Optional[int] = None):
+        if engine.is_encdec:
+            raise NotImplementedError(
+                "continuous batching serves decoder-only LMs")
         if slots < 1 or chunk < 1:
             raise ValueError(f"slots and chunk must be >= 1, got slots="
                              f"{slots}, chunk={chunk}")

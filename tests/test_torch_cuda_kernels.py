@@ -133,6 +133,60 @@ def test_cuda_int_matmul_recurrent_family_heads(cuda_device, M, K, N):
     assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 
+# the encoder-decoder and vision-language families: whisper-large-v3's
+# projections (K, N) at a decode step's 8 rows, a prompt forward's 32 (8
+# requests x 4 tokens) and an encoder prefill's 12,000 (8 requests x 1,500
+# frames); qwen2-vl-72b's layer at 8 rows and its
+# 152,064-column int8 head.  Operands are drawn on the card (the 72B shapes
+# take seconds through numpy).
+WHISPER_KN = [(1280, 1280), (1280, 5120), (5120, 1280)]
+QWEN2VL_KN = [(8192, 8192), (8192, 1024), (8192, 29568), (29568, 8192)]
+QWEN2VL_HEAD = (8192, 152064)
+
+
+def _card_inputs(M, K, N, seed, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.randint(0, 16, (M, K), generator=g, device=dev,
+                      dtype=torch.uint8)
+    w = torch.randint(0, 256, (K // 2, N), generator=g, device=dev,
+                      dtype=torch.uint8)
+    a_s = torch.rand((M, 1), generator=g, device=dev) * 0.1 + 1e-3
+    w_s = torch.rand((1, N), generator=g, device=dev) * 0.1 + 1e-3
+    return a, w, a_s, w_s
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,N", WHISPER_KN)
+@pytest.mark.parametrize("M", [8, 32, 12000])
+def test_cuda_lutmul_whisper_shapes(cuda_device, M, K, N):
+    a, w, a_s, w_s = _card_inputs(M, K, N, K + N + M, cuda_device)
+    _lut_equal(a, w, True, a_s, w_s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,N", QWEN2VL_KN)
+def test_cuda_lutmul_qwen2vl_layer_shapes(cuda_device, K, N):
+    a, w, a_s, w_s = _card_inputs(8, K, N, K + N, cuda_device)
+    _lut_equal(a, w, True, a_s, w_s)
+
+
+@pytest.mark.gpu
+def test_cuda_int_matmul_qwen2vl_head(cuda_device):
+    K, N = QWEN2VL_HEAD
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    a8 = torch.randint(-128, 128, (8, K), generator=g, device=cuda_device,
+                       dtype=torch.int8)
+    w8 = torch.randint(-128, 128, (K, N), generator=g, device=cuda_device,
+                       dtype=torch.int8)
+    a_s = torch.rand((8, 1), generator=g, device=cuda_device) + 1e-3
+    w_s = torch.rand((1, N), generator=g, device=cuda_device) + 1e-3
+    assert torch.equal(kernel.int_matmul(a8, w8), ref.int_matmul_ref(a8, w8))
+    got = kernel.int_matmul_fused(a8, w8, a_s, w_s, out_dtype=torch.bfloat16)
+    want = ref.scaled_int_matmul_ref(a8, w8, a_s, w_s,
+                                     out_dtype=torch.bfloat16)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("M", [8, 1568])
 @pytest.mark.parametrize("a_code", [8, 15])

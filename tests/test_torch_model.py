@@ -363,13 +363,14 @@ def test_default_device_needs_a_gpu(monkeypatch):
 def test_unported_features_raise():
     """Soft-caps, sliding windows, gemma norms, the embedding scale and
     GeGLU are served now (``tests/test_torch_gemma2.py``), and so are the
-    layer norm and the Mamba2 / RWKV6 blocks (``tests/test_torch_ssm*.py``);
-    these are not."""
+    layer norm and the Mamba2 / RWKV6 blocks (``tests/test_torch_ssm*.py``)
+    and M-RoPE (``tests/test_torch_mrope.py``); these are not (enc-dec
+    configs are ``models.encdec``'s)."""
     _, tcfg = _cfgs()
     local = (tconfigs.BlockSpec(attn_type="local"),)
     for over, match in (
             (dict(norm="groupnorm"), "norm"),
-            (dict(rope_mode="mrope"), "rope_mode"),
+            (dict(rope_mode="alibi"), "rope_mode"),
             (dict(rope_mode="none"), "rope_mode"),
             (dict(enc_dec=True), "enc_dec"),
             (dict(split_head_params=True), "split_head_params"),
