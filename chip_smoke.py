@@ -29,25 +29,29 @@ Phases (any failure raises and exits non-zero):
    at M = 8; zamba2-2.7b's mamba layer (in_proj's 10,448 columns end in a
    ragged tile) and shared block, and rwkv6-1.6b's layer through the LUT
    kernel; whisper-large-v3's decoder layer at M = 8 (8 projections), its
-   encoder layer and cross K/V at an encoder prefill's M = 6,000, and
-   qwen2-vl-72b's layer (M = 8) through the LUT kernel, its 152,064-column
-   int8 head.
+   encoder layer and cross K/V at an encoder prefill's M = 12,000,
+   qwen2-vl-72b's layer (M = 8), phi3-medium-14b's layer (M = 8) and
+   mixtral-8x22b's attention (M = 8) through the LUT kernel; mixtral's
+   expert banks (8 experts each) at decode's M = 3 through
+   ``lutmul_experts``; the 152,064-, 100,352- and 32,768-column int8
+   heads of qwen2-vl-72b, phi3-medium-14b and mixtral-8x22b.
 3. serving qwen2-7b (28 layers, full width, random weights from a seeded
-   generator) through ``make_engine`` + ``Scheduler(slots=8, chunk=8)``:
-   w4a4_lut fused (8 requests); then the SAME float weights quantized to
+   generator, built a layer at a time) through ``make_engine`` +
+   ``Scheduler(slots=8, chunk=8)``: w4a4_lut fused (8 requests) and a
+   profile.  Every other qwen2-7b run is on the ``CUT_LAYERS`` model
+   below: the sampled mix (``SAMPLED_MIX``: per-request temperature /
+   top-k / top-p, greedy rows among them, ``ServeConfig(seed=
+   SAMPLE_SEED)``), lut fused over the 8 prompts (its greedy rows equal
+   the all-greedy run, a sampled row leaves it), then over the first 4:
+   lut fused and tmac fused, equal; the SAME float weights quantized to
    w4a4_tmac: fused (8, transcripts equal to the LUT run's: w4 bitplanes
    decode to the nibble codes) and unfused (4); bitplane self-speculative
    decoding (8, equal to the fused tmac run's) and speculation after
-   zeroing the low two planes in place (4; every draft accepted) run on
-   the ``CUT_LAYERS`` model below.  Then the sampled mix (``SAMPLED_MIX``: per-request
-   temperature / top-k / top-p, greedy rows among them,
-   ``ServeConfig(seed=SAMPLE_SEED)``) on the same engines: lut fused over
-   the 8 prompts (its greedy rows equal the all-greedy run, a sampled row
-   leaves it), then over the first 4: lut fused and tmac fused, equal.
-   The lut unfused runs (4, greedy and sampled), the plain lut runs (1,
-   greedy and sampled), the plain tmac run (1), the int8 KV stage and
+   zeroing the low two planes in place (4; every draft accepted); the lut
+   unfused runs (4, greedy and sampled), the plain lut runs (1, greedy
+   and sampled), the plain tmac run (1), the int8 KV stage and
    speculative sampling over one request (graph == plain backend, its
-   accept rate printed) run on the ``CUT_LAYERS`` model below.  A sampled transcript
+   accept rate printed).  A sampled transcript
    depends on the batch's global draw counter, so only runs over the same
    requests are compared.  On the kernel backend every
    round is a replayed CUDA graph, one captured per round key
@@ -65,9 +69,8 @@ Phases (any failure raises and exits non-zero):
    ``sample_logits`` draw at [8, vocab] alone, every device row listed.
    Then the paged KV cache (``ServeConfig(paged=True, page_size=4)``,
    engines built from the quantized codes, no second copy of the
-   weights): lut fused over the 8 prompts (== the dense lut run) at 28
-   layers, right after the dense lut run, and again at 7 layers (see
-   below) with the rest of the paged stage:
+   weights): lut fused over the 8 prompts (== the dense lut run) at 7
+   layers (see below) with the rest of the paged stage:
    the sampled mix over the first 4 (== the dense sampled 4, no prefix
    hit), the plain backend over the first one (no graph), a shared 32-token
    prefix before each of the 8 prompts (== a dense run over the same
@@ -92,16 +95,15 @@ Phases (any failure raises and exits non-zero):
    admissions (dispatches, median host ms) and the share of int8 greedy
    tokens equal to the bf16 run's; ``int8 round[qwen lut]:`` a replayed
    int8 decode round's device ms against the bf16 round's from one state.
-   The paged stage above (but its 28-layer run), the int8 KV stage, the
-   speculative runs, the faults stage and the QoS stage below run on a
-   qwen2-7b of full width and ``CUT_LAYERS`` (7) layers, seed-0 weights of
-   its own, after the 28-layer tmac runs, with that depth's lut fused (8),
-   the sampled mix (4) and int8 KV (8) as the transcripts they equal;
-   before them, at that depth, lut unfused (4, greedy and sampled), plain
-   (1, greedy and sampled), and on w4a4_tmac codes of the same float
-   weights fused (8) == plain (1), int8 KV (4), speculation greedy (8),
-   paged (4), sampled graph == plain (1) and with the low planes zeroed
-   (4).
+   The sampled, tmac, paged, int8 KV, speculative, faults and QoS stages
+   run on a qwen2-7b of full width and ``CUT_LAYERS`` (4) layers, seed-0
+   weights of its own, after the 28-layer lut run, with that depth's lut
+   fused (8), the sampled mix (4) and int8 KV (8) as the transcripts they
+   equal; before them, at that depth, lut unfused (4, greedy and
+   sampled), plain (1, greedy and sampled), and on w4a4_tmac codes of the
+   same float weights fused (8) == lut, sampled (4) == lut, unfused (4) ==
+   plain (1) == fused, int8 KV (4), speculation greedy (8), paged (4),
+   sampled graph == plain (1) and with the low planes zeroed (4).
    Then faults and recovery (``FAULT_CASES``) on fresh engines over the
    same lut codes, each through ``Scheduler(slots=8, chunk=8,
    snapshot_interval=1, max_retries=3)`` over the first 4 requests, first
@@ -136,72 +138,94 @@ Phases (any failure raises and exits non-zero):
    lut, lut sampled, int8 lut; no key captured after the load);
    ``checkpoint[...]`` lines give bytes on disk and raw, the codec, the
    save and load host ms and whether msgpack and zstandard import.
-4. serving bitnet-3b (26 layers, full width) in ternary_a8_tmac: fused (8
-   requests) and plain (first 1), equal transcripts.  Then gemma2-2b (26
-   layers, full width: local and global layers, window 4,096, soft-caps,
-   GeGLU, the tied 256,000-row head) in w4a4_lut at max_len 4,352:
-   8 requests (``gemma_requests``) in the order long pair, short pair,
-   long pair, short pair, the long prompts past the window (monolithic
-   admission, its rings wrapped), the short ones on the chunk lane; a
-   monolithic dispatch of two requests must have a chunk admission after
-   it in its step.  Fused graphs == ``Engine.generate`` on the long
-   requests and == ``chunked_generate`` (the chunk lane's arithmetic as a
-   static batch) on the short ones, both batches padded to 8 rows;
-   ``generate`` on the short ones is reported (a prefill reduces at other
-   shapes than decode on CUDA), and where the two part ``flip_report``
-   gives both paths' logits at that token and the first activation that
-   differs (at most ``FLIP_ULPS`` bf16 ulps, then A4 codes flip); a
-   decode step and a replayed round profiled at positions past the
-   window; the tied head timed (``tied head[gemma2]``); paged (64-token
-   pages, the first long pair), unfused (4) and the plain backend (one
-   short request), each equal to the fused run.  Then minicpm-2b (40 layers, full width, tied 122,753-row head) in
-   w4a4_lut: fused over the first 4 contract requests, profiled, its head
-   timed, and the plain backend over the first (8 new tokens) equal.
-   Then qwen2-moe-a2.7b (24 layers, full width: 60 routed experts top-4
-   under global dispatch, capacity factor 1.25, the shared expert behind
-   its sigmoid gate, qkv bias, the untied 151,936-row head) in w4a4_lut,
-   its served tree built a layer at a time (``init_served_params``):
-   every admission monolithic (one eager prefill a distinct prompt
-   length, the 7 dummy rows routed with the live one), every decode round
-   a replayed graph whose steps route at the deterministic capacity
-   C = 1.  Fused over the 8 requests; the same requests again op by op
-   (equal), counting the routes the capacity keeps in decode and in the
-   admissions (``routes[qwen2moe]``); fused over the first 4 == unfused
-   over the first 4; fused over the first one == the plain backend over it
-   (8 new tokens); one decode step and one replayed round profiled.  Every
-   forward launches the LUT kernel 4 + 3 + 3 * 60 = 187 times a layer
-   (attention, the shared expert, one launch per expert of each bank)
-   and the head kernel once.  Then the recurrent families at full width
-   and depth in w4a4_lut (``run_recurrent``), every admission monolithic
-   at the prompt's exact length: rwkv6-1.6b (24 layers: RWKV6 time and
-   channel mix, layer norms, the untied 65,536-row head; 8 LUT launches a
-   layer) and zamba2-2.7b (54 Mamba2 layers, the shared attention + SwiGLU
-   block before every sixth; 2 LUT launches a mamba layer, 7 a shared
-   block; the untied 32,000-row head).  Each: fused over the 8 requests;
-   the first replay of a newly captured round against the op-by-op round
-   from one admitted state, tokens and every cache leaf bitwise
-   (``first replay[...]``: the warm-up must leave the recurrent state as
-   it found it); unfused over the first 4 and the plain backend over the
-   first one (8 new tokens), equal to the fused run; zamba2 also one
-   sampled request fused == plain backend, and paged (shared K/V in pages
-   of 4, mamba state dense per slot) over the first 4 == dense; one
-   decode step and one replayed round profiled.  Then whisper-large-v3
-   (32 encoder and 32 decoder layers, full width, enc_seq 1500) in
+4. serving bitnet-3b (13 of its 26 layers, full width) in ternary_a8_tmac:
+   fused (8 requests) and plain (first 1), equal transcripts.  Then gemma2-2b
+   (26 layers, full width: local and global layers, window 4,096, soft-caps,
+   GeGLU, the tied 256,000-row head) in w4a4_lut at max_len 4,352: 8
+   requests (``gemma_requests``) in the order long pair, short pair, long
+   pair, short pair, the long prompts past the window (monolithic admission,
+   its rings wrapped), the short ones on the chunk lane; a monolithic
+   dispatch of two requests must have a chunk admission after it in its
+   step.  Fused graphs == ``Engine.generate`` on the long requests and ==
+   ``chunked_generate`` (the chunk lane's arithmetic as a static batch) on
+   the short ones, both batches padded to 8 rows; ``generate`` on the short
+   ones is reported (a prefill reduces at other shapes than decode on CUDA),
+   and where the two part ``flip_report`` gives both paths' logits at that
+   token and the first activation that differs (at most ``FLIP_ULPS`` bf16
+   ulps, then A4 codes flip); a decode step and a replayed round profiled at
+   positions past the window; the tied head timed (``tied head[gemma2]``);
+   paged (64-token pages, the first long pair), unfused (4) and the plain
+   backend (one short request), each equal to the fused run.  Then its int8
+   KV cache on the same codes (``run_gemma2_int8``: the 13 global layers
+   int8, the 13 local rings bf16, ``kv_cache_bytes`` checked layer by
+   layer): fused over the first 4 requests (the first long pair, then the
+   first short pair), every admission monolithic; paged over the long pair
+   and the plain backend over one short request, each equal to the fused
+   rows; ``int8 runs[gemma2]`` gives the bytes, the runs and the share of
+   greedy tokens equal to the bf16 run's.  Then minicpm-2b (20 of its 40
+   layers, full width, tied 122,753-row head) in w4a4_lut: fused over the
+   first 4 contract requests, profiled, its head timed, and the plain
+   backend over the first (8 new tokens) equal.  Then phi3-medium-14b (40
+   layers, full width, GQA 40/10, the untied 100,352-row head; its served
+   tree built a layer at a time) in w4a4_lut (``run_phi3``): fused over the
+   8 requests (7 LUT launches a layer and the head kernel once a forward),
+   profiled, and the plain backend over the first (8 new tokens) equal. Then
+   qwen2-moe-a2.7b (24 layers, full width: 60 routed experts top-4 under
+   global dispatch, capacity factor 1.25, the shared expert behind its
+   sigmoid gate, qkv bias, the untied 151,936-row head) in w4a4_lut, its
+   served tree built a layer at a time (``init_served_params``): every
+   admission monolithic (one eager prefill a distinct prompt length, the 7
+   dummy rows routed with the live one), every decode round a replayed graph
+   whose steps route at the deterministic capacity C = 1.  Fused over the 8
+   requests; the same requests again op by op (equal), counting the routes
+   the capacity keeps in decode and in the admissions
+   (``routes[qwen2moe]``); fused over the first 4 == unfused over the first
+   4; fused over the first one == the plain backend over it (8 new tokens);
+   one decode step and one replayed round profiled.  Every forward launches
+   the LUT kernel 4 + 3 + 3 * 60 = 187 times a layer (attention, the shared
+   expert, one launch per expert of each bank) and the head kernel
+   once.  Then its int8 KV cache on the same codes (every layer int8): fused
+   over the 8, dense == paged over 4 equal prompts whose budgets do not grow
+   with the slot (``moe_paged_requests``: a freed slot in front of a live
+   one routes other garbage dense and paged, in the reference too), over the
+   first one == the plain backend (``int8 runs[qwen2moe]``). Then
+   mixtral-8x22b at full width and ``MIXTRAL_LAYERS`` (8) of its 56 layers
+   (``run_mixtral``; 1.21 GB of expert nibbles a layer, every layer local
+   with window 4,096 > max_len): the same runs as qwen2-moe's (``run_moe``,
+   ``routes[mixtral]``), each forward launching the LUT kernel 4 + 3 * 8 =
+   28 times a layer (decode's experts at C = 3) and the untied head
+   once.  Then the recurrent families at full width and depth in w4a4_lut
+   (``run_recurrent``), every admission monolithic at the prompt's exact
+   length: rwkv6-1.6b (12 of its 24 layers: RWKV6 time and channel mix,
+   layer norms, the untied 65,536-row head; 8 LUT launches a layer) and
+   zamba2-2.7b (24 of its 54 Mamba2 layers, the shared attention + SwiGLU
+   block before every sixth; 2 LUT launches a mamba layer, 7 a shared block;
+   the untied 32,000-row head).  Each: fused over the 8 requests; the first
+   replay of a newly captured round against the op-by-op round from one
+   admitted state, tokens and every cache leaf bitwise (``first
+   replay[...]``: the warm-up must leave the recurrent state as it found
+   it); unfused over the first 4 and the plain backend over the first one (8
+   new tokens), equal to the fused run; zamba2 also one sampled request
+   fused == plain backend, and paged (shared K/V in pages of 4, mamba state
+   dense per slot) over the first 4 == dense, and its int8 KV engine over
+   the first 4 (no leaf changes: the bytes and transcripts equal bf16's);
+   one decode step and one replayed round profiled.  Then whisper-large-v3
+   (16 of its 32 encoder and 32 decoder layers, full width, enc_seq 1500) in
    w4a4_lut through ``Engine.generate(frames=)`` (``run_whisper``): 8
-   requests of 4-token prompts over one batch of stub frames, 64 new
-   tokens, fused; unfused over the first 2 and the plain backend over the
-   first one (8 tokens), in batches padded to 8 rows, each equal to the
-   fused transcripts; 576 LUT launches a prefill (32 x 6 encoder, 32 x 10
-   decoder, 32 x 2 for the second cross K/V pass) and 256 a decode step;
-   the prefill's parts timed (encode, decoder, the second cross-K/V pass);
-   8 decode steps through a page table == dense, logits and K/V bitwise.
-   Then qwen2-vl-72b (80 layers, full width; 41 GB of served codes built a
-   layer at a time) in w4a4_lut (``run_qwen2vl``): the Scheduler over the
-   8 requests fused, the plain backend over the first one (4 tokens)
-   equal; the stub vision frontend (embeddings [2, 272, 8192] at a 16 x 16
-   patch grid's M-RoPE positions, then 8 decode steps) fused == plain
-   bitwise; a text prefill under M-RoPE == ``rope_mode="rope"`` bitwise;
-   a replayed round profiled.
+   requests of 4-token prompts over one batch of stub frames, 64 new tokens,
+   fused; unfused over the first 2 and the plain backend over the first one
+   (8 tokens), in batches padded to 8 rows, each equal to the fused
+   transcripts; 288 LUT launches a prefill (16 x 6 encoder, 16 x 10 decoder,
+   16 x 2 for the second cross K/V pass) and 128 a decode step; the
+   prefill's parts timed (encode, decoder, the second cross-K/V pass); 8
+   decode steps through a page table == dense, logits and K/V bitwise. Then
+   qwen2-vl-72b (40 of its 80 layers, full width; 21 GB of served codes
+   built a layer at a time) in w4a4_lut (``run_qwen2vl``): the Scheduler
+   over the 8 requests fused, the plain backend over the first one (4
+   tokens) equal; the stub vision frontend (embeddings [2, 272, 8192] at a
+   16 x 16 patch grid's M-RoPE positions, then 8 decode steps) fused ==
+   plain bitwise; a text prefill under M-RoPE == ``rope_mode="rope"``
+   bitwise; a replayed round profiled.
 5. the paper's CNN: full-width MobileNetV2 (224x224, width 1.0, 1000
    classes, random weights from seed 0) at batch 32 in float and QAT mode
    (cuDNN, TF32 off), the float logits of the first 4 images held against
@@ -217,8 +241,13 @@ Phases (any failure raises and exits non-zero):
 6. the script's total time, the ``kernels`` JSON line, the ``nvidia-smi``
    line, and last the ``{"ok": true, ...}`` line.
 
-Options cut the run for debugging (``--layers`` cuts every LM's depth,
-``--reps``, ``--profile``, ``--phases``); the contract run takes none.
+Where ``SERVED_LAYERS`` names a model, the script serves it at that
+depth (full width): mixtral-8x22b because one card holds only part of
+its codes, the earlier slices' bitnet-3b, minicpm-2b, rwkv6-1.6b,
+zamba2-2.7b, whisper-large-v3 and qwen2-vl-72b to keep the run inside
+half its time limit.  Options cut the run for debugging (``--layers``
+cuts every LM's depth further, ``--reps``, ``--profile``, ``--phases``);
+the contract run takes none.
 Every log line begins with the seconds since the script started.
 """
 from __future__ import annotations
@@ -292,6 +321,23 @@ QWEN2VL_INNER = {"wq": (8192, 8192), "wk": (8192, 1024), "wv": (8192, 1024),
                  "wo": (8192, 8192), "wi": (8192, 29568),
                  "wg": (8192, 29568), "mlp.wo": (29568, 8192)}
 QWEN2VL_HEAD = (8192, 152064)
+# phi3-medium-14b's layer and head; mixtral-8x22b's attention, its 8
+# experts' bank shapes at decode's capacity of 3 rows at 8 slots (max(1,
+# int(8 * 2 / 8 * 1.25) + 1)), its head, and the depth its phase serves
+# (8 of 56 layers: ~10 GB of codes; the whole model's ~70 GB of nibbles
+# needs the expert-parallel path across cards)
+PHI3_INNER = {"wq": (5120, 5120), "wk": (5120, 1280), "wv": (5120, 1280),
+              "wo": (5120, 5120), "wi": (5120, 17920), "wg": (5120, 17920),
+              "mlp.wo": (17920, 5120)}
+PHI3_HEAD = (5120, 100352)
+MIXTRAL_ATTN = {"wq": (6144, 6144), "wk": (6144, 1024), "wv": (6144, 1024),
+                "wo": (6144, 6144)}
+MIXTRAL_EXPERTS = 8
+MIXTRAL_EXPERT = {"wi": (6144, 16384), "wg": (6144, 16384),
+                  "wo": (16384, 6144)}
+MIXTRAL_BANK_C = (3,)
+MIXTRAL_HEAD = (6144, 32768)
+MIXTRAL_LAYERS = 8
 QWEN_HEAD = (3584, 152064)
 BITNET_HEAD = (3200, 32000)
 RWKV6_HEAD = (2048, 65536)
@@ -306,11 +352,19 @@ MB_BATCH = 32
 MB_CHECK = 4                      # images held against the CPU forward
 MB_FLOAT_RTOL = 1e-3              # of max |logit|; see run_mobilenet
 MB_GROUP = "mobilenetv2 34 pointwise stages, batch 32"
-PHASES = ("kernels", "qwen", "bitnet", "gemma2", "minicpm", "qwen2moe",
-          "rwkv6", "zamba2", "whisper", "qwen2vl", "mobilenetv2")
-# the paged, faults and QoS stages run on qwen2-7b at this depth (full
-# width)
-CUT_LAYERS = 7
+PHASES = ("kernels", "qwen", "bitnet", "gemma2", "minicpm", "phi3",
+          "qwen2moe", "mixtral", "rwkv6", "zamba2", "whisper", "qwen2vl",
+          "mobilenetv2")
+# the sampled, tmac, paged, int8 KV, speculative, faults and QoS stages
+# run on qwen2-7b at this depth (full width)
+CUT_LAYERS = 4
+# the depth (full width always) at which the script serves a model, where
+# it is cut to keep the run inside its time limit: mixtral-8x22b because
+# one card holds ~10 GB of its expert codes, not ~70; the others (earlier
+# slices' paths) for time
+SERVED_LAYERS = {"mixtral-8x22b": MIXTRAL_LAYERS, "qwen2-vl-72b": 40,
+                 "whisper-large-v3": 16, "bitnet-3b": 13, "minicpm-2b": 20,
+                 "rwkv6-1.6b": 12, "zamba2-2.7b": 24}
 # gemma2-2b: the window is 4096; two pairs of long prompts past it, two
 # pairs of short ones inside it; pages of 64 divide the ring and max_len
 GEMMA_LONG = (4104, 4152)
@@ -365,7 +419,7 @@ MAIN_RUN = {"lutmul_fused": "qwen lut fused",
             "int_matmul_fused": "qwen lut fused",
             "int_matmul": f"qwen{CUT_LAYERS} lut unfused",
             "lutmul_tmac_fused": f"qwen{CUT_LAYERS} tmac spec",
-            "lutmul_tmac": "qwen tmac unfused",
+            "lutmul_tmac": f"qwen{CUT_LAYERS} tmac unfused",
             "lutmul_gather": "mobilenetv2 gather pass",
             "threshold": "mobilenetv2 integer pass"}
 
@@ -627,6 +681,10 @@ def check_kernels(bench: Bench) -> None:
                   (f"whisper-large-v3 cross K/V, M={WHISPER_ENC_M}",
                    at(WHISPER_ENC_M, WHISPER_XKV), False),
                   ("qwen2-vl-72b layer, M=8", at(SLOTS, QWEN2VL_INNER),
+                   False),
+                  ("phi3-medium-14b layer, M=8", at(SLOTS, PHI3_INNER),
+                   False),
+                  ("mixtral-8x22b attention, M=8", at(SLOTS, MIXTRAL_ATTN),
                    False)]
     for group, shapes, gather in lut_groups:
         for M, K, N in shapes:
@@ -699,7 +757,8 @@ def check_kernels(bench: Bench) -> None:
             del a, planes, w8
 
     # the int8 heads: qwen2-7b at M = 8 and at M = 32 (verify), bitnet-3b,
-    # rwkv6-1.6b and zamba2-2.7b
+    # rwkv6-1.6b, zamba2-2.7b, qwen2-vl-72b, phi3-medium-14b and
+    # mixtral-8x22b
     for group, (K, N), M in (("qwen2-7b head, M=8", QWEN_HEAD, SLOTS),
                              ("qwen2-7b verify head, M=32", QWEN_HEAD,
                               VERIFY_M),
@@ -707,6 +766,9 @@ def check_kernels(bench: Bench) -> None:
                              ("rwkv6-1.6b head, M=8", RWKV6_HEAD, SLOTS),
                              ("zamba2-2.7b head, M=8", ZAMBA2_HEAD, SLOTS),
                              ("qwen2-vl-72b head, M=8", QWEN2VL_HEAD,
+                              SLOTS),
+                             ("phi3-medium-14b head, M=8", PHI3_HEAD, SLOTS),
+                             ("mixtral-8x22b head, M=8", MIXTRAL_HEAD,
                               SLOTS)):
         a = torch.randint(-128, 128, (M, K), generator=gen, device=dev,
                           dtype=torch.int8)
@@ -730,48 +792,62 @@ def check_kernels(bench: Bench) -> None:
 
 
 def check_expert_banks(bench: Bench, gen) -> None:
-    """qwen2-moe-a2.7b's expert banks as its MoE path launches them: one
-    ``lutmul_experts`` call on [60, C, K] codes and a [60, K//2, N] bank
-    (60 launches at per-expert offsets), int32 and fused, each held bitwise
-    against its plain version on all 60 experts; a group is one layer's
-    three banks at one capacity C."""
+    """The expert banks as the MoE path launches them: one
+    ``lutmul_experts`` call on [E, C, K] codes and an [E, K//2, N] bank (E
+    launches at per-expert offsets), int32 and fused, each held bitwise
+    against its plain version on all E experts; a group is one layer's
+    three banks at one capacity C: qwen2-moe-a2.7b's 60 experts at C = 1,
+    5 and 42, mixtral-8x22b's 8 at decode's C = 3."""
+    import torch
+    dev = torch.device("cuda")
+    for model, E, shapes, caps in (
+            ("qwen2-moe", QWEN2MOE_EXPERTS, QWEN2MOE_EXPERT,
+             QWEN2MOE_BANK_C),
+            ("mixtral-8x22b", MIXTRAL_EXPERTS, MIXTRAL_EXPERT,
+             MIXTRAL_BANK_C)):
+        for C in caps:
+            _expert_group(bench, gen, dev, f"{model} expert banks, E={E} "
+                          f"M={C}", E, C, shapes)
+        torch.cuda.empty_cache()
+
+
+def _expert_group(bench: Bench, gen, dev, group: str, E: int, C: int,
+                  shapes: dict) -> None:
+    """One group of :func:`check_expert_banks`: E experts at capacity C,
+    each bank shape in ``shapes``."""
     import torch
     from repro_torch.kernels.lutmul import kernel, ref
     from repro_torch.models import moe
-    dev = torch.device("cuda")
-    E = QWEN2MOE_EXPERTS
-    for C in QWEN2MOE_BANK_C:
-        group = f"qwen2-moe expert banks, E={E} M={C}"
-        for K, N in QWEN2MOE_EXPERT.values():
-            a = torch.randint(0, 16, (E, C, K), generator=gen, device=dev,
-                              dtype=torch.uint8)
-            w = torch.randint(0, 256, (E, K // 2, N), generator=gen,
-                              device=dev, dtype=torch.uint8)
-            a_s = torch.rand((E, C, 1), generator=gen, device=dev) * 0.1 \
-                + 1e-3
-            w_s = torch.rand((E, 1, N), generator=gen, device=dev) * 0.1 \
-                + 1e-3
-            a8 = ref.decode_codes(a).to(torch.int8)
-            bank = {"w_q": w, "w_scale": w_s}
+    for K, N in shapes.values():
+        a = torch.randint(0, 16, (E, C, K), generator=gen, device=dev,
+                          dtype=torch.uint8)
+        w = torch.randint(0, 256, (E, K // 2, N), generator=gen,
+                          device=dev, dtype=torch.uint8)
+        a_s = torch.rand((E, C, 1), generator=gen, device=dev) * 0.1 \
+            + 1e-3
+        w_s = torch.rand((E, 1, N), generator=gen, device=dev) * 0.1 \
+            + 1e-3
+        a8 = ref.decode_codes(a).to(torch.int8)
+        bank = {"w_q": w, "w_scale": w_s}
 
-            def plain():
-                return torch.stack([ref.lutmul_ref(a[e], w[e])
-                                    for e in range(E)])
-            lib = _library_bmm_ms(a8, moe._bank_codes(bank), plain(),
-                                  bench.flush, bench.reps)
-            shape = {"E": E, "M": C, "K": K, "N": N}
-            in_bytes = E * (C * K + K * N // 2) + 16 * 4
-            ops = 2.0 * E * C * K * N
-            bench.one("lutmul", group, lambda: kernel.lutmul_experts(a, w),
-                      plain, lib, shape, in_bytes + E * C * N * 4, ops)
-            bench.one("lutmul_fused", group,
-                      lambda: kernel.lutmul_experts(
-                          a, w, a_s, w_s, out_dtype=torch.bfloat16),
-                      lambda: moe.expert_matmul_ref(a8, a_s, bank,
-                                                    torch.bfloat16),
-                      lib, shape, in_bytes + 4 * E * (C + N) + E * C * N * 2,
-                      ops)
-            del a, w, a8, bank
+        def plain():
+            return torch.stack([ref.lutmul_ref(a[e], w[e])
+                                for e in range(E)])
+        lib = _library_bmm_ms(a8, moe._bank_codes(bank), plain(),
+                              bench.flush, bench.reps)
+        shape = {"E": E, "M": C, "K": K, "N": N}
+        in_bytes = E * (C * K + K * N // 2) + 16 * 4
+        ops = 2.0 * E * C * K * N
+        bench.one("lutmul", group, lambda: kernel.lutmul_experts(a, w),
+                  plain, lib, shape, in_bytes + E * C * N * 4, ops)
+        bench.one("lutmul_fused", group,
+                  lambda: kernel.lutmul_experts(
+                      a, w, a_s, w_s, out_dtype=torch.bfloat16),
+                  lambda: moe.expert_matmul_ref(a8, a_s, bank,
+                                                torch.bfloat16),
+                  lib, shape, in_bytes + 4 * E * (C + N) + E * C * N * 2,
+                  ops)
+        del a, w, a8, bank
 
 
 # ---------------------------------------------------------------------------
@@ -1511,11 +1587,7 @@ def run_int8_lut(engine, cfg, V: int, lut: list, profile_steps: int,
     cfg8 = dataclasses.replace(cfg, kv_quant="int8")
     scfg = ServeConfig(max_len=256, seed=SAMPLE_SEED)
     int8 = make_engine(engine.params, cfg8, scfg)
-    want = (2 * cfg.n_layers * SLOTS * scfg.max_len * cfg.n_kv
-            * (cfg.head_dim + 4))
-    if int8.kv_cache_bytes(SLOTS) != want:
-        raise AssertionError(f"int8 kv_cache_bytes "
-                             f"{int8.kv_cache_bytes(SLOTS)} != {want}")
+    check_int8_bytes(int8, engine)
     lut8 = serve(int8, V, "qwen lut fused int8", 8, "lutmul")
     paged = make_engine(engine.params, cfg8, dataclasses.replace(
         scfg, paged=True, page_size=4))
@@ -1948,79 +2020,31 @@ def run_qos(engine, cfg, V: int, lut: list, lut_s: list,
 
 
 def run_qwen(n_layers: int, profile_steps: int) -> None:
-    import dataclasses
+    """qwen2-7b at its own depth (28 layers): w4a4_lut fused over the 8
+    contract requests and a profile; every other qwen2-7b run is on the
+    ``CUT_LAYERS`` model (``run_cut_depth``)."""
     import torch
     from repro_torch.configs import qwen2_7b
     from repro_torch.kernels.lutmul import ops
-    from repro_torch.models import transformer
-    from repro_torch.serve import ServeConfig, make_engine
 
     cfg = depth(qwen2_7b.config(quant="w4a4_lut"), n_layers)
-    V = cfg.vocab
-    reset_peak(empty=True)
-    t0 = time.perf_counter()
-    params = transformer.init_params(cfg, seed=0, device="cuda")
-    engine = make_engine(params, cfg, ServeConfig(
-        quant="w4a4_lut", max_len=256, seed=SAMPLE_SEED))
-    torch.cuda.synchronize()
-    log(f"model: {cfg.name} {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.compute_dtype}; init + "
-        f"quantize {time.perf_counter() - t0:.1f}s, peak "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-
-    # PR 11's path: w4a4_lut, fused, unfused (int32 entry points), plain
+    engine = new_engine(cfg, 256, "qwen2-7b")
     ops.set_backend("cuda")
     ops.set_variant(None)
-    lut = serve(engine, V, "qwen lut fused", 8, "lutmul")
+    serve(engine, cfg.vocab, "qwen lut fused", 8, "lutmul")
     profile_engine(engine, "qwen lut", profile_steps, detail=True)
-    # the paged cache at the model's own depth (the rest of the paged
-    # stage runs at CUT_LAYERS, ``run_cut_depth``)
-    paged = make_engine(engine.params, cfg, ServeConfig(
-        max_len=256, seed=SAMPLE_SEED, paged=True, page_size=4))
-    same(serve(paged, V, f"qwen lut fused paged, {cfg.n_layers} layers", 8,
-               "lutmul"), lut,
-         f"lut fused paged == lut fused ({cfg.n_layers} layers)")
-    del paged
-    # the sampled mix: 8 requests, then the first 4 for the comparisons
-    check_mix(serve(engine, V, "qwen lut fused sampled", 8, "lutmul",
-                    sampled=True), lut, "lut fused sampled")
-    profile_sampling(engine, "qwen lut", profile_steps)
-    lut_s = serve(engine, V, "qwen lut fused sampled, 4", 4, "lutmul",
-                  sampled=True)
-    # the int8 KV stage, the unfused and plain lut runs are at CUT_LAYERS
-    # (run_cut_depth)
-    del engine
-
-    # this slice: the same float weights as w4a4_tmac bitplanes
-    tcfg = dataclasses.replace(cfg, quant="w4a4_tmac")
-    t0 = time.perf_counter()
-    engine = make_engine(params, tcfg, ServeConfig(
-        quant="w4a4_tmac", max_len=256, seed=SAMPLE_SEED))
-    del params            # the float master weights go; codes stay
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    log(f"model: {tcfg.name} quantized to w4a4_tmac in "
-        f"{time.perf_counter() - t0:.1f}s")
-    tmac = serve(engine, V, "qwen tmac fused", 8, "lutmul_tmac")
-    same(tmac, lut, "tmac fused == lut fused")
-    same(serve(engine, V, "qwen tmac fused sampled", 4, "lutmul_tmac",
-               sampled=True), lut_s, "tmac fused sampled == lut fused sampled")
-    profile_engine(engine, "qwen tmac", profile_steps)
-    ops.set_variant("unfused")
-    same(serve(engine, V, "qwen tmac unfused", 4, "lutmul_tmac",
-               fused=False), tmac, "tmac unfused == tmac fused")
-    ops.set_variant(None)
-    # the speculative stage is at CUT_LAYERS (run_cut_tmac)
     del engine
     torch.cuda.empty_cache()
     run_cut_depth(n_layers, profile_steps)
 
 
 def depth(cfg, n_layers):
-    """``cfg`` cut to ``n_layers`` layers (None: its own depth), an
-    encoder's too."""
+    """``cfg`` cut to ``SERVED_LAYERS`` (where it names the model) and to
+    ``n_layers`` layers (None: no further cut), an encoder's too."""
     import dataclasses
-    if n_layers is None or n_layers >= cfg.n_layers:
+    n_layers = min(n_layers or cfg.n_layers,
+                   SERVED_LAYERS.get(cfg.name, cfg.n_layers))
+    if n_layers >= cfg.n_layers:
         return cfg
     return dataclasses.replace(
         cfg, n_layers=n_layers,
@@ -2056,12 +2080,13 @@ def new_engine(cfg, max_len: int, label: str):
 
 def run_cut_depth(n_layers, profile_steps: int) -> None:
     """qwen2-7b at full width and ``CUT_LAYERS`` layers (fewer under
-    ``--layers``): lut fused over the 8 requests, the sampled mix over 4,
-    the int8 KV stage (``run_int8_lut``); the lut unfused runs (4, greedy
-    and sampled) and the plain lut runs (1, greedy and sampled) against
-    them; w4a4_tmac codes of the same float weights and the speculative
-    stage (``run_cut_tmac``); then the paged, faults and QoS stages
-    (``run_paged_lut``, ``run_faults``, ``run_qos``)."""
+    ``--layers``): lut fused over the 8 requests, the sampled mix over the
+    8 (its greedy rows equal the lut run's; the sampling ops profiled) and
+    over 4, the int8 KV stage (``run_int8_lut``); the lut unfused runs (4,
+    greedy and sampled) and the plain lut runs (1, greedy and sampled)
+    against them; w4a4_tmac codes of the same float weights and the
+    speculative stage (``run_cut_tmac``); then the paged, faults and QoS
+    stages (``run_paged_lut``, ``run_faults``, ``run_qos``)."""
     import dataclasses
     from repro_torch.configs import qwen2_7b
     from repro_torch.kernels.lutmul import ops
@@ -2074,6 +2099,9 @@ def run_cut_depth(n_layers, profile_steps: int) -> None:
     ops.set_backend("cuda")
     ops.set_variant(None)
     lut = serve(engine, V, f"{q} lut fused", 8, "lutmul")
+    check_mix(serve(engine, V, f"{q} lut fused sampled", 8, "lutmul",
+                    sampled=True), lut, f"{q} lut fused sampled")
+    profile_sampling(engine, f"{q} lut", profile_steps)
     lut_s = serve(engine, V, f"{q} lut fused sampled, 4", 4,
                   "lutmul", sampled=True)
     lut8 = run_int8_lut(engine, cfg, V, lut, profile_steps, f"{q} lut fused")
@@ -2094,18 +2122,21 @@ def run_cut_depth(n_layers, profile_steps: int) -> None:
     same(serve(engine, V, f"{q} lut plain sampled", 1, sampled=True), lut_s1,
          f"{q} lut plain sampled == {q} lut fused sampled")
     ops.set_backend("cuda")
-    run_cut_tmac(cfg, V, q, lut8, profile_steps)
+    run_cut_tmac(cfg, V, q, lut, lut_s, lut8, profile_steps)
     run_paged_lut(engine, cfg, V, lut, lut_s, profile_steps)
     run_faults(engine, cfg, V, lut, lut_s, lut8)
     run_qos(engine, cfg, V, lut, lut_s, lut8)
     paged_summary([k for k in RUNS if "paged" in RUNS[k]])
 
 
-def run_cut_tmac(cfg, V: int, q: str, lut8: list,
+def run_cut_tmac(cfg, V: int, q: str, lut: list, lut_s: list, lut8: list,
                  profile_steps: int) -> None:
     """w4a4_tmac bitplanes of the cut model's float weights (seed 0, made a
-    layer at a time): fused over the 8 requests and the plain backend over
-    the first; int8 KV over 4 (== the int8 lut run ``lut8``); bitplane
+    layer at a time): fused over the 8 requests (== the lut run ``lut``: w4
+    bitplanes decode to the nibble codes), the sampled mix over 4 (== the
+    lut run ``lut_s``), unfused over 4 and the plain backend over the
+    first (== fused), a decode step and round profiled; int8 KV over 4
+    (== the int8 lut run ``lut8``); bitplane
     self-speculative decoding on the same codes, greedy over the 8 (== the
     fused run, with a drafter step, a verify forward and a speculative
     round profiled) and paged over 4 (rejected blocks trimmed), and at
@@ -2120,6 +2151,15 @@ def run_cut_tmac(cfg, V: int, q: str, lut8: list,
     tmac = new_engine(dataclasses.replace(cfg, quant="w4a4_tmac"), 256,
                       "qwen2-7b (cut, w4a4_tmac)")
     fused = serve(tmac, V, f"{q} tmac fused", 8, "lutmul_tmac")
+    same(fused, lut, f"{q} tmac fused == {q} lut fused")
+    same(serve(tmac, V, f"{q} tmac fused sampled", 4, "lutmul_tmac",
+               sampled=True), lut_s,
+         f"{q} tmac fused sampled == {q} lut fused sampled")
+    profile_engine(tmac, f"{q} tmac", profile_steps)
+    ops.set_variant("unfused")
+    same(serve(tmac, V, f"{q} tmac unfused", 4, "lutmul_tmac", fused=False),
+         fused, f"{q} tmac unfused == {q} tmac fused")
+    ops.set_variant(None)
     ops.set_backend("ref")
     same(serve(tmac, V, f"{q} tmac plain", 1), fused,
          f"{q} tmac plain == {q} tmac fused")
@@ -2280,8 +2320,96 @@ def run_gemma2(n_layers, profile_steps: int) -> None:
     same(serve(engine, V, "gemma2 lut plain", 1, reqs=short), fused[2:3],
          "gemma2 plain == gemma2 fused (a short request)")
     ops.set_backend("cuda")
+    run_gemma2_int8(engine, V, fused)
     del engine
     torch.cuda.empty_cache()
+
+
+def run_gemma2_int8(engine, V: int, fused: list) -> None:
+    """gemma2-2b with the int8 KV cache on the bf16 ``engine``'s codes: the
+    13 global layers hold int8 codes and scales, the 13 local rings stay
+    bf16.  Fused over the first 4 requests (the first long pair past the
+    window, then the first short pair), every admission monolithic; paged
+    over the long pair and the plain backend over one short request, each
+    equal to the fused rows; the KV bytes exact, and the share of greedy
+    tokens equal to the bf16 run's (``fused``)."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels.lutmul import ops
+    from repro_torch.serve import ServeConfig, make_engine
+    cfg8 = dataclasses.replace(engine.cfg, kv_quant="int8")
+    scfg = ServeConfig(max_len=GEMMA_MAX_LEN, seed=SAMPLE_SEED)
+    int8 = make_engine(engine.params, cfg8, scfg)
+    check_int8_bytes(int8, engine)
+    events = []
+    f8 = serve(int8, V, "gemma2 lut fused int8", 4, "lutmul",
+               reqs=gemma_requests(V), drive=gemma_drive(events))
+    kinds = {kind for _, kind, _ in events}
+    if kinds != {"monolithic"}:
+        raise AssertionError(f"gemma2 int8: admissions {events}, expected "
+                             "every one monolithic")
+    log(f"gemma2 int8 admissions (step, kind, requests): "
+        f"{json.dumps(events)}")
+    paged = make_engine(engine.params, cfg8, dataclasses.replace(
+        scfg, paged=True, page_size=GEMMA_PAGE, prefill_chunk=GEMMA_PAGE))
+    same(serve(paged, V, "gemma2 lut fused int8 paged",
+               GEMMA_PAGED_REQUESTS, "lutmul", reqs=gemma_requests(V),
+               drive=gemma_drive([])), f8,
+         "gemma2 int8 paged == gemma2 int8 dense")
+    del paged
+    torch.cuda.empty_cache()
+    ops.set_backend("ref")
+    same(serve(int8, V, "gemma2 lut int8 plain", 1,
+               reqs=gemma_requests(V)[2:3]), f8[2:3],
+         "gemma2 int8 plain == gemma2 int8 fused (a short request)")
+    ops.set_backend("cuda")
+    int8_family_summary("gemma2", int8, engine, f8, fused)
+    del int8
+    torch.cuda.empty_cache()
+
+
+def check_int8_bytes(int8, bf16) -> None:
+    """An int8 engine's dense KV bytes at SLOTS slots, layer by layer as
+    the reference lays them out: a global attention layer's K and V as
+    int8 codes and a float32 scale a head and position, every other leaf
+    (a local ring, the shared block's K/V) as the bf16 engine's."""
+    from repro_torch.models import transformer
+    cfg, M = int8.cfg, int8.scfg.max_len
+    kv = 2 * cfg.n_kv * cfg.head_dim
+    want = bf16.kv_cache_bytes(SLOTS)
+    for i in range(cfg.n_layers):
+        spec = transformer.layer_spec(cfg, i)
+        if spec.kind == "attn" and not transformer.is_local(cfg, spec):
+            want += SLOTS * M * (2 * cfg.n_kv * (cfg.head_dim + 4)
+                                 - kv * cfg.cdtype.itemsize)
+    got = int8.kv_cache_bytes(SLOTS)
+    if got != want:
+        raise AssertionError(f"{cfg.name} int8 kv_cache_bytes {got} != "
+                             f"{want}")
+    log(f"int8 KV bytes[{cfg.name}]: {got} at {SLOTS} slots, max_len {M}, "
+        f"against {bf16.kv_cache_bytes(SLOTS)} for bf16")
+
+
+def int8_family_summary(name: str, int8, bf16, toks8: list,
+                        toks: list) -> None:
+    """A family's int8 KV runs on one line: the KV bytes beside bf16's,
+    each run's ms per decode step and tokens/s after capture, its
+    admissions, and the share of the int8 run's greedy tokens equal to the
+    bf16 run's over the same requests, position by position."""
+    pairs = [(a, b) for x, y in zip(toks8, toks) for a, b in zip(x, y)]
+    first = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b),
+                  len(x)) for x, y in zip(toks8, toks)]
+    out = {"kv_cache_bytes": {"int8": int8.kv_cache_bytes(SLOTS),
+                              "bf16": bf16.kv_cache_bytes(SLOTS)},
+           "runs": {label: {k: st.get(k) for k in (
+               "ms_per_decode_step", "ms_per_decode_step_after_capture",
+               "tokens_per_s_after_capture", "rounds", "admission")}
+               for label, st in RUNS.items()
+               if label.startswith(name + " ") and "int8" in label},
+           "greedy_tokens_equal_to_bf16": sum(a == b for a, b in pairs)
+           / len(pairs),
+           "first_divergence_by_request": first}
+    log(f"int8 runs[{name}]: " + json.dumps(out))
 
 
 def chunked_generate(engine, prompts, new: int) -> list:
@@ -2550,7 +2678,7 @@ def run_minicpm(n_layers, profile_steps: int) -> None:
     torch.cuda.empty_cache()
 
 
-def route_shares(engine, V: int, fused: list) -> None:
+def route_shares(engine, V: int, fused: list, name: str) -> None:
     """The contract's 8 requests again, every round op by op
     (``Engine.step(_eager=True)``), transcripts equal to the replayed
     graphs' ``fused``; ``moe.route`` wrapped to count the routes each call
@@ -2584,7 +2712,7 @@ def route_shares(engine, V: int, fused: list) -> None:
         del engine.step
     dt = time.perf_counter() - t0
     same([list(r.tokens) for r in reqs], fused,
-         "qwen2moe op by op == qwen2moe replayed graphs")
+         f"{name} op by op == {name} replayed graphs")
     if not all(counts.values()):
         raise AssertionError(f"routes counted: {routed}")
     out = {"seconds": dt}
@@ -2592,45 +2720,164 @@ def route_shares(engine, V: int, fused: list) -> None:
         kept = int(torch.stack(c).sum())
         out[site] = {"calls": len(c), "routes": routed[site], "kept": kept,
                      "kept_share": kept / routed[site]}
-    log(f"routes[qwen2moe]: {json.dumps(out)}")
+    log(f"routes[{name}]: {json.dumps(out)}")
 
 
 def run_qwen2moe(n_layers, profile_steps: int) -> None:
     """qwen2-moe-a2.7b at full width in w4a4_lut (the served tree built a
-    layer at a time): fused over the 8 contract requests and again op by
-    op (``route_shares``), fused over the first 4 == unfused over them,
-    fused over the first one == the plain backend (8 new tokens), and a
-    profile.  Capacity couples the rows of a forward, so only runs over
-    the same requests are compared."""
+    layer at a time): :func:`run_moe`, then the int8 KV cache on the same
+    codes (every layer's K/V int8): fused over the 8 contract requests,
+    dense == paged over ``moe_paged_requests``, fused over the first one
+    == the plain backend."""
+    import dataclasses
     import torch
     from repro_torch.configs import qwen2_moe_a2p7b
     from repro_torch.kernels.lutmul import ops
+    from repro_torch.serve import ServeConfig, make_engine
     cfg = depth(qwen2_moe_a2p7b.config(quant="w4a4_lut"), n_layers)
     V = cfg.vocab
     engine = new_engine(cfg, 256, "qwen2-moe-a2.7b")
-    ops.set_backend("cuda")
-    ops.set_variant(None)
-    fused = serve(engine, V, "qwen2moe lut fused", 8, "lutmul")
-    route_shares(engine, V, fused)
-    fused4 = serve(engine, V, "qwen2moe lut fused, 4", 4, "lutmul")
-    ops.set_variant("unfused")
-    same(serve(engine, V, "qwen2moe lut unfused", 4, "lutmul", fused=False),
-         fused4, "qwen2moe unfused == qwen2moe fused (4)")
-    ops.set_variant(None)
-
-    def first():
-        reqs = make_requests(V)[:1]
-        reqs[0].max_new_tokens = PLAIN_TOKENS
-        return reqs
-    fused1 = serve(engine, V, "qwen2moe lut fused, 1", 1, "lutmul",
-                   reqs=first())
+    fused = run_moe(engine, "qwen2moe", profile_steps)
+    cfg8 = dataclasses.replace(cfg, kv_quant="int8")
+    scfg = ServeConfig(max_len=256, seed=SAMPLE_SEED)
+    int8 = make_engine(engine.params, cfg8, scfg)
+    check_int8_bytes(int8, engine)
+    f8 = serve(int8, V, "qwen2moe lut fused int8", 8, "lutmul")
+    f8_4 = serve(int8, V, "qwen2moe lut fused int8, 4", 4, "lutmul",
+                 reqs=moe_paged_requests(V))
+    paged = make_engine(engine.params, cfg8, dataclasses.replace(
+        scfg, paged=True, page_size=4))
+    same(serve(paged, V, "qwen2moe lut fused int8 paged", 4, "lutmul",
+               reqs=moe_paged_requests(V)), f8_4,
+         "qwen2moe int8 paged == qwen2moe int8 dense (4)")
+    del paged
+    f8_1 = serve(int8, V, "qwen2moe lut fused int8, 1", 1, "lutmul",
+                 reqs=first_request(V))
     ops.set_backend("ref")
-    same(serve(engine, V, "qwen2moe lut plain", 1, reqs=first()), fused1,
-         "qwen2moe plain == qwen2moe fused (1)")
+    same(serve(int8, V, "qwen2moe lut int8 plain", 1,
+               reqs=first_request(V)), f8_1,
+         "qwen2moe int8 plain == qwen2moe int8 fused (1)")
     ops.set_backend("cuda")
-    # one call of each: a replayed round is ~36,000 kernels, and the
-    # profiler's trace of four is slow to read
-    profile_engine(engine, "qwen2moe lut", min(profile_steps, 1))
+    int8_family_summary("qwen2moe", int8, engine, f8, fused)
+    del engine, int8
+    torch.cuda.empty_cache()
+
+
+def moe_paged_requests(V: int) -> list:
+    """4 of ``equal_requests``, budgets in non-increasing order: one
+    admission dispatch puts them into slots 0-3, and a slot frees only
+    after every slot behind it.  An MoE decode step routes every slot's
+    row, a free one's too, and capacity goes in slot order; a free row
+    attends over its own stale row when dense but over the null page when
+    paged (in the reference as in the port), so a freed slot in front of
+    a live one may take that row's routes in one layout and not the
+    other.  With no freed slot in front of a live one, paged == dense."""
+    reqs = equal_requests(V)[:4]
+    for r, b in zip(reqs, sorted((r.max_new_tokens for r in reqs),
+                                 reverse=True)):
+        r.max_new_tokens = b
+    return reqs
+
+
+def first_request(V: int) -> list:
+    """The first contract request with PLAIN_TOKENS new tokens."""
+    reqs = make_requests(V)[:1]
+    reqs[0].max_new_tokens = PLAIN_TOKENS
+    return reqs
+
+
+def run_moe(engine, name: str, profile_steps: int) -> list:
+    """An MoE model's runs in w4a4_lut: fused over the 8 contract requests
+    and again op by op (``route_shares``), fused over the first 4 ==
+    unfused over them, fused over the first one == the plain backend (8
+    new tokens), and a profile.  Capacity couples the rows of a forward,
+    so only runs over the same requests are compared.  Returns the fused
+    transcripts of the 8."""
+    from repro_torch.kernels.lutmul import ops
+    V = engine.cfg.vocab
+    ops.set_backend("cuda")
+    ops.set_variant(None)
+    fused = serve(engine, V, f"{name} lut fused", 8, "lutmul")
+    route_shares(engine, V, fused, name)
+    fused4 = serve(engine, V, f"{name} lut fused, 4", 4, "lutmul")
+    ops.set_variant("unfused")
+    same(serve(engine, V, f"{name} lut unfused", 4, "lutmul", fused=False),
+         fused4, f"{name} unfused == {name} fused (4)")
+    ops.set_variant(None)
+    fused1 = serve(engine, V, f"{name} lut fused, 1", 1, "lutmul",
+                   reqs=first_request(V))
+    ops.set_backend("ref")
+    same(serve(engine, V, f"{name} lut plain", 1, reqs=first_request(V)),
+         fused1, f"{name} plain == {name} fused (1)")
+    ops.set_backend("cuda")
+    # one call of each: a replayed round is tens of thousands of kernels,
+    # and the profiler's trace of four is slow to read
+    profile_engine(engine, f"{name} lut", min(profile_steps, 1))
+    return fused
+
+
+def run_mixtral(n_layers, profile_steps: int) -> None:
+    """mixtral-8x22b at full width and MIXTRAL_LAYERS of its 56 layers
+    (fewer under ``--layers``) in w4a4_lut, the served tree built a layer
+    at a time (1.21 GB of expert nibbles a layer): :func:`run_moe`.  Every
+    layer is local (window 4,096 > max_len 256), its cache float; a decode
+    forward launches the LUT kernel 4 + 3 x 8 times a layer (the experts
+    at decode's capacity of 3 rows) and the untied head once."""
+    import torch
+    from repro_torch.configs import mixtral_8x22b
+    from repro_torch.models import moe
+    cfg = depth(mixtral_8x22b.config(quant="w4a4_lut"), n_layers)
+    engine = new_engine(cfg, 256, "mixtral-8x22b")
+    log(f"mixtral: decode capacity {moe.decode_capacity(cfg.moe, SLOTS)} "
+        f"at {SLOTS} slots; {inner_per_forward(cfg)} LUT launches a "
+        f"forward; served tree {json.dumps(served_bytes(engine.params))}")
+    run_moe(engine, "mixtral", profile_steps)
+    del engine
+    torch.cuda.empty_cache()
+
+
+def served_bytes(params) -> dict:
+    """Bytes of a served tree by kind: the nibble and int8 codes, their
+    scales, and every float leaf."""
+    import torch
+    out = {"uint8 codes": 0, "int8 codes": 0, "float": 0}
+
+    def walk(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v)
+        elif isinstance(t, torch.Tensor):
+            key = {torch.uint8: "uint8 codes", torch.int8: "int8 codes"}.get(
+                t.dtype, "float")
+            out[key] += t.numel() * t.element_size()
+    walk(params)
+    return out
+
+
+def run_phi3(n_layers, profile_steps: int) -> None:
+    """phi3-medium-14b at full width and depth (40 layers, GQA 40/10,
+    SwiGLU 17,920, the untied 100,352-row head) in w4a4_lut, its served
+    tree built a layer at a time: fused over the 8 contract requests, a
+    decode step and a replayed round profiled, and the plain backend over
+    the first one (8 new tokens) equal to its fused row."""
+    import torch
+    from repro_torch.configs import phi3_medium_14b
+    from repro_torch.kernels.lutmul import ops
+    cfg = depth(phi3_medium_14b.config(quant="w4a4_lut"), n_layers)
+    V = cfg.vocab
+    engine = new_engine(cfg, 256, "phi3-medium-14b")
+    log(f"phi3: served tree {json.dumps(served_bytes(engine.params))}")
+    ops.set_backend("cuda")
+    ops.set_variant(None)
+    fused = serve(engine, V, "phi3 lut fused", 8, "lutmul")
+    profile_engine(engine, "phi3 lut", profile_steps)
+    ops.set_backend("ref")
+    same(serve(engine, V, "phi3 lut plain", 1, reqs=first_request(V)),
+         [fused[0][:PLAIN_TOKENS]], "phi3 plain == phi3 fused")
+    ops.set_backend("cuda")
     del engine
     torch.cuda.empty_cache()
 
@@ -2689,7 +2936,9 @@ def run_recurrent(arch: str, n_layers, profile_steps: int) -> None:
     run; zamba2 also a sampled request fused == plain backend, and paged
     (shared-attention K/V in pages of 4, mamba state dense) over the first
     4 == dense; one decode step (every device row listed) and one replayed
-    round profiled."""
+    round profiled; zamba2 also its int8 KV engine over the first 4 (==
+    bf16: no leaf changes)."""
+    import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.lutmul import ops
@@ -2733,6 +2982,16 @@ def run_recurrent(arch: str, n_layers, profile_steps: int) -> None:
         same(serve(paged, V, f"{name} lut fused paged", 4, "lutmul"), fused,
              f"{name} paged == {name} dense")
         del paged
+        # int8 KV changes no leaf of zamba2 (its one attention is the
+        # shared block, whose K/V stay float, as the reference's)
+        int8 = make_engine(engine.params, dataclasses.replace(
+            cfg, kv_quant="int8"), ServeConfig(max_len=256,
+                                               seed=SAMPLE_SEED))
+        check_int8_bytes(int8, engine)
+        f8 = serve(int8, V, f"{name} lut fused int8", 4, "lutmul")
+        same(f8, fused, f"{name} int8 == {name} bf16")
+        int8_family_summary(name, int8, engine, f8, fused)
+        del int8
     # one call of each: a replayed round is tens of thousands of kernels;
     # the decode step lists every device row (the scan's ATen ops)
     profile_engine(engine, f"{name} lut", min(profile_steps, 1), detail=True)
@@ -2867,14 +3126,14 @@ def whisper_paged_check(engine, prompts, frames) -> None:
 
 
 def run_whisper(n_layers, profile_steps: int) -> None:
-    """whisper-large-v3 at full width (32 encoder and 32 decoder layers, d
-    1280, enc_seq 1500) in w4a4_lut through ``Engine.generate(frames=)``:
-    8 requests of 4-token prompts over stub frames [8, 1500, 1280] (seed
-    0), 64 new tokens, fused; unfused (64 new tokens) and the plain
-    backend (PLAIN_TOKENS) over all 8, every transcript equal to the fused
-    one; the prefill's parts timed (the second cross-K/V pass apart), its
-    launches and a decode step's counted, the decode step profiled; 8
-    decode steps through a page table == dense, bitwise."""
+    """whisper-large-v3 at full width (d 1280, enc_seq 1500; encoder and
+    decoder at ``SERVED_LAYERS`` of their 32 layers) in w4a4_lut through
+    ``Engine.generate(frames=)``: 8 requests of 4-token prompts over stub
+    frames [8, 1500, 1280] (seed 0), 64 new tokens, fused; unfused (64 new
+    tokens) and the plain backend (PLAIN_TOKENS) over all 8, every transcript
+    equal to the fused one; the prefill's parts timed (the second cross-K/V
+    pass apart), its launches and a decode step's counted, the decode step
+    profiled; 8 decode steps through a page table == dense, bitwise."""
     import numpy as np
     import torch
     from repro_torch.configs import whisper_large_v3
@@ -2951,8 +3210,9 @@ def vision_stub(engine, emb, mpos) -> list:
 
 def run_qwen2vl(n_layers, profile_steps: int) -> None:
     """qwen2-vl-72b at full width (d 8192, 64 / 8 heads, d_ff 29568, vocab
-    152064) in w4a4_lut, its served tree built a layer at a time: the
-    Scheduler over the 8 contract requests (text: M-RoPE at t = h = w),
+    152064; ``SERVED_LAYERS`` of its 80 layers) in w4a4_lut, its served
+    tree built a layer at a time: the Scheduler over the 8 contract
+    requests (text: M-RoPE at t = h = w),
     fused; the plain backend over the first one (4 new tokens) equal to
     it; the vision stub (``vision_stub``: embeddings [2, 272, 8192] at a
     16 x 16 patch grid's positions, then 8 decode steps) fused == plain,
@@ -3323,7 +3583,7 @@ def main() -> int:
                         "always); default: each model's own depth")
     p.add_argument("--reps", type=int, default=50,
                    help="timed launches per kernel and shape")
-    p.add_argument("--profile", type=int, default=2, metavar="STEPS",
+    p.add_argument("--profile", type=int, default=1, metavar="STEPS",
                    help="calls profiled per forward kind, half of them "
                         "(rounded up) for a replayed round (0: none)")
     p.add_argument("--phases", default=",".join(PHASES),
@@ -3372,8 +3632,11 @@ def main() -> int:
                        lambda: run_gemma2(args.layers, args.profile)),
                       ("minicpm",
                        lambda: run_minicpm(args.layers, args.profile)),
+                      ("phi3", lambda: run_phi3(args.layers, args.profile)),
                       ("qwen2moe",
                        lambda: run_qwen2moe(args.layers, args.profile)),
+                      ("mixtral",
+                       lambda: run_mixtral(args.layers, args.profile)),
                       ("rwkv6", lambda: run_recurrent(
                           "rwkv6-1.6b", args.layers, args.profile)),
                       ("zamba2", lambda: run_recurrent(

@@ -390,12 +390,16 @@ def int_product(eq: str, a: torch.Tensor, b: torch.Tensor, a_dim: int,
 
 def int8_kv_probs(q: torch.Tensor, k_q: torch.Tensor,
                   k_scale: torch.Tensor, v_scale: torch.Tensor,
-                  q_pos: torch.Tensor, k_pos: torch.Tensor):
+                  q_pos: torch.Tensor, k_pos: torch.Tensor,
+                  window: Optional[int] = None,
+                  logit_softcap: Optional[float] = None):
     """The probabilities :func:`int8_kv_attention` quantizes: (``p_eff``
     [B, S, Hkv, G, T], the softmax with ``v_scale`` folded in, and its
     per-row scale ``p_scale`` [B, S, Hkv, G]).  q [B, S, Hq, D] float is
     quantized per (b, s, kv-head, group) row; the integer QK^T is rescaled
-    as ``(s_int * (q_scale * k_scale)) / sqrt(D)``, as the reference's."""
+    as ``(s_int * (q_scale * k_scale)) / sqrt(D)``, then soft-capped
+    (``logit_softcap``) and masked (causal, and ``window`` back), in the
+    reference's order."""
     B, S, Hq, D = q.shape
     Hkv = k_q.shape[2]
     qg = q.reshape(B, S, Hkv, Hq // Hkv, D).to(torch.float32)
@@ -406,7 +410,9 @@ def int8_kv_probs(q: torch.Tensor, k_q: torch.Tensor,
     # scale[b, s, h, g, t] = q_scale[b, s, h, g] * k_scale[b, t, h]
     scale = q_scale[..., None] * k_scale.permute(0, 2, 1)[:, None, :, None]
     s = _div(s_int * scale, math.sqrt(D))
-    keep = _mask(q_pos, k_pos)
+    if logit_softcap is not None:
+        s = _softcap_scores(s, logit_softcap)
+    keep = _mask(q_pos, k_pos, window)
     s = s.masked_fill(~keep[:, :, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1)
     p_eff = p * v_scale.permute(0, 2, 1)[:, None, :, None]   # [B,S,Hkv,G,T]
@@ -416,13 +422,16 @@ def int8_kv_probs(q: torch.Tensor, k_q: torch.Tensor,
 def int8_kv_attention(q: torch.Tensor, k_q: torch.Tensor,
                       k_scale: torch.Tensor, v_q: torch.Tensor,
                       v_scale: torch.Tensor, q_pos: torch.Tensor,
-                      k_pos: torch.Tensor) -> torch.Tensor:
+                      k_pos: torch.Tensor, window: Optional[int] = None,
+                      logit_softcap: Optional[float] = None) -> torch.Tensor:
     """Attention over an int8 cache, as the reference's: the probabilities
-    of :func:`int8_kv_probs` quantized per row (codes in [0, 127], since
-    p and the scales are >= 0), the integer PV rescaled by their scale.
-    q [B, S, Hq, D] float; k_q/v_q [B, T, Hkv, D] int8, scales [B, T, Hkv]
-    float32 -> float32 [B, S, Hq, D]."""
-    p_eff, p_scale = int8_kv_probs(q, k_q, k_scale, v_scale, q_pos, k_pos)
+    of :func:`int8_kv_probs` (``window`` and ``logit_softcap`` as there)
+    quantized per row (codes in [0, 127], since p and the scales are >=
+    0), the integer PV rescaled by their scale.  q [B, S, Hq, D] float;
+    k_q/v_q [B, T, Hkv, D] int8, scales [B, T, Hkv] float32 -> float32 [B,
+    S, Hq, D]."""
+    p_eff, p_scale = int8_kv_probs(q, k_q, k_scale, v_scale, q_pos, k_pos,
+                                   window, logit_softcap)
     p_int = torch.round(p_eff / p_scale[..., None])
     o_int = int_product("bshgk,bkhd->bshgd", p_int, v_q.to(torch.float32),
                         4, 1)
@@ -434,17 +443,19 @@ KV_INT8_LEAVES = ("k", "v", "k_scale", "v_scale")
 
 def decode_attention_int8(p: Params, x: torch.Tensor, cache: dict, pos, *,
                           n_heads: int, n_kv: int, head_dim: int,
+                          window: Optional[int] = None,
+                          logit_softcap: Optional[float] = None,
                           rope_theta: float = 10000.0,
                           rope_mode: str = "rope", mrope_sections: tuple = (),
                           quant: str = "none", compute_dtype=torch.bfloat16,
                           table: Optional[torch.Tensor] = None):
-    """One decode step over an int8 cache: ``cache`` {"k", "v": int8 [B,
-    T, Hkv, D], "k_scale", "v_scale": float32 [B, T, Hkv]}, written in
-    place.  The new K/V row is quantized per head, written at ``clip(pos,
-    0, T - 1)``, then attention reads the whole cache
-    (:func:`int8_kv_attention`).  With ``table`` the four leaves are page
-    pools ([P, page_size, ...]: codes and scales page together, so every
-    page carries its own scales).  Returns (y, cache)."""
+    """One decode step over an int8 cache: ``cache`` {"k", "v": int8 [B, T,
+    Hkv, D], "k_scale", "v_scale": float32 [B, T, Hkv]}, written in place.  The
+    new K/V row is quantized per head, written at ``clip(pos, 0, T - 1)``,
+    then attention reads the whole cache (:func:`int8_kv_attention`, with
+    ``window`` and ``logit_softcap``).  With ``table`` the four leaves are page
+    pools ([P, page_size, ...]: codes and scales page together, so every page
+    carries its own scales).  Returns (y, cache)."""
     B = x.shape[0]
     paged = table is not None
     T = table.shape[1] * cache["k"].shape[1] if paged else cache["k"].shape[1]
@@ -467,7 +478,8 @@ def decode_attention_int8(p: Params, x: torch.Tensor, cache: dict, pos, *,
             dense[name] = _write_kv_slot(cache[name], new, slot)
     out = int8_kv_attention(q, dense["k"], dense["k_scale"], dense["v"],
                             dense["v_scale"], posb,
-                            decode_kv_positions(posv, T))
+                            decode_kv_positions(posv, T), window,
+                            logit_softcap)
     y = _proj_out(p, out.to(compute_dtype), B, 1, quant, compute_dtype)
     return y, cache
 

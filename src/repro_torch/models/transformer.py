@@ -34,10 +34,12 @@ page_size, n_kv, head_dim]`` addressed through the ``(full, ring)`` page
 tables those two take: global layers read the full table, local layers
 their ring table.  ``prefill`` returns every layer's K/V at full length;
 serving arranges the rings from them as it stitches (``generate`` through
-:func:`_roll_local`).  With ``cfg.kv_quant == "int8"`` the decode cache
-holds int8 ``k``/``v`` codes with float32 per-token-per-head
-``k_scale``/``v_scale`` leaves (dense rows or page pools alike), which
-``decode_step`` reads through ``attention.decode_attention_int8``; prefill
+:func:`_roll_local`).  With ``cfg.kv_quant == "int8"`` a global
+attention layer's decode cache holds int8 ``k``/``v`` codes with float32
+per-token-per-head ``k_scale``/``v_scale`` leaves (dense rows or page pools
+alike), which ``decode_step`` reads through
+``attention.decode_attention_int8``; a local layer's ring, the shared
+block's K/V and recurrent state stay float, as the reference's; prefill
 still returns the float K/V, which serving quantizes as it stitches them
 into the live cache.  A recurrent layer's entry is its state
 (``STATE_KEYS``: Mamba2's ``h`` and ``conv``, RWKV6's ``S``, ``xt`` and
@@ -69,29 +71,13 @@ def check_supported(cfg: ModelConfig) -> None:
     for spec in cfg.pattern:
         if spec.kind not in ("attn", "mamba2", "rwkv6"):
             bad.append(f"block kind {spec.kind!r}")
-        if spec.mlp not in ("swiglu", "geglu", "moe", "rwkv_cm", "none"):
+        if spec.mlp not in ("swiglu", "geglu", "gelu", "moe", "rwkv_cm",
+                            "none"):
             bad.append(f"mlp {spec.mlp!r}")
         if spec.mlp == "moe" and (cfg.moe is None or cfg.moe.dispatch
                                   not in ("global", "grouped")):
             bad.append("mlp 'moe' without a global or grouped MoEConfig")
-        if spec.mlp == "moe" and cfg.kv_quant == "int8":
-            bad.append("moe with kv_quant='int8'")
-        if is_local(cfg, spec) and cfg.kv_quant == "int8":
-            bad.append(
-                "sliding-window attention with kv_quant='int8' (the "
-                "reference keeps the local layers' ring caches in float "
-                "under an int8 cache; the port's int8 cache holds "
-                "full-length layers only)")
-        if (spec.kind != "attn" or spec.shared_attn) \
-                and cfg.kv_quant == "int8":
-            bad.append(
-                "recurrent or shared-attention blocks with kv_quant='int8' "
-                "(the reference keeps their caches in float)")
-    if cfg.attn_softcap and cfg.kv_quant == "int8":
-        bad.append("attn_softcap with kv_quant='int8'")
-    # rope_mode "none" is served where no layer attends (rwkv6)
-    for name, ok in (("rope_mode", cfg.rope_mode in ("rope", "mrope")
-                      or (cfg.rope_mode == "none" and not has_attention(cfg))),
+    for name, ok in (("rope_mode", cfg.rope_mode in ("rope", "mrope", "none")),
                      ("norm", cfg.norm in ("rmsnorm", "layernorm")),
                      ("enc_dec", not cfg.enc_dec),
                      ("kv_quant", cfg.kv_quant in ("none", "int8")),
@@ -101,12 +87,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: not ported yet: {', '.join(sorted(set(bad)))}")
-
-
-def has_attention(cfg: ModelConfig) -> bool:
-    """Does any layer attend (an attention block or the shared block)?"""
-    return any(spec.kind == "attn" or spec.shared_attn
-               for spec in cfg.pattern)
 
 
 def layer_spec(cfg: ModelConfig, i: int) -> BlockSpec:
@@ -172,7 +152,8 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, spec: BlockSpec,
         bp["cmix"] = ssm_lib.init_rwkv6_chanmix(gen, cfg.d_model, cfg.d_ff,
                                                 **kw)
     else:
-        bp["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, **kw)
+        bp["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, kind=spec.mlp,
+                             **kw)
         if cfg.gemma_norms:
             bp["post_mlp_ln"] = init_norm(cfg.d_model, **kw)
     return bp
@@ -407,12 +388,14 @@ STATE_KEYS = ("h", "conv", "S", "xt", "xc")     # recurrent leaves
 SHARED_KEYS = ("shared_k", "shared_v")
 
 
-def _kv_leaves(cfg: ModelConfig, rows: tuple) -> dict:
+def _kv_leaves(cfg: ModelConfig, spec: BlockSpec, rows: tuple) -> dict:
     """An attention layer's decode-cache leaves over the leading shape
-    ``rows``: (shape tail, dtype) by name — float ``k``/``v``, or int8
-    codes and float32 per-head scales under ``kv_quant == "int8"``."""
+    ``rows``: (shape tail, dtype) by name — float ``k``/``v``, or on a
+    global layer under ``kv_quant == "int8"`` int8 codes and float32
+    per-head scales (a local layer's ring stays float, as the
+    reference's)."""
     kv = (cfg.n_kv, cfg.head_dim)
-    if cfg.kv_quant == "int8":
+    if cfg.kv_quant == "int8" and not is_local(cfg, spec):
         return {"k": (rows + kv, torch.int8), "v": (rows + kv, torch.int8),
                 "k_scale": (rows + kv[:1], torch.float32),
                 "v_scale": (rows + kv[:1], torch.float32)}
@@ -445,7 +428,7 @@ def _layer_leaves(cfg: ModelConfig, spec: BlockSpec, rows: tuple,
     ``rows`` or the recurrent state of ``batch`` slots, then on a
     ``shared_attn`` layer the shared block's float K/V over
     ``shared_rows``."""
-    out = (_kv_leaves(cfg, rows) if spec.kind == "attn"
+    out = (_kv_leaves(cfg, spec, rows) if spec.kind == "attn"
            else _state_leaves(cfg, spec, batch))
     if spec.shared_attn:
         kv = (cfg.n_kv, cfg.head_dim)
@@ -591,8 +574,9 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
             else:
                 rolling, table = local and c["k"].shape[1] <= cfg.window, None
             if "k_scale" in c:            # the int8 cache, as the reference
-                y, _ = attn_lib.decode_attention_int8(bp["attn"], h, c, pos,
-                                                      table=table, **kw)
+                y, _ = attn_lib.decode_attention_int8(
+                    bp["attn"], h, c, pos, window=_window(cfg, spec),
+                    logit_softcap=cfg.attn_softcap, table=table, **kw)
             else:
                 y, _, _ = attn_lib.decode_attention(
                     bp["attn"], h, c["k"], c["v"], pos,

@@ -170,21 +170,117 @@ def test_cuda_lutmul_qwen2vl_layer_shapes(cuda_device, K, N):
     _lut_equal(a, w, True, a_s, w_s)
 
 
-@pytest.mark.gpu
-def test_cuda_int_matmul_qwen2vl_head(cuda_device):
-    K, N = QWEN2VL_HEAD
-    g = torch.Generator(device=cuda_device).manual_seed(7)
-    a8 = torch.randint(-128, 128, (8, K), generator=g, device=cuda_device,
+def _card_head_equal(K, N, seed, dev):
+    """An [8, K] x [K, N] int8 head drawn on the card: int32 exactly and
+    the fused bf16 output bitwise against the plain versions."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a8 = torch.randint(-128, 128, (8, K), generator=g, device=dev,
                        dtype=torch.int8)
-    w8 = torch.randint(-128, 128, (K, N), generator=g, device=cuda_device,
+    w8 = torch.randint(-128, 128, (K, N), generator=g, device=dev,
                        dtype=torch.int8)
-    a_s = torch.rand((8, 1), generator=g, device=cuda_device) + 1e-3
-    w_s = torch.rand((1, N), generator=g, device=cuda_device) + 1e-3
+    a_s = torch.rand((8, 1), generator=g, device=dev) + 1e-3
+    w_s = torch.rand((1, N), generator=g, device=dev) + 1e-3
     assert torch.equal(kernel.int_matmul(a8, w8), ref.int_matmul_ref(a8, w8))
     got = kernel.int_matmul_fused(a8, w8, a_s, w_s, out_dtype=torch.bfloat16)
     want = ref.scaled_int_matmul_ref(a8, w8, a_s, w_s,
                                      out_dtype=torch.bfloat16)
     assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.gpu
+def test_cuda_int_matmul_qwen2vl_head(cuda_device):
+    _card_head_equal(*QWEN2VL_HEAD, 7, cuda_device)
+
+
+# phi3-medium-14b's layer (K, N) at a decode step's 8 rows and its
+# 100,352-column int8 head; mixtral-8x22b's head, and one layer's expert
+# banks (8 experts of 6,144 x 16,384 and 16,384 x 6,144) at the 3 rows of
+# decode's capacity at 8 slots (max(1, int(8 * 2 / 8 * 1.25) + 1))
+PHI3_KN = [(5120, 5120), (5120, 1280), (5120, 17920), (17920, 5120)]
+PHI3_HEAD = (5120, 100352)
+MIXTRAL_HEAD = (6144, 32768)
+MIXTRAL_BANKS = [(6144, 16384), (16384, 6144)]
+MIXTRAL_C = 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,N", PHI3_KN)
+def test_cuda_lutmul_phi3_layer_shapes(cuda_device, K, N):
+    a, w, a_s, w_s = _card_inputs(8, K, N, K + N, cuda_device)
+    _lut_equal(a, w, True, a_s, w_s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,N", [PHI3_HEAD, MIXTRAL_HEAD])
+def test_cuda_int_matmul_phi3_and_mixtral_heads(cuda_device, K, N):
+    _card_head_equal(K, N, K + N, cuda_device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,N", MIXTRAL_BANKS)
+@pytest.mark.parametrize("variant", ["fused", "unfused"])
+def test_cuda_mixtral_expert_bank_matches_plain(cuda_device, variant, K, N):
+    """One mixtral-8x22b bank through ``moe.expert_matmul`` at decode's
+    capacity: 8 LUT launches (one an expert), bf16 bitwise equal to the
+    plain version on the card."""
+    from repro_torch.models import moe
+    from repro_torch.serve.quantize import quantize_leaf
+    g = torch.Generator(device=cuda_device).manual_seed(K)
+    bank = quantize_leaf(torch.randn((8, K, N), generator=g,
+                                     device=cuda_device), 4)
+    a = (torch.randn((8, MIXTRAL_C, K), generator=g, device=cuda_device)
+         * 2).to(torch.bfloat16)
+    kernel.reset_launches()
+    ops.set_variant(variant)
+    try:
+        got = moe.expert_matmul(a, bank, torch.bfloat16, backend="cuda")
+    finally:
+        ops.set_variant(None)
+    name = "lutmul" + ("_fused" if variant == "fused" else "")
+    assert kernel.LAUNCHES[name] == 8 == sum(kernel.LAUNCHES.values())
+    want = moe.expert_matmul(a, bank, torch.bfloat16, backend="ref")
+    assert got.dtype == torch.bfloat16 and got.shape == (8, MIXTRAL_C, N)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [None, 40])
+def test_cuda_decode_attention_int8_softcap_matches_cpu(cuda_device, window):
+    """gemma2-2b's int8 decode attention (8 query heads over 4 KV heads of
+    256, soft-cap 50 on scores scaled up so it bites, a window or none)
+    on the card against the same call on the CPU: the written codes and
+    scales, and the output within float32 noise (exp, softmax and the
+    probability codes at a .5 boundary may differ by an ulp or a code)."""
+    from repro_torch.models import attention as A
+    g = torch.Generator().manual_seed(11)
+    B, T, H, Hkv, D = 8, 96, 8, 4, 256
+    p = A.init_attention(g, H * D, H, Hkv, D)
+    p = {k: {"w": v["w"] * 8.0} for k, v in p.items()}
+    x = torch.randn((B, 1, H * D), generator=g)
+    cache = {}
+    for name in ("k", "v"):
+        cache[name], cache[name + "_scale"] = A.quantize_kv(
+            torch.randn((B, T, Hkv, D), generator=g) * 4.0)
+    pos = torch.tensor([95, 80, 63, 40, 17, 5, 0, -1], dtype=torch.int32)
+    kw = dict(n_heads=H, n_kv=Hkv, head_dim=D, window=window,
+              logit_softcap=50.0, compute_dtype=torch.float32)
+    c_cpu = {k: v.clone() for k, v in cache.items()}
+    y_cpu, _ = A.decode_attention_int8(p, x, c_cpu, pos, **kw)
+    dev = {k: {"w": v["w"].to(cuda_device)} for k, v in p.items()}
+    c_gpu = {k: v.to(cuda_device) for k, v in cache.items()}
+    y_gpu, out = A.decode_attention_int8(dev, x.to(cuda_device), c_gpu,
+                                         pos.to(cuda_device), **kw)
+    assert out is c_gpu
+    live = pos >= 0
+    for name in ("k", "v"):
+        moved = (c_gpu[name].cpu() != c_cpu[name])[live]
+        assert moved.float().mean() < 1e-3
+        torch.testing.assert_close(c_gpu[name + "_scale"].cpu(),
+                                   c_cpu[name + "_scale"], atol=0,
+                                   rtol=1e-5)
+    scale = float(y_cpu[live].abs().max())
+    err = float((y_gpu.cpu() - y_cpu)[live].abs().max())
+    assert err <= 1e-3 * scale, (err, scale)
 
 
 @pytest.mark.gpu

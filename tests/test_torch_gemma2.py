@@ -363,10 +363,27 @@ def test_check_supported_accepts_the_dense_families(arch, smoke):
 
 
 def test_int8_kv_with_sliding_windows_is_refused():
-    _, tcfg = _cfgs(kv_quant="int8")
-    with pytest.raises(NotImplementedError,
-                       match="reference keeps the local layers"):
-        TT.check_supported(tcfg)
+    """Once refused, now served: an int8 KV cache beside sliding windows
+    and the attention soft-cap (smoke and full configs) gives int8 codes
+    to the global layers only, float rings to the local ones, as the
+    reference's ``init_cache``; the verify forward still refuses it."""
+    jcfg, tcfg = _cfgs(kv_quant="int8")
+    TT.check_supported(tcfg)
+    TT.check_supported(dataclasses.replace(
+        tconfigs.get_config("gemma2-2b"), kv_quant="int8"))
+    jc = JT.init_cache(jcfg, 2, 12)
+    tc = TT.init_cache(tcfg, 2, 12, device="cpu")
+    for i, c in enumerate(tc):
+        local = TT.is_local(tcfg, TT.layer_spec(tcfg, i))
+        assert set(c) == set(jc[i % len(tcfg.pattern)])
+        assert set(c) == ({"k", "v"} if local
+                          else {"k", "v", "k_scale", "v_scale"})
+        assert c["k"].dtype == (torch.float32 if local else torch.int8)
+        assert c["k"].shape[1] == (tcfg.window if local else 12)
+    _, tp = _params()
+    with pytest.raises(ValueError, match="speculative decoding supports"):
+        TT.verify_step(tp, tcfg, torch.zeros((2, 2), dtype=torch.int32), tc,
+                       torch.zeros((2,), dtype=torch.int32))
 
 
 def test_spec_decode_on_sliding_windows_is_refused_as_the_reference():

@@ -363,27 +363,33 @@ def test_default_device_needs_a_gpu(monkeypatch):
 def test_unported_features_raise():
     """Soft-caps, sliding windows, gemma norms, the embedding scale and
     GeGLU are served now (``tests/test_torch_gemma2.py``), and so are the
-    layer norm and the Mamba2 / RWKV6 blocks (``tests/test_torch_ssm*.py``)
-    and M-RoPE (``tests/test_torch_mrope.py``); these are not (enc-dec
+    layer norm and the Mamba2 / RWKV6 blocks (``tests/test_torch_ssm*.py``),
+    M-RoPE (``tests/test_torch_mrope.py``), an int8 KV cache beside local,
+    soft-capped, recurrent and MoE blocks
+    (``tests/test_torch_int8_families.py``), and a decoder without rotary
+    embeddings or with the GELU MLP
+    (``tests/test_torch_decoder_variants.py``); these are not (enc-dec
     configs are ``models.encdec``'s)."""
     _, tcfg = _cfgs()
     local = (tconfigs.BlockSpec(attn_type="local"),)
     for over, match in (
             (dict(norm="groupnorm"), "norm"),
             (dict(rope_mode="alibi"), "rope_mode"),
-            (dict(rope_mode="none"), "rope_mode"),
             (dict(enc_dec=True), "enc_dec"),
             (dict(split_head_params=True), "split_head_params"),
+            (dict(kv_quant="fp8"), "kv_quant"),
             (dict(pattern=(tconfigs.BlockSpec(kind="s4"),)),
              "block kind"),
-            (dict(pattern=(tconfigs.BlockSpec(kind="mamba2"),),
-                  kv_quant="int8"), "kv_quant='int8'"),
-            (dict(pattern=(tconfigs.BlockSpec(mlp="gelu"),)), "mlp"),
-            (dict(pattern=local, window=8, kv_quant="int8"),
-             "sliding-window"),
-            (dict(attn_softcap=50.0, kv_quant="int8"), "attn_softcap")):
+            (dict(pattern=(tconfigs.BlockSpec(mlp="relu_sq"),)), "mlp")):
         with pytest.raises(NotImplementedError, match=match):
             TT.check_supported(dataclasses.replace(tcfg, **over))
+    for over in (dict(rope_mode="none"),
+                 dict(pattern=(tconfigs.BlockSpec(kind="mamba2"),),
+                      kv_quant="int8"),
+                 dict(pattern=(tconfigs.BlockSpec(mlp="gelu"),)),
+                 dict(pattern=local, window=8, kv_quant="int8"),
+                 dict(attn_softcap=50.0, kv_quant="int8")):
+        TT.check_supported(dataclasses.replace(tcfg, **over))
     # a window without local layers changes nothing, as in the reference
     TT.check_supported(dataclasses.replace(tcfg, window=8,
                                            final_softcap=30.0))

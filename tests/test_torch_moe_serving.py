@@ -216,13 +216,20 @@ def test_spec_decode_and_verify_refuse_moe_as_the_reference_does():
 
 
 def test_check_supported_still_refuses_ssm_encdec_and_int8_moe():
+    """Enc-dec and an MoE block without its config are still refused; an
+    int8 KV cache beside MoE or recurrent blocks is served now (full and
+    smoke configs, ``tests/test_torch_int8_families.py``)."""
     base = tconfigs.get_config("qwen2-moe-a2.7b", smoke=True)
     TT.check_supported(base)
     for bad, what in (
-            (dict(pattern=(BlockSpec(kind="mamba2", mlp="none"),),
-                  kv_quant="int8"), "recurrent or shared-attention"),
             (dict(enc_dec=True), "enc_dec"),
-            (dict(kv_quant="int8"), "kv_quant='int8'"),
             (dict(moe=None), "MoEConfig")):
         with pytest.raises(NotImplementedError, match=what):
             TT.check_supported(dataclasses.replace(base, **bad))
+    TT.check_supported(dataclasses.replace(
+        base, pattern=(BlockSpec(kind="mamba2", mlp="none"),),
+        kv_quant="int8"))
+    for arch in ARCHS:
+        for smoke in (False, True):
+            TT.check_supported(dataclasses.replace(
+                tconfigs.get_config(arch, smoke=smoke), kv_quant="int8"))

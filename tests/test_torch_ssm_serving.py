@@ -464,7 +464,8 @@ def test_spec_decode_and_verify_refuse_as_the_reference_does(arch):
 
 def test_shared_attention_refusals():
     """An attention pattern with the shared block: no speculation (as the
-    reference), and no int8 KV cache beside recurrent or shared blocks."""
+    reference); an int8 KV cache beside recurrent or shared blocks is
+    served, their leaves float."""
     base = tconfigs.get_config("qwen2-7b", smoke=True)
     cfg = dataclasses.replace(base, pattern=(BlockSpec(shared_attn=True),
                                              BlockSpec()))
@@ -477,8 +478,18 @@ def test_shared_attention_refusals():
                            tserve.ServeConfig(max_len=MAX_LEN,
                                               spec_decode=True),
                            device="cpu")
+    # an int8 KV cache beside them is served (their K/V and state stay
+    # float, as the reference's): only the pattern's plain attention layer
+    # holds int8 codes
     for arch in ARCHS + ["shared"]:
         c = cfg if arch == "shared" else tconfigs.get_config(arch,
                                                              smoke=True)
-        with pytest.raises(NotImplementedError, match="kv_quant='int8'"):
-            TT.check_supported(dataclasses.replace(c, kv_quant="int8"))
+        c8 = dataclasses.replace(c, kv_quant="int8")
+        TT.check_supported(c8)
+        int8 = [("k_scale" in leaves, "shared_k" in leaves)
+                for leaves in TT.init_cache(c8, 2, MAX_LEN, device="cpu")]
+        if arch == "shared":
+            assert int8 == [(True, True), (True, False)] * (
+                c.n_layers // 2)
+        else:
+            assert not any(i for i, _ in int8)
