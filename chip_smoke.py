@@ -140,8 +140,9 @@ Phases (any failure raises and exits non-zero):
    save and load host ms and whether msgpack and zstandard import.
 4. serving bitnet-3b (13 of its 26 layers, full width) in ternary_a8_tmac:
    fused (8 requests) and plain (first 1), equal transcripts.  Then gemma2-2b
-   (26 layers, full width: local and global layers, window 4,096, soft-caps,
-   GeGLU, the tied 256,000-row head) in w4a4_lut at max_len 4,352: 8
+   (14 of its 26 layers, full width: local and global layers, window
+   4,096, soft-caps, GeGLU, the tied 256,000-row head) in w4a4_lut at
+   max_len 4,352: 8
    requests (``gemma_requests``) in the order long pair, short pair, long
    pair, short pair, the long prompts past the window (monolithic admission,
    its rings wrapped), the short ones on the chunk lane; a monolithic
@@ -156,8 +157,8 @@ Phases (any failure raises and exits non-zero):
    positions past the window; the tied head timed (``tied head[gemma2]``);
    paged (64-token pages, the first long pair), unfused (4) and the plain
    backend (one short request), each equal to the fused run.  Then its int8
-   KV cache on the same codes (``run_gemma2_int8``: the 13 global layers
-   int8, the 13 local rings bf16, ``kv_cache_bytes`` checked layer by
+   KV cache on the same codes (``run_gemma2_int8``: the global layers
+   int8, the local rings bf16, ``kv_cache_bytes`` checked layer by
    layer): fused over the first 4 requests (the first long pair, then the
    first short pair), every admission monolithic; paged over the long pair
    and the plain backend over one short request, each equal to the fused
@@ -165,14 +166,15 @@ Phases (any failure raises and exits non-zero):
    greedy tokens equal to the bf16 run's.  Then minicpm-2b (20 of its 40
    layers, full width, tied 122,753-row head) in w4a4_lut: fused over the
    first 4 contract requests, profiled, its head timed, and the plain
-   backend over the first (8 new tokens) equal.  Then phi3-medium-14b (40
-   layers, full width, GQA 40/10, the untied 100,352-row head; its served
-   tree built a layer at a time) in w4a4_lut (``run_phi3``): fused over the
+   backend over the first (8 new tokens) equal.  Then phi3-medium-14b (20
+   of its 40 layers, full width, GQA 40/10, the untied 100,352-row head;
+   its served tree built a layer at a time) in w4a4_lut (``run_phi3``):
+   fused over the
    8 requests (7 LUT launches a layer and the head kernel once a forward),
    profiled, and the plain backend over the first (8 new tokens) equal. Then
-   qwen2-moe-a2.7b (24 layers, full width: 60 routed experts top-4 under
-   global dispatch, capacity factor 1.25, the shared expert behind its
-   sigmoid gate, qkv bias, the untied 151,936-row head) in w4a4_lut, its
+   qwen2-moe-a2.7b (12 of its 24 layers, full width: 60 routed experts
+   top-4 under global dispatch, capacity factor 1.25, the shared expert
+   behind its sigmoid gate, qkv bias, the untied 151,936-row head) in w4a4_lut, its
    served tree built a layer at a time (``init_served_params``): every
    admission monolithic (one eager prefill a distinct prompt length, the 7
    dummy rows routed with the live one), every decode round a replayed graph
@@ -219,13 +221,34 @@ Phases (any failure raises and exits non-zero):
    16 x 2 for the second cross K/V pass) and 128 a decode step; the
    prefill's parts timed (encode, decoder, the second cross-K/V pass); 8
    decode steps through a page table == dense, logits and K/V bitwise. Then
-   qwen2-vl-72b (40 of its 80 layers, full width; 21 GB of served codes
+   qwen2-vl-72b (24 of its 80 layers, full width; 13 GB of served codes
    built a layer at a time) in w4a4_lut (``run_qwen2vl``): the Scheduler
    over the 8 requests fused, the plain backend over the first one (4
    tokens) equal; the stub vision frontend (embeddings [2, 272, 8192] at a
    16 x 16 patch grid's M-RoPE positions, then 8 decode steps) fused ==
    plain bitwise; a text prefill under M-RoPE == ``rope_mode="rope"``
-   bitwise; a replayed round profiled.
+   bitwise; a replayed round profiled.  Then multi-GPU serving on the one
+   card (``run_sharded``): ``serve.sharded.launch(..., backend="gloo")``
+   spawns one process a rank, every rank on ``cuda:0`` and every
+   collective staged through pinned host memory (NCCL refuses two ranks
+   on one card), each rank building the served tree with
+   ``init_served_params(seed=0)`` and keeping its shard
+   (``ShardedEngine``): qwen2-7b at ``CUT_LAYERS`` on a 2x2 mesh
+   (head-parallel: 28 and 4 heads split 2 ways, 4 of the 8 slots a data
+   shard) and qwen2-moe-a2.7b at ``SHARDED_MOE_LAYERS`` (8) on 1x2
+   (expert-parallel, 30 of 60 experts a rank), each over the 8 contract
+   requests through ``Scheduler(slots=8, chunk=8)`` with staggered
+   admission (two requests, a round, the other six), eager rounds.  Every
+   rank's transcripts must equal the single-card engine's at the same seed
+   and depth bitwise, all ranks must agree on ``Scheduler.stats``, the
+   mesh must be head- (2x2) or expert-sharded (1x2), the KV bytes a rank
+   the total over n_data * n_model, and each rank's launches exactly its
+   shard's: the fused LUT kernel for the column, head and expert leaves,
+   the unfused one for the two row leaves a layer, the fused int8 head
+   kernel once a forward; then a 2x2 fault run over the first 2 requests
+   (a NaN in one model rank's cache, found by the min-reduced cache sweep)
+   recovers with the single card's transcripts.  ``sharded[...]`` lines give tokens/s (of the processes
+   sharing one card: not a scaling figure) and each rank's peak memory.
 5. the paper's CNN: full-width MobileNetV2 (224x224, width 1.0, 1000
    classes, random weights from seed 0) at batch 32 in float and QAT mode
    (cuDNN, TF32 off), the float logits of the first 4 images held against
@@ -244,8 +267,8 @@ Phases (any failure raises and exits non-zero):
 Where ``SERVED_LAYERS`` names a model, the script serves it at that
 depth (full width): mixtral-8x22b because one card holds only part of
 its codes, the earlier slices' bitnet-3b, minicpm-2b, rwkv6-1.6b,
-zamba2-2.7b, whisper-large-v3 and qwen2-vl-72b to keep the run inside
-half its time limit.  Options cut the run for debugging (``--layers``
+zamba2-2.7b, whisper-large-v3, qwen2-vl-72b, gemma2-2b, phi3-medium-14b
+and qwen2-moe-a2.7b to keep the run inside half its time limit.  Options cut the run for debugging (``--layers``
 cuts every LM's depth further, ``--reps``, ``--profile``, ``--phases``);
 the contract run takes none.
 Every log line begins with the seconds since the script started.
@@ -339,6 +362,32 @@ MIXTRAL_BANK_C = (3,)
 MIXTRAL_HEAD = (6144, 32768)
 MIXTRAL_LAYERS = 8
 QWEN_HEAD = (3584, 152064)
+# the sharded phase: qwen2-7b on a 2x2 mesh (head-parallel, 4 of the 8
+# slots a data shard) and qwen2-moe-a2.7b on 1x2 (30 of 60 experts a
+# rank, heads split too); one model rank's projections at a data shard's
+# rows (the row-parallel wo leaves contract half of K), and its half of
+# the vocab-column-parallel head
+SHARDED_QWEN = "2x2"
+SHARDED_MOE = "1x2"
+SHARDED_MOE_LAYERS = 8
+SHARDED_S = 600                   # a sharded world's deadline, seconds
+# the fault run: the first 2 contract requests, a NaN at the 4th decode
+# dispatch in the second active slot (slot 1, decoding since the first
+# round; with 8 requests slot 0 would be a fresh admission there, whose
+# chunk lane writes over a NaN at its position 0), so data shard 0's model
+# rank 0 holds the NaN and its model-axis peer must learn of it
+SHARDED_FAULT_REQUESTS = 2
+SHARDED_FAULT_INDEX = 3
+SHARDED_FAULT_SLOT = 1
+QWEN_SHARD = {"wq": (3584, 1792), "wk": (3584, 256), "wv": (3584, 256),
+              "wo": (1792, 3584), "wi": (3584, 9472), "wg": (3584, 9472),
+              "mlp.wo": (9472, 3584)}
+QWEN_SHARD_HEAD = (3584, 76032)
+QWEN2MOE_SHARD = {"wq": (2048, 1024), "wk": (2048, 1024),
+                  "wv": (2048, 1024), "wo": (1024, 2048),
+                  "shared.wi": (2048, 2816), "shared.wg": (2048, 2816),
+                  "shared.wo": (2816, 2048)}
+QWEN2MOE_SHARD_HEAD = (2048, 75968)
 BITNET_HEAD = (3200, 32000)
 RWKV6_HEAD = (2048, 65536)
 ZAMBA2_HEAD = (2560, 32000)
@@ -354,17 +403,19 @@ MB_FLOAT_RTOL = 1e-3              # of max |logit|; see run_mobilenet
 MB_GROUP = "mobilenetv2 34 pointwise stages, batch 32"
 PHASES = ("kernels", "qwen", "bitnet", "gemma2", "minicpm", "phi3",
           "qwen2moe", "mixtral", "rwkv6", "zamba2", "whisper", "qwen2vl",
-          "mobilenetv2")
+          "sharded", "mobilenetv2")
 # the sampled, tmac, paged, int8 KV, speculative, faults and QoS stages
 # run on qwen2-7b at this depth (full width)
 CUT_LAYERS = 4
 # the depth (full width always) at which the script serves a model, where
 # it is cut to keep the run inside its time limit: mixtral-8x22b because
 # one card holds ~10 GB of its expert codes, not ~70; the others (earlier
-# slices' paths) for time
-SERVED_LAYERS = {"mixtral-8x22b": MIXTRAL_LAYERS, "qwen2-vl-72b": 40,
+# slices' paths) for time, gemma2-2b, phi3-medium-14b, qwen2-moe-a2.7b
+# and qwen2-vl-72b also to pay for the sharded phase
+SERVED_LAYERS = {"mixtral-8x22b": MIXTRAL_LAYERS, "qwen2-vl-72b": 24,
                  "whisper-large-v3": 16, "bitnet-3b": 13, "minicpm-2b": 20,
-                 "rwkv6-1.6b": 12, "zamba2-2.7b": 24}
+                 "rwkv6-1.6b": 12, "zamba2-2.7b": 24, "gemma2-2b": 14,
+                 "phi3-medium-14b": 20, "qwen2-moe-a2.7b": 12}
 # gemma2-2b: the window is 4096; two pairs of long prompts past it, two
 # pairs of short ones inside it; pages of 64 divide the ring and max_len
 GEMMA_LONG = (4104, 4152)
@@ -685,7 +736,11 @@ def check_kernels(bench: Bench) -> None:
                   ("phi3-medium-14b layer, M=8", at(SLOTS, PHI3_INNER),
                    False),
                   ("mixtral-8x22b attention, M=8", at(SLOTS, MIXTRAL_ATTN),
-                   False)]
+                   False),
+                  (f"qwen2-7b {SHARDED_QWEN} shard layer, M=4",
+                   at(SLOTS // 2, QWEN_SHARD), False),
+                  (f"qwen2-moe {SHARDED_MOE} shard attention + shared "
+                   "expert, M=8", at(SLOTS, QWEN2MOE_SHARD), False)]
     for group, shapes, gather in lut_groups:
         for M, K, N in shapes:
             a = torch.randint(0, 16, (M, K), generator=gen, device=dev,
@@ -769,7 +824,11 @@ def check_kernels(bench: Bench) -> None:
                               SLOTS),
                              ("phi3-medium-14b head, M=8", PHI3_HEAD, SLOTS),
                              ("mixtral-8x22b head, M=8", MIXTRAL_HEAD,
-                              SLOTS)):
+                              SLOTS),
+                             (f"qwen2-7b {SHARDED_QWEN} shard head, M=4",
+                              QWEN_SHARD_HEAD, SLOTS // 2),
+                             (f"qwen2-moe {SHARDED_MOE} shard head, M=8",
+                              QWEN2MOE_SHARD_HEAD, SLOTS)):
         a = torch.randint(-128, 128, (M, K), generator=gen, device=dev,
                           dtype=torch.int8)
         w = torch.randint(-128, 128, (K, N), generator=gen, device=dev,
@@ -2326,8 +2385,8 @@ def run_gemma2(n_layers, profile_steps: int) -> None:
 
 
 def run_gemma2_int8(engine, V: int, fused: list) -> None:
-    """gemma2-2b with the int8 KV cache on the bf16 ``engine``'s codes: the
-    13 global layers hold int8 codes and scales, the 13 local rings stay
+    """gemma2-2b with the int8 KV cache on the bf16 ``engine``'s codes:
+    the global layers hold int8 codes and scales, the local rings stay
     bf16.  Fused over the first 4 requests (the first long pair past the
     window, then the first short pair), every admission monolithic; paged
     over the long pair and the plain backend over one short request, each
@@ -2816,6 +2875,188 @@ def run_moe(engine, name: str, profile_steps: int) -> list:
     return fused
 
 
+def sharded_drive(engine, reqs: list, **sched_kw) -> tuple:
+    """The reference's staggered admission through the contract's
+    Scheduler (slots 8, chunk 8): two requests, a round, the other six
+    mid-flight.  Returns (transcripts, stats, seconds)."""
+    import torch
+    from repro_torch.serve import Scheduler
+    sched = Scheduler(engine, slots=SLOTS, chunk=8, **sched_kw)
+    torch.cuda.synchronize(engine.device)
+    t0 = time.perf_counter()
+    sched.submit(reqs[0])
+    sched.submit(reqs[1])
+    sched.step()
+    for r in reqs[2:]:
+        sched.submit(r)
+    while sched.has_work:
+        sched.step()
+    torch.cuda.synchronize(engine.device)
+    return ([list(r.tokens) for r in reqs], dict(sched.stats),
+            time.perf_counter() - t0)
+
+
+def sharded_config(arch: str, n_layers: int):
+    from repro_torch import configs
+    return depth(configs.get_config(arch, quant="w4a4_lut"), n_layers)
+
+
+def sharded_launches(cfg, n_model: int, forwards: int) -> dict:
+    """One rank's launches in ``forwards`` forwards: the fused LUT kernel
+    for the Q/K/V (head or column), MLP wi/wg (column) and expert leaves
+    (its E / n_model experts of each bank, the shared expert's wi/wg), the
+    unfused LUT kernel for the two row-parallel leaves a layer (attention
+    wo, MLP or shared-expert wo), the fused int8 kernel for its half of the
+    head."""
+    fused = 3 + (3 * cfg.moe.n_experts // n_model + 2 if cfg.moe else 2)
+    L = cfg.n_layers
+    return {"lutmul_fused": fused * L * forwards,
+            "lutmul": 2 * L * forwards, "int_matmul_fused": forwards}
+
+
+def sharded_rank(mesh, arch: str, n_layers: int, fault: bool) -> dict:
+    """One rank of a sharded run: the served tree built on the rank's
+    card (``init_served_params``, seed 0) and cut to its shard, the 8
+    contract requests, and with ``fault`` the first
+    ``SHARDED_FAULT_REQUESTS`` again under a NaN fault with a snapshot
+    every round."""
+    import torch
+    from repro_torch.kernels.lutmul import ops
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.serve.faults import Fault, FaultPlan
+    from repro_torch.serve.quantize import init_served_params
+    from repro_torch.serve.sharded import ShardedEngine
+    ops.set_backend("cuda")
+    ops.set_variant(None)
+    cfg = sharded_config(arch, n_layers)
+    dev = mesh.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_served_params(cfg, cfg.quant, seed=0, device=dev)
+    engine = ShardedEngine(cfg, params, ServeConfig(
+        quant=cfg.quant, max_len=256, seed=SAMPLE_SEED), mesh=mesh)
+    del params
+    torch.cuda.empty_cache()
+    init_s = time.perf_counter() - t0
+    reset_launches()
+    engine.decode_steps = engine.prefill_steps = 0
+    toks, stats, dt = sharded_drive(engine, make_requests(cfg.vocab))
+    out = dict(rank=mesh.rank, backend=mesh.backend, device=str(dev),
+               toks=toks, stats=stats, seconds=dt, init_s=init_s,
+               launches=all_launches(),
+               forwards=engine.decode_steps + engine.prefill_steps,
+               head_sharded=engine.head_sharded,
+               experts_sharded=engine.experts_sharded,
+               tp_leaves=engine.n_tp_leaves,
+               kv_bytes=engine.kv_cache_bytes(SLOTS),
+               kv_total=Engine.kv_cache_bytes(engine, SLOTS),
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    if fault:
+        plan = FaultPlan([Fault(site="decode", index=SHARDED_FAULT_INDEX,
+                                kind="nan_logits", slot=SHARDED_FAULT_SLOT)])
+        engine.set_fault_plan(plan)
+        ftoks, fstats, fdt = sharded_drive(
+            engine, make_requests(cfg.vocab)[:SHARDED_FAULT_REQUESTS],
+            snapshot_interval=1)
+        out["fault"] = dict(toks=ftoks, recoveries=fstats["recoveries"],
+                            pending=len(plan.pending), seconds=fdt)
+    return out
+
+
+def run_sharded(n_layers) -> None:
+    """Multi-GPU serving on the one card: qwen2-7b 2x2 (head-parallel)
+    and qwen2-moe-a2.7b 1x2 (expert-parallel) against the single-card
+    engine at the same seed and depth (see the module docstring)."""
+    import torch
+    from repro_torch.kernels.lutmul import ops
+    from repro_torch.serve.sharded import launch
+    log(f"sharded: {torch.cuda.device_count()} card, so every rank runs on "
+        "cuda:0 and the collectives are gloo, staged through pinned host "
+        "memory (NCCL refuses two ranks on one card); tokens/s below are "
+        "of the ranks sharing that card, not a scaling figure")
+    for arch, spec, layers, fault in (
+            ("qwen2-7b", SHARDED_QWEN, CUT_LAYERS, True),
+            ("qwen2-moe-a2.7b", SHARDED_MOE, SHARDED_MOE_LAYERS, False)):
+        layers = min(layers, n_layers or layers)
+        cfg = sharded_config(arch, layers)
+        n_data, n_model = (int(x) for x in spec.split("x"))
+        label = f"{arch} {spec}"
+        ops.set_backend("cuda")
+        ops.set_variant(None)
+        engine = new_engine(cfg, 256, f"{arch} single card")
+        want, wstats, wdt = sharded_drive(engine, make_requests(cfg.vocab))
+        want_fault = sharded_drive(engine, make_requests(
+            cfg.vocab)[:SHARDED_FAULT_REQUESTS])[0] if fault else None
+        tokens = sum(len(t) for t in want)
+        log(f"sharded[{label}]: single card {layers} layers, {tokens} "
+            f"tokens in {wdt:.2f}s ({tokens / wdt:.2f} tokens/s, replayed "
+            "rounds)")
+        del engine
+        reset_peak(empty=True)
+        t0 = time.perf_counter()
+        ranks = launch(sharded_rank, spec, "gloo", timeout_s=SHARDED_S,
+                       args=(arch, layers, fault))
+        world_s = time.perf_counter() - t0
+        for r in ranks:
+            where = f"sharded[{label}] rank {r['rank']}"
+            if r["toks"] != want:
+                bad = [i for i, (a, b) in enumerate(zip(r["toks"], want))
+                       if a != b]
+                raise AssertionError(f"{where}: transcripts of requests "
+                                     f"{bad} differ from the single card's")
+            if r["stats"] != ranks[0]["stats"] or r["stats"] != wstats:
+                raise AssertionError(f"{where}: Scheduler.stats "
+                                     f"{r['stats']} != {wstats}")
+            if r["backend"] != "gloo":
+                raise AssertionError(f"{where}: backend {r['backend']}")
+            if arch == "qwen2-7b" and not r["head_sharded"]:
+                raise AssertionError(f"{where}: not head-sharded")
+            if cfg.moe is not None and not r["experts_sharded"]:
+                raise AssertionError(f"{where}: experts not sharded")
+            shrink = n_data * (n_model if r["head_sharded"] else 1)
+            if r["kv_bytes"] * shrink != r["kv_total"]:
+                raise AssertionError(f"{where}: KV bytes {r['kv_bytes']} "
+                                     f"!= {r['kv_total']} / {shrink}")
+            want_l = dict.fromkeys(r["launches"], 0)
+            want_l.update(sharded_launches(cfg, n_model, r["forwards"]))
+            if r["launches"] != want_l:
+                raise AssertionError(f"{where}: launches {r['launches']} "
+                                     f"!= {want_l}")
+            if fault:
+                f = r["fault"]
+                if f["toks"] != want_fault or f["recoveries"] < 1 \
+                        or f["pending"]:
+                    raise AssertionError(f"{where}: the fault run did not "
+                                         f"recover to the same transcripts "
+                                         f"({f['recoveries']} recoveries)")
+        RUNS[f"sharded {label} rank 0"] = {
+            "seconds": ranks[0]["seconds"], "launches": ranks[0]["launches"],
+            "forwards_by_lane": None}
+        log(f"sharded[{label}]: {len(ranks)} ranks on "
+            f"{sorted({r['device'] for r in ranks})}, gloo; head-sharded "
+            f"{ranks[0]['head_sharded']}, experts sharded "
+            f"{ranks[0]['experts_sharded']}, {ranks[0]['tp_leaves']} leaves "
+            f"marked a rank; transcripts of every rank == the single card's "
+            f"bitwise, stats equal; KV bytes a rank {ranks[0]['kv_bytes']} "
+            f"of {ranks[0]['kv_total']}; world {world_s:.1f}s")
+        for r in ranks:
+            line = (f"sharded[{label}] rank {r['rank']}: init {r['init_s']:.1f}"
+                    f"s, {tokens} tokens in {r['seconds']:.2f}s "
+                    f"({tokens / r['seconds']:.2f} tokens/s, eager rounds, "
+                    f"{len(ranks)} processes on one card), {r['forwards']} "
+                    f"forwards, launches "
+                    f"{json.dumps({k: v for k, v in r['launches'].items() if v})}"
+                    f", peak {r['peak_gib']:.2f} GiB")
+            if fault:
+                f = r["fault"]
+                line += (f"; fault run ({SHARDED_FAULT_REQUESTS} requests): "
+                         f"NaN at decode dispatch {SHARDED_FAULT_INDEX}, "
+                         f"{f['recoveries']} recoveries, transcripts equal "
+                         f"to the single card's, {f['seconds']:.2f}s")
+            log(line)
+    log(f"sharded: {smi_line()}")
+
+
 def run_mixtral(n_layers, profile_steps: int) -> None:
     """mixtral-8x22b at full width and MIXTRAL_LAYERS of its 56 layers
     (fewer under ``--layers``) in w4a4_lut, the served tree built a layer
@@ -2858,7 +3099,7 @@ def served_bytes(params) -> dict:
 
 
 def run_phi3(n_layers, profile_steps: int) -> None:
-    """phi3-medium-14b at full width and depth (40 layers, GQA 40/10,
+    """phi3-medium-14b at full width (``SERVED_LAYERS`` of 40, GQA 40/10,
     SwiGLU 17,920, the untied 100,352-row head) in w4a4_lut, its served
     tree built a layer at a time: fused over the 8 contract requests, a
     decode step and a replayed round profiled, and the plain backend over
@@ -3645,6 +3886,7 @@ def main() -> int:
                        lambda: run_whisper(args.layers, args.profile)),
                       ("qwen2vl",
                        lambda: run_qwen2vl(args.layers, args.profile)),
+                      ("sharded", lambda: run_sharded(args.layers)),
                       ("mobilenetv2", lambda: run_mobilenet(bench))):
         if phase in phases:
             t0 = time.perf_counter()

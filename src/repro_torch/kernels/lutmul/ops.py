@@ -27,6 +27,7 @@ from repro_torch.core.lut import (pack_bitplanes, pack_int4,
                                   plane_decomposition, planes_from_codes,
                                   truncate_plane_spec, unpack_int4,
                                   validate_weight_bits, weight_bits)
+from repro_torch.dist import tp as tp_lib
 from repro_torch.kernels.lutmul import kernel, ref
 
 _BACKENDS = ("ref", "cuda")
@@ -433,10 +434,69 @@ def _dispatch_tmac(a_q, a_scale, w_planes, ws_row, wspec, abits: int,
                                 compute_dtype).reshape(*lead, N)
 
 
+def _row_parallel_prequant(x: torch.Tensor, w_q: torch.Tensor,
+                           w_scale: torch.Tensor, mode: str, compute_dtype,
+                           be: str, axis) -> torch.Tensor:
+    """Row-parallel (K-split) pre-quantized matmul, as the reference's
+    ``_row_parallel_prequant``.
+
+    ``w_q`` is this rank's K slice of the codes.  ``x`` is either the full
+    replicated activation or, when attention runs head-sharded, already
+    this rank's K slice (the head-local attention output feeding ``wo``),
+    told apart by its K extent.  Either way the activation scale is the
+    full-K per-token scale, the unsharded one: taken on the replicated
+    input, or recovered from the local slice as the max of the per-rank
+    maxima (max is exact).  Each rank contracts its slice into int32
+    through the UNFUSED kernel, the int32 sums are all-reduced (exact), and
+    the epilogue ``(acc.f32 * a_scale) * w_scale`` runs once on the full
+    sums: a fused epilogue would rescale partial sums and break exactness.
+    """
+    lead = x.shape[:-1]
+    K = x.shape[-1]
+    N = w_q.shape[-1]
+    tmac = w_q.dim() == 3
+    packed = w_q.dtype == torch.uint8 and not tmac
+    if tmac:
+        _, wspec, bits = parse_mode(mode)
+        Kl = 8 * w_q.shape[-2]
+    else:
+        bits = 4 if packed else 8
+        Kl = 2 * w_q.shape[-2] if packed else w_q.shape[-2]
+    qmax = 2 ** (bits - 1) - 1
+    x2 = x.reshape(-1, K).to(torch.float32)
+    if K == Kl * axis.size:
+        # replicated input: quantize over the full K, contract the local
+        # slice
+        a_q, a_scale = quantize_activations(x2, bits)
+        a_l = a_q[:, axis.index * Kl:(axis.index + 1) * Kl].contiguous()
+    elif K == Kl:
+        # head-sharded input: x IS the local K slice
+        local_max = torch.amax(torch.abs(x2), dim=1, keepdim=True)
+        a_scale = _divide(torch.clamp_min(
+            tp_lib.all_reduce_max(local_max, axis), 1e-8), qmax)
+        a_l = _quantize_with_scale(x2, a_scale, qmax)
+    else:
+        raise ValueError(
+            f"row-parallel activation K ({K}) matches neither the full "
+            f"extent ({Kl * axis.size}) nor this rank's slice ({Kl})")
+    if tmac:
+        acc = lutmul_tmac(a_l, w_q, wspec, abits=bits, backend=be)
+    elif packed and mode == "w4a4_lut":
+        acc = lutmul(a_l.to(torch.uint8) & 0xF, w_q, a_signed=True,
+                     backend=be)
+    else:
+        acc = int_matmul(a_l, _unpack_w(w_q) if packed else w_q,
+                         backend=be)
+    acc = tp_lib.all_reduce_sum(acc, axis)
+    return ref.dequant_epilogue(acc, a_scale, w_scale.reshape(1, N),
+                                compute_dtype).reshape(*lead, N)
+
+
 def prequant_matmul(x: torch.Tensor, w_q: torch.Tensor,
                     w_scale: torch.Tensor, mode: str = "",
                     compute_dtype=torch.bfloat16,
-                    backend: Optional[str] = None) -> torch.Tensor:
+                    backend: Optional[str] = None,
+                    tp: Optional[str] = None) -> torch.Tensor:
     """x [..., K] float; w_q packed-int4 uint8 [K//2, N], int8 [K, N] or
     packed bitplanes uint8 [P, K//8, N].
 
@@ -446,12 +506,34 @@ def prequant_matmul(x: torch.Tensor, w_q: torch.Tensor,
     otherwise), the bitplane leaf the T-MAC kernel with the weight spec and
     activation bits of ``mode`` (``models.layers.linear`` derives it from
     the leaf).
+
+    ``tp`` ("col" | "head" | "row" | None) is the tensor-parallel layout of
+    ``w_q`` inside an active ``dist.tp.tp_context`` (the sharded engine):
+    column-parallel computes the local N columns with the unsharded math
+    and all-gathers them; head-parallel is column-parallel without the
+    gather (the caller keeps working on local heads); row-parallel
+    contracts a K slice and all-reduces the exact int32 sums
+    (:func:`_row_parallel_prequant`).  Outside the context ``tp`` is
+    ignored.
     """
+    axis = tp_lib.model_axis() if tp else None
+    be = backend or get_backend()
+    if axis is not None and tp == "row":
+        return _row_parallel_prequant(x, w_q, w_scale, mode, compute_dtype,
+                                      be, axis)
+    y = _prequant_local(x, w_q, w_scale, mode, compute_dtype, be)
+    if axis is not None and tp == "col":     # column-parallel: N is local
+        y = tp_lib.all_gather(y, axis, dim=-1)
+    return y                                 # "head": stays head-local
+
+
+def _prequant_local(x, w_q, w_scale, mode: str, compute_dtype,
+                    be: str) -> torch.Tensor:
+    """The unsharded prequant matmul on this device's codes."""
     lead = x.shape[:-1]
     K = x.shape[-1]
     N = w_q.shape[-1]
     x2 = x.reshape(-1, K).to(torch.float32)
-    be = backend or get_backend()
     if w_q.dim() == 3:                       # bitplane leaf -> tmac kernel
         _, wspec, bits = parse_mode(mode)
         _check_tmac_shapes(x2, w_q, wspec)

@@ -10,6 +10,12 @@ page ``table``, over shared page pools (``paged_gather`` /
 (``quantize_kv``, ``int8_kv_attention``, ``decode_attention_int8``); and
 whisper's encoder-decoder ``cross_attention``.
 
+Head counts come from the projections' outputs (``_proj_qkv`` reshapes to
+``[B, S, -1, head_dim]``), never from the ``n_heads`` / ``n_kv``
+arguments, so a head-parallel rank of ``serve.sharded.ShardedEngine``
+runs its ``n_heads / tp`` local heads through the same code, its cache
+holding ``n_kv / tp`` heads (the reference's ``_proj_qkv`` rule).
+
 Plain PyTorch ops throughout (the reference has no Pallas kernel here).
 Scores and the probability-value product accumulate in float32 on float32
 copies of K/V, the analogue of the reference's
@@ -76,6 +82,89 @@ def _softcap_scores(s: torch.Tensor, cap: float) -> torch.Tensor:
     return cap * stable_tanh(_div(s, cap))
 
 
+# On the card the two attention products must not depend on how many rows
+# and heads a call holds: cuBLAS picks a batched GEMM's algorithm (split-K
+# included) by the batch count, so the same (row, head) pair got other bits
+# at 4 rows than at 8, or at 14 heads than at 28, which a sharded engine
+# (local rows, local heads) must not see.  A decode call (one query
+# position) therefore takes each product as an elementwise product summed
+# over its contiguous last axis (ATen's reduction keeps one order per
+# output once a call has 16 outputs or more), in blocks of ``_SUM_BLOCK``
+# terms where the axis is longer; a prefill call takes batched GEMMs of a
+# fixed batch of (row, kv head) pairs.  The CPU keeps the batched einsums:
+# ATen's CPU GEMM computes each batch entry on its own.
+_SUM_BLOCK = 256
+_PAIR_BATCH = 16
+
+
+def _blocked_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis, whose length is at most ``_SUM_BLOCK`` or a
+    multiple of it: block sums first, then their sum."""
+    n = x.shape[-1]
+    if n <= _SUM_BLOCK:
+        return x.sum(-1)
+    return x.reshape(x.shape[:-1] + (n // _SUM_BLOCK, _SUM_BLOCK)) \
+        .sum(-1).sum(-1)
+
+
+def _pad_last(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x`` zero-padded along ``dim`` to a multiple of ``_SUM_BLOCK`` when
+    longer than one block (the zeros add exact zeros to every sum)."""
+    n = x.shape[dim]
+    pad = (-n) % _SUM_BLOCK if n > _SUM_BLOCK else 0
+    if not pad:
+        return x
+    shape = list(x.shape)
+    shape[dim] = pad
+    return torch.cat([x, x.new_zeros(shape)], dim)
+
+
+def _per_pair(a: torch.Tensor, b: torch.Tensor, transpose: bool
+              ) -> torch.Tensor:
+    """a [B, S, H, G, X] and b [B, T, H, Y] -> [B, S, H, G, Z]: for each
+    (row, kv head) pair ``a_bh [S*G, X] @ b_bh`` (``b_bh.T`` with
+    ``transpose``), as batched GEMMs of ``_PAIR_BATCH`` pairs each (the
+    pair count zero-padded to a multiple), every operand a fresh
+    allocation: each GEMM call has one shape and alignment whatever the
+    call's rows and heads."""
+    B, S, H, G, X = a.shape
+    P = B * H
+    ah = a.permute(0, 2, 1, 3, 4).reshape(P, S * G, X)
+    bh = b.permute(0, 2, 1, 3).reshape(P, b.shape[1], b.shape[3])
+    pad = (-P) % _PAIR_BATCH
+    if pad:
+        ah = torch.cat([ah, ah.new_zeros((pad,) + tuple(ah.shape[1:]))])
+        bh = torch.cat([bh, bh.new_zeros((pad,) + tuple(bh.shape[1:]))])
+    outs = []
+    for i in range(0, P + pad, _PAIR_BATCH):
+        x = ah[i:i + _PAIR_BATCH].clone()
+        y = bh[i:i + _PAIR_BATCH].clone()
+        outs.append(torch.bmm(x, y.transpose(1, 2) if transpose else y))
+    out = torch.cat(outs)[:P]
+    return out.reshape(B, H, S, G, -1).permute(0, 2, 1, 3, 4)
+
+
+def scores_stable(qg: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """``einsum("bshgd,bkhd->bshgk")`` of float32 qg [B, S, H, G, D] and k
+    [B, T, H, D], each (row, head) with bits that do not depend on B or H
+    on the card."""
+    if qg.shape[1] == 1:
+        return _blocked_sum(_pad_last(qg, -1)[..., None, :] * _pad_last(
+            k, -1).permute(0, 2, 1, 3)[:, None, :, None])
+    return _per_pair(qg, k, transpose=True)
+
+
+def weighted_stable(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``einsum("bshgk,bkhd->bshgd")`` of float32 p [B, S, H, G, T] and v
+    [B, T, H, D], each (row, head) with bits that do not depend on B or H
+    on the card."""
+    if p.shape[1] == 1:
+        p, v = _pad_last(p, -1), _pad_last(v, 1)
+        return _blocked_sum(p[..., None, :]
+                            * v.permute(0, 2, 3, 1)[:, None, :, None])
+    return _per_pair(p, v, transpose=False)
+
+
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    q_pos: torch.Tensor, k_pos: torch.Tensor,
                    window: Optional[int] = None,
@@ -83,21 +172,26 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    causal: bool = True) -> torch.Tensor:
     """Attention: q [B, S, Hq, D], k/v [B, T, Hkv, D] -> float32 [B, S, Hq,
     D]; causal unless ``causal`` is False, ``window`` masks keys that far
-    back, ``logit_softcap`` caps the scores before the mask."""
+    back, ``logit_softcap`` caps the scores before the mask.  On the card
+    every (row, head) gets the same bits whatever the call's rows and heads
+    (:func:`scores_stable`, :func:`weighted_stable`): the rows may be one
+    data shard's, the heads one model rank's."""
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
     scale = torch.tensor(1.0 / math.sqrt(D), dtype=q.dtype)
     qg = q.reshape(B, S, Hkv, G, D) * scale
-    s = torch.einsum("bshgd,bkhd->bshgk", qg.to(torch.float32),
-                     k.to(torch.float32))
+    qg, k = qg.to(torch.float32), k.to(torch.float32)
+    s = (scores_stable(qg, k) if qg.is_cuda
+         else torch.einsum("bshgd,bkhd->bshgk", qg, k))
     if logit_softcap is not None:
         s = _softcap_scores(s, logit_softcap)
     keep = _mask(q_pos, k_pos, window, causal)
     s = s.masked_fill(~keep[:, :, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bshgk,bkhd->bshgd",
-                       p.to(v.dtype).to(torch.float32), v.to(torch.float32))
+    p, v = p.to(v.dtype).to(torch.float32), v.to(torch.float32)
+    out = (weighted_stable(p, v) if p.is_cuda
+           else torch.einsum("bshgk,bkhd->bshgd", p, v))
     return out.reshape(B, S, Hq, D)
 
 

@@ -59,8 +59,12 @@ def linear(p: Params, x: torch.Tensor, quant: str = "none",
     bitplane leaf (``w_tmac`` marker) takes its weight spec from itself —
     its plane count, or ternary when it carries ``w_tern`` — and only the
     activation bits from ``quant``, so a drafter's truncated view of a
-    ``w4a4_tmac`` leaf runs as ``w2a4_tmac``.
+    ``w4a4_tmac`` leaf runs as ``w2a4_tmac``.  A leaf marked by
+    ``dist.tp.mark_tp_params`` passes its layout on (inert outside the
+    sharded engine's context); its bias is added after the gather or the
+    reduce, or to the local columns of a head-parallel leaf.
     """
+    from repro_torch.dist.tp import leaf_tp_mode
     from repro_torch.kernels.lutmul import ops as lut_ops
     if "w_q" in p:
         mode = quant
@@ -72,7 +76,8 @@ def linear(p: Params, x: torch.Tensor, quant: str = "none",
             mode = (f"ternary_a{abits}_tmac" if "w_tern" in p
                     else f"w{p['w_q'].shape[0]}a{abits}_tmac")
         y = lut_ops.prequant_matmul(x, p["w_q"], p["w_scale"], mode=mode,
-                                    compute_dtype=compute_dtype)
+                                    compute_dtype=compute_dtype,
+                                    tp=leaf_tp_mode(p))
     elif quant == "none":
         y = x.to(compute_dtype) @ p["w"].to(compute_dtype)
     else:

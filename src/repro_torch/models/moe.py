@@ -31,6 +31,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import tp as tp_lib
 from repro_torch.models.layers import (Params, init_linear, init_mlp, linear,
                                        mlp)
 
@@ -191,10 +192,22 @@ def _dispatch_groups(p: Params, xf: torch.Tensor, cfg: MoEConfig, *,
     buf.index_put_((grp, flat_e, torch.where(keep, pos, C)),
                    xf[:, token_of].to(cd))
     a = buf[:, :, :C].transpose(0, 1).reshape(E, G * C, d)
+    # expert-parallel banks (``tp_exp``, inside the sharded engine's
+    # context) hold this rank's E/tp experts: only they run, on their rows
+    # of the buffer, and an all_gather over the expert axis rebuilds the
+    # output buffer, every element computed by one rank with the unsharded
+    # per-expert math; the routing above ran on the replicated router
+    exp_axis = (tp_lib.model_axis() if isinstance(p["wi"], dict)
+                and "tp_exp" in p["wi"] else None)
+    if exp_axis is not None:
+        E_local = p["wi"]["w_q"].shape[0]
+        a = a[exp_axis.index * E_local:(exp_axis.index + 1) * E_local]
     h = expert_matmul(a, p["wi"], cd)
     g = expert_matmul(a, p["wg"], cd)
     h = F.silu(g.to(torch.float32)).to(cd) * h
     out = expert_matmul(h, p["wo"], cd)                        # [E, G*C, d]
+    if exp_axis is not None:
+        out = tp_lib.all_gather(out, exp_axis, dim=0)
     out = out.reshape(E, G, C, d).transpose(0, 1)              # [G, E, C, d]
     safe = torch.where(keep, pos, C - 1)
     gathered = torch.where(keep[..., None], out[grp, flat_e, safe], 0)

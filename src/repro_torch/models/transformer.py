@@ -213,14 +213,17 @@ def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def _lm_head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """Final projection; tied embeddings or the (pre-quantized) head."""
+    """Final projection; tied embeddings or the (pre-quantized) head,
+    vocab-column-parallel when the sharded engine marked it."""
     if cfg.tie_embeddings:
         return x @ params["embed"]["emb"].T.to(x.dtype)
     lh = params["lm_head"]
     if "w_q" in lh:
+        from repro_torch.dist.tp import leaf_tp_mode
         from repro_torch.kernels.lutmul import ops as lut_ops
         return lut_ops.prequant_matmul(x, lh["w_q"], lh["w_scale"],
-                                       mode=cfg.quant, compute_dtype=x.dtype)
+                                       mode=cfg.quant, compute_dtype=x.dtype,
+                                       tp=leaf_tp_mode(lh))
     return x @ lh["w"].to(x.dtype)
 
 

@@ -86,6 +86,7 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.core.device import resolve_device
+from repro_torch.dist import tp as tp_lib
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import encdec, transformer
 from repro_torch.serve import graphs
@@ -386,6 +387,8 @@ def _to_device(params, device):
 
 
 class Engine:
+    sharded = False               # serve.sharded.ShardedEngine: True
+
     def __init__(self, cfg, params, scfg: ServeConfig = ServeConfig(), *,
                  device=None):
         self.is_encdec = bool(cfg.enc_dec)
@@ -459,6 +462,12 @@ class Engine:
         self.key = prng.prng_key(scfg.seed, self.device)
         self.graphs = graphs.RoundGraphs()
         self.faults = None            # a serve.faults.FaultPlan, or None
+        # the slots this device computes: all of them here; a data shard's
+        # block on serve.sharded.ShardedEngine, which also splits the pages
+        # over its data shards and the KV heads over its model axis
+        self._rows = slice(None)
+        self.n_page_shards = 1
+        self._cache_cfg = cfg
 
     # -- scheduler-facing API ------------------------------------------------
 
@@ -520,22 +529,28 @@ class Engine:
         fresh ``PagePool`` under ``self.pool`` and the zeroed device table
         ``self.table`` (made once per batch size), with the ring table
         ``self.ring_table`` beside it on a model with local layers.  An
-        enc-dec engine's is ``encdec.init_cache``'s."""
+        enc-dec engine's is ``encdec.init_cache``'s.  The buffers hold the
+        rows of ``self._rows`` (every slot on one device) and, paged, one
+        data shard's pages."""
+        rows = len(range(batch)[self._rows])
         if not self.paged:
-            return self._mod.init_cache(self.cfg, batch, self.scfg.max_len,
-                                        self.device)
+            return self._mod.init_cache(self._cache_cfg, rows,
+                                        self.scfg.max_len, self.device)
         from repro_torch.serve.paged import PagePool
-        pages = resolve_pages_per_shard(self.cfg, self.scfg, batch, 1)
+        pages = resolve_pages_per_shard(self.cfg, self.scfg, batch,
+                                        self.n_page_shards)
         self.pool = PagePool(batch, paged_layout(self.cfg, self.scfg),
                              pages_per_shard=pages,
+                             n_shards=self.n_page_shards,
                              prefix_reuse=self.scfg.prefix_reuse)
-        self.table = self._zeroed(self.table, self.pool.table.shape)
+        self.table = self._zeroed(self.table,
+                                  self.pool.table[self._rows].shape)
         if self.chunk_window_limit is not None:
             self.ring_table = self._zeroed(self.ring_table,
-                                           self.pool.ring.shape)
+                                           self.pool.ring[self._rows].shape)
         return transformer.init_paged_cache(
-            self.cfg, batch, self.scfg.max_len, pages, self.scfg.page_size,
-            self.device)
+            self._cache_cfg, rows, self.scfg.max_len, pages,
+            self.scfg.page_size, self.device)
 
     def _zeroed(self, table, shape) -> torch.Tensor:
         """A zero int32 device table of ``shape``: ``table`` zeroed in place
@@ -565,6 +580,17 @@ class Engine:
                     "page pool audit failed: " + "; ".join(errs[:3]))
         return cache
 
+    def poison_row(self, slot: int) -> Optional[int]:
+        """The dense cache row of ``slot`` that a NaN fault poisons on this
+        device (None: none here)."""
+        return slot
+
+    def poison_page(self, shard: int, pid: int) -> Optional[int]:
+        """The device page of shard-local page ``pid`` of page shard
+        ``shard`` that a NaN fault poisons here (the pools lay shards out
+        page-major; None: none here)."""
+        return shard * self.pool.pages_per_shard + pid
+
     def _device_tables(self) -> tuple:
         """The pool's full and ring tables copied into the fixed device
         tables (through pinned memory on the card, asynchronously: the host
@@ -574,7 +600,7 @@ class Engine:
         for dev, host in ((self.table, self.pool.table),
                           (self.ring_table, self.pool.ring)):
             if dev is not None:
-                t = torch.from_numpy(host)
+                t = torch.from_numpy(host[self._rows])
                 if self.device.type == "cuda":
                     dev.copy_(t.pin_memory(), non_blocking=True)
                 else:
@@ -714,16 +740,23 @@ class Engine:
         keys = None
         if samp is not None:
             # the keys of the round's draws, [n, 2], in one vectorized
-            # fold-in (the reference first folds in the data shard,
-            # tp_lib.fold_in_data: the identity on one device)
+            # fold-in, after the data shard's own fold-in (the identity on
+            # one device)
             n = C + (2 * self.scfg.draft_k + 1 if spec else chunk)
-            keys = prng.fold_in(self.key, samp.step0 + torch.arange(
-                n, dtype=torch.int32, device=samp.step0.device))
+            keys = prng.fold_in(tp_lib.fold_in_data(self.key),
+                                samp.step0 + torch.arange(
+                                    n, dtype=torch.int32,
+                                    device=samp.step0.device))
         ok = torch.ones_like(done)
         tok0, done0 = tok, done
         if lane is not None:
+            # the lane targets GLOBAL slot ids: a data shard owns a
+            # contiguous block of slots
             rows = torch.arange(tok.shape[0], dtype=torch.int32,
                                 device=tok.device)
+            data = tp_lib.data_axis()
+            if data is not None:
+                rows = rows + data.index * tok.shape[0]
             for i in range(lane.slot.shape[0]):
                 target = rows == lane.slot[i]
                 tok_in = torch.where(target, lane.tok[i], tok)
@@ -761,8 +794,17 @@ class Engine:
             toks, dones = torch.stack(toks, 1), torch.stack(dones, 1)
             n_valid = torch.full_like(tok, chunk)
         # the cache sweep, once a round: a non-finite value anywhere fails
-        # every slot (recovery replays the whole batch from the snapshot)
-        ok = ok & _cache_finite(cache)
+        # every slot (recovery replays the whole batch from the snapshot).
+        # Under tensor parallelism each rank holds a head slice, so the
+        # verdict is min-reduced over the model axis: a miss on the clean
+        # ranks must not mask the poisoned one
+        cache_ok = _cache_finite(cache)
+        axis = tp_lib.model_axis()
+        if axis is not None:
+            cache_ok = tp_lib.all_reduce_min(torch.as_tensor(
+                cache_ok, device=ok.device).to(torch.int32).reshape(1),
+                axis)[0] != 0
+        ok = ok & cache_ok
         return tok, pos, done, pack_round(tok0, done0, toks, dones, ok,
                                           n_valid)
 
@@ -904,7 +946,8 @@ class Engine:
         cache = self._fault_site("admit", cache, pos)
         prompts = np.asarray(prompts, dtype=np.int32)
         R, P = prompts.shape
-        start = self.pool.start if self.paged else np.zeros(R, np.int32)
+        start = (self.pool.start[self._rows] if self.paged
+                 else np.zeros(R, np.int32))
         host = torch.from_numpy(np.concatenate(
             [prompts, np.stack([np.asarray(lengths), np.asarray(mask),
                                 np.asarray(budget_one), start],
@@ -923,8 +966,10 @@ class Engine:
         if greedy:
             tok0 = sample_logits(logits)
         else:
-            tok0 = sample_logits(logits, prng.fold_in(self.key, int(step0)),
-                                 temperature, top_k, top_p)
+            tok0 = sample_logits(
+                logits, prng.fold_in(tp_lib.fold_in_data(self.key),
+                                     int(step0)),
+                temperature, top_k, top_p)
         # finite-logits guard on the sampled rows (free rows report healthy)
         ok0 = torch.isfinite(logits).all(-1) | ~mask
         done0 = ((eos >= 0) & (tok0 == eos)) | budget_one

@@ -139,7 +139,9 @@ class FaultPlan:
     def _poison_nan(engine, cache, pos, fault: Fault) -> None:
         """NaN one active slot's attended K (or k_scale) at position 0 in
         every layer, in place — the poison flows through the real attention
-        and head into that row's logits."""
+        and head into that row's logits.  ``pos`` covers every slot; the
+        engine says where the slot's row or page lies on this device
+        (``Engine.poison_row`` / ``poison_page``)."""
         active = np.flatnonzero(pos >= 0)
         if active.size == 0:
             fault.skipped = True
@@ -154,7 +156,9 @@ class FaultPlan:
             # int8 K codes cannot hold a NaN — poison the float scale
             key = "k_scale" if "k_scale" in c else "k"
             if pool is None:
-                c[key][slot, 0] = float("nan")
+                row = engine.poison_row(slot)
+                if row is not None:
+                    c[key][row, 0] = float("nan")
                 continue
             is_local = spec.attn_type == "local" and bool(engine.cfg.window)
             table, n = ((pool.ring, pool.n_ring[slot]) if is_local
@@ -162,10 +166,13 @@ class FaultPlan:
             pid = int(table[slot, 0])
             # never poison the null page (page 0): every slot's masked
             # writes route there by design.  Table values are shard-local;
-            # the device pool lays shards out page-major.
+            # the engine maps them to its device pages (a sharded engine
+            # holds one data shard's pages, and one of its model ranks
+            # takes the poison)
             if n > 0 and pid > 0:
-                gpid = pool.shard_of(slot) * pool.pages_per_shard + pid
-                c[key][gpid, 0] = float("nan")
+                page = engine.poison_page(pool.shard_of(slot), pid)
+                if page is not None:
+                    c[key][page, 0] = float("nan")
 
 
 __all__ = ["EngineFault", "InjectedFault", "CacheCorruption", "Fault",

@@ -546,6 +546,13 @@ class Scheduler:
         return {"cache": self.cache, "tok": self.tok, "pos": self.pos,
                 "done": self.done}
 
+    def _check_checkpointable(self) -> None:
+        if self.engine.sharded:
+            raise NotImplementedError(
+                "Scheduler.save / load of a ShardedEngine is not ported: "
+                "every rank holds its own cache shard, and one checkpoint "
+                "of the whole mesh needs each rank's part")
+
     def save(self, ckpt_dir: str, step: Optional[int] = None):
         """Write the whole serving state as a committed ``ckpt.checkpoint``
         step (default: the round count): the cache and slot vectors (copied
@@ -553,7 +560,8 @@ class Scheduler:
         mirrors, draw counter, cursors, counters, the pool's state and
         every queued, running and finished request.  Streaming callbacks
         stay out: a loaded request streams nothing until a callback is set
-        again."""
+        again.  A ``ShardedEngine`` raises (not ported)."""
+        self._check_checkpointable()
         recs = {
             "queue": [_req_record(r) for r in self.queue],
             "slots": [None if r is None else _req_record(r)
@@ -592,6 +600,7 @@ class Scheduler:
         the pool is reloaded and the requests are rebuilt as new
         ``Request`` objects (in ``queue``, ``slots`` and ``finished``).  A
         rolling snapshot taken before the load is dropped."""
+        self._check_checkpointable()
         geo = ckpt_lib.manifest(ckpt_dir, step)["extra"]["serving"][
             "geometry"]
         if geo != self._geometry():

@@ -49,7 +49,8 @@ def test_port_has_modules():
                 "configs/qwen2_moe_a2p7b.py", "configs/mixtral_8x22b.py",
                 "models/ssm.py", "configs/rwkv6_1p6b.py",
                 "configs/zamba2_2p7b.py", "models/encdec.py",
-                "configs/whisper_large_v3.py", "configs/qwen2_vl_72b.py"):
+                "configs/whisper_large_v3.py", "configs/qwen2_vl_72b.py",
+                "dist/mesh.py", "dist/tp.py", "serve/sharded.py"):
         assert f"src/repro_torch/{mod}" in names, mod
     for src in ("thresholds.cu", "lutmul_gather.cu"):
         assert (ROOT / "src" / "repro_torch" / "csrc" / src).is_file(), src
