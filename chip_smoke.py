@@ -221,7 +221,7 @@ Phases (any failure raises and exits non-zero):
    16 x 2 for the second cross K/V pass) and 128 a decode step; the
    prefill's parts timed (encode, decoder, the second cross-K/V pass); 8
    decode steps through a page table == dense, logits and K/V bitwise. Then
-   qwen2-vl-72b (24 of its 80 layers, full width; 13 GB of served codes
+   qwen2-vl-72b (16 of its 80 layers, full width; its served codes
    built a layer at a time) in w4a4_lut (``run_qwen2vl``): the Scheduler
    over the 8 requests fused, the plain backend over the first one (4
    tokens) equal; the stub vision frontend (embeddings [2, 272, 8192] at a
@@ -261,7 +261,22 @@ Phases (any failure raises and exits non-zero):
    kernels timed at every stage's shape; each gather group also records
    its products and its gather floor (one shared-memory table read per
    product at 32 a clock per SM, at the card's maximum SM clock).
-6. the script's total time, the ``kernels`` JSON line, the ``nvidia-smi``
+6. training: minicpm-2b in QAT at full width and depth (40 layers, remat
+   "full", the WSD schedule, the W4 projection after every update) for 6
+   steps of 4 x 512 tokens through ``train.step.make_train_step``: finite
+   losses and gradient norms, the last loss below the first, peak memory
+   under 75 GB, each step's forward+backward and optimizer+projection
+   timed by CUDA events; the trained model evaluated as deployed
+   (``train.loop.make_eval_fn``, 2 held-out batches) in w4a4_mxu and
+   w4a4_lut: every projection through the fused int8 or LUT kernel (7 x 40
+   launches a batch), no plain version called, the weight quantizations
+   the same for 1 batch as for 2; MobileNetV2's full config in QAT for 4
+   steps of 32 images at 224 x 224; then ``train.loop.run`` on it twice
+   (8 steps, a checkpoint every 3), uninterrupted and with one injected
+   failure at step 5, under deterministic algorithms: one restart and
+   the same loss history.  The kernels phase holds the two fused kernels
+   at the eval's shapes (minicpm-2b's projections at M = 2,048).
+7. the script's total time, the ``kernels`` JSON line, the ``nvidia-smi``
    line, and last the ``{"ok": true, ...}`` line.
 
 Where ``SERVED_LAYERS`` names a model, the script serves it at that
@@ -285,6 +300,9 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, "src"))
+# cuBLAS's deterministic workspace, which the train phase's deterministic
+# loop needs, is read when CUDA first creates a handle: set it before
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory
 INT8_OPS_PER_S = 1979e12          # H100 SXM dense int8 tensor-core peak
@@ -401,9 +419,20 @@ MB_BATCH = 32
 MB_CHECK = 4                      # images held against the CPU forward
 MB_FLOAT_RTOL = 1e-3              # of max |logit|; see run_mobilenet
 MB_GROUP = "mobilenetv2 34 pointwise stages, batch 32"
+# the train phase: minicpm-2b QAT at full width and depth, B x S tokens a
+# step, then the trained model evaluated as deployed over 2 held-out
+# batches; MobileNetV2's full config at 224 x 224, and the fault-tolerant
+# loop (8 steps, a checkpoint every 3, one failure at step 5)
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 512, 6
+TRAIN_PEAK_LIMIT = 75e9
+TRAIN_M = TRAIN_B * TRAIN_S
+TRAIN_GROUP = f"minicpm-2b layer, M={TRAIN_M} (train eval)"
+MB_TRAIN_STEPS = 4
+LOOP_STEPS, LOOP_CKPT, LOOP_FAIL = 8, 3, 5
+LOOP_RTOL = 1e-6                  # the reference's own loop test's
 PHASES = ("kernels", "qwen", "bitnet", "gemma2", "minicpm", "phi3",
           "qwen2moe", "mixtral", "rwkv6", "zamba2", "whisper", "qwen2vl",
-          "sharded", "mobilenetv2")
+          "sharded", "mobilenetv2", "train")
 # the sampled, tmac, paged, int8 KV, speculative, faults and QoS stages
 # run on qwen2-7b at this depth (full width)
 CUT_LAYERS = 4
@@ -411,8 +440,9 @@ CUT_LAYERS = 4
 # it is cut to keep the run inside its time limit: mixtral-8x22b because
 # one card holds ~10 GB of its expert codes, not ~70; the others (earlier
 # slices' paths) for time, gemma2-2b, phi3-medium-14b, qwen2-moe-a2.7b
-# and qwen2-vl-72b also to pay for the sharded phase
-SERVED_LAYERS = {"mixtral-8x22b": MIXTRAL_LAYERS, "qwen2-vl-72b": 24,
+# and qwen2-vl-72b also to pay for the sharded phase, qwen2-vl-72b (24 ->
+# 16) for the train phase
+SERVED_LAYERS = {"mixtral-8x22b": MIXTRAL_LAYERS, "qwen2-vl-72b": 16,
                  "whisper-large-v3": 16, "bitnet-3b": 13, "minicpm-2b": 20,
                  "rwkv6-1.6b": 12, "zamba2-2.7b": 24, "gemma2-2b": 14,
                  "phi3-medium-14b": 20, "qwen2-moe-a2.7b": 12}
@@ -766,6 +796,7 @@ def check_kernels(bench: Bench) -> None:
                       lib, M, K, N, extra_in=4 * (M + N), out_bytes=M * N * 2)
             del a, w, a8, w8
     check_expert_banks(bench, gen)
+    check_train_eval_shapes(bench, gen, scales)
 
     # the T-MAC kernel: target, drafter and verify of qwen2-7b in
     # w4a4_tmac, and bitnet-3b's ternary_a8_tmac projections
@@ -850,6 +881,42 @@ def check_kernels(bench: Bench) -> None:
     torch.cuda.empty_cache()
 
 
+def check_train_eval_shapes(bench: Bench, gen, scales) -> None:
+    """minicpm-2b's 7 projections at the train phase's eval shape (M = B x
+    S rows): the fused LUT kernel (``w4a4_lut``) and the fused int8 kernel
+    on the unpacked 4-bit codes (``w4a4_mxu``), each held bitwise against
+    its plain version."""
+    import torch
+    from repro_torch.kernels.lutmul import kernel, ref
+    dev = torch.device("cuda")
+    M = TRAIN_M
+    for K, N in MINICPM_INNER.values():
+        a = torch.randint(0, 16, (M, K), generator=gen, device=dev,
+                          dtype=torch.uint8)
+        w = torch.randint(0, 256, (K // 2, N), generator=gen, device=dev,
+                          dtype=torch.uint8)
+        a_s, w_s = scales(M, N)
+        a8 = ref.decode_codes(a).to(torch.int8)
+        w8 = ref.decode_codes(ref.unpack_int4(w.T).T, 4) \
+            .to(torch.int8).contiguous()
+        lib = _library_ms(a8, w8, ref.lutmul_ref(a, w), bench.flush,
+                          bench.reps)
+        bench.lut("lutmul_fused", TRAIN_GROUP,
+                  lambda: kernel.lutmul_fused(a, w, a_s, w_s,
+                                              out_dtype=torch.bfloat16),
+                  lambda: ref.scaled_lutmul_ref(a, w, a_s, w_s,
+                                                out_dtype=torch.bfloat16),
+                  lib, M, K, N, extra_in=4 * (M + N), out_bytes=M * N * 2)
+        bench.one("int_matmul_fused", TRAIN_GROUP,
+                  lambda: kernel.int_matmul_fused(a8, w8, a_s, w_s,
+                                                  out_dtype=torch.bfloat16),
+                  lambda: ref.scaled_int_matmul_ref(
+                      a8, w8, a_s, w_s, out_dtype=torch.bfloat16),
+                  lib, {"M": M, "K": K, "N": N},
+                  M * K + K * N + 4 * (M + N) + M * N * 2, 2.0 * M * K * N)
+        del a, w, a8, w8
+
+
 def check_expert_banks(bench: Bench, gen) -> None:
     """The expert banks as the MoE path launches them: one
     ``lutmul_experts`` call on [E, C, K] codes and an [E, K//2, N] bank (E
@@ -929,6 +996,7 @@ def make_requests(vocab: int, seed: int = 0, sampled: bool = False):
 
 
 RUNS: dict = {}
+TRAIN: dict = {}
 
 
 def reset_launches() -> None:
@@ -3794,6 +3862,233 @@ def run_mobilenet(bench: Bench) -> None:
     torch.cuda.empty_cache()
 
 
+PLAIN_FNS = ("lutmul_ref", "int_matmul_ref", "tmac_ref", "scaled_lutmul_ref",
+             "scaled_int_matmul_ref", "scaled_tmac_ref", "dequant_epilogue")
+
+
+class PlainCalls:
+    """Counts the calls of the LUT family's plain versions
+    (``kernels.lutmul.ref``) inside a ``with`` block."""
+
+    def __enter__(self):
+        from repro_torch.kernels.lutmul import ref
+        self.ref, self.saved, self.calls = ref, {}, 0
+        for name in PLAIN_FNS:
+            fn = self.saved[name] = getattr(ref, name)
+
+            def counted(*a, _fn=fn, **k):
+                self.calls += 1
+                return _fn(*a, **k)
+            setattr(ref, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.ref, name, fn)
+        return False
+
+
+def _train_steps(step_fn, state, batches: list, label: str) -> tuple:
+    """Run ``step_fn`` over ``batches``: (state, per-step metrics with the
+    CUDA-event spans ``grads_s``, ``update_s`` and ``step_s``)."""
+    from repro_torch.train.loop import StepTimer
+    hist = []
+    for i, batch in enumerate(batches):
+        timer = StepTimer("cuda")
+        timer.start()
+        state, m = step_fn(state, batch, mark=timer.mark)
+        sp = timer.seconds()
+        m = {k: float(v) for k, v in m.items()}
+        m.update(step=i, grads_s=sp["grads"], update_s=sp["update"],
+                 step_s=sp["total"])
+        hist.append(m)
+        log(f"{label} step {i}: loss {m['loss']!r} grad_norm "
+            f"{m['grad_norm']!r} lr {m['lr']!r} fwd+bwd {sp['grads'] * 1e3:.1f}"
+            f" ms opt+proj {sp['update'] * 1e3:.1f} ms")
+        if not all(math.isfinite(m[k]) for k in ("loss", "grad_norm")):
+            raise AssertionError(f"{label} step {i}: non-finite {m}")
+    return state, hist
+
+
+def _step_summary(hist: list, items: int) -> dict:
+    """Median spans over the steps (ms) and items a second."""
+    med = {k: _median([h[k] for h in hist])
+           for k in ("grads_s", "update_s", "step_s")}
+    return {"fwd_bwd_ms": med["grads_s"] * 1e3,
+            "opt_proj_ms": med["update_s"] * 1e3,
+            "step_ms": med["step_s"] * 1e3,
+            "per_s": items / med["step_s"]}
+
+
+def run_train() -> None:
+    """Training on the card: (a) minicpm-2b QAT at full width and depth
+    (40 layers, remat "full", WSD, the W4 projection after each update)
+    for TRAIN_STEPS steps of B x S tokens, finite and falling loss, peak
+    memory under TRAIN_PEAK_LIMIT; (b) the trained model evaluated as
+    deployed (``loop.make_eval_fn``) in w4a4_mxu and w4a4_lut: every
+    projection through the fused int8 or LUT kernel (7 x 40 launches a
+    batch), no plain version called, the weight quantizations the same for
+    1 batch as for 2; (c) MobileNetV2's full config in QAT for
+    MB_TRAIN_STEPS steps of 32 images at 224 x 224, then ``loop.run``
+    uninterrupted and with one injected failure, under deterministic
+    algorithms, the two loss histories compared."""
+    import tempfile
+    import torch
+    from repro_torch.configs import minicpm_2b, mobilenetv2
+    from repro_torch.core.tree import flatten
+    from repro_torch.data import pipeline
+    from repro_torch.kernels.lutmul import ops
+    from repro_torch.models import mobilenet, transformer
+    from repro_torch.train import loop as tloop
+    from repro_torch.train import step as tstep
+
+    # (a) minicpm-2b QAT, full width and depth
+    cfg = minicpm_2b.config(quant="qat")
+    if cfg.n_layers != 40 or cfg.remat != "full":
+        raise AssertionError(f"train: minicpm-2b is {cfg.n_layers} layers, "
+                             f"remat {cfg.remat!r}")
+    dcfg = pipeline.DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                               global_batch=TRAIN_B)
+    tcfg = tstep.TrainConfig(schedule="wsd", qat_project=True, peak_lr=1e-3,
+                             warmup=2, total_steps=8)
+    reset_peak(empty=True)
+    base = torch.cuda.memory_allocated()
+    state = tstep.init_state(transformer.init_params(cfg, seed=0))
+    n_params = sum(p.numel() for p in flatten(state["params"])[1])
+    step_fn = tstep.make_train_step(cfg, tcfg, donate=True)
+    state, hist = _train_steps(
+        step_fn, state, [pipeline.lm_batch(dcfg, i)
+                         for i in range(TRAIN_STEPS)], "minicpm-2b qat")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    summ = _step_summary(hist, TRAIN_M)
+    log(f"minicpm-2b qat train: {n_params} parameters, {cfg.n_layers} layers"
+        f", B {TRAIN_B} S {TRAIN_S}; median step {summ['step_ms']:.1f} ms "
+        f"(CUDA events): fwd+bwd {summ['fwd_bwd_ms']:.1f} ms, opt+proj "
+        f"{summ['opt_proj_ms']:.1f} ms; {summ['per_s']:.1f} tokens/s; peak "
+        f"{peak} bytes; losses {[h['loss'] for h in hist]}")
+    if not hist[-1]["loss"] < hist[0]["loss"]:
+        raise AssertionError(f"minicpm-2b qat: the loss did not fall: "
+                             f"{[h['loss'] for h in hist]}")
+    if peak >= TRAIN_PEAK_LIMIT:
+        raise AssertionError(f"minicpm-2b qat: peak {peak} bytes >= "
+                             f"{TRAIN_PEAK_LIMIT}")
+    TRAIN["minicpm"] = {**summ, "peak_bytes": peak, "params": n_params,
+                        "losses": [h["loss"] for h in hist],
+                        "grad_norms": [h["grad_norm"] for h in hist]}
+
+    # (b) the trained model as deployed, through the fused kernels
+    ebatches = [pipeline.lm_batch(dcfg, 10 ** 6 + i) for i in range(2)]
+    ops.set_backend("cuda")
+    ops.set_variant(None)
+    per_batch = 7 * cfg.n_layers
+    for mode, kern in (("w4a4_mxu", "int_matmul_fused"),
+                       ("w4a4_lut", "lutmul_fused")):
+        evaluate = tloop.make_eval_fn(cfg, mode)
+        deltas, losses = [], []
+        with PlainCalls() as plain:
+            for n in (1, 2):
+                c0 = ops.WEIGHT_QUANT_COUNT
+                reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(evaluate(state["params"], ebatches[:n]))
+                dt = time.perf_counter() - t0
+                deltas.append(ops.WEIGHT_QUANT_COUNT - c0)
+                got = all_launches()
+                want = dict.fromkeys(got, 0)
+                want[kern] = per_batch * n
+                if got != want:
+                    raise AssertionError(f"eval {mode} over {n} batches: "
+                                         f"launches {got} != {want}")
+        if plain.calls:
+            raise AssertionError(f"eval {mode}: {plain.calls} plain-version "
+                                 "calls")
+        if not (deltas[0] == deltas[1] > 0):
+            raise AssertionError(f"eval {mode}: WEIGHT_QUANT_COUNT moved "
+                                 f"{deltas} for 1 and 2 batches")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"eval {mode}: losses {losses}")
+        RUNS[f"train eval {mode}"] = {"seconds": dt, "launches": got,
+                                      "forwards_by_lane": None}
+        TRAIN[f"eval {mode}"] = {"loss": losses[1], "seconds": dt,
+                                 "weight_quant_events": deltas[1],
+                                 "launches": {kern: got[kern]}}
+        log(f"minicpm-2b eval {mode} (2 held-out batches): loss "
+            f"{losses[1]!r} (1 batch {losses[0]!r}) beside the last QAT "
+            f"training loss {hist[-1]['loss']!r}; {kern} launches "
+            f"{got[kern]} (7 x {cfg.n_layers} a batch), plain versions 0, "
+            f"weight quantizations {deltas} for 1 and 2 batches; "
+            f"{dt:.2f} s (host clock)")
+    del state, step_fn, hist
+    reset_peak(empty=True)
+
+    # (c) MobileNetV2 QAT at the paper's resolution, then the loop
+    mcfg = mobilenetv2.config(quant="qat")
+
+    def mb_params():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        return mobilenet.init_params(mcfg, gen)
+    mt = tstep.TrainConfig(qat_project=True, peak_lr=1e-3, warmup=1,
+                           total_steps=LOOP_STEPS)
+    idata = pipeline.DataConfig(global_batch=MB_BATCH)
+    state = tstep.init_state(mb_params())
+    state, mhist = _train_steps(
+        tstep.make_train_step(mcfg, mt, donate=True), state,
+        [pipeline.image_batch(idata, i, resolution=mcfg.resolution,
+                              n_classes=mcfg.n_classes)
+         for i in range(MB_TRAIN_STEPS)], "mobilenetv2 qat")
+    msumm = _step_summary(mhist, MB_BATCH)
+    TRAIN["mobilenetv2"] = {**msumm, "losses": [h["loss"] for h in mhist]}
+    log(f"mobilenetv2 qat train (width {mcfg.width}, {mcfg.n_classes} "
+        f"classes, {mcfg.resolution}x{mcfg.resolution}, batch {MB_BATCH}): "
+        f"median step {msumm['step_ms']:.1f} ms (fwd+bwd "
+        f"{msumm['fwd_bwd_ms']:.1f}, opt+proj {msumm['opt_proj_ms']:.1f}); "
+        f"{msumm['per_s']:.1f} images/s")
+    del state
+
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True)
+    runs = {}
+    try:
+        for label, fail in (("uninterrupted", None), ("failure", LOOP_FAIL)):
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+                t0 = time.perf_counter()
+                runs[label] = tloop.run(
+                    mcfg, mb_params, idata, mt,
+                    tloop.RunConfig(steps=LOOP_STEPS, ckpt_every=LOOP_CKPT,
+                                    ckpt_dir=d, fail_at_step=fail),
+                    batch_kind="image")
+                runs[label]["seconds"] = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    a, b = runs["uninterrupted"], runs["failure"]
+    if a["restarts"] != 0 or b["restarts"] != 1:
+        raise AssertionError(f"loop restarts {a['restarts']}, "
+                             f"{b['restarts']}")
+    la = {m["step"]: m["loss"] for m in a["history"]}
+    lb = {m["step"]: m["loss"] for m in b["history"]}
+    if not sorted(la) == sorted(lb) == list(range(LOOP_STEPS)):
+        raise AssertionError(f"loop steps {sorted(la)} vs {sorted(lb)}")
+    bitwise = all(la[s] == lb[s] for s in la)
+    worst = max(abs(la[s] - lb[s]) / abs(la[s]) for s in la)
+    if not bitwise and worst > LOOP_RTOL:
+        raise AssertionError(f"loop histories differ: {la} vs {lb}")
+    TRAIN["loop"] = {k: {"seconds": r["seconds"], "restarts": r["restarts"],
+                         "losses": [la, lb][i],
+                         "straggler": r["straggler"]}
+                     for i, (k, r) in enumerate(runs.items())}
+    TRAIN["loop"]["bitwise_equal"] = bitwise
+    log(f"loop.run mobilenetv2 qat ({LOOP_STEPS} steps, checkpoint every "
+        f"{LOOP_CKPT}, deterministic algorithms): uninterrupted "
+        f"{a['seconds']:.1f} s, with a failure at step {LOOP_FAIL} "
+        f"{b['seconds']:.1f} s, restarts {b['restarts']}; histories bitwise "
+        f"equal: {bitwise} (max relative difference {worst!r}, tolerance "
+        f"{LOOP_RTOL})")
+    log("train: " + json.dumps(TRAIN))
+    reset_peak(empty=True)
+
+
 def _searchsorted_ms(acc, thr, sign, want, bench: Bench):
     """The library yardstick of the threshold kernel: ``torch.searchsorted``
     of each channel's values into its threshold row, which counts the
@@ -3887,7 +4182,8 @@ def main() -> int:
                       ("qwen2vl",
                        lambda: run_qwen2vl(args.layers, args.profile)),
                       ("sharded", lambda: run_sharded(args.layers)),
-                      ("mobilenetv2", lambda: run_mobilenet(bench))):
+                      ("mobilenetv2", lambda: run_mobilenet(bench)),
+                      ("train", run_train)):
         if phase in phases:
             t0 = time.perf_counter()
             fn()

@@ -30,6 +30,9 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch.core.tree import flatten as _flatten
+from repro_torch.core.tree import unflatten as _unflatten
+
 try:
     import zstandard
 except ImportError:               # a machine without the zstd bindings
@@ -111,36 +114,6 @@ def unpack_bins(data) -> list:
     return out
 
 
-def _flatten(tree, path: str = ""):
-    """(paths, leaves) in ``jax.tree_util`` order: dict keys sorted."""
-    if tree is None:
-        return [], []
-    if isinstance(tree, dict):
-        items = [(f"[{k!r}]", tree[k]) for k in sorted(tree)]
-    elif isinstance(tree, (list, tuple)):
-        items = [(f"[{i}]", v) for i, v in enumerate(tree)]
-    else:
-        return [path], [tree]
-    paths, leaves = [], []
-    for key, sub in items:
-        p, v = _flatten(sub, path + key)
-        paths += p
-        leaves += v
-    return paths, leaves
-
-
-def _unflatten(tree, leaves):
-    """``tree``'s structure with its leaves taken in order from the
-    iterator ``leaves``."""
-    if tree is None:
-        return None
-    if isinstance(tree, dict):
-        return {k: _unflatten(tree[k], leaves) for k in sorted(tree)}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_unflatten(v, leaves) for v in tree)
-    return next(leaves)
-
-
 def _host(leaf) -> torch.Tensor:
     return torch.as_tensor(leaf).detach().to("cpu").contiguous()
 
@@ -149,7 +122,7 @@ def tree_to_host(tree: Any) -> Any:
     """Every leaf as a contiguous tensor on the host (on the card the copy
     synchronizes)."""
     _, leaves = _flatten(tree)
-    return _unflatten(tree, iter([_host(t) for t in leaves]))
+    return _unflatten(tree, [_host(t) for t in leaves])
 
 
 def _raw(t: torch.Tensor) -> bytes:
@@ -165,7 +138,10 @@ def save(ckpt_dir: str, step: int, tree: Any, extra: Optional[dict] = None,
     ``ckpt_dir`` as step ``step``; ``extra`` is JSON-able metadata.  With
     ``async_save`` the files are written on a daemon thread, returned."""
     paths, leaves = _flatten(tree)
-    host = [_host(t) for t in leaves]
+    # a copy even of a CPU leaf: the caller may update it in place while
+    # an async save is still writing it
+    host = [torch.as_tensor(t).detach().to("cpu", copy=True).contiguous()
+            for t in leaves]
     for p, t in zip(paths, host):
         if t.dtype not in _NAMES:
             raise TypeError(f"{p}: no checkpoint dtype for {t.dtype}")
@@ -264,4 +240,4 @@ def restore(ckpt_dir: str, target_tree: Any,
         t = torch.frombuffer(buf, dtype=raw) if len(buf) else \
             torch.empty((0,), dtype=raw)
         out.append(t.view(dt).reshape(shape))
-    return _unflatten(target_tree, iter(out)), man["extra"]
+    return _unflatten(target_tree, out), man["extra"]

@@ -1,7 +1,7 @@
 """MiniCPM 2B [arXiv:2404.06395]: 40L d=2304, 36H (kv=36, head_dim 64),
 SwiGLU d_ff=5760, vocab 122753, tied embeddings.  It is trained with the
-warmup-stable-decay schedule (``TRAIN_SCHEDULE``); the port serves it and
-does not train."""
+warmup-stable-decay schedule (``TRAIN_SCHEDULE``), which
+``train.step.TrainConfig(schedule="wsd")`` selects."""
 from repro_torch.configs import BlockSpec, ModelConfig
 
 ARCH_ID = "minicpm-2b"

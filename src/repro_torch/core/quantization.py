@@ -76,8 +76,12 @@ def compute_scale(x: torch.Tensor, cfg: QuantConfig,
 
 def quantize(x: torch.Tensor, scale, zero_point, cfg: QuantConfig
              ) -> torch.Tensor:
-    """Paper Eq. (4): clamp(round(x / s + z), qmin, qmax), half to even."""
-    q = torch.round(x / as_tensor(scale, x) + zero_point)
+    """Paper Eq. (4): clamp(round(x / s + z), qmin, qmax), half to even.
+    A tensor scale keeps its dtype (a bf16 weight divides by its bf16
+    scale in bf16, as the reference's)."""
+    if not isinstance(scale, torch.Tensor):
+        scale = as_tensor(scale, x)
+    q = torch.round(x / scale.to(x.device) + zero_point)
     q = torch.clamp(q, cfg.qmin, cfg.qmax)
     dtype = torch.int8 if cfg.bits <= 8 else torch.int32
     info = torch.iinfo(dtype)
@@ -99,6 +103,24 @@ def fake_quant(x: torch.Tensor, cfg: QuantConfig,
         scale = compute_scale(x, cfg)
     xq = dequantize(quantize(x, scale, 0, cfg), scale, 0)
     return x + (xq - x).detach()
+
+
+def shared_scale(leaves: list, cfg: QuantConfig,
+                 eps: float = 1e-8) -> torch.Tensor:
+    """The per-channel (last axis) scale of the leaves stacked along a new
+    leading axis, without stacking them: the max-abs of each column over
+    every leaf and every other axis.  The reference stacks a pattern
+    position's layers into one ``[G, ...]`` leaf, so its per-channel scale
+    is shared by those layers; this gives the port's per-layer leaves the
+    same scale, bit for bit (a max is exact in any order)."""
+    amax = None
+    for leaf in leaves:
+        a = torch.abs(leaf)
+        if leaf.dim() > 1:
+            a = torch.amax(a, dim=tuple(range(leaf.dim() - 1)), keepdim=True)
+        amax = a if amax is None else torch.maximum(amax, a)
+    denom = cfg.qmax if not cfg.signed else (2 ** (cfg.bits - 1) - 1)
+    return torch.clamp_min(amax, eps) / as_tensor(float(denom), amax)
 
 
 def quantize_pair(x: torch.Tensor, cfg: QuantConfig):

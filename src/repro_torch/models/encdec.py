@@ -21,7 +21,7 @@ read through the full page table; the cross K/V stay dense.
 
 As the reference, :func:`prefill` projects the cross K/V twice: once
 inside the decoder forward (``attention.cross_attention``, per layer) and
-once more for the cache.  Training (``loss_fn``) is not ported.
+once more for the cache.  :func:`loss_fn` is the training loss.
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ from repro_torch.configs import ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import (init_embedding, init_mlp, layer_norm,
-                                       linear, mlp)
+                                       linear, mlp, nll)
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -171,7 +171,11 @@ def dec_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     self-attention ``{"k", "v"}`` [B, S, n_kv, head_dim]."""
     cd = cfg.cdtype
     B, S = tokens.shape
-    x = params["embed"]["emb"][tokens.long()].to(cd)
+    emb = params["embed"]["emb"]
+    # under autograd cast, then gather, as the reference (the table's
+    # gradient is scatter-added in the compute dtype)
+    x = emb.to(cd)[tokens.long()] if torch.is_grad_enabled() \
+        else emb[tokens.long()].to(cd)
     x = x + sinusoids(S, cfg.d_model, x.device).to(cd)[None]
     pos = attn_lib.arange_positions(B, S, x.device)
     kw = _attn_kw(cfg)
@@ -196,6 +200,13 @@ def forward(params: dict, cfg: ModelConfig, frames: torch.Tensor,
     given the encoded ``frames``."""
     check_supported(cfg)
     return dec_forward(params, cfg, tokens, encode(params, cfg, frames))
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """The decoder's mean NLL of ``batch["labels"]`` [B, S] given
+    ``batch["frames"]`` and ``batch["tokens"]``, in float32."""
+    return nll(forward(params, cfg, batch["frames"], batch["tokens"]),
+               batch["labels"])
 
 
 def precompute_cross_kv(params: dict, cfg: ModelConfig,

@@ -18,6 +18,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.quantization import A4, W4, fake_quant
+
 Params = dict[str, Any]
 
 
@@ -52,7 +54,10 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int,
 
 def linear(p: Params, x: torch.Tensor, quant: str = "none",
            compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """Dense projection with a selectable quantization mode.
+    """Dense projection with a selectable quantization mode: ``"none"``
+    (the float matmul in ``compute_dtype``), ``"qat"`` (W4A4 fake
+    quantization in float32, the training path) or a kernel mode
+    (``ops.quantized_matmul`` re-quantizes ``w`` every call).
 
     A leaf carrying serving codes (``w_q`` + ``w_scale``) always takes the
     integer path — weights are read from device memory as codes.  A tmac
@@ -80,6 +85,16 @@ def linear(p: Params, x: torch.Tensor, quant: str = "none",
                                     tp=leaf_tp_mode(p))
     elif quant == "none":
         y = x.to(compute_dtype) @ p["w"].to(compute_dtype)
+    elif quant == "qat":
+        # W4A4 fake quantization, straight through (paper Sec. 3.6): the
+        # weight per output channel; the activation's positive part as
+        # uint4 codes (threshold units emit unsigned codes), its negative
+        # part passed on for the gradient of pre-activation values
+        xf = x.to(torch.float32)
+        pos = torch.relu(xf)
+        wq = fake_quant(p["w"].to(torch.float32), W4)
+        xq = fake_quant(pos, A4) + (xf - pos)
+        y = (xq @ wq).to(compute_dtype)
     else:
         lut_ops.parse_mode(quant)   # raises with the mode grammar on typos
         y = lut_ops.quantized_matmul(x, p["w"], mode=quant,
@@ -87,6 +102,15 @@ def linear(p: Params, x: torch.Tensor, quant: str = "none",
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
+
+
+def nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean of ``logsumexp(logits) - logits[label]`` over every position,
+    in float32 (every model's training loss)."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(logz - gold)
 
 
 # ---------------------------------------------------------------------------

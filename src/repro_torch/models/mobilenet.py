@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from repro_torch.core.device import resolve_device
 from repro_torch.core.quantization import A4, A8, W4, W8, fake_quant
 from repro_torch.core.thresholds import sqrt_rn
+from repro_torch.models.layers import nll
 
 # (expansion t, out channels c, repeats n, stride s) — Sandler et al. Table 2
 INVERTED_RESIDUAL_CFG = [
@@ -138,7 +139,9 @@ def _conv(p, x, k, stride, depthwise, quant_bits: Optional[int],
 def _bn_relu6(p, x, quant_bits: Optional[int], train_qat: bool):
     inv = p["bn_gamma"] / sqrt_rn(p["bn_var"] + 1e-5)
     y = x * inv + (p["bn_beta"] - p["bn_mean"] * inv)
-    y = torch.clamp(y, 0.0, 6.0)
+    # max then min, as ``jnp.clip``: a value exactly at 0 or 6 (a window
+    # of zeros after a ReLU) takes half the gradient there, as XLA's
+    y = torch.minimum(torch.maximum(y, y.new_zeros(())), y.new_full((), 6.0))
     if train_qat and quant_bits:
         y = fake_quant(y, A4 if quant_bits == 4 else A8)
     return y
@@ -184,9 +187,6 @@ def forward(params: dict, cfg: MobileNetConfig, x: torch.Tensor,
 
 def loss_fn(params: dict, cfg: MobileNetConfig, batch: dict) -> torch.Tensor:
     """Mean cross-entropy of ``batch["images"]`` against
-    ``batch["labels"]`` (the forward only: training is not ported yet)."""
-    logits = forward(params, cfg, batch["images"]).to(torch.float32)
-    labels = batch["labels"].to(torch.int64)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[:, None])[:, 0]
-    return torch.mean(logz - gold)
+    ``batch["labels"]`` (QAT when ``cfg.quant == "qat"``), the loss that
+    ``train.step`` differentiates."""
+    return nll(forward(params, cfg, batch["images"]), batch["labels"])

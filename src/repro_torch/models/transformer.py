@@ -61,8 +61,8 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (init_embedding, init_linear, init_mlp,
-                                       init_norm, layer_norm, mlp, rms_norm,
-                                       softcap)
+                                       init_norm, layer_norm, mlp, nll,
+                                       rms_norm, softcap)
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -202,6 +202,10 @@ def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     under ``embed_scale`` either way, as the reference's."""
     if embeddings is not None:
         x = embeddings.to(cfg.cdtype)
+    elif torch.is_grad_enabled():
+        # cast, then gather, as the reference: the table's gradient is
+        # scatter-added in the compute dtype, then cast to the table's
+        x = params["embed"]["emb"].to(cfg.cdtype)[tokens.long()]
     else:
         # gather, then cast: the reference's cast-then-gather's values
         # without converting the whole table every call
@@ -308,27 +312,83 @@ def _block(bp: dict, spec: BlockSpec, cfg: ModelConfig, x: torch.Tensor,
     return x, cache, aux
 
 
+def _remat_context(cfg: ModelConfig):
+    """``checkpoint``'s ``context_fn`` for ``cfg.remat == "dots"``: keep
+    the outputs of the 2-D matrix products (the reference's
+    ``dots_with_no_batch_dims_saveable``), recompute everything else."""
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+    saved = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return create_selective_checkpoint_contexts(policy)
+
+
+def _layers(params: dict, cfg: ModelConfig, x: torch.Tensor,
+            positions: torch.Tensor, mrope_positions=None):
+    """Every layer over the full sequence: (x, the MoE aux losses summed
+    in layer order).  Under autograd each pattern group (the reference's
+    scan step) is rematerialized as ``cfg.remat`` says: ``"full"`` keeps
+    only the group's input, ``"dots"`` also its matrix products,
+    ``"none"`` everything; the values and gradients are the same bits."""
+    from torch.utils.checkpoint import checkpoint
+    P = len(cfg.pattern)
+    blocks = params["blocks"]
+    shared = params.get("shared_attn")
+
+    def group(g: int, x: torch.Tensor, total: torch.Tensor):
+        for i in range(g * P, min((g + 1) * P, len(blocks))):
+            x, _, aux = _block(blocks[i], layer_spec(cfg, i), cfg, x,
+                               positions, shared, mrope_positions)
+            if aux is not None:
+                total = total + aux
+        return x, total
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat if torch.is_grad_enabled() else "none"
+    for g in range(-(-len(blocks) // P)):
+        if remat == "none":
+            x, total = group(g, x, total)
+        elif remat == "full":
+            x, total = checkpoint(group, g, x, total, use_reentrant=False)
+        elif remat == "dots":
+            x, total = checkpoint(group, g, x, total, use_reentrant=False,
+                                  context_fn=lambda: _remat_context(cfg))
+        else:
+            raise ValueError(f"unknown remat {cfg.remat!r}: expected "
+                             "'full', 'dots' or 'none'")
+    return x, total
+
+
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor = None,
             embeddings: torch.Tensor = None, mrope_positions=None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward: (logits [B, S, V] compute dtype, aux float32:
     the MoE layers' aux losses summed, 0.0 without any).  ``embeddings``
     [B, S, d] (the stub modality frontend's output) replace the token
-    embedding; ``mrope_positions`` [B, S, 3] rotate under M-RoPE."""
+    embedding; ``mrope_positions`` [B, S, 3] rotate under M-RoPE.  Under
+    autograd the layers are rematerialized per ``cfg.remat``."""
     check_supported(cfg)
     x = _embed(params, cfg, tokens, embeddings)
     B, S = x.shape[:2]
     positions = attn_lib.arange_positions(B, S, x.device)
-    total = torch.zeros((), dtype=torch.float32, device=x.device)
-    shared = params.get("shared_attn")
-    for i, bp in enumerate(params["blocks"]):
-        x, _, aux = _block(bp, layer_spec(cfg, i), cfg, x, positions, shared,
-                           mrope_positions)
-        if aux is not None:
-            total = total + aux
+    x, total = _layers(params, cfg, x, positions, mrope_positions)
     x = _norm(params["final_norm"], x, cfg)
     logits = _final_softcap(_lm_head(params, cfg, x.to(cfg.cdtype)), cfg)
     return logits, total
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """Causal LM loss: the mean NLL of ``batch["labels"]`` [B, S] under
+    the logits of ``batch["tokens"]`` [B, S] (or of the frontend's
+    ``batch["embeddings"]``, rotated by ``batch["mrope_positions"]``), in
+    float32, plus the MoE aux loss."""
+    logits, aux = forward(params, cfg, batch.get("tokens"),
+                          embeddings=batch.get("embeddings"),
+                          mrope_positions=batch.get("mrope_positions"))
+    return nll(logits, batch["labels"]) + aux
 
 
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor = None,

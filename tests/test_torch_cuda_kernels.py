@@ -1180,3 +1180,86 @@ def test_cuda_expert_wrappers_reject_bad_stacks(cuda_device):
             torch.ones((3, 1, 8), device=cuda_device))
     with pytest.raises(TypeError):
         kernel.int_matmul_experts(a, w)
+
+
+# ---------------------------------------------------------------------------
+# training: the deployed-model evaluation's shapes and one QAT step
+# ---------------------------------------------------------------------------
+
+# minicpm-2b's projections at the train phase's eval shape, M = 4 x 512
+TRAIN_EVAL_M = 2048
+TRAIN_EVAL_KN = [(2304, 2304), (2304, 5760), (5760, 2304)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,N", TRAIN_EVAL_KN)
+def test_cuda_fused_kernels_at_train_eval_shape(cuda_device, K, N):
+    """The fused LUT kernel (``w4a4_lut``) and the fused int8 kernel on the
+    unpacked 4-bit codes (``w4a4_mxu``) at M = 2,048, bitwise against their
+    plain versions."""
+    a, w, _, _, a_s, w_s = (torch.from_numpy(v).to(cuda_device)
+                            for v in _inputs(TRAIN_EVAL_M, K, N, seed=9))
+    a4 = ref.decode_codes(a).to(torch.int8)
+    w4 = ref.decode_codes(ref.unpack_int4(w.T).T, 4).to(torch.int8) \
+        .contiguous()
+    got = kernel.lutmul_fused(a, w, a_s, w_s, out_dtype=torch.bfloat16)
+    want = ref.scaled_lutmul_ref(a, w, a_s, w_s, out_dtype=torch.bfloat16)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    got = kernel.int_matmul_fused(a4, w4, a_s, w_s, out_dtype=torch.bfloat16)
+    want = ref.scaled_int_matmul_ref(a4, w4, a_s, w_s,
+                                     out_dtype=torch.bfloat16)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.gpu
+def test_cuda_qat_train_step_matches_cpu(cuda_device):
+    """One minicpm-2b smoke QAT step with the W4 projection (float32
+    compute, TF32 off) on the card and on the CPU from the same weights and
+    batch.  Loss and gradient norm within rtol 1e-5 (float32 sums in other
+    orders: cuBLAS, the card's shape-stable attention); every parameter
+    within 1e-4 but where a weight sat within rounding of a W4 boundary
+    before the projection: at most one in 10,000 may move by up to two
+    steps of its column's scale."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.core.tree import flatten
+    from repro_torch.data import pipeline
+    from repro_torch.models import transformer
+    from repro_torch.train import step as tstep
+    cfg = dataclasses.replace(configs.get_config(
+        "minicpm-2b", smoke=True, quant="qat"), compute_dtype="float32")
+    tcfg = tstep.TrainConfig(schedule="wsd", qat_project=True, peak_lr=1e-3,
+                             warmup=0, total_steps=8)
+    batch = pipeline.lm_batch(pipeline.DataConfig(vocab=cfg.vocab,
+                                                  seq_len=32,
+                                                  global_batch=4), 0)
+    params = transformer.init_params(cfg, seed=0, device="cpu")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for dev in ("cpu", cuda_device):
+            state = tstep.init_state(_to(params, dev))
+            state, m = tstep.make_train_step(cfg, tcfg)(state, batch)
+            out[str(dev)] = (state, {k: float(v) for k, v in m.items()})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (cs, cm), (gs, gm) = out["cpu"], out[str(cuda_device)]
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(gm[k], cm[k], rtol=1e-5)
+    assert gm["lr"] == cm["lr"]
+    n = moved = 0
+    for p, c, g in zip(*flatten(cs["params"]), flatten(gs["params"])[1]):
+        d = (g.cpu() - c).abs()
+        n += d.numel()
+        far = d > 1e-4
+        moved += int(far.sum())
+        step = c.abs().amax(dim=tuple(range(c.dim() - 1)) or None) / 7
+        assert bool((d <= 2 * step + 1e-4).all()), p
+    assert moved <= n // 10_000, (moved, n)
+
+
+def _to(tree, dev):
+    from repro_torch.core.tree import tree_map
+    return tree_map(lambda t: t.to(dev, copy=True), tree)

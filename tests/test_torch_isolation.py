@@ -50,7 +50,10 @@ def test_port_has_modules():
                 "models/ssm.py", "configs/rwkv6_1p6b.py",
                 "configs/zamba2_2p7b.py", "models/encdec.py",
                 "configs/whisper_large_v3.py", "configs/qwen2_vl_72b.py",
-                "dist/mesh.py", "dist/tp.py", "serve/sharded.py"):
+                "dist/mesh.py", "dist/tp.py", "serve/sharded.py",
+                "dist/straggler.py", "data/pipeline.py", "optim/adamw.py",
+                "optim/schedules.py", "optim/grad_compress.py",
+                "train/step.py", "train/loop.py", "core/tree.py"):
         assert f"src/repro_torch/{mod}" in names, mod
     for src in ("thresholds.cu", "lutmul_gather.cu"):
         assert (ROOT / "src" / "repro_torch" / "csrc" / src).is_file(), src
