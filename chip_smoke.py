@@ -20,7 +20,9 @@ Phases (any failure raises and exits non-zero):
    off where float32 is exact; else ``torch._int_mm`` on the rows
    zero-padded to 32).  Shape groups: qwen2-7b's 7 inner projections through
    the LUT kernel, the gather baseline and the T-MAC kernel (target P = 4,
-   drafter P = 2, verify M = 32), gemma2-2b's and minicpm-2b's through the
+   drafter P = 2, verify M = 32; the layer under the mixed plans of 3.2
+   and 2.0 bits, a plane count a projection; wi at P = 3 and wg at P = 1,
+   the binary kind, alone), gemma2-2b's and minicpm-2b's through the
    LUT kernel, bitnet-3b's through the T-MAC kernel (ternary, g = 1), the
    int8 heads of qwen2-7b, bitnet-3b, rwkv6-1.6b and zamba2-2.7b,
    qwen2-moe-a2.7b's experts through the LUT kernel: one expert of each
@@ -138,6 +140,28 @@ Phases (any failure raises and exits non-zero):
    lut, lut sampled, int8 lut; no key captured after the load);
    ``checkpoint[...]`` lines give bytes on disk and raw, the codec, the
    save and load host ms and whether msgpack and zstandard import.
+   Then the mixed phase (``run_mixed``): the paper's analytic model printed
+   once (``paper model``: the Fig. 5 INIT words for (+1, -3) asserted
+   equal to the paper's, Eq. 3's LUTs a 4-bit multiply, the U280's DSP and
+   LUTMUL peaks, ``balance_folding`` of MobileNetV2 at the paper's 529,242
+   LUTs: analytic U280 figures, not measurements of the card); qwen2-7b's
+   plans at 4.0, 3.2 and 2.0 bits from its full-width shapes alone
+   (``init_params`` on the meta device), each asserted (``MIXED_MLP``;
+   attention w4); then at 28 layers, each tree built a layer at a time
+   under its plan: uniform w4a4_tmac (the 4.0 plan) fused over the 8
+   requests, and at 3.2 and 2.0 bits fused (8) == unfused (4) == the plain
+   backend (the first request, ``PLAIN_TOKENS``), every served leaf's
+   plane count equal to the plan and the tree's code bytes equal to the
+   count from the shapes, each engine's replayed round profiled (``mixed
+   runs[...]`` puts them side by side); the all-w4 plan on layers
+   otherwise quantized to nibbles at ``CUT_LAYERS`` over 4 requests == the
+   w4a4_tmac run there; last, with autotuning on, ``pick_formulation``
+   times the T-MAC against the one-hot LUT kernel at M = 256 at qwen2-7b's
+   four inner shapes at w2, w3 and w4 (``formulation picker[...]``), and a
+   suffix-free ``w2a4`` model at ``CUT_LAYERS``, under the timed choice
+   and with the other formulation forced at every shape (so the LUT
+   kernel runs on w2 codes as nibbles), each over 4 requests == the
+   ``w2a4_tmac`` run.
 4. serving bitnet-3b (13 of its 26 layers, full width) in ternary_a8_tmac:
    fused (8 requests) and plain (first 1), equal transcripts.  Then gemma2-2b
    (14 of its 26 layers, full width: local and global layers, window
@@ -430,7 +454,21 @@ TRAIN_GROUP = f"minicpm-2b layer, M={TRAIN_M} (train eval)"
 MB_TRAIN_STEPS = 4
 LOOP_STEPS, LOOP_CKPT, LOOP_FAIL = 8, 3, 5
 LOOP_RTOL = 1e-6                  # the reference's own loop test's
-PHASES = ("kernels", "qwen", "bitnet", "gemma2", "minicpm", "phi3",
+# the mixed phase: qwen2-7b's planned MLP widths (attention stays w4) at
+# each target of roofline.analysis.plan_mixed_bits on its full-width shapes,
+# the same leaves as kernel-group specs, the paper's analytic U280
+# operating point (the LUTs of its MobileNetV2 design, the overhead a
+# multiplier, the unfolded first layers) and the shapes the formulation
+# picker times
+MIXED_TARGETS = (3.2, 2.0)
+MIXED_MLP = {3.2: {"wg": 2, "wi": 3, "wo": 4},
+             2.0: {"wg": 1, "wi": 2, "wo": 2}}
+MIXED_SPECS = {t: {"wi": m["wi"], "wg": m["wg"], "mlp.wo": m["wo"]}
+               for t, m in MIXED_MLP.items()}
+PAPER_LUT_BUDGET, PAPER_OVERHEAD, PAPER_PREFIX = 529_242, 3.24, 15
+PICKER_SHAPES = {"wq/wo": (3584, 3584), "wk/wv": (3584, 512),
+                 "wi/wg": (3584, 18944), "mlp.wo": (18944, 3584)}
+PHASES = ("kernels", "qwen", "mixed", "bitnet", "gemma2", "minicpm", "phi3",
           "qwen2moe", "mixtral", "rwkv6", "zamba2", "whisper", "qwen2vl",
           "sharded", "mobilenetv2", "train")
 # the sampled, tmac, paged, int8 KV, speculative, faults and QoS stages
@@ -799,17 +837,28 @@ def check_kernels(bench: Bench) -> None:
     check_train_eval_shapes(bench, gen, scales)
 
     # the T-MAC kernel: target, drafter and verify of qwen2-7b in
-    # w4a4_tmac, and bitnet-3b's ternary_a8_tmac projections
+    # w4a4_tmac, bitnet-3b's ternary_a8_tmac projections, and qwen2-7b's
+    # layer under the mixed plans (a spec a projection, w4 where the plan
+    # names none), wi at P = 3 and wg at P = 1 (the binary kind) alone
     tmac_groups = [
         ("qwen2-7b target layer, P=4 g=2 M=8", QWEN_INNER, 4, 4, SLOTS),
         ("qwen2-7b drafter layer, P=2 g=2 M=8", QWEN_INNER, 2, 4, SLOTS),
         ("qwen2-7b verify layer, P=4 g=2 M=32", QWEN_INNER, 4, 4, VERIFY_M),
         ("bitnet-3b layer, ternary g=1 M=8", BITNET_INNER, "ternary", 8,
-         SLOTS)]
-    for group, shapes, spec, abits, M in tmac_groups:
-        P = plane_decomposition(spec)[0]
+         SLOTS),
+        ("qwen2-7b mixed layer, 3.2 bits, g=2 M=8", QWEN_INNER,
+         MIXED_SPECS[3.2], 4, SLOTS),
+        ("qwen2-7b mixed layer, 2.0 bits, g=2 M=8", QWEN_INNER,
+         MIXED_SPECS[2.0], 4, SLOTS),
+        ("qwen2-7b wi, P=3 g=2 M=8", {"wi": QWEN_INNER["wi"]}, 3, 4, SLOTS),
+        ("qwen2-7b wg, P=1 (binary) g=2 M=8", {"wg": QWEN_INNER["wg"]}, 1,
+         4, SLOTS)]
+    for group, shapes, group_spec, abits, M in tmac_groups:
         g = 1 if abits == 8 else 2
-        for K, N in shapes.values():
+        for name, (K, N) in shapes.items():
+            spec = group_spec.get(name, 4) if isinstance(group_spec, dict) \
+                else group_spec
+            P = plane_decomposition(spec)[0]
             lo = -(1 << (abits - 1))
             a = torch.randint(lo, -lo, (M, K), generator=gen, device=dev,
                               dtype=torch.int8)
@@ -828,7 +877,7 @@ def check_kernels(bench: Bench) -> None:
             lib = _library_ms(a, w8, ref.tmac_ref(a, planes, spec), flush,
                               reps)
             in_bytes = M * K + P * K * N // 8
-            shape = {"M": M, "K": K, "N": N}
+            shape = {"M": M, "K": K, "N": N, "P": P}
             bench.one("lutmul_tmac", group,
                       lambda: kernel.lutmul_tmac(a, planes, spec, g=g),
                       lambda: ref.tmac_ref(a, planes, spec), lib, shape,
@@ -997,6 +1046,7 @@ def make_requests(vocab: int, seed: int = 0, sampled: bool = False):
 
 RUNS: dict = {}
 TRAIN: dict = {}
+TRANSCRIPTS: dict = {}         # runs a later phase holds its own against
 
 
 def reset_launches() -> None:
@@ -1072,13 +1122,16 @@ def inner_per_forward(cfg) -> int:
     return n
 
 
-def _want_launches(engine, inner: str, fused: bool, forwards: int) -> dict:
+def _want_launches(engine, inner, fused: bool, forwards: int) -> dict:
     """The launches ``forwards`` forwards make: :func:`inner_per_forward`
-    of the inner kernel, and one of the int8 head kernel where the model
-    has an untied head (a tied head is a plain matrix product, as in the
+    of the inner kernel (``inner`` a dict: these launches of each kernel a
+    forward), and one of the int8 head kernel where the model has an
+    untied head (a tied head is a plain matrix product, as in the
     reference)."""
     sfx = "_fused" if fused else ""
-    want = {inner + sfx: inner_per_forward(engine.cfg) * forwards}
+    per = inner if isinstance(inner, dict) else {
+        inner: inner_per_forward(engine.cfg)}
+    want = {k + sfx: n * forwards for k, n in per.items()}
     if "lm_head" in engine.params:
         want["int_matmul" + sfx] = forwards
     return want
@@ -1136,14 +1189,15 @@ def reset_peak(empty: bool = False) -> None:
 
 
 def serve(engine, vocab: int, label: str, n_requests: int,
-          inner: str = None, fused: bool = True,
+          inner=None, fused: bool = True,
           sampled: bool = False, reqs: list = None, plan=None,
           sched_kw: dict = None, hold: list = None, drive=None) -> list:
     """Drain ``n_requests`` requests (``sampled``: with the sampled mix's
     knobs; ``reqs``: these instead) through a fresh Scheduler, with the
     launch counters zeroed just before and read just after; ``inner`` names
     the projection kernel every forward must launch 7 times per layer (the
-    head kernel once), None for the plain backend (no launches at all).  A
+    head kernel once; a dict: each kernel's launches a forward), None for
+    the plain backend (no launches at all).  A
     replayed round counts the launches its capture recorded, and on the
     kernel backend every round the engine ran must be a replayed graph.  A
     paged engine's run also reports its pool (peak pages, resident KV bytes
@@ -2178,21 +2232,26 @@ def depth(cfg, n_layers):
         n_enc_layers=min(cfg.n_enc_layers, n_layers))
 
 
-def new_engine(cfg, max_len: int, label: str):
+def new_engine(cfg, max_len: int, label: str, bits_plan: dict = None,
+               mode: str = None):
     """Seeded random weights (seed 0) on the card, each layer quantized to
-    ``cfg.quant`` as it is made (``serve.quantize.init_served_params``: the
-    codes of quantizing ``init_params``' tree, which is never whole on the
-    card; a tied embedding stays float, as the head reads it), served by
-    ``make_engine``.  Logs the init and the peak device memory in it."""
+    ``mode`` (default ``cfg.quant``; ``bits_plan``: a leaf's own mode) as
+    it is made (``serve.quantize.init_served_params``: the codes of
+    quantizing ``init_params``' tree, which is never whole on the card; a
+    tied embedding stays float, as the head reads it), served by
+    ``make_engine`` under ``cfg.quant`` and the plan.  Logs the init and
+    the peak device memory in it."""
     import torch
     from repro_torch.serve import ServeConfig, make_engine
     from repro_torch.serve.quantize import init_served_params
     reset_peak(empty=True)
     held_gib = torch.cuda.memory_allocated() / 2**30
     t0 = time.perf_counter()
-    params = init_served_params(cfg, cfg.quant, seed=0, device="cuda")
+    params = init_served_params(cfg, mode or cfg.quant, seed=0,
+                                device="cuda", bits_plan=bits_plan)
     engine = make_engine(params, cfg, ServeConfig(
-        quant=cfg.quant, max_len=max_len, seed=SAMPLE_SEED))
+        quant=cfg.quant, max_len=max_len, seed=SAMPLE_SEED,
+        bits_plan=bits_plan))
     del params
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2278,6 +2337,7 @@ def run_cut_tmac(cfg, V: int, q: str, lut: list, lut_s: list, lut8: list,
     tmac = new_engine(dataclasses.replace(cfg, quant="w4a4_tmac"), 256,
                       "qwen2-7b (cut, w4a4_tmac)")
     fused = serve(tmac, V, f"{q} tmac fused", 8, "lutmul_tmac")
+    TRANSCRIPTS["tmac cut"] = (cfg.n_layers, fused)
     same(fused, lut, f"{q} tmac fused == {q} lut fused")
     same(serve(tmac, V, f"{q} tmac fused sampled", 4, "lutmul_tmac",
                sampled=True), lut_s,
@@ -3605,6 +3665,266 @@ def run_qwen2vl(n_layers, profile_steps: int) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the mixed phase: the paper's analytic model, planned mixed widths, the
+# timed formulation picker
+# ---------------------------------------------------------------------------
+
+def paper_model() -> None:
+    """The paper's own figures from ``core.lut`` and ``core.fpga_model``:
+    analytic numbers for an AMD Alveo U280 at 333 MHz, not measurements of
+    this card (nothing here runs on it)."""
+    from repro_torch.core import fpga_model as fm
+    from repro_torch.core.lut import (PAPER_FIG5_INIT_WORDS,
+                                      lut6_2_init_words, luts_per_multiply,
+                                      luts_per_multiply_general)
+    from repro_torch.models.mobilenet import (MobileNetConfig,
+                                              fpga_layer_table)
+    words = tuple(lut6_2_init_words(1, -3))
+    if words != PAPER_FIG5_INIT_WORDS:
+        raise AssertionError(f"Fig. 5 INIT words {words} != the paper's")
+    peaks = {"dsp_gops": fm.dsp_peak_ops(fm.U280, 4) / 1e9,
+             "lutmul_gops_by_overhead": {
+                 ovh: fm.lutmul_peak_ops(fm.U280, 4, lut_overhead=ovh) / 1e9
+                 for ovh in (1.0, 2.0, PAPER_OVERHEAD)}}
+    layers = fpga_layer_table(MobileNetConfig())
+    bal = fm.balance_folding(layers, PAPER_LUT_BUDGET, fm.U280.freq_hz,
+                             PAPER_OVERHEAD,
+                             full_parallel_prefix=PAPER_PREFIX)
+    gops = bal["fps"] * sum(lyr.ops for lyr in layers) / 1e9
+    log(f"paper model (analytic: AMD Alveo U280 at 333 MHz, not measured "
+        f"on any chip): Fig. 5 INIT words for (+1, -3) "
+        f"{[hex(w) for w in words]} == the paper's; LUT6 a 4-bit multiply "
+        f"{luts_per_multiply(4)} (a general multiplier "
+        f"{luts_per_multiply_general(4)}); 4-bit peaks "
+        f"{json.dumps(peaks)}; MobileNetV2 folded into {PAPER_LUT_BUDGET} "
+        f"LUTs at overhead {PAPER_OVERHEAD}, the first {PAPER_PREFIX} layers "
+        f"unfolded: fps {bal['fps']} ({gops} GOPS), total LUTs "
+        f"{bal['total_luts']}, folds {bal['folds']}")
+
+
+def _path_get(tree, path: str):
+    """The subtree at a walk path (``"['blocks'][3]['mlp']['wi']"``)."""
+    import re
+    for key, idx in re.findall(r"\['([^']+)'\]|\[(\d+)\]", path):
+        tree = tree[key] if key else tree[int(idx)]
+    return tree
+
+
+def plan_code_bytes(shapes: dict, plan: dict) -> int:
+    """Code bytes a plan's served tree holds, from the float tree's shapes:
+    P x K/8 x N a planned bitplane leaf, K x N the int8 head."""
+    from repro_torch.core.lut import plane_decomposition
+    from repro_torch.kernels.lutmul import ops
+    n = 0
+    for path, mode in plan.items():
+        K, N = _path_get(shapes, path).shape
+        n += plane_decomposition(ops.parse_mode(mode)[1])[0] * K // 8 * N
+    K, N = shapes["lm_head"]["w"].shape
+    return n + K * N
+
+
+def check_planes(engine, plan: dict) -> None:
+    """Every planned leaf is served as bitplanes at its plan's width."""
+    from repro_torch.core.lut import plane_decomposition
+    from repro_torch.kernels.lutmul import ops
+    for path, mode in plan.items():
+        leaf = _path_get(engine.params, path[:-len("['w']")])
+        want = plane_decomposition(ops.parse_mode(mode)[1])[0]
+        if "w_tmac" not in leaf or leaf["w_q"].shape[0] != want:
+            raise AssertionError(f"{path}: served {tuple(leaf['w_q'].shape)}"
+                                 f", the plan says {mode}")
+
+
+def mixed_plans(cfg) -> tuple:
+    """``plan_mixed_bits`` of full-width qwen2-7b at 4.0 and each
+    ``MIXED_TARGETS`` from its shapes alone (``init_params`` on the meta
+    device: no float weight anywhere), checked against ``MIXED_MLP``
+    (attention w4), and the shape tree."""
+    from repro_torch.models import transformer
+    from repro_torch.roofline.analysis import count_params, plan_mixed_bits
+    t0 = time.perf_counter()
+    shapes = transformer.init_params(cfg, device="meta")
+    plans = {t: plan_mixed_bits(shapes, t, cfg) for t in
+             (4.0,) + MIXED_TARGETS}
+    for t, plan in plans.items():
+        mlp = MIXED_MLP.get(t, dict.fromkeys(("wg", "wi", "wo"), 4))
+        want = {}
+        for i in range(cfg.n_layers):
+            for leaf in ("wq", "wk", "wv", "wo"):
+                want[f"['blocks'][{i}]['attn']['{leaf}']['w']"] = "w4a4_tmac"
+            for leaf, bits in mlp.items():
+                want[f"['blocks'][{i}]['mlp']['{leaf}']['w']"] = \
+                    f"w{bits}a4_tmac"
+        if plan != want:
+            raise AssertionError(f"plan at {t} bits: {plan}")
+        first = {k.split("]", 1)[1]: v for k, v in plan.items()
+                 if k.startswith("['blocks'][0]")}
+        log(f"plan[qwen2-7b, {t} bits]: every one of {cfg.n_layers} layers "
+            f"{json.dumps(first)}; codes {plan_code_bytes(shapes, plan)} B "
+            "with the int8 head")
+    log(f"plans: {count_params(shapes)['total']} parameters, planned from "
+        f"shapes in {time.perf_counter() - t0:.1f}s")
+    return shapes, plans
+
+
+def formulation_launches(params) -> dict:
+    """Kernel launches a forward of a suffix-free sub-4-bit model: the
+    T-MAC kernel for each bitplane leaf, the LUT kernel for each nibble
+    leaf (``ops.lut_leaf``), by the formulation each leaf was stored in."""
+    out = {}
+    for blk in params["blocks"]:
+        for grp in blk.values():
+            for leaf in (grp.values() if isinstance(grp, dict) else ()):
+                if isinstance(leaf, dict) and "w_q" in leaf:
+                    k = "lutmul_tmac" if "w_tmac" in leaf else "lutmul"
+                    out[k] = out.get(k, 0) + 1
+    return out
+
+
+def run_mixed(n_layers, profile_steps: int) -> None:
+    """The paper's analytic model (printed), then qwen2-7b at full width
+    and depth under its planned mixed widths: uniform w4a4_tmac (the plan
+    at 4.0) fused over the 8 requests, then each ``MIXED_TARGETS`` plan
+    fused (8) == unfused (4) == the plain backend (the first request,
+    ``PLAIN_TOKENS``), plane counts and code bytes checked, a replayed round
+    profiled; the all-w4 plan over nibble-mode float layers at the cut
+    depth == the w4a4_tmac run there; then the timed formulation picker."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import qwen2_7b
+    from repro_torch.kernels.lutmul import ops
+    paper_model()
+    full = qwen2_7b.config(quant="w4a4_tmac")
+    shapes, plans = mixed_plans(full)
+    cfg = depth(full, n_layers)
+    V = cfg.vocab
+
+    def cut(plan, layers):
+        return {k: v for k, v in plan.items()
+                if int(k.split("][")[1]) < layers}
+
+    ops.set_backend("cuda")
+    ops.set_variant(None)
+    summary = {}
+    for t in (4.0,) + MIXED_TARGETS:
+        plan = cut(plans[t], cfg.n_layers)
+        name = "w4a4_tmac" if t == 4.0 else f"mixed {t}"
+        engine = new_engine(cfg, 256, f"qwen2-7b {name}", bits_plan=plan)
+        check_planes(engine, plan)
+        kinds = served_bytes(engine.params)
+        got = kinds["uint8 codes"] + kinds["int8 codes"]
+        want = plan_code_bytes(shapes, plan)
+        if got != want:
+            raise AssertionError(f"{name}: {got} code bytes, the shapes "
+                                 f"give {want}")
+        fused = serve(engine, V, f"qwen {name} fused", 8, "lutmul_tmac")
+        if t != 4.0:
+            ops.set_variant("unfused")
+            same(serve(engine, V, f"qwen {name} unfused", 4, "lutmul_tmac",
+                       fused=False), fused,
+                 f"qwen {name} unfused == qwen {name} fused")
+            ops.set_variant(None)
+            ops.set_backend("ref")
+            same(serve(engine, V, f"qwen {name} plain", 1,
+                       reqs=first_request(V)), [fused[0][:PLAIN_TOKENS]],
+                 f"qwen {name} plain == qwen {name} fused")
+            ops.set_backend("cuda")
+        profile_engine(engine, f"qwen {name}", min(profile_steps, 1),
+                       eager=False)
+        st = RUNS[f"qwen {name} fused"]
+        summary[name] = {
+            "code_bytes": got, "ms_per_decode_step": st["ms_per_decode_step"],
+            "ms_per_decode_step_after_capture":
+                st["ms_per_decode_step_after_capture"],
+            "tokens_per_s": st["tokens_per_s"],
+            "tokens_per_s_after_capture": st["tokens_per_s_after_capture"],
+            "keys": st["graphs"]["keys_captured"],
+            "capture_s": st["graphs"]["capture_s"],
+            "peak_gib": st["peak_gib"],
+            "round_device_ms": PROFILES.get(
+                f"qwen {name} decode round, replayed", {}).get(
+                "device_ms_per_call")}
+        del engine
+        torch.cuda.empty_cache()
+    log(f"mixed runs[{cfg.n_layers} layers]: {json.dumps(summary)}")
+    layers = min(CUT_LAYERS, n_layers or CUT_LAYERS)
+    ccfg = dataclasses.replace(full, n_layers=layers)
+    plan4 = cut(plans[4.0], layers)
+    # the plan alone makes these leaves bitplanes: the layers quantize
+    # under w4a4_lut (nibbles) but for the plan
+    engine = new_engine(ccfg, 256, "qwen2-7b all-w4 plan (cut)",
+                        bits_plan=plan4, mode="w4a4_lut")
+    check_planes(engine, plan4)
+    got = serve(engine, V, f"qwen{layers} all-w4 plan fused", 4,
+                "lutmul_tmac")
+    del engine
+    if TRANSCRIPTS.get("tmac cut", (None,))[0] != layers:
+        tmac = new_engine(ccfg, 256, "qwen2-7b (cut, w4a4_tmac)")
+        TRANSCRIPTS["tmac cut"] = (layers, serve(
+            tmac, V, f"qwen{layers} tmac fused, 4", 4, "lutmul_tmac"))
+        del tmac
+    same(got, TRANSCRIPTS["tmac cut"][1],
+         f"qwen{layers} all-w4 plan == qwen{layers} tmac fused")
+    run_picker(ccfg, V)
+    torch.cuda.empty_cache()
+
+
+def run_picker(ccfg, V: int) -> None:
+    """With autotuning on, ``pick_formulation`` times the T-MAC kernel
+    against the one-hot LUT kernel at qwen2-7b's four inner shapes at w2,
+    w3 and w4 (a4); then a suffix-free ``w2a4`` model at the cut depth,
+    under the timed choice and with the other formulation forced at every
+    shape, each over 4 requests == the explicit ``w2a4_tmac`` run (the
+    same integer sums, the same epilogue), every leaf launching the kernel
+    of the format it was stored in."""
+    import dataclasses
+    from repro_torch.kernels.lutmul import ops
+    layers = ccfg.n_layers
+    keys = {}
+    ops.set_autotune(True)
+    try:
+        table = {}
+        for wbits in (2, 3, 4):
+            for name, (K, N) in PICKER_SHAPES.items():
+                key = (wbits, 4, K, N, "cuda")
+                ops._FORMULATION_CACHE.pop(key, None)
+                win = ops.pick_formulation(wbits, 4, K, N, "cuda")
+                table[f"w{wbits} {name} {K}x{N}"] = {
+                    **ops.FORMULATION_TIMES[key], "winner": win}
+                if wbits == 2:
+                    keys[key] = win
+    finally:
+        ops.set_autotune(None)
+    log(f"formulation picker[M={ops.PROBE_M}, ms]: {json.dumps(table)}")
+    tm = new_engine(dataclasses.replace(ccfg, quant="w2a4_tmac"), 256,
+                    "qwen2-7b (cut, w2a4_tmac)")
+    want = serve(tm, V, f"qwen{layers} w2a4_tmac fused", 4, "lutmul_tmac")
+    del tm
+    lut_runs = 0
+    try:
+        for forced in (False, True):
+            if forced:
+                for key, win in keys.items():
+                    ops._FORMULATION_CACHE[key] = ("onehot" if win == "tmac"
+                                                   else "tmac")
+            label = f"qwen{layers} w2a4 " + ("forced the other way" if forced
+                                             else "timed")
+            eng = new_engine(dataclasses.replace(ccfg, quant="w2a4"), 256,
+                             f"qwen2-7b (cut, {label})")
+            per = formulation_launches(eng.params)
+            log(f"{label}: launches a forward {json.dumps(per)}")
+            same(serve(eng, V, label, 4, per), want,
+                 f"{label} == qwen{layers} w2a4_tmac fused")
+            lut_runs += RUNS[label]["launches"].get("lutmul_fused", 0) > 0
+            del eng
+    finally:
+        for key in keys:
+            ops._FORMULATION_CACHE.pop(key, None)
+    if not lut_runs:
+        raise AssertionError("no w2a4 run launched lutmul_fused")
+
+
 def run_bitnet(n_layers: int, profile_steps: int) -> None:
     import dataclasses
     import torch
@@ -4162,6 +4482,8 @@ def main() -> int:
     bench = Bench(args.reps, sm_hz)
     for phase, fn in (("kernels", lambda: check_kernels(bench)),
                       ("qwen", lambda: run_qwen(args.layers, args.profile)),
+                      ("mixed",
+                       lambda: run_mixed(args.layers, args.profile)),
                       ("bitnet",
                        lambda: run_bitnet(args.layers, args.profile)),
                       ("gemma2",

@@ -7,6 +7,14 @@ from typing import Optional, Union
 import torch
 
 
+def seeded_generator(dev: torch.device, seed: int) -> torch.Generator:
+    """A generator seeded with ``seed`` on ``dev``; on the ``meta`` device
+    (shapes only: no memory, no values) a CPU one, which meta tensors take
+    and ignore."""
+    return torch.Generator(device="cpu" if dev.type == "meta"
+                           else dev).manual_seed(seed)
+
+
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
     """``None`` means the GPU; asking for a GPU on a machine without one

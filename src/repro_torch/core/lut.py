@@ -1,9 +1,20 @@
-"""Product tables, int4 packing and the sub-4-bit bitplane format (port of
-``repro.core.lut``'s tensor part).
+"""The paper's LUT multiply: the FPGA's LUT6_2 INIT words, the Eq. 3 cost
+model, product tables, int4 packing and the sub-4-bit bitplane format
+(port of ``repro.core.lut``).
 
-``product_table`` is the paper's LUT multiply as a ``[2^w, 2^a]`` table:
+``lut6_2_init_words`` gives the 64-bit INIT words of the Xilinx LUT6_2
+primitives that embed two int4 weights as constant multipliers, as the
+paper's Fig. 5 prints them.  Input wiring (MSB to LSB) is ``{I5=1, I4=WS
+(weight select), I3..I0=uint4 activation}``; LUT ``j`` (j = 0 the most
+significant) emits product bit ``7-2j`` on O6 (``INIT[32 + 16*WS + a]``)
+and bit ``6-2j`` on O5 (``INIT[16*WS + a]``).  ``multiply_via_lut6`` reads
+the bank as the FPGA would; ``luts_per_multiply`` is Eq. 3.  These are
+plain Python integers: no device is involved.
+
+``product_table`` is the same multiply as a ``[2^w, 2^a]`` table:
 ``T[w_code, a_code] == w * a`` for the two's-complement weight code and the
-(un)signed activation code.  ``contraction_words`` is its selection stage as
+(un)signed activation code; both it and the INIT words derive from
+:func:`_int_product`.  ``contraction_words`` is its selection stage as
 the CUDA lutmul kernel takes it: per weight code the four power-of-two
 partial products ``T[w, 1], T[w, 2], T[w, 4], T[w, 8]`` packed as int8 bytes
 of one word, so activation signedness lives in the table alone.  Packing is
@@ -22,6 +33,92 @@ import numpy as np
 import torch
 
 
+# ---------------------------------------------------------------------------
+# the shared integer product and the FPGA's LUT6_2 INIT words (Fig. 5)
+# ---------------------------------------------------------------------------
+
+def _int_product(weight: int, activation: int, out_bits: int = 8) -> int:
+    """Two's-complement ``weight * activation`` truncated to ``out_bits``."""
+    return (int(weight) * int(activation)) & ((1 << out_bits) - 1)
+
+
+def lut6_2_init_words(w0: int, w1: int, act_bits: int = 4,
+                      out_bits: int = 8) -> list[int]:
+    """The 64-bit INIT words of the ``out_bits // 2`` LUT6_2 embedding
+    weights ``(w0, w1)`` (``w0`` selected by WS=0, ``w1`` by WS=1), most
+    significant bit pair first, in the order the paper lists them."""
+    if act_bits != 4:
+        raise ValueError("LUT6_2 packing is defined for 4-bit activations")
+    words = []
+    for j in range(out_bits // 2):
+        hi_bit = out_bits - 1 - 2 * j    # on O6 (upper 32 INIT bits)
+        lo_bit = out_bits - 2 - 2 * j    # on O5 (lower 32 INIT bits)
+        init = 0
+        for ws, w in ((0, w0), (1, w1)):
+            for a in range(2 ** act_bits):
+                p = _int_product(w, a, out_bits)
+                if (p >> hi_bit) & 1:
+                    init |= 1 << (32 + 16 * ws + a)
+                if (p >> lo_bit) & 1:
+                    init |= 1 << (16 * ws + a)
+        words.append(init)
+    return words
+
+
+# the paper's published INIT words for weights (+1, -3)
+PAPER_FIG5_INIT_WORDS = (
+    0xFFFE_0000_FFFE_0000,
+    0x07FE_0000_F83E_0000,
+    0x39C6_FF00_5A5A_F0F0,
+    0xCCCC_CCCC_AAAA_AAAA,
+)
+
+
+def lut6_read(init: int, i5: int, i4: int, a: int) -> tuple[int, int]:
+    """(O6, O5) of a LUT6_2 at input ``{i5, i4, a[3:0]}``."""
+    idx6 = (i5 << 5) | (i4 << 4) | a
+    idx5 = (i4 << 4) | a
+    return (init >> idx6) & 1, (init >> idx5) & 1
+
+
+def multiply_via_lut6(w0: int, w1: int, ws: int, a: int,
+                      out_bits: int = 8) -> int:
+    """The signed product the LUT6_2 bank of ``(w0, w1)`` emits for weight
+    select ``ws`` and activation ``a``, read as the FPGA would."""
+    words = lut6_2_init_words(w0, w1, out_bits=out_bits)
+    p = 0
+    for j, init in enumerate(words):
+        o6, o5 = lut6_read(init, 1, ws, a)
+        p |= o6 << (out_bits - 1 - 2 * j)
+        p |= o5 << (out_bits - 2 - 2 * j)
+    if p >= 1 << (out_bits - 1):          # two's complement decode
+        p -= 1 << out_bits
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Eq. (3): the LUT cost model
+# ---------------------------------------------------------------------------
+
+def luts_per_multiply(n_bits: int) -> float:
+    """Paper Eq. (3): #LUT6 = (2n * 2^n) / (1 * 2^6) for an n:2n LUT
+    multiply."""
+    return (2 * n_bits * 2 ** n_bits) / 64.0
+
+
+def luts_per_multiply_general(n_bits: int) -> tuple[int, int]:
+    """(min, max) LUT6 count of a general n-bit multiplier (the paper: 13-28
+    at 4 bits; Fig. 5's caption: 6-14x LUTMUL's 2)."""
+    if n_bits <= 4:
+        return 13, 28
+    scale = (n_bits // 4) ** 2
+    return 13 * scale, 28 * scale
+
+
+# ---------------------------------------------------------------------------
+# product tables (consumed by the LUT kernels)
+# ---------------------------------------------------------------------------
+
 def product_table(w_bits: int = 4, a_bits: int = 4, w_signed: bool = True,
                   a_signed: bool = False) -> np.ndarray:
     """Dense ``T[w_code, a_code] -> int32 product`` table."""
@@ -32,6 +129,12 @@ def product_table(w_bits: int = 4, a_bits: int = 4, w_signed: bool = True,
     avals = np.where(As >= 2 ** (a_bits - 1), As - 2 ** a_bits, As) \
         if a_signed else As
     return (wvals[:, None] * avals[None, :]).astype(np.int32)
+
+
+def flat_product_table(w_bits: int = 4, a_bits: int = 4, **kw) -> np.ndarray:
+    """:func:`product_table` flattened, addressed by ``(w_code << a_bits) |
+    a_code``."""
+    return product_table(w_bits, a_bits, **kw).reshape(-1)
 
 
 def contraction_table(a_signed: bool = False) -> np.ndarray:

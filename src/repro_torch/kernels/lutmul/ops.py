@@ -10,15 +10,20 @@ Default: ``"cuda"`` when a GPU is present, else ``"ref"``; override with
 
 On ``cuda`` the dequant epilogue is fused into the kernel (``pick_variant``
 default); :func:`set_variant` forces either variant, which is how the
-unfused entry points are driven end to end.  The activation quantizer stays
-plain PyTorch outside the kernels, as the reference leaves it to XLA: IEEE
-division by tensors (never by a Python scalar, which CUDA PyTorch turns
-into a reciprocal multiply) and round-half-to-even, like ``jnp.round``.
+unfused entry points are driven end to end.  With autotuning on
+(:func:`set_autotune`, or ``REPRO_TORCH_LUTMUL_AUTOTUNE=1``),
+``pick_formulation`` times tmac against one-hot per (bits, shape) on the
+card, and ``pick_variant`` times the callables it is given.  The
+activation quantizer stays plain PyTorch outside the kernels, as the
+reference leaves it to XLA: IEEE division by tensors (never by a Python
+scalar, which CUDA PyTorch turns into a reciprocal multiply) and
+round-half-to-even, like ``jnp.round``.
 """
 from __future__ import annotations
 
 import os
 import re
+import time
 from typing import Optional
 
 import torch
@@ -33,6 +38,7 @@ from repro_torch.kernels.lutmul import kernel, ref
 _BACKENDS = ("ref", "cuda")
 _BACKEND: Optional[str] = None
 _VARIANT: Optional[str] = None
+_AUTOTUNE: Optional[bool] = None
 
 # bumped on every weight quantization event (cached layers must quantize
 # once at load, never per forward call)
@@ -57,6 +63,29 @@ def get_backend() -> str:
                              f"one of {_BACKENDS}")
         return env
     return "cuda" if torch.cuda.is_available() else "ref"
+
+
+def set_autotune(enabled: Optional[bool]) -> None:
+    """Turn the timed pickers on or off (None: the environment decides)."""
+    global _AUTOTUNE
+    _AUTOTUNE = enabled
+
+
+def autotune_enabled() -> bool:
+    if _AUTOTUNE is not None:
+        return _AUTOTUNE
+    return os.environ.get("REPRO_TORCH_LUTMUL_AUTOTUNE", "0") == "1"
+
+
+def _event_ms(fn) -> float:
+    """Milliseconds of one ``fn()`` on the card, by CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
 
 
 # ---------------------------------------------------------------------------
@@ -268,13 +297,68 @@ def set_variant(name: Optional[str]) -> None:
     _VARIANT = name
 
 
-def pick_variant(backend: str) -> str:
-    """"fused" on ``cuda`` (the kernel writes the compute dtype directly),
-    "unfused" on ``ref``, unless :func:`set_variant` forced one.  The
-    reference's per-shape autotune is not ported."""
+_VARIANT_CACHE: dict[tuple, str] = {}
+_TIMED_VARIANTS: dict[tuple, str] = {}    # timed choices off the default
+
+
+def _default_variant(backend: str) -> str:
+    return "fused" if backend == "cuda" else "unfused"
+
+
+def pick_variant(op: str, M: int, K: int, N: int, backend: str,
+                 bench_fns=None) -> str:
+    """"fused" | "unfused" for one call of ``op`` at [M, K] x [K, N]:
+    :func:`set_variant`'s, else the cached choice of the shape, else the
+    backend's default ("fused" on ``cuda``: the kernel writes the compute
+    dtype directly; "unfused" on ``ref``).  With autotuning on and
+    ``bench_fns`` ({"fused": fn, "unfused": fn}, nullary callables) the
+    first call of a shape runs each twice, then takes the median of 5 timed
+    calls (host clock, the card synchronized around each) and caches the
+    winner; without ``bench_fns`` it returns the default uncached, as the
+    reference's."""
     if _VARIANT is not None:
         return _VARIANT
-    return "fused" if backend == "cuda" else "unfused"
+    key = (op, M, K, N, backend)
+    hit = _VARIANT_CACHE.get(key)
+    if hit is not None:
+        return hit
+    default = _default_variant(backend)
+    if not autotune_enabled():
+        _VARIANT_CACHE[key] = default
+        return default
+    if not bench_fns:
+        return default
+    sync = torch.cuda.synchronize if backend == "cuda" else (lambda: None)
+    best, best_t = default, float("inf")
+    for name, run in bench_fns.items():
+        run()
+        run()
+        reps = []
+        for _ in range(5):
+            sync()
+            t0 = time.perf_counter()
+            run()
+            sync()
+            reps.append(time.perf_counter() - t0)
+        dt = sorted(reps)[len(reps) // 2]
+        if dt < best_t:
+            best, best_t = name, dt
+    _VARIANT_CACHE[key] = best
+    if best != default:
+        _TIMED_VARIANTS[key] = best
+    return best
+
+
+def variant_key(backend: str):
+    """What decides the variant of every call of a round (a graph key
+    element): the forced variant, else the backend's default with the
+    timed choices that differ from it."""
+    if _VARIANT is not None:
+        return _VARIANT
+    default = _default_variant(backend)
+    if not _TIMED_VARIANTS:
+        return default
+    return (default,) + tuple(sorted(_TIMED_VARIANTS.items()))
 
 
 # ---------------------------------------------------------------------------
@@ -377,15 +461,68 @@ def quantize_weights_planes(wf: torch.Tensor, wbits):
 # formulation selection: tmac vs one-hot per (bits, shape)
 # ---------------------------------------------------------------------------
 
-def pick_formulation(wbits, abits: int) -> str:
-    """"tmac" | "onehot" for a leaf: tmac below 4 weight bits (its work is
-    linear in the plane count) and for every a8 mode (the one-hot product
-    table is 4-bit x 4-bit), one-hot at w4a4.  The reference's heuristic
-    default; its per-shape timed autotune is not ported."""
+_FORMULATION_CACHE: dict[tuple, str] = {}
+FORMULATION_TIMES: dict[tuple, dict] = {}   # the timed keys' ms, by kernel
+PROBE_M = 256          # the rows the timed formulation choice runs at
+
+
+def pick_formulation(wbits, abits: int, K: int, N: int,
+                     backend: Optional[str] = None) -> str:
+    """"tmac" | "onehot" for a [K, N] leaf, cached per (wbits, abits, K, N,
+    backend).  The default is the reference's: tmac for every a8 mode (the
+    one-hot product table is 4-bit x 4-bit) and below 4 weight bits (its
+    work is linear in the plane count), one-hot at w4a4.  With autotuning
+    on, on ``cuda``, the first call of a key times both kernels (unfused,
+    CUDA events, one warm-up then the median of 3) at ``PROBE_M`` rows on
+    seeded synthetic codes, caches the faster and keeps both times in
+    ``FORMULATION_TIMES``; sub-4-bit codes are valid 4-bit codes, so
+    one-hot runs them as decoded nibbles."""
     validate_weight_bits(wbits)
+    be = backend or get_backend()
+    key = (wbits, abits, K, N, be)
+    hit = _FORMULATION_CACHE.get(key)
+    if hit is not None:
+        return hit
     if abits >= 8:
+        _FORMULATION_CACHE[key] = "tmac"
         return "tmac"
-    return "tmac" if weight_bits(wbits) < 4 else "onehot"
+    default = "tmac" if weight_bits(wbits) < 4 else "onehot"
+    if be == "ref" or not autotune_enabled():
+        _FORMULATION_CACHE[key] = default
+        return default
+    times = FORMULATION_TIMES[key] = time_formulations(wbits, K, N)
+    best = min(times, key=times.get)
+    _FORMULATION_CACHE[key] = best
+    return best
+
+
+def time_formulations(wbits, K: int, N: int, M: int = PROBE_M) -> dict:
+    """{"tmac": ms, "onehot": ms} of the two kernels on the card for an a4
+    [M, K] x [K, N] product of ``wbits`` codes (numpy seed 0): the tmac
+    kernel on the packed planes, the one-hot LUT kernel on the decoded
+    codes as nibbles."""
+    import numpy as np
+    from repro_torch.core.lut import decode_planes, unpack_bitplanes
+    rng = np.random.default_rng(0)
+    dev = torch.device("cuda")
+    a_q = torch.from_numpy(rng.integers(-8, 8, size=(M, K)).astype(
+        np.int8)).to(dev)
+    n_planes = plane_decomposition(wbits)[0]
+    planes = torch.from_numpy(rng.integers(0, 256, size=(
+        n_planes, K // 8, N)).astype(np.uint8)).to(dev)
+    codes = decode_planes(unpack_bitplanes(planes), wbits).to(torch.int8)
+    nib = pack_int4(codes.T).T.contiguous()
+    a_nib = a_q.to(torch.uint8) & 0xF
+    runs = {"tmac": lambda: lutmul_tmac(a_q, planes, wbits, abits=4,
+                                        backend="cuda"),
+            "onehot": lambda: lutmul(a_nib, nib, a_signed=True,
+                                     backend="cuda")}
+    times = {}
+    for name, fn in runs.items():
+        fn()
+        torch.cuda.synchronize()
+        times[name] = sorted(_event_ms(fn) for _ in range(3))[1]
+    return times
 
 
 # ---------------------------------------------------------------------------
@@ -398,13 +535,25 @@ def _unpack_w(w_q: torch.Tensor) -> torch.Tensor:
         .transpose(-1, -2).contiguous()
 
 
+def lut_leaf(mode: str) -> bool:
+    """Whether a nibble leaf served under ``mode`` takes the LUT kernel:
+    under ``w4a4_lut``, and under a suffix-free mode ("w2a4"), whose nibble
+    leaf is :func:`pick_formulation`'s one-hot choice (the reference runs
+    the int8 kernel on the unpacked nibbles there: the same integer sums,
+    the same epilogue).  Elsewhere the int8 kernel takes the nibbles."""
+    m = _TMAC_MODE.match(mode)
+    return mode == "w4a4_lut" or (m is not None and not m.group(4))
+
+
 def _dispatch(a_q, a_scale, w_q, ws_row, mode: str, be: str, lead,
               compute_dtype) -> torch.Tensor:
     """Fused or unfused kernel call on quantized activations."""
+    M, K = a_q.shape
     N = w_q.shape[-1]
     packed = w_q.dtype == torch.uint8
-    lut = packed and mode == "w4a4_lut"
-    if pick_variant(be) == "fused":
+    lut = packed and lut_leaf(mode)
+    if pick_variant("lutmul" if lut else "int_matmul", M, K, N,
+                    be) == "fused":
         if lut:
             y = _fused_lut(a_q.to(torch.uint8) & 0xF, w_q, a_scale, ws_row,
                            a_signed=True, out_dtype=compute_dtype)
@@ -424,8 +573,10 @@ def _dispatch(a_q, a_scale, w_q, ws_row, mode: str, be: str, lead,
 def _dispatch_tmac(a_q, a_scale, w_planes, ws_row, wspec, abits: int,
                    be: str, lead, compute_dtype) -> torch.Tensor:
     """Fused or unfused tmac kernel call on quantized activations."""
+    M, K = a_q.shape
     N = w_planes.shape[-1]
-    if pick_variant(be) == "fused":
+    if pick_variant(f"lutmul_tmac{tmac_group_size(abits)}", M, K, N,
+                    be) == "fused":
         y = _fused_tmac(a_q, w_planes, a_scale, ws_row, wbits=wspec,
                         g=tmac_group_size(abits), out_dtype=compute_dtype)
         return y.reshape(*lead, N)
@@ -481,7 +632,7 @@ def _row_parallel_prequant(x: torch.Tensor, w_q: torch.Tensor,
             f"extent ({Kl * axis.size}) nor this rank's slice ({Kl})")
     if tmac:
         acc = lutmul_tmac(a_l, w_q, wspec, abits=bits, backend=be)
-    elif packed and mode == "w4a4_lut":
+    elif packed and lut_leaf(mode):
         acc = lutmul(a_l.to(torch.uint8) & 0xF, w_q, a_signed=True,
                      backend=be)
     else:
@@ -502,7 +653,7 @@ def prequant_matmul(x: torch.Tensor, w_q: torch.Tensor,
 
     The weights live on the device as integer codes; the int8 ``[K, N]``
     leaf (the w8a8 head) takes the int8 kernel, the packed leaf the LUT
-    kernel under ``w4a4_lut`` (the int8 kernel on unpacked nibbles
+    kernel where :func:`lut_leaf` says (the int8 kernel on unpacked nibbles
     otherwise), the bitplane leaf the T-MAC kernel with the weight spec and
     activation bits of ``mode`` (``models.layers.linear`` derives it from
     the leaf).

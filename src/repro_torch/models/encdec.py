@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ModelConfig
-from repro_torch.core.device import resolve_device
+from repro_torch.core.device import resolve_device, seeded_generator
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import (init_embedding, init_mlp, layer_norm,
                                        linear, mlp, nll)
@@ -114,7 +114,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
     made (``serve.quantize.init_served_params`` quantizes them there)."""
     check_supported(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = seeded_generator(dev, seed)
     out = {}
     for stack, n, make in (("enc_blocks", cfg.n_enc_layers, init_enc_block),
                            ("dec_blocks", cfg.n_layers, init_dec_block)):

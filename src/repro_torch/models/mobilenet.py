@@ -11,7 +11,9 @@ strided layer by a pixel.  Activation quantizers keep a scale per channel
 over (B, H, W), so the QAT forward of a batch depends on the whole batch.
 
 ``_conv_shapes`` lists the 52 convolutions; ``chip_smoke.py`` streamlines
-its 34 pointwise ones into integer stages (``core.streamline``).
+its 34 pointwise ones into integer stages (``core.streamline``), and
+``fpga_layer_table`` gives them to the paper's analytic FPGA model
+(``core.fpga_model``).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.device import resolve_device
+from repro_torch.core.fpga_model import ConvLayer
 from repro_torch.core.quantization import A4, A8, W4, W8, fake_quant
 from repro_torch.core.thresholds import sqrt_rn
 from repro_torch.models.layers import nll
@@ -81,6 +84,19 @@ def _conv_shapes(cfg: MobileNetConfig):
                1280 if cfg.width >= 1.0 else _c(1280, cfg.width))
     layers.append(("head", cin, head, 1, 1, False, res))
     return layers, res, head
+
+
+def fpga_layer_table(cfg: MobileNetConfig) -> list[ConvLayer]:
+    """The 52 convolutions as ``core.fpga_model``'s dataflow layers (the
+    paper's Table 2 model): 8 bits for ``stem`` and ``head``, 4 for every
+    other layer, as the reference."""
+    out = []
+    for name, cin, cout, k, s, dw, h_in in _conv_shapes(cfg)[0]:
+        h_out = h_in // s
+        out.append(ConvLayer(name=name, cin=cin, cout=cout, k=k, h_out=h_out,
+                             w_out=h_out, stride=s, depthwise=dw,
+                             bits=8 if name in ("stem", "head") else 4))
+    return out
 
 
 def init_params(cfg: MobileNetConfig, generator: torch.Generator,

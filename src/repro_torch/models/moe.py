@@ -141,8 +141,12 @@ def expert_matmul(a: torch.Tensor, w, compute_dtype,
     be = backend or ops.get_backend()
     if be == "ref":
         return expert_matmul_ref(a_q, a_scale, w, compute_dtype)
+    op = ("lutmul_experts" if w["w_q"].dtype == torch.uint8
+          else "int_matmul_experts")
+    fused = ops.pick_variant(op, a_q.shape[-2], a_q.shape[-1],
+                             w["w_q"].shape[-1], be) == "fused"
     return _expert_kernels(a_q.contiguous(), a_scale, w, compute_dtype,
-                           ops.pick_variant(be) == "fused")
+                           fused)
 
 
 # ---------------------------------------------------------------------------

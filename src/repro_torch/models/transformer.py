@@ -56,7 +56,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import BlockSpec, ModelConfig
-from repro_torch.core.device import resolve_device
+from repro_torch.core.device import resolve_device, seeded_generator
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -161,7 +161,9 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, spec: BlockSpec,
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None,
                 block_hook=None) -> dict:
-    """Random parameters from a seeded ``torch.Generator`` on ``device``.
+    """Random parameters from a seeded ``torch.Generator`` on ``device``
+    (``"meta"``: the shapes alone, which is what
+    ``roofline.analysis.plan_mixed_bits`` reads to plan a full-width model).
     ``block_hook(i, block)`` replaces layer ``i``'s parameters as soon as
     they are made (``serve.quantize.init_served_params`` quantizes them
     there, so the float tree is never whole).  A pattern with
@@ -169,7 +171,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
     SwiGLU MLP, each behind its own norm)."""
     check_supported(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = seeded_generator(dev, seed)
     kw = dict(dtype=cfg.pdtype, device=dev)
     blocks = []
     for i in range(cfg.n_layers):

@@ -105,6 +105,10 @@ class ServeConfig:
     top_p: float = 1.0            # >= 1.0 disables nucleus filtering
     seed: int = 0                 # the PRNGKey every draw is folded from
     quant: Optional[str] = None   # convert weights to serving codes at load
+    # optional per-leaf mixed bit widths: {param path -> mode string}, the
+    # output of roofline.analysis.plan_mixed_bits (keys match the
+    # serve.quantize walk paths); leaves not in the plan follow `quant`
+    bits_plan: Optional[dict] = None
     # paged KV cache (serve.paged): per-layer page pools + per-slot page
     # tables instead of dense [slots, max_len] buffers
     paged: bool = False
@@ -401,7 +405,8 @@ class Engine:
             # quantize + pack weight codes ONCE at construction; every
             # decode step then reads integer codes
             from repro_torch.serve.quantize import quantize_params_for_serving
-            params = quantize_params_for_serving(params, mode=scfg.quant)
+            params = quantize_params_for_serving(params, mode=scfg.quant,
+                                                 bits_plan=scfg.bits_plan)
         self.params = params
         self.scfg = scfg
         # paged serving state: the geometry is checked here; init_cache

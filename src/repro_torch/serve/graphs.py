@@ -183,7 +183,7 @@ class RoundGraphs:
             table = sum(((tuple(t.shape), t.data_ptr()) for t in tables
                          if t is not None), ())
         return (0 if lane is None else lane.slot.shape[0], chunk, spec,
-                greedy, be, ops.pick_variant(be), tok.shape[0],
+                greedy, be, ops.variant_key(be), tok.shape[0],
                 tuple(tuple(t.shape) for t in cache[0].values()), table,
                 tuple(t.data_ptr() for c in cache for t in c.values()))
 

@@ -22,16 +22,20 @@ the shared expert's gate stay float.  An encoder-decoder tree (whisper)
 walks the same way: every ``wq``/``wk``/``wv``/``wo``/``wi`` of the
 encoder, the decoder's self- and cross-attention and both MLPs takes the
 mode's codes, and the tied embedding stays float (no head to quantize).
-``draft_params_view`` is the self-speculative drafter: the top planes of
-every draftable bitplane leaf.
+A ``bits_plan`` ({path: mode}, ``roofline.analysis.plan_mixed_bits``)
+gives single leaves widths of their own.  ``draft_params_view`` is the
+self-speculative drafter: the top planes of every draftable bitplane
+leaf.
 """
 from __future__ import annotations
 
 import re
+from typing import Optional
 
 import torch
 
-from repro_torch.core.lut import decode_planes, unpack_bitplanes, unpack_int4
+from repro_torch.core.lut import (decode_planes, pack_int4, unpack_bitplanes,
+                                  unpack_int4, weight_bits)
 from repro_torch.kernels.lutmul import ops as lut_ops
 
 # projection leaves eligible for low-bit quantization (trailing ['w'])
@@ -53,14 +57,23 @@ def quantize_leaf(w: torch.Tensor, bits: int) -> dict:
 def quantize_leaf_mode(w: torch.Tensor, mode: str) -> dict:
     """Mode-aware leaf quantizer: the nibble/int8 leaf for the legacy modes,
     the bitplane leaf with its markers for the tmac family.  A suffix-free
-    mode ("w2a4") takes ``ops.pick_formulation``'s choice and stores that
-    formulation's format."""
+    mode ("w2a4") takes ``ops.pick_formulation``'s choice for the leaf's
+    shape and stores that formulation's format: the stored leaf is the
+    choice.  A sub-4-bit width stored for one-hot is quantized at its own
+    width and its codes (valid 4-bit codes) nibble-packed."""
     form, wspec, abits = lut_ops.parse_mode(mode)
     if form == "int":
         return quantize_leaf(w, 8 if abits >= 8 else 4)
     if form == "auto":
-        form = lut_ops.pick_formulation(wspec, abits)
-    if form == "onehot":           # w4a4 only: sub-4-bit auto picks tmac
+        form = lut_ops.pick_formulation(wspec, abits, w.shape[-2],
+                                        w.shape[-1])
+    if form == "onehot":
+        if weight_bits(wspec) < 4:
+            planes, scale = lut_ops.quantize_weights_planes(w, wspec)
+            q = decode_planes(unpack_bitplanes(planes), wspec) \
+                .to(torch.int8)
+            q = pack_int4(q.transpose(-1, -2)).transpose(-1, -2)
+            return {"w_q": q.contiguous(), "w_scale": scale.to(torch.float32)}
         return quantize_leaf(w, 4)
     planes, scale = lut_ops.quantize_weights_planes(w, wspec)
     marker = torch.zeros(planes.shape[:-3] + (0,), dtype=torch.uint8,
@@ -82,6 +95,7 @@ def legacy_mode(mode: str) -> str:
 
 
 def quantize_params_for_serving(params, mode: str = "w4a4_mxu",
+                                bits_plan: Optional[dict] = None,
                                 path: str = ""):
     """Replace eligible projection weights with integer codes + scales
     (through ``models.layers.QuantizedLinear``: quantize + pack once).
@@ -89,12 +103,17 @@ def quantize_params_for_serving(params, mode: str = "w4a4_mxu",
     mode: w4a4_lut | w4a4_mxu -> int4 inner, int8 head; w8a8 -> int8 all;
     tmac family (``w{1,2,3,4}a{4,8}[_tmac]``, ``ternary_a{4,8}[_tmac]``) ->
     bitplane leaves, int8 head; MoE expert banks in :func:`legacy_mode`.
-    Walk paths are the reference's ``"['blocks'][i]['attn']['wq']['w']"``
-    strings, so the same rules pick the same leaves; ``path`` is the
-    subtree's own (``"['blocks'][3]"`` for one layer's parameters).  Leaves
-    that are codes already stay as they are.
+    Walk paths are the reference's strings with one index a layer
+    (``"['blocks'][i]['attn']['wq']['w']"``); ``path`` is the subtree's own
+    (``"['blocks'][3]"`` for one layer's parameters).  ``bits_plan``
+    ({path: mode}, ``roofline.analysis.plan_mixed_bits``) gives a leaf at
+    one of its paths its own mode, an expert bank ``legacy_mode`` of its
+    own; every other leaf follows ``mode``, and the head stays w8a8.
+    Leaves that are codes already stay as they are.
     """
     from repro_torch.models.layers import QuantizedLinear
+
+    plan = bits_plan or {}
 
     def codes(leaf: dict, leaf_mode: str) -> dict:
         return QuantizedLinear(leaf, mode=leaf_mode).params
@@ -106,9 +125,9 @@ def quantize_params_for_serving(params, mode: str = "w4a4_mxu",
                 sub = f"{path}['{k}']"
                 if isinstance(v, dict) and "w" in v and _INNER_W.search(
                         sub + "['w']") and v["w"].dim() >= 2:
-                    out[k] = codes(v, mode)
+                    out[k] = codes(v, plan.get(sub + "['w']", mode))
                 elif _MOE_W.search(sub) and not isinstance(v, dict):
-                    out[k] = codes({"w": v}, legacy_mode(mode))
+                    out[k] = codes({"w": v}, legacy_mode(plan.get(sub, mode)))
                 elif isinstance(v, dict) and "w" in v and _HEAD_W.search(
                         sub + "['w']"):
                     out[k] = codes(v, "w8a8")     # paper: last layer 8-bit
@@ -123,22 +142,25 @@ def quantize_params_for_serving(params, mode: str = "w4a4_mxu",
     return walk(params, path)
 
 
-def init_served_params(cfg, mode: str, seed: int = 0, device=None) -> dict:
+def init_served_params(cfg, mode: str, seed: int = 0, device=None,
+                       bits_plan: Optional[dict] = None) -> dict:
     """``quantize_params_for_serving(transformer.init_params(cfg, seed,
-    device), mode)`` (``encdec.init_params`` for an enc-dec config), bit
-    for bit, with each layer quantized as soon as it is made: the device
-    holds the served tree plus one float layer (and the float head until
-    the end), never the whole float tree."""
+    device), mode, bits_plan)`` (``encdec.init_params`` for an enc-dec
+    config), bit for bit, with each layer quantized as soon as it is made:
+    the device holds the served tree plus one float layer (and the float
+    head until the end), never the whole float tree."""
     from repro_torch.models import encdec, transformer
     if cfg.enc_dec:
         params = encdec.init_params(
             cfg, seed, device, block_hook=lambda stack, i, bp:
-            quantize_params_for_serving(bp, mode, path=f"['{stack}'][{i}]"))
-        return quantize_params_for_serving(params, mode)
+            quantize_params_for_serving(bp, mode, bits_plan,
+                                        path=f"['{stack}'][{i}]"))
+        return quantize_params_for_serving(params, mode, bits_plan)
     params = transformer.init_params(
         cfg, seed, device, block_hook=lambda i, bp:
-        quantize_params_for_serving(bp, mode, path=f"['blocks'][{i}]"))
-    return quantize_params_for_serving(params, mode)
+        quantize_params_for_serving(bp, mode, bits_plan,
+                                    path=f"['blocks'][{i}]"))
+    return quantize_params_for_serving(params, mode, bits_plan)
 
 
 def _draftable(leaf, draft_planes: int) -> bool:

@@ -76,7 +76,8 @@ class ShardedEngine(Engine):
         # quantize (codes stay as they are), mark, then keep this rank's
         # slices; head_dim lets the marker go head-parallel on attention
         # groups when both head counts divide the model axis
-        params = quantize_params_for_serving(params, mode=scfg.quant)
+        params = quantize_params_for_serving(params, mode=scfg.quant,
+                                             bits_plan=scfg.bits_plan)
         params, _, self.n_tp_leaves = tp_lib.mark_tp_params(
             params, self.n_model, head_dim=cfg.head_dim)
         n_attn, n_head_marked = tp_lib.attn_group_counts(params)

@@ -1263,3 +1263,84 @@ def test_cuda_qat_train_step_matches_cpu(cuda_device):
 def _to(tree, dev):
     from repro_torch.core.tree import tree_map
     return tree_map(lambda t: t.to(dev, copy=True), tree)
+
+
+# ---------------------------------------------------------------------------
+# mixed per-leaf widths: the plane counts qwen2-7b's plans put on the card
+# ---------------------------------------------------------------------------
+
+QWEN_MIXED = [(3, 3584, 18944), (1, 3584, 18944), (2, 18944, 3584),
+              (4, 18944, 3584), (2, 3584, 18944)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P,K,N", QWEN_MIXED)
+def test_cuda_tmac_mixed_plan_shapes(cuda_device, P, K, N):
+    """wi at P = 3 (3.2 bits), wg at P = 1 (2.0 bits, the binary kind) and
+    the other planned shapes at decode's M = 8: int32 exactly, the fused
+    bf16 output bitwise."""
+    spec = P
+    a, planes, a_s, w_s = (torch.from_numpy(v).to(cuda_device) for v in
+                           _tmac_inputs(8, K, N, spec, 4, seed=P + K))
+    assert torch.equal(kernel.lutmul_tmac(a, planes, spec, g=2),
+                       ref.tmac_ref(a, planes, spec))
+    got = kernel.lutmul_tmac_fused(a, planes, spec, a_s, w_s, g=2)
+    want = ref.scaled_tmac_ref(a, planes, spec, a_s, w_s,
+                               out_dtype=torch.bfloat16)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.gpu
+def test_cuda_timed_formulation_picker(cuda_device):
+    """With autotuning on, the first call of a key times both kernels on
+    the card and caches the winner; the second call is a lookup; a8 and the
+    plain backend are never timed."""
+    ops._FORMULATION_CACHE.clear()
+    ops.set_autotune(True)
+    try:
+        times = ops.time_formulations(2, 3584, 512, M=ops.PROBE_M)
+        assert set(times) == {"tmac", "onehot"}
+        assert all(t > 0 for t in times.values())
+        got = ops.pick_formulation(2, 4, 3584, 512, "cuda")
+        assert got in ("tmac", "onehot")
+        assert ops._FORMULATION_CACHE[(2, 4, 3584, 512, "cuda")] == got
+        kernel.reset_launches()
+        assert ops.pick_formulation(2, 4, 3584, 512, "cuda") == got
+        assert ops.pick_formulation(2, 8, 3584, 512, "cuda") == "tmac"
+        assert ops.pick_formulation(3, 4, 3584, 512, "ref") == "tmac"
+        assert kernel.LAUNCHES["lutmul"] == kernel.LAUNCHES[
+            "lutmul_tmac"] == 0
+    finally:
+        ops.set_autotune(None)
+        ops._FORMULATION_CACHE.clear()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("target", [3.2, 2.0])
+def test_cuda_mixed_plan_engine_matches_plain(cuda_device, target):
+    """qwen2-7b-smoke served under a plan on the card: the fused kernels'
+    transcripts equal the plain backend's."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.roofline.analysis import plan_mixed_bits
+    from repro_torch.serve import Request, Scheduler, ServeConfig
+    from repro_torch.serve import make_engine
+    from repro_torch.serve.quantize import init_served_params
+    cfg = dataclasses.replace(configs.get_config(
+        "qwen2-7b", smoke=True, quant="w4a4_tmac"), compute_dtype="float32")
+    plan = plan_mixed_bits(T.init_params(cfg, 0, "meta"), target, cfg)
+    params = init_served_params(cfg, "w4a4_tmac", seed=0,
+                                device=cuda_device, bits_plan=plan)
+    out = {}
+    for be in ("cuda", "ref"):
+        ops.set_backend(be)
+        eng = make_engine(params, cfg, ServeConfig(
+            quant="w4a4_tmac", bits_plan=plan, max_len=32),
+            device=cuda_device)
+        reqs = [Request(prompt=[3 + i, 5, 7, 11], max_new_tokens=6)
+                for i in range(4)]
+        Scheduler(eng, slots=4, chunk=2).run(reqs)
+        out[be] = [r.tokens for r in reqs]
+    ops.set_backend(None)
+    assert out["cuda"] == out["ref"]

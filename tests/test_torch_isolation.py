@@ -53,7 +53,8 @@ def test_port_has_modules():
                 "dist/mesh.py", "dist/tp.py", "serve/sharded.py",
                 "dist/straggler.py", "data/pipeline.py", "optim/adamw.py",
                 "optim/schedules.py", "optim/grad_compress.py",
-                "train/step.py", "train/loop.py", "core/tree.py"):
+                "train/step.py", "train/loop.py", "core/tree.py",
+                "core/fpga_model.py", "roofline/analysis.py"):
         assert f"src/repro_torch/{mod}" in names, mod
     for src in ("thresholds.cu", "lutmul_gather.cu"):
         assert (ROOT / "src" / "repro_torch" / "csrc" / src).is_file(), src

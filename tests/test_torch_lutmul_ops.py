@@ -326,10 +326,10 @@ def test_backend_selection(monkeypatch):
 
 
 def test_pick_variant_fused_on_cuda_only():
-    assert ops.pick_variant("cuda") == "fused"
-    assert ops.pick_variant("ref") == "unfused"
+    assert ops.pick_variant("lutmul", 8, 64, 64, "cuda") == "fused"
+    assert ops.pick_variant("lutmul", 8, 64, 64, "ref") == "unfused"
     ops.set_variant("unfused")
-    assert ops.pick_variant("cuda") == "unfused"
+    assert ops.pick_variant("lutmul", 8, 64, 64, "cuda") == "unfused"
     with pytest.raises(ValueError, match="unknown variant"):
         ops.set_variant("autotune")
 

@@ -191,7 +191,7 @@ def test_truncate_planes_matches_and_is_a_view(wbits, keep):
 def test_pick_formulation_matches_heuristic(wbits, abits, K, N):
     for spec in SPECS:
         for ab in (4, 8):
-            assert ops.pick_formulation(spec, ab) == \
+            assert ops.pick_formulation(spec, ab, K, N, "ref") == \
                 jops.pick_formulation(spec, ab, K, N, backend="ref")
 
 
