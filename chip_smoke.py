@@ -36,7 +36,11 @@ Phases (any failure raises and exits non-zero):
    mixtral-8x22b's attention (M = 8) through the LUT kernel; mixtral's
    expert banks (8 experts each) at decode's M = 3 through
    ``lutmul_experts``; the 152,064-, 100,352- and 32,768-column int8
-   heads of qwen2-vl-72b, phi3-medium-14b and mixtral-8x22b.
+   heads of qwen2-vl-72b, phi3-medium-14b and mixtral-8x22b; one 2x2
+   rank's shapes (column leaves at N / 2, row leaves at K / 2): the LUT
+   layer and the head at a data shard's M = 4, the T-MAC layer at M = 4
+   (target P = 4, drafter P = 2) and at its verify block's M = 16 (P = 4),
+   and the head at M = 16.
 3. serving qwen2-7b (28 layers, full width, random weights from a seeded
    generator, built a layer at a time) through ``make_engine`` +
    ``Scheduler(slots=8, chunk=8)``: w4a4_lut fused (8 requests) and a
@@ -149,8 +153,8 @@ Phases (any failure raises and exits non-zero):
    (``init_params`` on the meta device), each asserted (``MIXED_MLP``;
    attention w4); then at 28 layers, each tree built a layer at a time
    under its plan: uniform w4a4_tmac (the 4.0 plan) fused over the 8
-   requests, and at 3.2 and 2.0 bits fused (8) == unfused (4) == the plain
-   backend (the first request, ``PLAIN_TOKENS``), every served leaf's
+   requests, and at 3.2 and 2.0 bits fused (8) == the plain backend (the
+   first request, ``PLAIN_TOKENS``), every served leaf's
    plane count equal to the plan and the tree's code bytes equal to the
    count from the shapes, each engine's replayed round profiled (``mixed
    runs[...]`` puts them side by side); the all-w4 plan on layers
@@ -164,7 +168,7 @@ Phases (any failure raises and exits non-zero):
    ``w2a4_tmac`` run.
 4. serving bitnet-3b (13 of its 26 layers, full width) in ternary_a8_tmac:
    fused (8 requests) and plain (first 1), equal transcripts.  Then gemma2-2b
-   (14 of its 26 layers, full width: local and global layers, window
+   (10 of its 26 layers, full width: local and global layers, window
    4,096, soft-caps, GeGLU, the tied 256,000-row head) in w4a4_lut at
    max_len 4,352: 8
    requests (``gemma_requests``) in the order long pair, short pair, long
@@ -190,7 +194,7 @@ Phases (any failure raises and exits non-zero):
    greedy tokens equal to the bf16 run's.  Then minicpm-2b (20 of its 40
    layers, full width, tied 122,753-row head) in w4a4_lut: fused over the
    first 4 contract requests, profiled, its head timed, and the plain
-   backend over the first (8 new tokens) equal.  Then phi3-medium-14b (20
+   backend over the first (8 new tokens) equal.  Then phi3-medium-14b (10
    of its 40 layers, full width, GQA 40/10, the untied 100,352-row head;
    its served tree built a layer at a time) in w4a4_lut (``run_phi3``):
    fused over the
@@ -245,7 +249,7 @@ Phases (any failure raises and exits non-zero):
    16 x 2 for the second cross K/V pass) and 128 a decode step; the
    prefill's parts timed (encode, decoder, the second cross-K/V pass); 8
    decode steps through a page table == dense, logits and K/V bitwise. Then
-   qwen2-vl-72b (16 of its 80 layers, full width; its served codes
+   qwen2-vl-72b (8 of its 80 layers, full width; its served codes
    built a layer at a time) in w4a4_lut (``run_qwen2vl``): the Scheduler
    over the 8 requests fused, the plain backend over the first one (4
    tokens) equal; the stub vision frontend (embeddings [2, 272, 8192] at a
@@ -257,9 +261,9 @@ Phases (any failure raises and exits non-zero):
    collective staged through pinned host memory (NCCL refuses two ranks
    on one card), each rank building the served tree with
    ``init_served_params(seed=0)`` and keeping its shard
-   (``ShardedEngine``): qwen2-7b at ``CUT_LAYERS`` on a 2x2 mesh
+   (``ShardedEngine``): qwen2-7b at ``SHARDED_QWEN_LAYERS`` (2) on a 2x2 mesh
    (head-parallel: 28 and 4 heads split 2 ways, 4 of the 8 slots a data
-   shard) and qwen2-moe-a2.7b at ``SHARDED_MOE_LAYERS`` (8) on 1x2
+   shard) and qwen2-moe-a2.7b at ``SHARDED_MOE_LAYERS`` (4) on 1x2
    (expert-parallel, 30 of 60 experts a rank), each over the 8 contract
    requests through ``Scheduler(slots=8, chunk=8)`` with staggered
    admission (two requests, a round, the other six), eager rounds.  Every
@@ -271,8 +275,21 @@ Phases (any failure raises and exits non-zero):
    the unfused one for the two row leaves a layer, the fused int8 head
    kernel once a forward; then a 2x2 fault run over the first 2 requests
    (a NaN in one model rank's cache, found by the min-reduced cache sweep)
-   recovers with the single card's transcripts.  ``sharded[...]`` lines give tokens/s (of the processes
-   sharing one card: not a scaling figure) and each rank's peak memory.
+   recovers with the single card's transcripts.  In the same 2x2 world:
+   ``Scheduler.save`` after the second round of a run over the first
+   ``SHARDED_SAVE_REQUESTS`` requests (collective; rank 0 writes), a fresh
+   Scheduler on the same ranks loads it and serves to the end, with the
+   uninterrupted run's and the single card's transcripts and stats;
+   at ``CUT_LAYERS``, split-head attention (``split_head_params``, float
+   3D leaves split by head, ``wo3`` behind an all-gather) over the first
+   ``SHARDED_NEW_REQUESTS``, against a single-card split-head engine, the
+   cache holding n_kv / 2 heads and no LUT launch in attention; and
+   speculative w4a4_tmac (``draft_k=3``, ``draft_planes=2``, paged) on
+   weights whose low planes are zeroed, against the single card's
+   NON-speculative engine on the same tree, with ``spec_rounds > 0`` and
+   its accept rate.  ``sharded[...]`` lines give tokens/s (of the
+   processes sharing one card: not a scaling figure) and each rank's peak
+   memory.
 5. the paper's CNN: full-width MobileNetV2 (224x224, width 1.0, 1000
    classes, random weights from seed 0) at batch 32 in float and QAT mode
    (cuDNN, TF32 off), the float logits of the first 4 images held against
@@ -411,7 +428,11 @@ QWEN_HEAD = (3584, 152064)
 # the vocab-column-parallel head
 SHARDED_QWEN = "2x2"
 SHARDED_MOE = "1x2"
-SHARDED_MOE_LAYERS = 8
+# the lut, fault and save / load runs at 2 layers and qwen2-moe at 4 (cut
+# from 4 and 8 to pay for the split-head and speculative cases, which run
+# at CUT_LAYERS)
+SHARDED_QWEN_LAYERS = 2
+SHARDED_MOE_LAYERS = 4
 SHARDED_S = 600                   # a sharded world's deadline, seconds
 # the fault run: the first 2 contract requests, a NaN at the 4th decode
 # dispatch in the second active slot (slot 1, decoding since the first
@@ -421,6 +442,14 @@ SHARDED_S = 600                   # a sharded world's deadline, seconds
 SHARDED_FAULT_REQUESTS = 2
 SHARDED_FAULT_INDEX = 3
 SHARDED_FAULT_SLOT = 1
+# the 2x2 world's other cases: save / load over the first 2 requests
+# (saved after the second round), split-head attention and paged
+# speculation (low planes zeroed) over the first 4; a data shard's verify
+# block is 4 slots x (draft_k + 1) rows
+SHARDED_SAVE_REQUESTS = 2
+SHARDED_SAVE_ROUNDS = 2
+SHARDED_NEW_REQUESTS = 4
+SHARD_VERIFY_M = SLOTS // 2 * 4
 QWEN_SHARD = {"wq": (3584, 1792), "wk": (3584, 256), "wv": (3584, 256),
               "wo": (1792, 3584), "wi": (3584, 9472), "wg": (3584, 9472),
               "mlp.wo": (9472, 3584)}
@@ -479,11 +508,13 @@ CUT_LAYERS = 4
 # one card holds ~10 GB of its expert codes, not ~70; the others (earlier
 # slices' paths) for time, gemma2-2b, phi3-medium-14b, qwen2-moe-a2.7b
 # and qwen2-vl-72b also to pay for the sharded phase, qwen2-vl-72b (24 ->
-# 16) for the train phase
-SERVED_LAYERS = {"mixtral-8x22b": MIXTRAL_LAYERS, "qwen2-vl-72b": 16,
+# 16) for the train phase, qwen2-vl-72b (16 -> 8), phi3-medium-14b
+# (20 -> 10) and gemma2-2b (14 -> 10) for the sharded phase's save /
+# load, split-head and speculative cases
+SERVED_LAYERS = {"mixtral-8x22b": MIXTRAL_LAYERS, "qwen2-vl-72b": 8,
                  "whisper-large-v3": 16, "bitnet-3b": 13, "minicpm-2b": 20,
-                 "rwkv6-1.6b": 12, "zamba2-2.7b": 24, "gemma2-2b": 14,
-                 "phi3-medium-14b": 20, "qwen2-moe-a2.7b": 12}
+                 "rwkv6-1.6b": 12, "zamba2-2.7b": 24, "gemma2-2b": 10,
+                 "phi3-medium-14b": 10, "qwen2-moe-a2.7b": 12}
 # gemma2-2b: the window is 4096; two pairs of long prompts past it, two
 # pairs of short ones inside it; pages of 64 divide the ring and max_len
 GEMMA_LONG = (4104, 4152)
@@ -852,7 +883,13 @@ def check_kernels(bench: Bench) -> None:
          MIXED_SPECS[2.0], 4, SLOTS),
         ("qwen2-7b wi, P=3 g=2 M=8", {"wi": QWEN_INNER["wi"]}, 3, 4, SLOTS),
         ("qwen2-7b wg, P=1 (binary) g=2 M=8", {"wg": QWEN_INNER["wg"]}, 1,
-         4, SLOTS)]
+         4, SLOTS),
+        (f"qwen2-7b {SHARDED_QWEN} shard target layer, P=4 g=2 M=4",
+         QWEN_SHARD, 4, 4, SLOTS // 2),
+        (f"qwen2-7b {SHARDED_QWEN} shard drafter layer, P=2 g=2 M=4",
+         QWEN_SHARD, 2, 4, SLOTS // 2),
+        (f"qwen2-7b {SHARDED_QWEN} shard verify layer, P=4 g=2 "
+         f"M={SHARD_VERIFY_M}", QWEN_SHARD, 4, 4, SHARD_VERIFY_M)]
     for group, shapes, group_spec, abits, M in tmac_groups:
         g = 1 if abits == 8 else 2
         for name, (K, N) in shapes.items():
@@ -907,6 +944,9 @@ def check_kernels(bench: Bench) -> None:
                               SLOTS),
                              (f"qwen2-7b {SHARDED_QWEN} shard head, M=4",
                               QWEN_SHARD_HEAD, SLOTS // 2),
+                             (f"qwen2-7b {SHARDED_QWEN} shard verify head, "
+                              f"M={SHARD_VERIFY_M}", QWEN_SHARD_HEAD,
+                              SHARD_VERIFY_M),
                              (f"qwen2-moe {SHARDED_MOE} shard head, M=8",
                               QWEN2MOE_SHARD_HEAD, SLOTS)):
         a = torch.randint(-128, 128, (M, K), generator=gen, device=dev,
@@ -3003,10 +3043,12 @@ def run_moe(engine, name: str, profile_steps: int) -> list:
     return fused
 
 
-def sharded_drive(engine, reqs: list, **sched_kw) -> tuple:
+def sharded_drive(engine, reqs: list, save=None, **sched_kw) -> tuple:
     """The reference's staggered admission through the contract's
-    Scheduler (slots 8, chunk 8): two requests, a round, the other six
-    mid-flight.  Returns (transcripts, stats, seconds)."""
+    Scheduler (slots 8, chunk 8): two requests, a round, the others
+    mid-flight.  ``save`` (a directory) saves the Scheduler after round
+    ``SHARDED_SAVE_ROUNDS`` (timed apart, the card synchronized).  Returns
+    (transcripts, stats, seconds, save seconds)."""
     import torch
     from repro_torch.serve import Scheduler
     sched = Scheduler(engine, slots=SLOTS, chunk=8, **sched_kw)
@@ -3017,84 +3059,234 @@ def sharded_drive(engine, reqs: list, **sched_kw) -> tuple:
     sched.step()
     for r in reqs[2:]:
         sched.submit(r)
+    save_s = 0.0
+    if save is not None:
+        for _ in range(SHARDED_SAVE_ROUNDS - 1):
+            sched.step()
+        if not sched.has_work:
+            raise AssertionError("the save run drained before its save")
+        torch.cuda.synchronize(engine.device)
+        ts = time.perf_counter()
+        sched.save(save)
+        save_s = time.perf_counter() - ts
     while sched.has_work:
         sched.step()
     torch.cuda.synchronize(engine.device)
     return ([list(r.tokens) for r in reqs], dict(sched.stats),
-            time.perf_counter() - t0)
+            time.perf_counter() - t0 - save_s, save_s)
 
 
-def sharded_config(arch: str, n_layers: int):
+def sharded_load(engine, ckpt: str) -> tuple:
+    """A fresh Scheduler on ``engine`` loads ``ckpt`` and serves to the
+    end: (transcripts in prompt order, stats, load seconds, seconds)."""
+    import torch
+    from repro_torch.serve import Scheduler
+    sched = Scheduler(engine, slots=SLOTS, chunk=8)
+    torch.cuda.synchronize(engine.device)
+    t0 = time.perf_counter()
+    sched.load(ckpt)
+    torch.cuda.synchronize(engine.device)
+    load_s = time.perf_counter() - t0
+    while sched.has_work:
+        sched.step()
+    torch.cuda.synchronize(engine.device)
+    reqs = sorted(sched.finished, key=lambda r: len(r.prompt))
+    return ([list(r.tokens) for r in reqs], dict(sched.stats), load_s,
+            time.perf_counter() - t0 - load_s)
+
+
+def sharded_config(arch: str, n_layers: int, **over):
+    import dataclasses
     from repro_torch import configs
-    return depth(configs.get_config(arch, quant="w4a4_lut"), n_layers)
+    cfg = depth(configs.get_config(arch, quant="w4a4_lut"), n_layers)
+    return dataclasses.replace(cfg, **over) if over else cfg
+
+
+def spec_config(n_layers: int):
+    """The speculative case's qwen2-7b: w4a4_tmac codes, paged."""
+    from repro_torch.serve import ServeConfig
+    return (sharded_config("qwen2-7b", n_layers, quant="w4a4_tmac"),
+            ServeConfig(quant="w4a4_tmac", max_len=256, seed=SAMPLE_SEED,
+                        spec_decode=True, draft_k=3, draft_planes=2,
+                        paged=True, page_size=4))
 
 
 def sharded_launches(cfg, n_model: int, forwards: int) -> dict:
     """One rank's launches in ``forwards`` forwards: the fused LUT kernel
-    for the Q/K/V (head or column), MLP wi/wg (column) and expert leaves
-    (its E / n_model experts of each bank, the shared expert's wi/wg), the
-    unfused LUT kernel for the two row-parallel leaves a layer (attention
-    wo, MLP or shared-expert wo), the fused int8 kernel for its half of the
-    head."""
-    fused = 3 + (3 * cfg.moe.n_experts // n_model + 2 if cfg.moe else 2)
+    for the Q/K/V (head or column; none for split-head float leaves), MLP
+    wi/wg (column) and expert leaves (its E / n_model experts of each
+    bank, the shared expert's wi/wg), the unfused LUT kernel for the
+    row-parallel leaves (attention wo unless split-head, MLP or
+    shared-expert wo), the fused int8 kernel for its half of the head.
+    Under w4a4_tmac the T-MAC kernels take the LUT kernels' places."""
+    split = cfg.split_head_params
+    fused = (0 if split else 3) \
+        + (3 * cfg.moe.n_experts // n_model + 2 if cfg.moe else 2)
+    row = 1 if split else 2
     L = cfg.n_layers
-    return {"lutmul_fused": fused * L * forwards,
-            "lutmul": 2 * L * forwards, "int_matmul_fused": forwards}
+    fused_k, row_k = (("lutmul_tmac_fused", "lutmul_tmac")
+                      if cfg.quant.endswith("_tmac")
+                      else ("lutmul_fused", "lutmul"))
+    return {fused_k: fused * L * forwards, row_k: row * L * forwards,
+            "int_matmul_fused": forwards}
 
 
-def sharded_rank(mesh, arch: str, n_layers: int, fault: bool) -> dict:
-    """One rank of a sharded run: the served tree built on the rank's
-    card (``init_served_params``, seed 0) and cut to its shard, the 8
-    contract requests, and with ``fault`` the first
-    ``SHARDED_FAULT_REQUESTS`` again under a NaN fault with a snapshot
-    every round."""
+def _shard_case(mesh, cfg, scfg, reqs, zero: bool = False) -> dict:
+    """One rank's engine over ``reqs``: the served tree made on the card
+    (``zero``: the low planes zeroed first), cut to the rank's shard,
+    served from zeroed counts."""
     import torch
-    from repro_torch.kernels.lutmul import ops
-    from repro_torch.serve import Engine, ServeConfig
-    from repro_torch.serve.faults import Fault, FaultPlan
+    from repro_torch.serve import Engine
     from repro_torch.serve.quantize import init_served_params
     from repro_torch.serve.sharded import ShardedEngine
-    ops.set_backend("cuda")
-    ops.set_variant(None)
-    cfg = sharded_config(arch, n_layers)
     dev = mesh.device
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    params = init_served_params(cfg, cfg.quant, seed=0, device=dev)
-    engine = ShardedEngine(cfg, params, ServeConfig(
-        quant=cfg.quant, max_len=256, seed=SAMPLE_SEED), mesh=mesh)
+    params = init_served_params(cfg, scfg.quant, seed=0, device=dev)
+    if zero:
+        zero_low_planes(params, scfg.draft_planes)
+    engine = ShardedEngine(cfg, params, scfg, mesh=mesh)
     del params
     torch.cuda.empty_cache()
     init_s = time.perf_counter() - t0
     reset_launches()
     engine.decode_steps = engine.prefill_steps = 0
-    toks, stats, dt = sharded_drive(engine, make_requests(cfg.vocab))
-    out = dict(rank=mesh.rank, backend=mesh.backend, device=str(dev),
-               toks=toks, stats=stats, seconds=dt, init_s=init_s,
-               launches=all_launches(),
-               forwards=engine.decode_steps + engine.prefill_steps,
-               head_sharded=engine.head_sharded,
-               experts_sharded=engine.experts_sharded,
-               tp_leaves=engine.n_tp_leaves,
-               kv_bytes=engine.kv_cache_bytes(SLOTS),
-               kv_total=Engine.kv_cache_bytes(engine, SLOTS),
-               peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    engine.lane_steps = dict.fromkeys(engine.lane_steps, 0)
+    toks, stats, dt, _ = sharded_drive(engine, reqs)
+    return dict(toks=toks, stats=stats, seconds=dt, init_s=init_s,
+                launches=all_launches(),
+                # a verify forward counts apart from the decode steps
+                forwards=engine.decode_steps + engine.prefill_steps
+                + engine.lane_steps["verify"],
+                lanes=dict(engine.lane_steps),
+                head_sharded=engine.head_sharded,
+                experts_sharded=engine.experts_sharded,
+                tp_leaves=engine.n_tp_leaves, paged=engine.paged,
+                cache_heads=engine_cache_shapes(engine),
+                kv_bytes=engine.kv_cache_bytes(SLOTS),
+                kv_total=Engine.kv_cache_bytes(engine, SLOTS),
+                peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+                engine=engine)
+
+
+def engine_cache_shapes(engine):
+    """KV heads of each attention layer of the rank's cache layout."""
+    return [shape["k"][2] for shape in engine._shard_shapes if "k" in shape]
+
+
+def sharded_rank(mesh, arch: str, n_layers: int, fault: bool,
+                 ckpt=None, new_layers=None) -> dict:
+    """One rank of a sharded run: the served tree built on the rank's
+    card (``init_served_params``, seed 0) and cut to its shard, the 8
+    contract requests; with ``fault`` the first ``SHARDED_FAULT_REQUESTS``
+    again under a NaN fault with a snapshot every round; with ``ckpt`` (a
+    directory all ranks see) the save / load case and, at ``new_layers``,
+    the split-head and speculative cases of the 2x2 world."""
+    from repro_torch.kernels.lutmul import ops
+    from repro_torch.serve import ServeConfig
+    from repro_torch.serve.faults import Fault, FaultPlan
+    ops.set_backend("cuda")
+    ops.set_variant(None)
+    cfg = sharded_config(arch, n_layers)
+    out = _shard_case(mesh, cfg, ServeConfig(
+        quant=cfg.quant, max_len=256, seed=SAMPLE_SEED), make_requests(
+            cfg.vocab))
+    engine = out.pop("engine")
+    out.update(rank=mesh.rank, backend=mesh.backend, device=str(mesh.device))
     if fault:
         plan = FaultPlan([Fault(site="decode", index=SHARDED_FAULT_INDEX,
                                 kind="nan_logits", slot=SHARDED_FAULT_SLOT)])
         engine.set_fault_plan(plan)
-        ftoks, fstats, fdt = sharded_drive(
+        ftoks, fstats, fdt, _ = sharded_drive(
             engine, make_requests(cfg.vocab)[:SHARDED_FAULT_REQUESTS],
             snapshot_interval=1)
         out["fault"] = dict(toks=ftoks, recoveries=fstats["recoveries"],
                             pending=len(plan.pending), seconds=fdt)
+        engine.set_fault_plan(None)
+    if ckpt is None:
+        return out
+    toks, stats, dt, save_s = sharded_drive(
+        engine, make_requests(cfg.vocab)[:SHARDED_SAVE_REQUESTS], save=ckpt)
+    ltoks, lstats, load_s, ldt = sharded_load(engine, ckpt)
+    out["save"] = dict(toks=toks, stats=stats, seconds=dt, save_ms=save_s
+                       * 1e3, loaded=ltoks, loaded_stats=lstats,
+                       load_ms=load_s * 1e3, loaded_seconds=ldt)
+    del engine
+    split = _shard_case(mesh, sharded_config(arch, new_layers,
+                                             split_head_params=True),
+                        ServeConfig(quant="w4a4_lut", max_len=256,
+                                    seed=SAMPLE_SEED),
+                        make_requests(cfg.vocab)[:SHARDED_NEW_REQUESTS])
+    del split["engine"]
+    out["split"] = split
+    spec = _shard_case(mesh, *spec_config(new_layers),
+                       make_requests(cfg.vocab)[:SHARDED_NEW_REQUESTS],
+                       zero=True)
+    del spec["engine"]
+    out["spec"] = spec
     return out
 
 
+def _check_rank_case(where: str, r: dict, cfg, n_data: int, n_model: int,
+                     want: list, wstats) -> None:
+    """A rank's transcripts (and, unless ``wstats`` is None, stats) against
+    the single card's; its sharding, cache heads, KV bytes and launches."""
+    if r["toks"] != want:
+        bad = [i for i, (a, b) in enumerate(zip(r["toks"], want)) if a != b]
+        raise AssertionError(f"{where}: transcripts of requests {bad} "
+                             "differ from the single card's")
+    if wstats is not None and r["stats"] != wstats:
+        raise AssertionError(f"{where}: Scheduler.stats {r['stats']} != "
+                             f"{wstats}")
+    if cfg.moe is None and not r["head_sharded"]:
+        raise AssertionError(f"{where}: not head-sharded")
+    if cfg.moe is not None and not r["experts_sharded"]:
+        raise AssertionError(f"{where}: experts not sharded")
+    shrink = n_data * (n_model if r["head_sharded"] else 1)
+    if not r["paged"] and r["kv_bytes"] * shrink != r["kv_total"]:
+        raise AssertionError(f"{where}: KV bytes {r['kv_bytes']} != "
+                             f"{r['kv_total']} / {shrink}")
+    heads = cfg.n_kv // n_model if r["head_sharded"] else cfg.n_kv
+    if set(r["cache_heads"]) != {heads}:
+        raise AssertionError(f"{where}: cache heads {r['cache_heads']}, "
+                             f"want {heads}")
+    want_l = dict.fromkeys(r["launches"], 0)
+    want_l.update(sharded_launches(cfg, n_model, r["forwards"]))
+    if r["launches"] != want_l:
+        raise AssertionError(f"{where}: launches {r['launches']} != "
+                             f"{want_l}")
+
+
+def _rank_line(label: str, r: dict, tokens: int, n: int) -> str:
+    rate = tokens / r["seconds"]
+    return (f"sharded[{label}] rank {r['rank']}: init {r['init_s']:.1f}s, "
+            f"{tokens} tokens in {r['seconds']:.2f}s ({rate:.2f} tokens/s, "
+            f"eager rounds, {n} processes on one card), "
+            f"{r['forwards']} forwards, launches "
+            f"{json.dumps({k: v for k, v in r['launches'].items() if v})}, "
+            f"peak {r['peak_gib']:.2f} GiB")
+
+
+def single_reference(cfg, label: str, reqs: list, zero_planes: int = 0):
+    """The single card's engine at the same seed and depth (replayed
+    rounds; ``zero_planes``: the low planes zeroed first) over ``reqs``:
+    (transcripts, stats, seconds, tokens)."""
+    engine = new_engine(cfg, 256, label)
+    if zero_planes:
+        zero_low_planes(engine.params, zero_planes)
+    toks, stats, dt, _ = sharded_drive(engine, reqs)
+    del engine
+    reset_peak(empty=True)
+    return toks, stats, dt, sum(len(t) for t in toks)
+
+
 def run_sharded(n_layers) -> None:
-    """Multi-GPU serving on the one card: qwen2-7b 2x2 (head-parallel)
-    and qwen2-moe-a2.7b 1x2 (expert-parallel) against the single-card
-    engine at the same seed and depth (see the module docstring)."""
+    """Multi-GPU serving on the one card: qwen2-7b 2x2 (head-parallel; its
+    save / load, split-head and speculative cases in the same world) and
+    qwen2-moe-a2.7b 1x2 (expert-parallel) against the single-card engine
+    at the same seed and depth (see the module docstring)."""
+    import shutil
+    import tempfile
     import torch
     from repro_torch.kernels.lutmul import ops
     from repro_torch.serve.sharded import launch
@@ -3103,7 +3295,7 @@ def run_sharded(n_layers) -> None:
         "memory (NCCL refuses two ranks on one card); tokens/s below are "
         "of the ranks sharing that card, not a scaling figure")
     for arch, spec, layers, fault in (
-            ("qwen2-7b", SHARDED_QWEN, CUT_LAYERS, True),
+            ("qwen2-7b", SHARDED_QWEN, SHARDED_QWEN_LAYERS, True),
             ("qwen2-moe-a2.7b", SHARDED_MOE, SHARDED_MOE_LAYERS, False)):
         layers = min(layers, n_layers or layers)
         cfg = sharded_config(arch, layers)
@@ -3112,44 +3304,50 @@ def run_sharded(n_layers) -> None:
         ops.set_backend("cuda")
         ops.set_variant(None)
         engine = new_engine(cfg, 256, f"{arch} single card")
-        want, wstats, wdt = sharded_drive(engine, make_requests(cfg.vocab))
-        want_fault = sharded_drive(engine, make_requests(
-            cfg.vocab)[:SHARDED_FAULT_REQUESTS])[0] if fault else None
+        want, wstats, wdt, _ = sharded_drive(engine,
+                                             make_requests(cfg.vocab))
+        if fault:
+            want_fault = sharded_drive(
+                engine, make_requests(cfg.vocab)[:SHARDED_FAULT_REQUESTS])[0]
+            save_want = sharded_drive(
+                engine, make_requests(cfg.vocab)[:SHARDED_SAVE_REQUESTS])[:2]
         tokens = sum(len(t) for t in want)
         log(f"sharded[{label}]: single card {layers} layers, {tokens} "
             f"tokens in {wdt:.2f}s ({tokens / wdt:.2f} tokens/s, replayed "
             "rounds)")
         del engine
         reset_peak(empty=True)
+        ckpt = None
+        new_layers = min(CUT_LAYERS, n_layers or CUT_LAYERS)
+        if fault:
+            split_cfg = sharded_config(arch, new_layers,
+                                       split_head_params=True)
+            split_want = single_reference(split_cfg, f"{arch} split-head "
+                                          "single card", make_requests(
+                                              cfg.vocab)[:SHARDED_NEW_REQUESTS])
+            tcfg, tscfg = spec_config(new_layers)
+            spec_want = single_reference(tcfg, f"{arch} tmac single card, "
+                                         "low planes zeroed", make_requests(
+                                             cfg.vocab)[:SHARDED_NEW_REQUESTS],
+                                         tscfg.draft_planes)
+            os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+            ckpt = tempfile.mkdtemp(prefix="sharded_ckpt_",
+                                    dir=os.path.join(REPO, "build"))
         t0 = time.perf_counter()
-        ranks = launch(sharded_rank, spec, "gloo", timeout_s=SHARDED_S,
-                       args=(arch, layers, fault))
+        try:
+            ranks = launch(sharded_rank, spec, "gloo", timeout_s=SHARDED_S,
+                           args=(arch, layers, fault, ckpt, new_layers))
+        finally:
+            if ckpt is not None:
+                shutil.rmtree(ckpt, ignore_errors=True)
         world_s = time.perf_counter() - t0
         for r in ranks:
             where = f"sharded[{label}] rank {r['rank']}"
-            if r["toks"] != want:
-                bad = [i for i, (a, b) in enumerate(zip(r["toks"], want))
-                       if a != b]
-                raise AssertionError(f"{where}: transcripts of requests "
-                                     f"{bad} differ from the single card's")
-            if r["stats"] != ranks[0]["stats"] or r["stats"] != wstats:
-                raise AssertionError(f"{where}: Scheduler.stats "
-                                     f"{r['stats']} != {wstats}")
+            _check_rank_case(where, r, cfg, n_data, n_model, want, wstats)
+            if r["stats"] != ranks[0]["stats"]:
+                raise AssertionError(f"{where}: stats differ from rank 0's")
             if r["backend"] != "gloo":
                 raise AssertionError(f"{where}: backend {r['backend']}")
-            if arch == "qwen2-7b" and not r["head_sharded"]:
-                raise AssertionError(f"{where}: not head-sharded")
-            if cfg.moe is not None and not r["experts_sharded"]:
-                raise AssertionError(f"{where}: experts not sharded")
-            shrink = n_data * (n_model if r["head_sharded"] else 1)
-            if r["kv_bytes"] * shrink != r["kv_total"]:
-                raise AssertionError(f"{where}: KV bytes {r['kv_bytes']} "
-                                     f"!= {r['kv_total']} / {shrink}")
-            want_l = dict.fromkeys(r["launches"], 0)
-            want_l.update(sharded_launches(cfg, n_model, r["forwards"]))
-            if r["launches"] != want_l:
-                raise AssertionError(f"{where}: launches {r['launches']} "
-                                     f"!= {want_l}")
             if fault:
                 f = r["fault"]
                 if f["toks"] != want_fault or f["recoveries"] < 1 \
@@ -3168,13 +3366,7 @@ def run_sharded(n_layers) -> None:
             f"bitwise, stats equal; KV bytes a rank {ranks[0]['kv_bytes']} "
             f"of {ranks[0]['kv_total']}; world {world_s:.1f}s")
         for r in ranks:
-            line = (f"sharded[{label}] rank {r['rank']}: init {r['init_s']:.1f}"
-                    f"s, {tokens} tokens in {r['seconds']:.2f}s "
-                    f"({tokens / r['seconds']:.2f} tokens/s, eager rounds, "
-                    f"{len(ranks)} processes on one card), {r['forwards']} "
-                    f"forwards, launches "
-                    f"{json.dumps({k: v for k, v in r['launches'].items() if v})}"
-                    f", peak {r['peak_gib']:.2f} GiB")
+            line = _rank_line(label, r, tokens, len(ranks))
             if fault:
                 f = r["fault"]
                 line += (f"; fault run ({SHARDED_FAULT_REQUESTS} requests): "
@@ -3182,7 +3374,72 @@ def run_sharded(n_layers) -> None:
                          f"{f['recoveries']} recoveries, transcripts equal "
                          f"to the single card's, {f['seconds']:.2f}s")
             log(line)
+        if fault:
+            check_sharded_cases(ranks, arch, new_layers, n_data, n_model,
+                                save_want, split_want, spec_want)
     log(f"sharded: {smi_line()}")
+
+
+def check_sharded_cases(ranks: list, arch: str, layers: int, n_data: int,
+                        n_model: int, save_want: tuple, split_want: tuple,
+                        spec_want: tuple) -> None:
+    """The 2x2 world's save / load, split-head and speculative cases on
+    every rank against the single card's runs."""
+    smi = smi_line()
+    spec = SHARDED_QWEN
+    toks, stats = save_want
+    for r in ranks:
+        where = f"sharded[{arch} {spec} save/load] rank {r['rank']}"
+        sv = r["save"]
+        for what, t, st in (("uninterrupted", sv["toks"], sv["stats"]),
+                            ("loaded", sv["loaded"], sv["loaded_stats"])):
+            if t != toks or st != stats:
+                raise AssertionError(f"{where}: the {what} run's transcripts "
+                                     "or stats differ from the single card's")
+        log(f"{where}: saved after round {SHARDED_SAVE_ROUNDS} of "
+            f"{SHARDED_SAVE_REQUESTS} requests, a fresh Scheduler loaded it "
+            f"and served to the end; transcripts and stats == the "
+            f"uninterrupted run's == the single card's; save "
+            f"{sv['save_ms']:.1f} ms, load {sv['load_ms']:.1f} ms "
+            f"(host, the card synchronized), uninterrupted "
+            f"{sv['seconds']:.2f}s, after the load {sv['loaded_seconds']:.2f}"
+            f"s | {smi}")
+    for case, (want, wstats, wdt, wtok), cfg in (
+            ("split-head", split_want,
+             sharded_config(arch, layers, split_head_params=True)),
+            ("spec", spec_want, spec_config(layers)[0])):
+        label = f"{arch} {spec} {case}"
+        log(f"sharded[{label}]: single card {layers} layers, {wtok} tokens "
+            f"in {wdt:.2f}s "
+            f"({wtok / wdt:.2f} tokens/s, replayed rounds"
+            + (", NOT speculative" if case == "spec" else "") + f") | {smi}")
+        for r in ranks:
+            c = r[case.split("-")[0]]
+            c["rank"] = r["rank"]
+            where = f"sharded[{label}] rank {r['rank']}"
+            # the spec case's single card is NOT speculative: equal
+            # transcripts, other round counts; every rank agrees on its stats
+            if case == "spec" and (c["stats"] != ranks[0]["spec"]["stats"]
+                                   or c["stats"]["spec_rounds"] <= 0):
+                raise AssertionError(f"{where}: spec stats {c['stats']}")
+            _check_rank_case(where, c, cfg, n_data, n_model, want,
+                             None if case == "spec" else wstats)
+            line = _rank_line(label, c, wtok, len(ranks))
+            if case == "spec":
+                st = c["stats"]
+                acc = st["spec_accepted"] / max(1, st["spec_drafted"])
+                line += (f"; {st['spec_rounds']} speculative rounds, accept "
+                         f"rate {acc:.4f} ({st['spec_accepted']} of "
+                         f"{st['spec_drafted']} "
+                         f"drafts), forwards by lane {json.dumps(c['lanes'])}")
+            else:
+                line += (f"; cache heads a layer {c['cache_heads'][0]}, KV "
+                         f"bytes a rank {c['kv_bytes']} of {c['kv_total']}")
+            log(line + f" | {smi}")
+        RUNS[f"sharded {label} rank 0"] = {
+            "seconds": ranks[0][case.split("-")[0]]["seconds"],
+            "launches": ranks[0][case.split("-")[0]]["launches"],
+            "forwards_by_lane": ranks[0][case.split("-")[0]]["lanes"]}
 
 
 def run_mixtral(n_layers, profile_steps: int) -> None:
@@ -3786,8 +4043,8 @@ def run_mixed(n_layers, profile_steps: int) -> None:
     """The paper's analytic model (printed), then qwen2-7b at full width
     and depth under its planned mixed widths: uniform w4a4_tmac (the plan
     at 4.0) fused over the 8 requests, then each ``MIXED_TARGETS`` plan
-    fused (8) == unfused (4) == the plain backend (the first request,
-    ``PLAIN_TOKENS``), plane counts and code bytes checked, a replayed round
+    fused (8) == the plain backend (the first request, ``PLAIN_TOKENS``;
+    the unfused runs were cut for the sharded phase's time), plane counts and code bytes checked, a replayed round
     profiled; the all-w4 plan over nibble-mode float layers at the cut
     depth == the w4a4_tmac run there; then the timed formulation picker."""
     import dataclasses
@@ -3820,11 +4077,6 @@ def run_mixed(n_layers, profile_steps: int) -> None:
                                  f"give {want}")
         fused = serve(engine, V, f"qwen {name} fused", 8, "lutmul_tmac")
         if t != 4.0:
-            ops.set_variant("unfused")
-            same(serve(engine, V, f"qwen {name} unfused", 4, "lutmul_tmac",
-                       fused=False), fused,
-                 f"qwen {name} unfused == qwen {name} fused")
-            ops.set_variant(None)
             ops.set_backend("ref")
             same(serve(engine, V, f"qwen {name} plain", 1,
                        reqs=first_request(V)), [fused[0][:PLAIN_TOKENS]],

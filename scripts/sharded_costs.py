@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """What the sharded serving path's two new costs are on one GPU host.
 
-    python3 scripts/sharded_costs.py
+    python3 scripts/sharded_costs.py [attention] [split] [norm] [collectives]
+
+(no argument: all four).
 
 1. The float attention's bits against the rows and heads of a call: for
    decode (one query position) and prefill shapes of the served models,
@@ -9,7 +11,17 @@
    heads against the same slice of the whole batch's result (the rows and
    heads a sharded engine's rank holds), and the batched einsums it
    replaced on the card, with each call's median ms (CUDA events).
-2. The collectives of ``dist.tp`` on ranks that share the card
+2. The split-head projections' bits against the rows and heads of a
+   call: ``attention.proj_stable`` / ``out_stable`` (what the card runs)
+   and the einsums they replace, at
+   qwen2-7b's full-width decode, verify and prefill shapes, each call's
+   median ms (CUDA events).
+3. The norms' row reduction against the rows of a call: ``torch.mean``
+   over a 3,584-wide row (what ``rms_norm`` took before the padding) and
+   ``layers.row_mean`` (what it takes now: zero rows padded to 16 on the
+   card), each row of a call of R rows against the same row of a
+   264-row call.
+4. The collectives of ``dist.tp`` on ranks that share the card
    (``serve.sharded.launch(..., backend="gloo")``, every rank on
    ``cuda:0``): a staged all-reduce max / int32 sum / all-gather of a
    decode step's [4, 3584] activation, a gloo all-reduce of the same host
@@ -94,6 +106,70 @@ def attention_bits() -> None:
                   f"{_ms(lambda: fn(q, k, v, qp, kp)):.4f} ms", flush=True)
 
 
+# (B, S): qwen2-7b decode, verify (draft_k + 1) and an odd prefill
+SPLIT_ROWS = ((8, 1), (8, 4), (8, 33))
+
+
+def split_head_bits() -> None:
+    import torch
+    from repro_torch.models import attention as A
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(1)
+    d, dh = 3584, 128
+    for B, S in SPLIT_ROWS:
+        x = torch.randn((B, S, d), generator=g, device=dev).to(
+            torch.bfloat16)
+        r = B // 2
+        for H in (28, 4):
+            w = (torch.randn((d, H, dh), generator=g, device=dev)
+                 * d ** -0.5).to(torch.bfloat16)
+            h = H // 2
+            for name, fn in (("proj_stable", A.proj_stable),
+                             ("einsum", lambda a, b: torch.einsum(
+                                 "bsd,dhk->bshk", a, b))):
+                whole = fn(x, w)
+                rows, heads = fn(x[r:], w), fn(x, w[:, h:].contiguous())
+                verdict = {
+                    part: "equal" if torch.equal(ref, got) else
+                    f"differ by {(ref - got).abs().max().item():.3g}"
+                    for part, ref, got in (("rows", whole[r:], rows),
+                                           ("heads", whole[:, :, h:],
+                                            heads))}
+                print(f"split-head projection {(B, S, d, H, dh)} {name}: "
+                      f"rows {verdict['rows']}, heads {verdict['heads']}, "
+                      f"{_ms(lambda: fn(x, w)):.4f} ms", flush=True)
+        o = torch.randn((B, S, 28, dh), generator=g, device=dev).to(
+            torch.bfloat16)
+        wo = (torch.randn((28, dh, d), generator=g, device=dev)
+              * (28 * dh) ** -0.5).to(torch.bfloat16)
+        for name, fn in (("out_stable", A.out_stable),
+                         ("einsum", lambda a, b: torch.einsum(
+                             "bshk,hkd->bsd", a, b))):
+            whole, rows = fn(o, wo), fn(o[r:], wo)
+            verdict = "equal" if torch.equal(whole[r:], rows) else \
+                f"differ by {(whole[r:] - rows).abs().max().item():.3g}"
+            print(f"split-head output {(B, S, 28, dh, d)} {name}: rows "
+                  f"{verdict}, {_ms(lambda: fn(o, wo)):.4f} ms", flush=True)
+
+
+def norm_bits() -> None:
+    import torch
+    from repro_torch.models import layers as L
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn((264, 3584), generator=g, device="cuda") \
+        * torch.rand((264, 1), generator=g, device="cuda") * 4
+    sq = x * x
+    for name, fn in (("torch.mean", lambda t: torch.mean(t, -1,
+                                                         keepdim=True)),
+                     ("row_mean", L.row_mean)):
+        full = fn(sq)
+        verdict = " ".join(
+            f"{R}:{'equal' if torch.equal(fn(sq[-R:].clone()), full[-R:]) else 'differ'}"
+            for R in (1, 2, 3, 4, 5, 8, 12, 16, 33))
+        print(f"norm rows {name}: rows of a call of R rows against a "
+              f"264-row call: {verdict}", flush=True)
+
+
 def _collectives(mesh) -> dict:
     import torch
     import torch.distributed as dist
@@ -144,8 +220,10 @@ def main() -> int:
         return 2
     print(os.popen("nvidia-smi --query-gpu=name,power.limit "
                    "--format=csv,noheader").read().strip())
-    attention_bits()
-    collectives()
+    parts = sys.argv[1:] or ["attention", "split", "norm", "collectives"]
+    for part in parts:
+        {"attention": attention_bits, "split": split_head_bits,
+         "norm": norm_bits, "collectives": collectives}[part]()
     return 0
 
 

@@ -28,9 +28,12 @@ contraction.  Four layouts, as the reference's:
 / ``tp_head`` / ``tp_exp``) into each sharded leaf dict; ``layers.linear``
 reads it with :func:`leaf_tp_mode`.  :func:`shard_params` then slices every
 marked leaf to this rank's part (the counterpart of the reference's
-``device_put`` with ``NamedSharding``).  The reference's 3D split-head
-leaves (``wq3``/``wk3``/``wv3``) are not ported: the port's
-``transformer.check_supported`` refuses ``split_head_params``.
+``device_put`` with ``NamedSharding``).  The float 3D split-head leaves
+(``split_head_params``: ``wq3``/``wk3``/``wv3`` [d, H, dh], ``wo3`` [H,
+dh, d]) go head-parallel as whole groups: the Q/K/V leaves split their
+head axis (an exact column split of a float product), ``wo3`` stays
+replicated behind an all-gather of the local heads
+(``models.attention._proj_out``).
 
 :func:`tp_context` is installed by the sharded engine around its rounds;
 outside it every hook here is the identity and the markers are inert, so
@@ -58,6 +61,8 @@ _ROW_PARALLEL_NAMES = frozenset({"wo", "out_proj"})
 _SKIP_NAMES = frozenset({"embed"})
 # the QKV projections that go head-parallel when the head counts divide
 _HEAD_COL_NAMES = ("wq", "wk", "wv")
+# their float split-head (3D) counterparts; ``wo3`` stays replicated
+_HEAD_COL_3D = ("wq3", "wk3", "wv3")
 # direct children of a "moe" dict that are stacked expert banks [E, K, N]
 _EXPERT_BANK_NAMES = frozenset({"wi", "wg", "wo"})
 MARKERS = ("tp_col", "tp_row", "tp_head", "tp_exp")
@@ -137,10 +142,13 @@ def _leaf_split_dims(leaf: dict, mode: str) -> dict:
     along, or None where it is replicated: the reference's ``_leaf_specs``.
     Biases are replicated for col/row (added after the gather / reduce) and
     split along N for head-parallel leaves, whose output stays local; expert
-    banks split the expert axis of codes and scales."""
+    banks split the expert axis of codes and scales; a float split-head
+    leaf (``w`` [d, H, dh], ``b`` [H, dh]) splits the head axis of both."""
     dims = {}
     for k in leaf:
-        if mode == "exp":
+        if "w" in leaf:
+            dims[k] = -2 if k in ("w", "b") else None
+        elif mode == "exp":
             dims[k] = -3 if k in ("w_q", "w_scale") else None
         elif k == "w_q":
             dims[k] = -2 if mode == "row" else -1
@@ -155,8 +163,9 @@ def _leaf_split_dims(leaf: dict, mode: str) -> dict:
 
 def _marked(leaf: dict, mode: str) -> tuple[dict, dict]:
     out = dict(leaf)
+    ref = leaf["w_q"] if "w_q" in leaf else leaf["w"]
     out["tp_" + mode] = torch.zeros((0,), dtype=torch.int8,
-                                    device=leaf["w_q"].device)
+                                    device=ref.device)
     return out, _leaf_split_dims(out, mode)
 
 
@@ -170,23 +179,36 @@ def _replicated(tree):
 
 def _attn_head_counts(attn: dict, head_dim: int) -> tuple[int, int]:
     """(n_heads, n_kv) of one attention param dict, from leaf shapes."""
+    if "wq3" in attn:
+        return attn["wq3"]["w"].shape[-2], attn["wk3"]["w"].shape[-2]
     return (attn["wq"]["w_q"].shape[-1] // head_dim,
             attn["wk"]["w_q"].shape[-1] // head_dim)
 
 
 def _is_attn_group(v) -> bool:
-    return isinstance(v, dict) and all(
-        k in v and isinstance(v[k], dict) and "w_q" in v[k]
-        for k in ("wq", "wk", "wv", "wo"))
+    """An attention group: quantized ``wq/wk/wv/wo`` leaves or float
+    split-head ``wq3/wk3/wv3/wo3`` leaves."""
+    if not isinstance(v, dict):
+        return False
+    return all(k in v and isinstance(v[k], dict) and "w_q" in v[k]
+               for k in ("wq", "wk", "wv", "wo")) or all(
+        k in v and isinstance(v[k], dict) and "w" in v[k]
+        for k in _HEAD_COL_3D + ("wo3",))
 
 
 def _mark_attn_heads(attn: dict):
     """Head-parallel marking of one attention group (the caller checked
-    divisibility): (marked, dims, n_sharded).  The output projection is
-    ordinary row-parallel: its K rows are head-major, so the even K split
-    IS the head split and the head-local attention output is already this
-    rank's K slice (told apart by shape in ``ops.prequant_matmul``)."""
+    divisibility): (marked, dims, n_sharded).  Split-head leaves mark
+    ``wq3``/``wk3``/``wv3`` (their head axis splits) and leave ``wo3``
+    replicated.  Otherwise the output projection is ordinary row-parallel:
+    its K rows are head-major, so the even K split IS the head split and
+    the head-local attention output is already this rank's K slice (told
+    apart by shape in ``ops.prequant_matmul``)."""
     out, dims = dict(attn), _replicated(attn)
+    if "wq3" in attn:
+        for k in _HEAD_COL_3D:
+            out[k], dims[k] = _marked(attn[k], "head")
+        return out, dims, len(_HEAD_COL_3D)
     for k in _HEAD_COL_NAMES:
         out[k], dims[k] = _marked(attn[k], "head")
     out["wo"], dims["wo"] = _marked(attn["wo"], "row")
@@ -199,6 +221,8 @@ def _attn_head_marking_ok(attn: dict, head_dim: Optional[int],
         return False
     if not head_shardable(*_attn_head_counts(attn, head_dim), n_model):
         return False
+    if "wq3" in attn:
+        return True
     # every quantized leaf must split cleanly too (packed int4 wo rows are
     # n_heads * head_dim // 2: an odd per-rank row count would straddle a
     # nibble pair)
@@ -212,7 +236,8 @@ def mark_tp_params(params, n_model: int, head_dim: Optional[int] = None):
 
     Walks the tree for serving-code leaves (``{"w_q", "w_scale"}``, from
     ``serve.quantize``) whose parent key names a projection.  Attention
-    groups (dicts holding ``wq/wk/wv/wo``) go head-parallel when
+    groups (dicts holding ``wq/wk/wv/wo``, or the float split-head
+    ``wq3/wk3/wv3/wo3``) go head-parallel when
     ``head_dim`` is given and both head counts divide ``n_model``;
     otherwise, and for every other projection, ``wo``/``out_proj`` become
     row-parallel and the rest column-parallel.  MoE expert banks
@@ -312,7 +337,7 @@ def attn_group_counts(params) -> tuple[int, int]:
     the cache layout is one choice for the whole engine, so head marking
     must be all-or-nothing."""
     if _is_attn_group(params):
-        return 1, int("tp_head" in params["wq"])
+        return 1, int("tp_head" in params.get("wq3", params.get("wq")))
     if isinstance(params, dict):
         children = params.values()
     elif isinstance(params, (tuple, list)):

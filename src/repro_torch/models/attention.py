@@ -38,25 +38,68 @@ NEG_INF = -1e30
 
 def init_attention(gen: torch.Generator, d_model: int, n_heads: int,
                    n_kv: int, head_dim: int, qkv_bias: bool = False,
-                   dtype=torch.float32, device=None) -> Params:
+                   dtype=torch.float32, device=None,
+                   split_heads: bool = False) -> Params:
+    """``split_heads=True`` stores the projections as 3D float leaves
+    (``split_head_params``), as the reference does: ``wq3``/``wk3``/``wv3``
+    [d, H, dh] with [H, dh] biases under ``qkv_bias``, and ``wo3`` [H, dh,
+    d].  Serving quantization leaves them float."""
     kw = dict(dtype=dtype, device=device)
-    return {
-        "wq": init_linear(gen, d_model, n_heads * head_dim, bias=qkv_bias,
-                          **kw),
-        "wk": init_linear(gen, d_model, n_kv * head_dim, bias=qkv_bias, **kw),
-        "wv": init_linear(gen, d_model, n_kv * head_dim, bias=qkv_bias, **kw),
-        "wo": init_linear(gen, n_heads * head_dim, d_model, **kw),
-    }
+    if not split_heads:
+        return {
+            "wq": init_linear(gen, d_model, n_heads * head_dim,
+                              bias=qkv_bias, **kw),
+            "wk": init_linear(gen, d_model, n_kv * head_dim, bias=qkv_bias,
+                              **kw),
+            "wv": init_linear(gen, d_model, n_kv * head_dim, bias=qkv_bias,
+                              **kw),
+            "wo": init_linear(gen, n_heads * head_dim, d_model, **kw),
+        }
+    s = 1.0 / math.sqrt(d_model)
+    p = {name: {"w": torch.randn((d_model, h, head_dim), generator=gen,
+                                 **kw).mul_(s)}
+         for name, h in (("wq3", n_heads), ("wk3", n_kv), ("wv3", n_kv))}
+    p["wo3"] = {"w": torch.randn((n_heads, head_dim, d_model), generator=gen,
+                                 **kw).mul_(1.0 / math.sqrt(n_heads
+                                                            * head_dim))}
+    if qkv_bias:
+        for name, h in (("wq3", n_heads), ("wk3", n_kv), ("wv3", n_kv)):
+            p[name]["b"] = torch.zeros((h, head_dim), **kw)
+    return p
 
 
 def _proj_qkv(p: Params, name: str, x: torch.Tensor, B: int, S: int,
               D: int, quant: str, cd) -> torch.Tensor:
-    """Project to [B, S, h, D]."""
+    """Project to [B, S, h, D] through the 2D leaf (codes or float) or the
+    3D split-head leaf (a float product).  ``h`` comes from the
+    projection's output: a head-parallel rank's leaves give its local
+    heads."""
+    if name + "3" in p:
+        leaf = p[name + "3"]
+        x, w = x.to(cd), leaf["w"].to(cd)
+        y = proj_stable(x, w) if x.is_cuda else torch.einsum(
+            "bsd,dhk->bshk", x, w)
+        if "b" in leaf:
+            y = y + leaf["b"].to(cd)
+        return y
     return linear(p[name], x, quant, cd).reshape(B, S, -1, D)
 
 
 def _proj_out(p: Params, out: torch.Tensor, B: int, S: int, quant: str,
               cd) -> torch.Tensor:
+    """The output projection.  The 2D ``wo`` is row-parallel under tensor
+    parallelism (its K rows are head-major, so the local heads are its K
+    slice); the float ``wo3`` [H, dh, d] stays replicated, so head-local
+    outputs are all-gathered over the model axis in front of it (a float
+    partial-sum reduction would reorder the sum)."""
+    if "wo3" in p:
+        w = p["wo3"]["w"]
+        if out.shape[2] != w.shape[0]:        # head-sharded input
+            from repro_torch.dist import tp as tp_lib
+            out = tp_lib.all_gather(out, tp_lib.model_axis(), dim=2)
+        out, w = out.to(cd), w.to(cd)
+        return out_stable(out, w) if out.is_cuda else torch.einsum(
+            "bshk,hkd->bsd", out, w)
     return linear(p["wo"], out.reshape(B, S, -1).to(cd), quant, cd)
 
 
@@ -163,6 +206,55 @@ def weighted_stable(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         return _blocked_sum(p[..., None, :]
                             * v.permute(0, 2, 3, 1)[:, None, :, None])
     return _per_pair(p, v, transpose=False)
+
+
+# The split-head projections are float GEMMs whose bits must not depend on
+# the call's rows (a data shard's) or heads (a model rank's), for the same
+# reason as attention's products: on the card each takes GEMMs of one
+# shape, rows in zero-padded blocks of ``_ROW_BLOCK``, heads one at a time
+# in batches of ``_PAIR_BATCH`` (zero-padded), every operand a fresh
+# allocation.  ``wo3`` contracts over every head (gathered first under
+# tensor parallelism), so only its rows are blocked.
+_ROW_BLOCK = 16
+
+
+def _row_blocks(x2: torch.Tensor) -> torch.Tensor:
+    """[R, K] -> [ceil(R / _ROW_BLOCK), _ROW_BLOCK, K], zero-padded."""
+    pad = (-x2.shape[0]) % _ROW_BLOCK
+    if pad:
+        x2 = torch.cat([x2, x2.new_zeros((pad, x2.shape[1]))])
+    return x2.reshape(-1, _ROW_BLOCK, x2.shape[1])
+
+
+def proj_stable(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsd,dhk->bshk")`` of x [B, S, d] and w [d, H, dh], each
+    (row, head) with bits that do not depend on B, S or H on the card:
+    batched GEMMs [_PAIR_BATCH, _ROW_BLOCK, d] @ [_PAIR_BATCH, d, dh]."""
+    B, S, d = x.shape
+    H, dh = w.shape[1], w.shape[2]
+    pad = (-H) % _PAIR_BATCH
+    wh = w.permute(1, 0, 2)
+    if pad:
+        wh = torch.cat([wh, wh.new_zeros((pad, d, dh))])
+    heads = [wh[i:i + _PAIR_BATCH].clone()
+             for i in range(0, H + pad, _PAIR_BATCH)]
+    outs = []
+    for blk in _row_blocks(x.reshape(B * S, d)):
+        a = blk.expand(_PAIR_BATCH, _ROW_BLOCK, d).clone()
+        outs.append(torch.cat([torch.bmm(a, b) for b in heads])[:H])
+    y = torch.cat(outs, 1)[:, :B * S]                     # [H, R, dh]
+    return y.permute(1, 0, 2).reshape(B, S, H, dh)
+
+
+def out_stable(out: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bshk,hkd->bsd")`` of out [B, S, H, dh] and w [H, dh, d],
+    each row with bits that do not depend on B or S on the card: GEMMs
+    [_ROW_BLOCK, H * dh] @ [H * dh, d]."""
+    B, S, H, dh = out.shape
+    w2 = w.reshape(H * dh, w.shape[2]).clone()
+    blocks = _row_blocks(out.reshape(B * S, H * dh))
+    y = torch.cat([blk.clone() @ w2 for blk in blocks])[:B * S]
+    return y.reshape(B, S, -1)
 
 
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

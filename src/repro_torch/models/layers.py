@@ -117,10 +117,43 @@ def nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 # norm + rotary embeddings
 # ---------------------------------------------------------------------------
 
+# ATen's CUDA reduction lays its threads out by how many outputs a call
+# has, up to 16 (fewer outputs, more threads on each), so a norm's sum over
+# d takes other bits in a call of fewer than 16 rows than in a larger one
+# (seen on the card: a data shard's rows of a split-head model parted from
+# the whole batch's; ``scripts/sharded_costs.py norm``).  On the card the
+# norms reduce over at least ``_MIN_ROWS`` rows, zero rows padded in.
+_MIN_ROWS = 16
+
+
+def _rows_padded(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` of a reduction over the last axis (keepdim), with at least
+    ``_MIN_ROWS`` rows in the call on the card."""
+    rows = x.numel() // x.shape[-1]
+    if not x.is_cuda or rows >= _MIN_ROWS:
+        return fn(x)
+    x2 = x.reshape(rows, x.shape[-1])
+    x2 = torch.cat([x2, x2.new_zeros((_MIN_ROWS - rows, x2.shape[1]))])
+    return fn(x2)[:rows].reshape(x.shape[:-1] + (1,))
+
+
+def row_mean(x: torch.Tensor) -> torch.Tensor:
+    """``torch.mean(x, -1, keepdim=True)``, each row's bits independent of
+    the call's rows on the card."""
+    return _rows_padded(lambda t: torch.mean(t, dim=-1, keepdim=True), x)
+
+
+def row_var(x: torch.Tensor) -> torch.Tensor:
+    """The population variance over the last axis (keepdim), each row's
+    bits independent of the call's rows on the card."""
+    return _rows_padded(lambda t: torch.var(t, dim=-1, keepdim=True,
+                                            unbiased=False), x)
+
+
 def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-6,
              zero_centered: bool = False) -> torch.Tensor:
     xf = x.to(torch.float32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    var = row_mean(xf * xf)
     xf = xf * torch.rsqrt(var + eps)
     scale = p["scale"].to(torch.float32)
     if zero_centered:          # gemma-style (1 + scale)
@@ -132,8 +165,8 @@ def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm in float32 with the population variance, times ``scale``
     plus the optional ``bias``, in x's dtype."""
     xf = x.to(torch.float32)
-    mu = torch.mean(xf, dim=-1, keepdim=True)
-    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    mu = row_mean(xf)
+    var = row_var(xf)
     out = (xf - mu) * torch.rsqrt(var + eps) * p["scale"].to(torch.float32)
     if "bias" in p:
         out = out + p["bias"].to(torch.float32)

@@ -80,8 +80,7 @@ def check_supported(cfg: ModelConfig) -> None:
     for name, ok in (("rope_mode", cfg.rope_mode in ("rope", "mrope", "none")),
                      ("norm", cfg.norm in ("rmsnorm", "layernorm")),
                      ("enc_dec", not cfg.enc_dec),
-                     ("kv_quant", cfg.kv_quant in ("none", "int8")),
-                     ("split_head_params", not cfg.split_head_params)):
+                     ("kv_quant", cfg.kv_quant in ("none", "int8"))):
         if not ok:
             bad.append(name)
     if bad:
@@ -134,7 +133,7 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, spec: BlockSpec,
     if spec.kind == "attn":
         bp["attn"] = attn_lib.init_attention(
             gen, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim,
-            cfg.qkv_bias, **kw)
+            cfg.qkv_bias, split_heads=cfg.split_head_params, **kw)
         if cfg.gemma_norms:
             bp["post_attn_ln"] = init_norm(cfg.d_model, **kw)
     elif spec.kind == "mamba2":

@@ -641,6 +641,15 @@ class Engine:
             return self.pool.peak_pages * self.page_bytes(batch)
         return self._kv_leaf_bytes(batch)
 
+    def checkpoint_cache(self, cache: list, like: bool = False) -> list:
+        """The cache as ``Scheduler.save`` writes it: the engine's own leaves
+        (``ShardedEngine`` gathers the whole mesh's into this layout)."""
+        return cache
+
+    def cache_part(self, cache: list) -> list:
+        """This engine's part of a checkpoint's cache: all of it here."""
+        return cache
+
     def _decode(self, tok, cache, pos, lane: str = "decode", tables=None):
         self.decode_steps += 1
         self.lane_steps[lane] += 1

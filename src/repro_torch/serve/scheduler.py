@@ -542,16 +542,9 @@ class Scheduler:
 
     # -- save / load (crash recovery across processes) -----------------------
 
-    def _tree(self) -> dict:
-        return {"cache": self.cache, "tok": self.tok, "pos": self.pos,
+    def _tree(self, cache: list) -> dict:
+        return {"cache": cache, "tok": self.tok, "pos": self.pos,
                 "done": self.done}
-
-    def _check_checkpointable(self) -> None:
-        if self.engine.sharded:
-            raise NotImplementedError(
-                "Scheduler.save / load of a ShardedEngine is not ported: "
-                "every rank holds its own cache shard, and one checkpoint "
-                "of the whole mesh needs each rank's part")
 
     def save(self, ckpt_dir: str, step: Optional[int] = None):
         """Write the whole serving state as a committed ``ckpt.checkpoint``
@@ -560,8 +553,10 @@ class Scheduler:
         mirrors, draw counter, cursors, counters, the pool's state and
         every queued, running and finished request.  Streaming callbacks
         stay out: a loaded request streams nothing until a callback is set
-        again.  A ``ShardedEngine`` raises (not ported)."""
-        self._check_checkpointable()
+        again.  On a ``ShardedEngine`` every rank calls it (collective): the
+        cache is gathered into the single engine's layout, rank 0 writes
+        and commits, and every rank waits until it has."""
+        tree = self._tree(self.engine.checkpoint_cache(self.cache))
         recs = {
             "queue": [_req_record(r) for r in self.queue],
             "slots": [None if r is None else _req_record(r)
@@ -583,8 +578,14 @@ class Scheduler:
             "geometry": self._geometry(),
             **recs,
         }}
-        return ckpt_lib.save(ckpt_dir, self._ticks if step is None
-                             else step, self._tree(), extra=extra)
+        step = self._ticks if step is None else step
+        if not self.engine.sharded:
+            return ckpt_lib.save(ckpt_dir, step, tree, extra=extra)
+        import torch.distributed as dist
+        if self.engine.mesh.rank == 0:
+            ckpt_lib.save(ckpt_dir, step, tree, extra=extra)
+        dist.barrier()                  # committed before any rank goes on
+        return None
 
     def _geometry(self) -> dict:
         return {"slots": self.n_slots, "chunk": self.chunk,
@@ -599,17 +600,21 @@ class Scheduler:
         slot vectors IN PLACE, so captured round graphs replay as before;
         the pool is reloaded and the requests are rebuilt as new
         ``Request`` objects (in ``queue``, ``slots`` and ``finished``).  A
-        rolling snapshot taken before the load is dropped."""
-        self._check_checkpointable()
+        rolling snapshot taken before the load is dropped.  On a
+        ``ShardedEngine`` every rank reads the step and keeps its slices of
+        the cache; a dense checkpoint of a mesh loads into one device's
+        Scheduler and back, the slot geometry being the same."""
         geo = ckpt_lib.manifest(ckpt_dir, step)["extra"]["serving"][
             "geometry"]
         if geo != self._geometry():
             raise ValueError(
                 f"serving-checkpoint geometry {geo} does not match this "
                 f"scheduler/engine {self._geometry()}")
-        restored, extra = ckpt_lib.restore(ckpt_dir, self._tree(), step)
+        like = self.engine.checkpoint_cache(self.cache, like=True)
+        restored, extra = ckpt_lib.restore(ckpt_dir, self._tree(like), step)
         s = extra["serving"]
-        for c, rc in zip(self.cache, restored["cache"]):
+        for c, rc in zip(self.cache,
+                         self.engine.cache_part(restored["cache"])):
             for k, t in c.items():
                 t.copy_(rc[k])
         for name in ("tok", "pos", "done"):

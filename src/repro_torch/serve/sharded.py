@@ -18,7 +18,16 @@ no wall-clock decision) over ALL slots.  A rank's engine computes its data
 shard's rows, then all-gathers the round's packed result and slot state
 over the data axis, so every rank's Scheduler sees every slot and takes
 the same decisions; no second host protocol exists.  Rounds run eagerly:
-gloo collectives cannot be captured into a CUDA graph.
+gloo collectives cannot be captured into a CUDA graph.  Speculative rounds
+run the same way, the drafter on the rank's views of its shard's planes.
+
+``Scheduler.save`` / ``load`` are collective: every rank gathers the whole
+mesh's cache into the single engine's layout (:meth:`ShardedEngine.
+checkpoint_cache`), rank 0 writes and commits the step, and the others
+wait at a barrier; a load reads the committed step on every rank and
+keeps this rank's slices (:meth:`ShardedEngine.cache_part`).  A dense
+checkpoint of a mesh therefore loads into the single-device ``Engine``,
+as the reference's global arrays do.
 
 :func:`launch` starts one process per rank (``torch.multiprocessing``
 spawn, a ``FileStore`` rendezvous, a timeout on every collective), joins
@@ -53,7 +62,10 @@ class ShardedEngine(Engine):
     """Drop-in ``Engine`` for the Scheduler, executing on ``mesh``.  The
     ``slots`` given to the Scheduler must divide over the data axis;
     quantized serving codes are required (only integer-code matmuls shard
-    bit-exactly)."""
+    bit-exactly; float split-head attention leaves split whole heads).
+    Speculative rounds (``spec_decode``) and ``Scheduler.save`` / ``load``
+    (collective: :meth:`checkpoint_cache`, :meth:`cache_part`) are served
+    as on one device."""
 
     sharded = True
 
@@ -67,10 +79,6 @@ class ShardedEngine(Engine):
                 "ShardedEngine requires ServeConfig(quant=...): only integer "
                 "weight codes shard bit-exactly (an int32 sum is "
                 "associative; a float row-parallel reduction would drift)")
-        if scfg.spec_decode:
-            raise NotImplementedError(
-                "sharded speculative decoding is not ported: serve "
-                "spec_decode on the single-device Engine")
         self.mesh = mesh
         self.n_data, self.n_model = mesh.n_data, mesh.n_model
         # quantize (codes stay as they are), mark, then keep this rank's
@@ -140,6 +148,61 @@ class ShardedEngine(Engine):
             out.append({k: t.to(self.device) for k, t in c.items()})
         return out
 
+    # -- checkpoints (Scheduler.save / load) ----------------------------------
+
+    def _leaf_dims(self, key: str) -> tuple:
+        """(data dim, model dim or None) of a cache leaf: every leaf's dim
+        0 is the data shard's slots (or its pool's pages); head-sharded,
+        the K/V leaves and their scales split the head axis (dim 2) too.
+        Recurrent state follows replicated (column-gathered) projections."""
+        heads = self.head_sharded and key not in transformer.STATE_KEYS
+        return 0, (2 if heads else None)
+
+    def checkpoint_cache(self, cache: list, like: bool = False) -> list:
+        """The whole mesh's cache in the single engine's layout: each
+        leaf's model ranks concatenated along the head axis (head-sharded
+        K/V), then the data shards along dim 0 (slots, or a paged pool's
+        pages: every data shard's pool in data order, page ids shard-local
+        as the allocator keeps them).  Collective over both axes: every
+        rank calls it.  ``like`` returns meta tensors of those shapes and
+        communicates nothing."""
+        out = []
+        for c in cache:
+            leaves = {}
+            for k, t in c.items():
+                dd, dm = self._leaf_dims(k)
+                if like:
+                    shape = list(t.shape)
+                    shape[dd] *= self.n_data
+                    if dm is not None:
+                        shape[dm] *= self.n_model
+                    leaves[k] = torch.empty(shape, dtype=t.dtype,
+                                            device="meta")
+                    continue
+                if dm is not None:
+                    t = tp_lib.all_gather(t, self.mesh.model, dim=dm)
+                leaves[k] = tp_lib.all_gather(t, self.mesh.data, dim=dd)
+            out.append(leaves)
+        return out
+
+    def cache_part(self, cache: list) -> list:
+        """This rank's slices of a checkpoint's (whole-mesh) cache: its data
+        shard's rows or pages and, head-sharded, its model rank's heads;
+        :meth:`place_cache` checks them against this rank's layout."""
+        out = []
+        for c in cache:
+            leaves = {}
+            for k, t in c.items():
+                dd, dm = self._leaf_dims(k)
+                n = t.shape[dd] // self.n_data
+                t = t.narrow(dd, self.mesh.data_index * n, n)
+                if dm is not None:
+                    n = t.shape[dm] // self.n_model
+                    t = t.narrow(dm, self.mesh.model_index * n, n)
+                leaves[k] = t
+            out.append(leaves)
+        return self.place_cache(out)
+
     def _gather_slots(self, *cols: torch.Tensor) -> list:
         """Every slot's rows of per-slot results: this rank's [B/n_data,
         ...] columns concatenated and all-gathered over the data axis in
@@ -194,15 +257,16 @@ class ShardedEngine(Engine):
         """``Engine.step`` on this rank's rows, eagerly, inside the tensor-
         parallel context; ``tok``/``pos``/``done``/``eos`` and the sampling
         vectors cover every slot, and so do the returned state and packed
-        result (all-gathered over the data axis)."""
-        if spec:
-            raise NotImplementedError(
-                "sharded speculative decoding is not ported")
+        result (all-gathered over the data axis; a speculative round's
+        accepted widths ride in the packed result).  With ``spec`` the
+        drafter runs on the rank's views of its own shard: row-parallel
+        leaves contract their K slice of the top planes and all-reduce the
+        exact int32 sums, as the target's do."""
         r = self._rows
         knobs = self._enter(pos, greedy, temperature, top_k, top_p)
         with self._context():
             cache, tok_l, pos_l, done_l, packed = super().step(
-                cache, lane, tok[r], pos[r], done[r], eos[r], chunk,
+                cache, lane, tok[r], pos[r], done[r], eos[r], chunk, spec,
                 step0=step0, greedy=greedy, _eager=True, **knobs)
         tok, pos, done, packed = self._gather_slots(tok_l, pos_l, done_l,
                                                     packed)

@@ -4,6 +4,14 @@ without a GPU; imports no JAX):
 * ``attention.full_attention`` gives every (row, head) the same bits
   whatever rows and heads the call holds (a data shard's rows, a model
   rank's heads), at decode and prefill shapes of the served models;
+* the norms' row reductions (``layers.row_mean`` / ``row_var``, so
+  ``rms_norm`` and ``layer_norm``) give every row the same bits whatever
+  rows the call holds (ATen's CUDA reduction lays its threads out by the
+  output count up to 16);
+* the split-head projections on the card (``attention.proj_stable`` /
+  ``out_stable``) give
+  every (row, head) the same bits whatever rows and heads the call holds,
+  at qwen2-7b's full-width decode, verify and prefill shapes;
 * ``dist.tp``'s collectives on CUDA tensors over gloo (two ranks sharing
   the card, staged through pinned host memory) give the gathered and
   reduced values on the card;
@@ -46,6 +54,57 @@ def test_cuda_attention_bits_ignore_rows_and_heads(B, S, Hq, Hkv, D, T):
                                 k[rows, :, k0:k0 + hk],
                                 v[rows, :, k0:k0 + hk], qp[rows], kp[rows])
         assert torch.equal(full[rows, :, q0:q0 + hq], part)
+
+
+def test_cuda_norm_bits_ignore_rows():
+    from repro_torch.models import layers as L
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn((264, 3584), generator=g, device=dev) \
+        * torch.rand((264, 1), generator=g, device=dev) * 4
+    p = {"scale": torch.rand(3584, generator=g, device=dev) + 0.5}
+    full = (L.row_mean(x * x), L.row_var(x),
+            L.rms_norm(p, x.to(torch.bfloat16)),
+            L.layer_norm(p, x.to(torch.bfloat16)))
+    for R in (1, 2, 3, 4, 5, 8, 12, 15, 16, 17, 33, 100):
+        rows = x[-R:].clone()
+        part = (L.row_mean(rows * rows), L.row_var(rows),
+                L.rms_norm(p, rows.to(torch.bfloat16)),
+                L.layer_norm(p, rows.to(torch.bfloat16)))
+        for name, a, b in zip(("mean", "var", "rms_norm", "layer_norm"),
+                              full, part):
+            assert torch.equal(a[-R:], b), (name, R)
+    # a decode call's [B, 1, d] layout and a prefill's [B, S, d]
+    x3 = x[:8 * 33].reshape(8, 33, 3584)
+    assert torch.equal(L.row_mean(x3[4:, :1]), L.row_mean(x3[:, :1])[4:])
+    assert torch.equal(L.row_var(x3[4:]), L.row_var(x3)[4:])
+
+
+@pytest.mark.parametrize("B,S,H", [(8, 1, 28), (8, 1, 4), (8, 4, 28),
+                                   (4, 4, 4), (8, 33, 28), (8, 12, 4)])
+def test_cuda_split_head_projection_bits_ignore_rows_and_heads(B, S, H):
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(0)
+    d, dh = 3584, 128
+    x = torch.randn((B, S, d), generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn((d, H, dh), generator=g, device=dev)
+         * d ** -0.5).to(torch.bfloat16)
+    full = A.proj_stable(x, w)
+    want = torch.einsum("bsd,dhk->bshk", x.float(), w.float())
+    assert (full.float() - want).abs().max() < 0.05
+    r, h = B // 2, H // 2
+    for rows, heads in ((slice(r, None), slice(h, None)),
+                        (slice(None, r), slice(None, h)),
+                        (slice(None), slice(h, None))):
+        part = A.proj_stable(x[rows], w[:, heads].contiguous())
+        assert torch.equal(full[rows, :, heads], part)
+    o = torch.randn((B, S, 28, dh), generator=g, device=dev).to(
+        torch.bfloat16)
+    wo = (torch.randn((28, dh, d), generator=g, device=dev)
+          * (28 * dh) ** -0.5).to(torch.bfloat16)
+    out = A.out_stable(o, wo)
+    for rows in (slice(r, None), slice(None, r)):
+        assert torch.equal(out[rows], A.out_stable(o[rows], wo))
 
 
 def _collectives(mesh):

@@ -368,15 +368,15 @@ def test_unported_features_raise():
     soft-capped, recurrent and MoE blocks
     (``tests/test_torch_int8_families.py``), and a decoder without rotary
     embeddings or with the GELU MLP
-    (``tests/test_torch_decoder_variants.py``); these are not (enc-dec
-    configs are ``models.encdec``'s)."""
+    (``tests/test_torch_decoder_variants.py``), and the split-head 3D
+    attention leaves (``tests/test_torch_split_heads.py``); these are not
+    (enc-dec configs are ``models.encdec``'s)."""
     _, tcfg = _cfgs()
     local = (tconfigs.BlockSpec(attn_type="local"),)
     for over, match in (
             (dict(norm="groupnorm"), "norm"),
             (dict(rope_mode="alibi"), "rope_mode"),
             (dict(enc_dec=True), "enc_dec"),
-            (dict(split_head_params=True), "split_head_params"),
             (dict(kv_quant="fp8"), "kv_quant"),
             (dict(pattern=(tconfigs.BlockSpec(kind="s4"),)),
              "block kind"),
@@ -388,7 +388,8 @@ def test_unported_features_raise():
                       kv_quant="int8"),
                  dict(pattern=(tconfigs.BlockSpec(mlp="gelu"),)),
                  dict(pattern=local, window=8, kv_quant="int8"),
-                 dict(attn_softcap=50.0, kv_quant="int8")):
+                 dict(attn_softcap=50.0, kv_quant="int8"),
+                 dict(split_head_params=True)):
         TT.check_supported(dataclasses.replace(tcfg, **over))
     # a window without local layers changes nothing, as in the reference
     TT.check_supported(dataclasses.replace(tcfg, window=8,

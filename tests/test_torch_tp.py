@@ -247,9 +247,13 @@ def test_sharded_engine_guard_rails():
     fake = SimpleNamespace(n_data=2, n_model=2)   # never reached
     with pytest.raises(ValueError, match="quant"):
         ShardedEngine(cfg, params, ServeConfig(max_len=16), mesh=fake)
-    with pytest.raises(NotImplementedError, match="speculative"):
+    # speculation is served sharded, under the single engine's drafter
+    # rule: LUT nibble leaves have no planes to truncate
+    rank = SimpleNamespace(n_data=2, n_model=2, model_index=0,
+                           device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="draftable"):
         ShardedEngine(cfg, params, ServeConfig(
-            max_len=16, quant="w4a4_tmac", spec_decode=True), mesh=fake)
+            max_len=16, quant="w4a4_lut", spec_decode=True), mesh=rank)
     wcfg = configs.get_config("whisper-large-v3", smoke=True)
     with pytest.raises(NotImplementedError, match="decoder-only"):
         ShardedEngine(wcfg, {}, ServeConfig(max_len=16, quant="w8a8"),
