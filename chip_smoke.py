@@ -151,7 +151,8 @@ Phases (any failure raises and exits non-zero):
    LUTs: analytic U280 figures, not measurements of the card); qwen2-7b's
    plans at 4.0, 3.2 and 2.0 bits from its full-width shapes alone
    (``init_params`` on the meta device), each asserted (``MIXED_MLP``;
-   attention w4); then at 28 layers, each tree built a layer at a time
+   attention w4); then at ``MIXED_LAYERS`` (8) of its 28 layers, each
+   tree built a layer at a time
    under its plan: uniform w4a4_tmac (the 4.0 plan) fused over the 8
    requests, and at 3.2 and 2.0 bits fused (8) == the plain backend (the
    first request, ``PLAIN_TOKENS``), every served leaf's
@@ -168,7 +169,7 @@ Phases (any failure raises and exits non-zero):
    ``w2a4_tmac`` run.
 4. serving bitnet-3b (13 of its 26 layers, full width) in ternary_a8_tmac:
    fused (8 requests) and plain (first 1), equal transcripts.  Then gemma2-2b
-   (10 of its 26 layers, full width: local and global layers, window
+   (6 of its 26 layers, full width: local and global layers, window
    4,096, soft-caps, GeGLU, the tied 256,000-row head) in w4a4_lut at
    max_len 4,352: 8
    requests (``gemma_requests``) in the order long pair, short pair, long
@@ -200,7 +201,7 @@ Phases (any failure raises and exits non-zero):
    fused over the
    8 requests (7 LUT launches a layer and the head kernel once a forward),
    profiled, and the plain backend over the first (8 new tokens) equal. Then
-   qwen2-moe-a2.7b (12 of its 24 layers, full width: 60 routed experts
+   qwen2-moe-a2.7b (8 of its 24 layers, full width: 60 routed experts
    top-4 under global dispatch, capacity factor 1.25, the shared expert
    behind its sigmoid gate, qkv bias, the untied 151,936-row head) in w4a4_lut, its
    served tree built a layer at a time (``init_served_params``): every
@@ -228,7 +229,7 @@ Phases (any failure raises and exits non-zero):
    (``run_recurrent``), every admission monolithic at the prompt's exact
    length: rwkv6-1.6b (12 of its 24 layers: RWKV6 time and channel mix,
    layer norms, the untied 65,536-row head; 8 LUT launches a layer) and
-   zamba2-2.7b (24 of its 54 Mamba2 layers, the shared attention + SwiGLU
+   zamba2-2.7b (12 of its 54 Mamba2 layers, the shared attention + SwiGLU
    block before every sixth; 2 LUT launches a mamba layer, 7 a shared block;
    the untied 32,000-row head).  Each: fused over the 8 requests; the first
    replay of a newly captured round against the op-by-op round from one
@@ -240,7 +241,7 @@ Phases (any failure raises and exits non-zero):
    dense per slot) over the first 4 == dense, and its int8 KV engine over
    the first 4 (no leaf changes: the bytes and transcripts equal bf16's);
    one decode step and one replayed round profiled.  Then whisper-large-v3
-   (16 of its 32 encoder and 32 decoder layers, full width, enc_seq 1500) in
+   (8 of its 32 encoder and 32 decoder layers, full width, enc_seq 1500) in
    w4a4_lut through ``Engine.generate(frames=)`` (``run_whisper``): 8
    requests of 4-token prompts over one batch of stub frames, 64 new tokens,
    fused; unfused over the first 2 and the plain backend over the first one
@@ -317,7 +318,48 @@ Phases (any failure raises and exits non-zero):
    failure at step 5, under deterministic algorithms: one restart and
    the same loss history.  The kernels phase holds the two fused kernels
    at the eval's shapes (minicpm-2b's projections at M = 2,048).
-7. the script's total time, the ``kernels`` JSON line, the ``nvidia-smi``
+7. long sequences (``run_long``): the fused LUT kernel on qwen2-7b's 7
+   projections at the 32k prefill's M = 32,768, every row bitwise against
+   its plain version, timed beside ``torch._int_mm``; qwen2-7b w4a4_lut at
+   full width and depth, ``Engine.generate`` on one prompt of 32,768
+   tokens (the reference's ``prefill_32k`` length) and 8 new tokens: the
+   prefill runs ``attention.blocked_attention`` in every layer (counted),
+   its host ms, peak bytes and the blocked attention's share are printed,
+   the launches are exactly 7 a layer and 1 head a forward, and layer 0's
+   blocked output at 64 query rows spread over the prompt (the last among
+   them) is held against a float64 softmax over all their keys, each
+   element within (2^-8 + 2^-12) x sum_k p_k |v_k| of it (``ATTN_P_REL``,
+   ``ATTN_F32_REL``: each probability is rounded to bf16, as the
+   reference rounds it); then, on qwen2-7b cut to ``LONG_CHUNK_LAYERS``
+   layer(s) (the chunk lane runs a decode step a prompt token), the same
+   prompt through ``generate`` and through a ``Scheduler(slots=1)``'s
+   chunk-lane admission, which keeps its own layer-0 q and attention
+   output at the 64 rows (``LaneProbe``): both paths' outputs within that
+   bound of float64, and the tokens equal or the paths parting no earlier
+   than layer 0's attention output (its q, K and V equal the prefill's
+   bitwise; ``check_long_chunk_lane`` says why ``FLIP_ULPS`` cannot hold
+   there); gemma2-2b at ``SERVED_LAYERS`` depth serving the gemma2
+   phase's long pairs (4,104 and 4,152 tokens, past the 4,096 window,
+   soft-cap 50) through the Scheduler's monolithic admission, blocked,
+   against the same codes with kv_block raised past S (the full attention
+   of earlier slices): layer 0's attention outputs of both within that
+   bound of float64 at every row, and the transcripts equal or layer 0's
+   attention inputs equal, the admission's host ms and peak printed;
+   minicpm-2b QAT at full width and depth, one step of 1 x 4,096 tokens
+   (the reference's ``train_4k`` length, blocked forward and backward
+   under remat): its ms and peak, its loss and gradient norm against the
+   same batch with kv_block raised past S, and layer 0's attention output
+   of both forwards within that bound of float64 at every row.
+8. FSDP training (``run_fsdp``): ``train.fsdp`` on a 4x1 mesh, four
+   ranks on ``cuda:0`` over gloo, minicpm-2b at full width and 4 layers,
+   2 steps of 4 x 512 tokens, each rank holding its share of the leaves
+   ``dist.partitioning`` shards over "data" and of their AdamW moments:
+   after every step each rank's shares (digests of their bits), loss and
+   gradient norm equal the single-card ``make_train_step`` with
+   ``n_microbatches=4``, both under deterministic algorithms; each rank's
+   ms a step, ms in collectives and resident bytes against the
+   unsharded state's are printed.
+9. the script's total time, the ``kernels`` JSON line, the ``nvidia-smi``
    line, and last the ``{"ok": true, ...}`` line.
 
 Where ``SERVED_LAYERS`` names a model, the script serves it at that
@@ -490,6 +532,9 @@ LOOP_RTOL = 1e-6                  # the reference's own loop test's
 # multiplier, the unfolded first layers) and the shapes the formulation
 # picker times
 MIXED_TARGETS = (3.2, 2.0)
+# the mixed phase's depth (full width; 8 of 28 layers, cut for the long
+# and fsdp phases' time)
+MIXED_LAYERS = 8
 MIXED_MLP = {3.2: {"wg": 2, "wi": 3, "wo": 4},
              2.0: {"wg": 1, "wi": 2, "wo": 2}}
 MIXED_SPECS = {t: {"wi": m["wi"], "wg": m["wg"], "mlp.wo": m["wo"]}
@@ -499,7 +544,43 @@ PICKER_SHAPES = {"wq/wo": (3584, 3584), "wk/wv": (3584, 512),
                  "wi/wg": (3584, 18944), "mlp.wo": (18944, 3584)}
 PHASES = ("kernels", "qwen", "mixed", "bitnet", "gemma2", "minicpm", "phi3",
           "qwen2moe", "mixtral", "rwkv6", "zamba2", "whisper", "qwen2vl",
-          "sharded", "mobilenetv2", "train")
+          "sharded", "mobilenetv2", "train", "long", "fsdp")
+# the long phase: qwen2-7b w4a4_lut at full width and depth over one prompt
+# of the reference's prefill_32k length (Engine.generate, LONG_NEW new
+# tokens); the chunk-lane cross-check of the same prompt at
+# LONG_CHUNK_LAYERS (the chunk lane runs one decode step a prompt token,
+# LONG_S of them: ~4 ms each at one layer); the fused LUT kernel at the
+# prefill's M; gemma2-2b's long pairs admitted blocked and with kv_block
+# raised past S; minicpm-2b QAT at train_4k's length, full depth
+LONG_S = 32768
+LONG_NEW = 8
+LONG_CHUNK_LAYERS = 1
+LONG_CHUNK = 128                  # prompt tokens a chunk-lane round
+LONG_CHECK_ROWS = 64
+LONG_GROUP = f"qwen2-7b layer, M={LONG_S} (32k prefill)"
+LONG_KERNEL_REPS = 5
+# blocked or full, each probability is rounded to bf16 before the value
+# product (relative error <= 2^-8, bf16's unit roundoff; the full path
+# rounds normalized probabilities, the blocked path unnormalized ones over
+# an unrounded float32 sum), so each output element is within ATTN_P_REL x
+# sum_k p_k |v_k,d| of the exact softmax (p exact), plus ATTN_F32_REL x
+# that sum for the float32 scores, exponentials and sums
+ATTN_P_REL = 2.0 ** -8
+ATTN_F32_REL = 2.0 ** -12
+LONG_TRAIN_S = 4096
+LONG_TRAIN_LAYERS = 40
+# blocked vs full attention in a QAT step: an A4 code can round the other
+# way where the two attentions' outputs differ (tests/test_torch_train.py
+# measured 1.2e-5 on the loss and 0.8 % on a gradient leaf for such flips)
+LONG_TRAIN_LOSS_RTOL = 1e-3
+LONG_TRAIN_NORM_RTOL = 2e-2
+FULL_KV_BLOCK = 1 << 16           # kv_block past every S: full attention
+# the fsdp phase: FSDP_MESH ranks on the one card, minicpm-2b at full
+# width and FSDP_LAYERS layers, FSDP_STEPS steps of FSDP_B x FSDP_S tokens
+FSDP_MESH = "4x1"
+FSDP_LAYERS = 4
+FSDP_B, FSDP_S, FSDP_STEPS = 4, 512, 2
+FSDP_WORLD_S = 600
 # the sampled, tmac, paged, int8 KV, speculative, faults and QoS stages
 # run on qwen2-7b at this depth (full width)
 CUT_LAYERS = 4
@@ -510,11 +591,13 @@ CUT_LAYERS = 4
 # and qwen2-vl-72b also to pay for the sharded phase, qwen2-vl-72b (24 ->
 # 16) for the train phase, qwen2-vl-72b (16 -> 8), phi3-medium-14b
 # (20 -> 10) and gemma2-2b (14 -> 10) for the sharded phase's save /
-# load, split-head and speculative cases
+# load, split-head and speculative cases, gemma2-2b (10 -> 6), qwen2-moe
+# (12 -> 8), whisper-large-v3 (16 -> 8) and zamba2-2.7b (24 -> 12) for the
+# long and fsdp phases
 SERVED_LAYERS = {"mixtral-8x22b": MIXTRAL_LAYERS, "qwen2-vl-72b": 8,
-                 "whisper-large-v3": 16, "bitnet-3b": 13, "minicpm-2b": 20,
-                 "rwkv6-1.6b": 12, "zamba2-2.7b": 24, "gemma2-2b": 10,
-                 "phi3-medium-14b": 10, "qwen2-moe-a2.7b": 12}
+                 "whisper-large-v3": 8, "bitnet-3b": 13, "minicpm-2b": 20,
+                 "rwkv6-1.6b": 12, "zamba2-2.7b": 12, "gemma2-2b": 6,
+                 "phi3-medium-14b": 10, "qwen2-moe-a2.7b": 8}
 # gemma2-2b: the window is 4096; two pairs of long prompts past it, two
 # pairs of short ones inside it; pages of 64 divide the ring and max_len
 GEMMA_LONG = (4104, 4152)
@@ -1086,6 +1169,8 @@ def make_requests(vocab: int, seed: int = 0, sampled: bool = False):
 
 RUNS: dict = {}
 TRAIN: dict = {}
+LONG: dict = {}
+FSDP: dict = {}
 TRANSCRIPTS: dict = {}         # runs a later phase holds its own against
 
 
@@ -4041,10 +4126,12 @@ def formulation_launches(params) -> dict:
 
 def run_mixed(n_layers, profile_steps: int) -> None:
     """The paper's analytic model (printed), then qwen2-7b at full width
-    and depth under its planned mixed widths: uniform w4a4_tmac (the plan
-    at 4.0) fused over the 8 requests, then each ``MIXED_TARGETS`` plan
-    fused (8) == the plain backend (the first request, ``PLAIN_TOKENS``;
-    the unfused runs were cut for the sharded phase's time), plane counts and code bytes checked, a replayed round
+    and ``MIXED_LAYERS`` layers under its planned mixed widths (planned
+    on the full 28-layer shapes, cut to the served layers): uniform
+    w4a4_tmac (the plan at 4.0) fused over the 8 requests, then each
+    ``MIXED_TARGETS`` plan fused (8) == the plain backend (the first
+    request, ``PLAIN_TOKENS``; the unfused runs were cut for the sharded
+    phase's time), plane counts and code bytes checked, a replayed round
     profiled; the all-w4 plan over nibble-mode float layers at the cut
     depth == the w4a4_tmac run there; then the timed formulation picker."""
     import dataclasses
@@ -4054,7 +4141,7 @@ def run_mixed(n_layers, profile_steps: int) -> None:
     paper_model()
     full = qwen2_7b.config(quant="w4a4_tmac")
     shapes, plans = mixed_plans(full)
-    cfg = depth(full, n_layers)
+    cfg = depth(full, min(n_layers or MIXED_LAYERS, MIXED_LAYERS))
     V = cfg.vocab
 
     def cut(plan, layers):
@@ -4661,6 +4748,756 @@ def run_train() -> None:
     reset_peak(empty=True)
 
 
+# ---------------------------------------------------------------------------
+# the long phase: prompts and training sequences past 2 x kv_block
+# ---------------------------------------------------------------------------
+
+class AttnProbe:
+    """Inside a ``with`` block: ``transformer.prefill``'s host seconds
+    (synchronized before and after) and the peak device bytes during it;
+    ``attention.blocked_attention``'s calls and host seconds (synchronized
+    around each); and the first prefill-shaped attention call's q, k, v,
+    positions, mask options and float32 output, detached (a call with
+    more than one query row, through ``blocked_attention`` or
+    ``full_attention``: layer 0 of the first prefill or forward)."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import attention, transformer
+        self.mods = attention, transformer
+        self.saved = (attention.blocked_attention, attention.full_attention,
+                      transformer.prefill)
+        real_blocked, real_full, real_prefill = self.saved
+        self.blocked_calls, self.attn_s = 0, 0.0
+        self.prefill_s, self.prefill_peak, self.first = [], [], None
+
+        def keep_first(q, k, v, q_pos, k_pos, out, causal, window, cap):
+            if self.first is None and q.shape[1] > 1:
+                self.first = dict(
+                    q=q.detach(), k=k.detach(), v=v.detach(), q_pos=q_pos,
+                    k_pos=k_pos, out=out.detach(), causal=causal,
+                    window=window, softcap=cap)
+
+        def blocked(q, k, v, q_pos, k_pos, *, causal=True, window=None,
+                    logit_softcap=None, kv_block=1024):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real_blocked(q, k, v, q_pos, k_pos, causal=causal,
+                               window=window, logit_softcap=logit_softcap,
+                               kv_block=kv_block)
+            torch.cuda.synchronize()
+            self.attn_s += time.perf_counter() - t0
+            self.blocked_calls += 1
+            keep_first(q, k, v, q_pos, k_pos, out, causal, window,
+                       logit_softcap)
+            return out
+
+        def full(q, k, v, q_pos, k_pos, window=None, logit_softcap=None,
+                 causal=True):
+            out = real_full(q, k, v, q_pos, k_pos, window, logit_softcap,
+                            causal)
+            keep_first(q, k, v, q_pos, k_pos, out, causal, window,
+                       logit_softcap)
+            return out
+
+        def prefill(*a, **k):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = real_prefill(*a, **k)
+            torch.cuda.synchronize()
+            self.prefill_s.append(time.perf_counter() - t0)
+            self.prefill_peak.append(torch.cuda.max_memory_allocated())
+            return out
+        attention.blocked_attention, attention.full_attention = blocked, full
+        transformer.prefill = prefill
+        return self
+
+    def __exit__(self, *exc):
+        attention, transformer = self.mods
+        (attention.blocked_attention, attention.full_attention,
+         transformer.prefill) = self.saved
+        return False
+
+
+class LaneProbe:
+    """Inside a ``with`` block, every decode-shaped ``full_attention``
+    call (one query position a row) at a position in ``rows`` writes its
+    q and float32 output into ``q`` / ``out`` [len(rows), Hq, D] (in the
+    order of ``rows``) and marks ``seen``, by device-side index copies, so
+    a captured round that is replayed writes them too.  For a model of one
+    layer, whose every call is layer 0's; each position's last call wins
+    (a lane entry re-run at its held position gives the same bits)."""
+
+    def __init__(self, rows: list, max_len: int, Hq: int, D: int, dtype,
+                 device="cuda"):
+        import torch
+        dev = torch.device(device)
+        self.R, self.max_len = len(rows), max_len
+        self.lookup = torch.full((max_len,), self.R, dtype=torch.int64,
+                                 device=dev)
+        self.lookup[torch.tensor(rows, device=dev)] = torch.arange(
+            self.R, device=dev)
+        self.q_buf = torch.zeros((self.R + 1, Hq, D), dtype=dtype,
+                                 device=dev)
+        self.out_buf = torch.zeros((self.R + 1, Hq, D), dtype=torch.float32,
+                                   device=dev)
+        self.seen_buf = torch.zeros(self.R + 1, dtype=torch.int32,
+                                    device=dev)
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import attention
+        self.mod, self.saved = attention, attention.full_attention
+        real = self.saved
+
+        def full(q, k, v, q_pos, k_pos, window=None, logit_softcap=None,
+                 causal=True):
+            out = real(q, k, v, q_pos, k_pos, window, logit_softcap, causal)
+            if q.shape[1] == 1:
+                pos = q_pos[:, 0].long()
+                idx = torch.where(pos >= 0, self.lookup[pos.clamp(
+                    0, self.max_len - 1)], self.R)
+                self.q_buf.index_copy_(0, idx, q[:, 0])
+                self.out_buf.index_copy_(0, idx, out[:, 0])
+                self.seen_buf.index_fill_(0, idx, 1)
+            return out
+        attention.full_attention = full
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.full_attention = self.saved
+        return False
+
+    @property
+    def q(self):
+        return self.q_buf[:self.R]
+
+    @property
+    def out(self):
+        return self.out_buf[:self.R]
+
+    @property
+    def all_seen(self) -> bool:
+        return bool(self.seen_buf[:self.R].all())
+
+
+def long_rows(S: int) -> list:
+    """LONG_CHECK_ROWS query rows spread over a prompt of S, the last
+    among them."""
+    return sorted({round(i * (S - 1) / (LONG_CHECK_ROWS - 1))
+                   for i in range(LONG_CHECK_ROWS)})
+
+
+def f64_attention(q, k, v, q_pos, k_pos, *, causal=True, window=None,
+                  softcap=None):
+    """Attention in float64 of query rows q [R, Hq, D] at positions q_pos
+    [R] over keys k/v [T, Hkv, D] at k_pos [T] (negative: masked), the
+    model's mask, soft-cap and GQA (q scaled in its dtype first, as the
+    model does): the exact output [R, Hq, D] and ``mass``, sum_k p_k
+    |v_k,d| [R, Hq, D], the scale of each element's bf16-probability
+    error.  Rows in chunks of about 2^25 scores."""
+    import torch
+    D, Hq, Hkv, T = q.shape[-1], q.shape[1], k.shape[1], k.shape[0]
+    G = Hq // Hkv
+    scale = torch.tensor(1.0 / math.sqrt(D), dtype=q.dtype)
+    kd, vd = k.double(), v.double()
+    va = vd.abs()
+    kp = k_pos.to(kd.device).long()
+    step = max(1, (1 << 25) // (Hq * T))
+    exact, mass = [], []
+    for i in range(0, q.shape[0], step):
+        qg = (q[i:i + step] * scale).double().reshape(-1, Hkv, G, D)
+        s = torch.einsum("rhgd,khd->rhgk", qg, kd)
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        d = q_pos[i:i + step].to(kd.device).long()[:, None] - kp[None]
+        keep = (kp >= 0)[None]
+        if causal:
+            keep = keep & (d >= 0)
+        if window is not None:
+            keep = keep & (d < window)
+        s = s.masked_fill(~keep[:, None, None, :], float("-inf"))
+        p = torch.softmax(s, -1)
+        exact.append(torch.einsum("rhgk,khd->rhgd", p, vd).reshape(-1, Hq, D))
+        mass.append(torch.einsum("rhgk,khd->rhgd", p, va).reshape(-1, Hq, D))
+    return torch.cat(exact), torch.cat(mass)
+
+
+def attn_error(got, exact, mass, vmax: float) -> dict:
+    """``got`` against float64: ``err_over_mass``, the largest |got -
+    exact| / sum_k p_k |v_k,d| over the elements (limit ATTN_P_REL +
+    ATTN_F32_REL), ``err_over_max_v``, the largest |got - exact| / max |v|
+    (``vmax``), and ``within``, every element inside the limit."""
+    err = (got.double() - exact).abs()
+    lim = ATTN_P_REL + ATTN_F32_REL
+    return {"err_over_mass": float((err / mass.clamp_min(1e-300)).max()),
+            "err_over_max_v": float(err.max()) / vmax,
+            "within": bool((err <= lim * mass).all())}
+
+
+def first_error(f: dict, rows=None) -> dict:
+    """``attn_error`` of ``AttnProbe.first``'s batch row 0 at query
+    ``rows`` (every row when None) against float64 over its own inputs."""
+    rows = list(range(f["q"].shape[1])) if rows is None else rows
+    exact, mass = f64_attention(
+        f["q"][0, rows], f["k"][0], f["v"][0], f["q_pos"][0, rows],
+        f["k_pos"][0], causal=f["causal"], window=f["window"],
+        softcap=f["softcap"])
+    return attn_error(f["out"][0, rows], exact, mass,
+                      float(f["v"][0].abs().max()))
+
+
+def check_long_kernel(bench: Bench) -> None:
+    """The fused LUT kernel at the 32k prefill's M: qwen2-7b's 7
+    projections at M = LONG_S rows, each held bitwise against its plain
+    version over every row, timed (LONG_KERNEL_REPS launches), beside
+    ``torch._int_mm`` on the same codes."""
+    import torch
+    from repro_torch.kernels.lutmul import kernel, ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    reps, bench.reps = bench.reps, LONG_KERNEL_REPS
+    M = LONG_S
+    try:
+        for K, N in QWEN_INNER.values():
+            a = torch.randint(0, 16, (M, K), generator=gen, device=dev,
+                              dtype=torch.uint8)
+            w = torch.randint(0, 256, (K // 2, N), generator=gen, device=dev,
+                              dtype=torch.uint8)
+            a_s = torch.rand((M, 1), generator=gen, device=dev) * 0.1 + 1e-3
+            w_s = torch.rand((1, N), generator=gen, device=dev) * 0.1 + 1e-3
+            a8 = ref.decode_codes(a).to(torch.int8)
+            w8 = ref.decode_codes(ref.unpack_int4(w.T).T, 4) \
+                .to(torch.int8).contiguous()
+            lib = _library_ms(a8, w8, ref.lutmul_ref(a, w), bench.flush,
+                              LONG_KERNEL_REPS)
+            del a8, w8
+            bench.lut("lutmul_fused", LONG_GROUP,
+                      lambda: kernel.lutmul_fused(a, w, a_s, w_s,
+                                                  out_dtype=torch.bfloat16),
+                      lambda: ref.scaled_lutmul_ref(a, w, a_s, w_s,
+                                                    out_dtype=torch.bfloat16),
+                      lib, M, K, N, extra_in=4 * (M + N), out_bytes=M * N * 2)
+            del a, w
+            torch.cuda.empty_cache()
+    finally:
+        bench.reps = reps
+    log(f"long: lutmul_fused at M={M} bitwise == its plain version on the 7 "
+        "projections of a qwen2-7b layer, every row")
+
+
+def run_long(n_layers, bench: Bench) -> None:
+    """Prompts and training sequences past 2 x kv_block (see the module
+    docstring): the LUT kernel at the prefill's M, qwen2-7b's 32k prompt,
+    the chunk-lane cross-check, gemma2-2b's long pairs and minicpm-2b's
+    train_4k step."""
+    check_long_kernel(bench)
+    run_long_qwen(n_layers)
+    run_long_gemma2(n_layers)
+    run_long_train(n_layers)
+    log("long: " + json.dumps(LONG))
+
+
+def _long_prompt(vocab: int):
+    import numpy as np
+    import torch
+    return torch.tensor(np.random.default_rng(36).integers(
+        0, vocab, (1, LONG_S)), device="cuda")
+
+
+def run_long_qwen(n_layers) -> None:
+    """qwen2-7b w4a4_lut at full width and depth: ``Engine.generate`` on
+    one prompt of LONG_S tokens, LONG_NEW new tokens; its prefill's ms,
+    peak bytes and attention share; every blocked call a layer; the launch
+    counts; layer 0's blocked output at LONG_CHECK_ROWS rows against a
+    float64 softmax over all their keys.  Then the chunk-lane cross-check
+    on the same prompt at LONG_CHUNK_LAYERS layers."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import qwen2_7b
+    from repro_torch.kernels.lutmul import ops
+    cfg = depth(qwen2_7b.config(quant="w4a4_lut"), n_layers)
+    prompt = _long_prompt(cfg.vocab)
+    ops.set_backend("cuda")
+    ops.set_variant(None)
+    engine = new_engine(cfg, LONG_S + LONG_NEW, "qwen2-7b long")
+    held = torch.cuda.memory_allocated()
+    reset_launches()
+    t0 = time.perf_counter()
+    with AttnProbe() as probe:
+        engine.generate(prompt, LONG_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = all_launches()
+    want = dict.fromkeys(launches, 0)
+    want.update(lutmul_fused=7 * cfg.n_layers * LONG_NEW,
+                int_matmul_fused=LONG_NEW)
+    if launches != want or probe.blocked_calls != cfg.n_layers:
+        raise AssertionError(f"qwen long: launches {launches} != {want}, or "
+                             f"{probe.blocked_calls} blocked calls for "
+                             f"{cfg.n_layers} layers")
+    RUNS["qwen long generate"] = {
+        "seconds": gen_s, "launches": launches,
+        "forwards_by_lane": {"prefill": 1, "decode": LONG_NEW - 1}}
+    rows = long_rows(LONG_S)
+    f64 = first_error(probe.first, rows)
+    if not f64["within"]:
+        raise AssertionError(f"qwen long: layer 0's blocked output differs "
+                             f"from float64 by {f64}, past "
+                             f"{ATTN_P_REL + ATTN_F32_REL!r} x "
+                             f"sum_k p_k |v_k|")
+    prefill_ms = probe.prefill_s[0] * 1e3
+    LONG["qwen"] = {
+        "layers": cfg.n_layers, "tokens": LONG_S, "new_tokens": LONG_NEW,
+        "prefill_ms": prefill_ms, "prefill_peak_bytes": probe.prefill_peak[0],
+        "held_bytes_before": held, "attention_ms": probe.attn_s * 1e3,
+        "attention_share": probe.attn_s / probe.prefill_s[0],
+        "generate_s": gen_s, "launches": launches,
+        "layer0_vs_f64": f64, "f64_rows": len(rows)}
+    log(f"qwen long[{cfg.n_layers} layers, {LONG_S} tokens]: prefill "
+        f"{prefill_ms:.1f} ms (host clock, synchronized), peak "
+        f"{probe.prefill_peak[0]} bytes ({held} held before), blocked "
+        f"attention {probe.attn_s * 1e3:.1f} ms = "
+        f"{probe.attn_s / probe.prefill_s[0]:.3f} of it ({cfg.n_layers} "
+        f"calls); generate {gen_s:.2f} s; launches {launches}; layer 0 at "
+        f"{len(rows)} rows vs float64: {json.dumps(f64)} (limit "
+        f"{ATTN_P_REL + ATTN_F32_REL!r} x sum_k p_k |v_k|: each probability "
+        f"rounded to bf16)")
+    del engine, probe
+    reset_peak(empty=True)
+    check_long_chunk_lane(dataclasses.replace(
+        cfg, n_layers=min(LONG_CHUNK_LAYERS, cfg.n_layers)), prompt)
+
+
+def check_long_chunk_lane(cfg, prompt) -> None:
+    """``Engine.generate`` (a blocked prefill) against the Scheduler's
+    chunk-lane admission (every prompt token through a decode step over
+    the cache) of the same LONG_S-token prompt, on qwen2-7b cut to one
+    layer.  The lane keeps its own layer-0 q and attention output at
+    LONG_CHECK_ROWS rows spread over the prompt (``LaneProbe``, from its
+    decode steps, replayed rounds included).  At those rows both paths'
+    outputs must be within (ATTN_P_REL + ATTN_F32_REL) x sum_k p_k |v_k,d|
+    of a float64 softmax over each path's own q, K and V; and the tokens
+    must be equal, or the paths must part no earlier than layer 0's
+    attention output: the lane's q at the rows and its K and V equal the
+    prefill's bitwise.  ``FLIP_ULPS`` cannot hold here: the blocked path
+    rounds the unnormalized probabilities to bf16 where decode rounds the
+    normalized ones (as the reference's two paths do), which moves an
+    output by up to 2^-8 x sum_k p_k |v_k,d|: hundreds of bf16 ulps of an
+    output near zero (the largest ulps at the sample rows are printed).
+    Its LONG_S decode steps make it the long phase's longest part."""
+    import torch
+    from repro_torch.serve import Request, Scheduler, ServeConfig, make_engine
+    from repro_torch.serve.quantize import init_served_params
+    if cfg.n_layers != 1:
+        raise ValueError("the chunk-lane probe reads layer 0 of a one-layer "
+                         f"model, not of {cfg.n_layers} layers")
+    params = init_served_params(cfg, cfg.quant, seed=0, device="cuda")
+    max_len = LONG_S + LONG_NEW
+    engine = make_engine(params, cfg, ServeConfig(
+        quant=cfg.quant, max_len=max_len, seed=SAMPLE_SEED,
+        prefill_chunk=LONG_CHUNK))
+    del params
+    with AttnProbe() as probe:
+        gen = engine.generate(prompt, LONG_NEW)[0, LONG_S:].tolist()
+    f = probe.first
+    rows = long_rows(LONG_S)
+    lane = LaneProbe(rows, max_len, cfg.n_heads, cfg.head_dim, f["q"].dtype)
+    req = Request(prompt=prompt[0].tolist(), max_new_tokens=LONG_NEW)
+    sched = Scheduler(engine, slots=1, chunk=1)
+    engine.lane_steps = dict.fromkeys(engine.lane_steps, 0)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with lane:
+        sched.run([req])
+    torch.cuda.synchronize()
+    lane_s = time.perf_counter() - t0
+    lanes = dict(engine.lane_steps)
+    if (lanes.get("chunk") != LONG_S or len(req.tokens) != LONG_NEW
+            or not lane.all_seen):
+        raise AssertionError(f"chunk lane: lanes {lanes}, tokens "
+                             f"{req.tokens}, every sample row probed: "
+                             f"{lane.all_seen}")
+    ck, cv = (sched.cache[0][key][0] for key in ("k", "v"))
+    kv_equal = torch.equal(ck[:LONG_S], f["k"][0].to(ck.dtype)) and \
+        torch.equal(cv[:LONG_S], f["v"][0].to(cv.dtype))
+    q_equal = torch.equal(lane.q, f["q"][0, rows])
+    exact, mass = f64_attention(
+        lane.q, ck, cv, torch.tensor(rows, device=ck.device),
+        torch.arange(ck.shape[0], device=ck.device))
+    f64 = {"chunk_lane": attn_error(lane.out, exact, mass,
+                                    float(cv[:LONG_S].abs().max())),
+           "blocked": first_error(f, rows)}
+    ulps = float(_bf16_ulps(lane.out.to(torch.bfloat16).float(),
+                            f["out"][0, rows].to(torch.bfloat16).float())
+                 .max())
+    rec = {"layers": cfg.n_layers, "generate": gen, "chunk_lane": req.tokens,
+           "equal": gen == req.tokens, "layer0_kv_equal": kv_equal,
+           "layer0_q_equal_at_rows": q_equal,
+           "chunk_lane_s": lane_s, "forwards_by_lane": lanes,
+           "layer0_vs_f64": f64,
+           "layer0_sample_rows_max_bf16_ulps": ulps,
+           "launches": all_launches()}
+    LONG["chunk_lane"] = rec
+    log(f"qwen long chunk lane[{cfg.n_layers} layer]: generate {gen} vs "
+        f"the Scheduler's chunk-lane admission {req.tokens} (equal: "
+        f"{gen == req.tokens}); layer 0 K/V equal to the prefill's: "
+        f"{kv_equal}, the lane's own q at the {len(rows)} rows: {q_equal}; "
+        f"layer 0's attention at the rows vs float64 (limit "
+        f"{ATTN_P_REL + ATTN_F32_REL!r} x sum_k p_k |v_k|), the lane's own "
+        f"output and the blocked prefill's: {json.dumps(f64)}; chunk lane "
+        f"vs blocked {ulps} bf16 ulps at most; chunk lane {lane_s:.1f} s "
+        f"for {LONG_S} prompt tokens ({lanes}); launches {rec['launches']}")
+    if not all(x["within"] for x in f64.values()) or (
+            gen != req.tokens and not (kv_equal and q_equal)):
+        raise AssertionError(f"chunk lane: {rec}")
+    del engine, sched, probe, f, lane
+    reset_peak(empty=True)
+
+
+def attention_parting(a: dict, b: dict) -> dict:
+    """Two forwards' layer-0 attention (``AttnProbe.first``, full
+    attention ``a`` and blocked ``b``): whether their inputs are equal
+    bitwise, their outputs' largest difference over the largest |v| and
+    in bf16 ulps, and each output against float64 at every row
+    (``first_error``)."""
+    import torch
+    same_in = all(torch.equal(a[k], b[k]) for k in ("q", "k", "v"))
+    d = (a["out"] - b["out"]).abs().max()
+    return {"inputs_equal": same_in,
+            "max_diff_over_max_v": float(d / a["v"].float().abs().max()),
+            "max_bf16_ulps": float(_bf16_ulps(
+                a["out"].to(torch.bfloat16).float(),
+                b["out"].to(torch.bfloat16).float()).max()),
+            "vs_f64": {"full": first_error(a), "blocked": first_error(b)}}
+
+
+def parting_within(parting: dict) -> bool:
+    """Both outputs of ``attention_parting`` within the float64 bound."""
+    return all(x["within"] for x in parting["vs_f64"].values())
+
+
+def run_long_gemma2(n_layers) -> None:
+    """gemma2-2b at ``SERVED_LAYERS`` depth: the gemma2 phase's long pairs
+    (past the 4,096 window, soft-cap 50) through the Scheduler's
+    monolithic admission, blocked (kv_block 1,024) against the same
+    engine's codes with kv_block raised past S (full attention, the
+    earlier admission): layer 0's attention outputs of both within
+    (ATTN_P_REL + ATTN_F32_REL) x sum_k p_k |v_k,d| of float64 at every
+    row (each path rounds its probabilities to bf16, the full one
+    normalized, the blocked one not), and the transcripts equal or layer
+    0's attention inputs equal.
+    Admission host ms and peak bytes of each."""
+    import dataclasses
+    from repro_torch.configs import gemma2_2b
+    from repro_torch.kernels.lutmul import ops
+    from repro_torch.serve import ServeConfig, make_engine
+    cfg = depth(gemma2_2b.config(quant="w4a4_lut"), n_layers)
+    V = cfg.vocab
+    ops.set_backend("cuda")
+    ops.set_variant(None)
+    blocked = new_engine(cfg, GEMMA_MAX_LEN, "gemma2-2b long")
+    full = make_engine(blocked.params, dataclasses.replace(
+        cfg, kv_block=FULL_KV_BLOCK), ServeConfig(
+            quant=cfg.quant, max_len=GEMMA_MAX_LEN, seed=SAMPLE_SEED))
+    long_idx = [i for i, L in enumerate(len(r.prompt) for r in
+                                        gemma_requests(V)) if L > 2 * 1024]
+    out, firsts = {}, {}
+    for label, eng in (("gemma2 long full", full),
+                       ("gemma2 long blocked", blocked)):
+        reqs = [gemma_requests(V)[i] for i in long_idx]
+        with AttnProbe() as probe:
+            out[label] = serve(eng, V, label, len(reqs), "lutmul", reqs=reqs,
+                               drive=gemma_drive([]))
+        if (probe.blocked_calls == 0) != (eng is full):
+            raise AssertionError(f"{label}: {probe.blocked_calls} blocked "
+                                 "calls")
+        firsts[label] = probe.first
+    parting = attention_parting(firsts["gemma2 long full"],
+                                firsts["gemma2 long blocked"])
+    equal = out["gemma2 long full"] == out["gemma2 long blocked"]
+    if not parting_within(parting) or not (equal
+                                           or parting["inputs_equal"]):
+        raise AssertionError(f"gemma2 long: blocked transcripts differ from "
+                             f"full attention's and layer 0 parts by "
+                             f"{parting}")
+    rec = {}
+    for label in out:
+        st = RUNS[label]
+        rec[label] = {"admission_host_ms": st["admission"]["host_ms"],
+                      "peak_gib": st["peak_gib"],
+                      "ms_per_decode_step_after_capture_and_admissions":
+                          st["ms_per_decode_step_after_capture_and_"
+                             "admissions"]}
+    LONG["gemma2"] = {"layers": cfg.n_layers, "transcripts_equal": equal,
+                      "first_tokens_differing": None if equal else [
+                          next((k for k, (x, y) in enumerate(zip(a, b))
+                                if x != y), None) for a, b in zip(
+                              out["gemma2 long full"],
+                              out["gemma2 long blocked"])],
+                      "layer0": parting, **rec}
+    log(f"gemma2 long[{cfg.n_layers} layers, prompts "
+        f"{[len(gemma_requests(V)[i].prompt) for i in long_idx]}]: blocked "
+        f"admission == full-attention admission: transcripts equal {equal}; "
+        f"layer 0 {json.dumps(parting)}; " + json.dumps(rec)
+        + " (PERF.md before this slice: 2.51 s a long pair, 32.83-34.60 "
+        "GiB peak)")
+    del blocked, full, firsts
+    reset_peak(empty=True)
+
+
+def run_long_train(n_layers) -> None:
+    """minicpm-2b QAT at full width, depth ``LONG_TRAIN_LAYERS`` (cut by
+    ``--layers``), one step of 1 x LONG_TRAIN_S tokens (train_4k's
+    length: the blocked path forward and backward, under remat "full"):
+    its ms and peak bytes, its loss and gradient norm against the same
+    batch's loss and gradient norm with kv_block raised past S (full
+    attention), within LONG_TRAIN_LOSS_RTOL and LONG_TRAIN_NORM_RTOL; and
+    the two forwards' layer-0 attention (``attention_parting``): each
+    output within (ATTN_P_REL + ATTN_F32_REL) x sum_k p_k |v_k,d| of a
+    float64 softmax over its own inputs at every row (the loss, about
+    ln V on random weights, says little of the attention by itself).
+    """
+    import dataclasses
+    import torch
+    from repro_torch.configs import minicpm_2b
+    from repro_torch.data import pipeline
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+    cfg = dataclasses.replace(minicpm_2b.config(quant="qat"), n_layers=min(
+        LONG_TRAIN_LAYERS, n_layers or LONG_TRAIN_LAYERS))
+    batch = pipeline.lm_batch(pipeline.DataConfig(
+        vocab=cfg.vocab, seq_len=LONG_TRAIN_S, global_batch=1), 0)
+    reset_peak(empty=True)
+    base = torch.cuda.memory_allocated()
+    state = tstep.init_state(transformer.init_params(cfg, seed=0))
+    full_cfg = dataclasses.replace(cfg, kv_block=FULL_KV_BLOCK)
+    with AttnProbe() as full_probe:
+        loss_f, grads = tstep.value_and_grad(
+            tstep.loss_for(full_cfg), state["params"],
+            tstep.to_device(batch, "cuda"))
+    norm_f = adamw.global_norm(grads)
+    del grads
+    torch.cuda.synchronize()
+    full_peak = torch.cuda.max_memory_allocated() - base
+    reset_peak()
+    with AttnProbe() as probe:
+        state, hist = _train_steps(
+            tstep.make_train_step(cfg, tstep.TrainConfig(
+                schedule="wsd", qat_project=True, peak_lr=1e-3, warmup=2,
+                total_steps=8), donate=True),
+            state, [batch], "minicpm-2b qat 4k")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    h = hist[0]
+    # remat "full": each layer's blocked attention runs in the forward and
+    # again in the backward's recompute
+    if probe.blocked_calls != 2 * cfg.n_layers:
+        raise AssertionError(f"minicpm 4k: {probe.blocked_calls} blocked "
+                             f"calls for {cfg.n_layers} layers")
+    loss_err = abs(h["loss"] - float(loss_f)) / abs(float(loss_f))
+    norm_err = abs(h["grad_norm"] - float(norm_f)) / float(norm_f)
+    parting = attention_parting(full_probe.first, probe.first)
+    del full_probe
+    LONG["train"] = {"layers": cfg.n_layers, "tokens": LONG_TRAIN_S,
+                     "step_ms": h["step_s"] * 1e3,
+                     "fwd_bwd_ms": h["grads_s"] * 1e3,
+                     "opt_proj_ms": h["update_s"] * 1e3, "peak_bytes": peak,
+                     "full_attention_peak_bytes": full_peak,
+                     "loss": h["loss"], "loss_full": float(loss_f),
+                     "grad_norm": h["grad_norm"],
+                     "grad_norm_full": float(norm_f),
+                     "loss_rel_err": loss_err, "grad_norm_rel_err": norm_err,
+                     "layer0": parting}
+    log(f"minicpm-2b qat 4k[{cfg.n_layers} layers, 1 x {LONG_TRAIN_S}]: step "
+        f"{h['step_s'] * 1e3:.1f} ms (fwd+bwd {h['grads_s'] * 1e3:.1f}, "
+        f"opt+proj {h['update_s'] * 1e3:.1f}; CUDA events), peak {peak} bytes "
+        f"(full attention's fwd+bwd: {full_peak}); loss {h['loss']!r} vs "
+        f"full {float(loss_f)!r} (rel {loss_err!r}, limit "
+        f"{LONG_TRAIN_LOSS_RTOL}), grad norm {h['grad_norm']!r} vs full "
+        f"{float(norm_f)!r} (rel {norm_err!r}, limit {LONG_TRAIN_NORM_RTOL}); "
+        f"layer 0's attention, full vs blocked: {json.dumps(parting)}")
+    if (loss_err > LONG_TRAIN_LOSS_RTOL or norm_err > LONG_TRAIN_NORM_RTOL
+            or not parting_within(parting)):
+        raise AssertionError(f"minicpm 4k: blocked vs full {LONG['train']}")
+    del state
+    reset_peak(empty=True)
+
+
+# ---------------------------------------------------------------------------
+# the fsdp phase: FSDP training on ranks sharing the card
+# ---------------------------------------------------------------------------
+
+def _digest(t) -> list:
+    """Two integer sums of a float32 tensor's bit patterns (plain and
+    position-weighted): equal tensors give equal digests."""
+    import torch
+    x = t.contiguous().view(torch.int32).flatten().to(torch.int64)
+    w = torch.arange(x.numel(), device=x.device) % 65521 + 1
+    return [int(x.sum()), int((x * w).sum())]
+
+
+def fsdp_setup(n_layers):
+    """(cfg, rules, batches) of the fsdp phase: minicpm-2b at full width
+    and FSDP_LAYERS layers, the reference's train-cell rules (fsdp over
+    "data"), FSDP_STEPS batches of FSDP_B x FSDP_S tokens."""
+    import dataclasses
+    from repro_torch.configs import minicpm_2b
+    from repro_torch.data import pipeline
+    from repro_torch.dist import sharding
+    cfg = dataclasses.replace(minicpm_2b.config(), n_layers=min(
+        FSDP_LAYERS, n_layers or FSDP_LAYERS))
+    rules = sharding.production_rules()
+    rules["fsdp"] = "data"
+    dcfg = pipeline.DataConfig(vocab=cfg.vocab, seq_len=FSDP_S,
+                               global_batch=FSDP_B)
+    return cfg, rules, [pipeline.lm_batch(dcfg, i) for i in range(FSDP_STEPS)]
+
+
+def fsdp_rank(mesh, n_layers) -> dict:
+    """One rank of the fsdp world: its shares, FSDP_STEPS steps, each
+    step's loss and gradient norm bits, the digests of its shares of the
+    parameters and moments, ms a step and in collectives, resident
+    bytes."""
+    import torch
+    from repro_torch.core.tree import flatten
+    from repro_torch.models import transformer
+    from repro_torch.train import fsdp
+    torch.use_deterministic_algorithms(True)
+    cfg, rules, batches = fsdp_setup(n_layers)
+    n, r = mesh.data.size, mesh.data.index
+    params = transformer.init_params(cfg, seed=0, device=mesh.device)
+    layout = fsdp.fsdp_layout(params, rules, n)
+    full_bytes = fsdp.resident_bytes(params) * 3
+    state = fsdp.init_fsdp_state(params, layout, n, r)
+    del params
+    torch.cuda.empty_cache()
+    step = fsdp.make_fsdp_train_step(cfg, mesh, rules, layout,
+                                     fsdp_tcfg(), donate=True)
+    steps = []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        steps.append({
+            "ms": (time.perf_counter() - t0) * 1e3,
+            "collective_ms": m["collective_s"] * 1e3,
+            "loss": _digest(m["loss"].reshape(1)),
+            "grad_norm": _digest(m["grad_norm"].reshape(1)),
+            "loss_value": float(m["loss"]),
+            "digests": {k: [_digest(x) for x in flatten(tree)[1]]
+                        for k, tree in (("params", state["params"]),
+                                        ("m", state["opt"]["m"]),
+                                        ("v", state["opt"]["v"]))}})
+    return {"rank": mesh.rank, "device": str(mesh.device),
+            "backend": mesh.backend, "steps": steps,
+            "resident_bytes": fsdp.resident_bytes(state),
+            "full_bytes": full_bytes,
+            "peak_bytes": torch.cuda.max_memory_allocated(mesh.device)}
+
+
+def fsdp_tcfg():
+    from repro_torch.train import step as tstep
+    return tstep.TrainConfig(peak_lr=1e-3, warmup=1, total_steps=10)
+
+
+def run_fsdp(n_layers) -> None:
+    """FSDP training on the card: FSDP_MESH ranks on ``cuda:0`` over gloo
+    (every collective staged through pinned host memory), minicpm-2b at
+    full width and FSDP_LAYERS layers, FSDP_STEPS steps of FSDP_B x
+    FSDP_S tokens, each rank holding its share of every leaf the specs
+    shard and of its AdamW moments; after every step each rank's shares,
+    loss and gradient norm must equal the single-card ``make_train_step``
+    with ``n_microbatches`` = the rank count, bitwise (both under
+    deterministic algorithms)."""
+    import dataclasses
+    import torch
+    from repro_torch.core.tree import flatten
+    from repro_torch.models import transformer
+    from repro_torch.serve.sharded import launch
+    from repro_torch.train import fsdp
+    from repro_torch.train import step as tstep
+    cfg, rules, batches = fsdp_setup(n_layers)
+    n = int(FSDP_MESH.split("x")[0])
+    torch.use_deterministic_algorithms(True)
+    try:
+        params = transformer.init_params(cfg, seed=0, device="cuda")
+        layout = fsdp.fsdp_layout(params, rules, n)
+        state = tstep.init_state(params)
+        del params
+        step = tstep.make_train_step(cfg, dataclasses.replace(
+            fsdp_tcfg(), n_microbatches=n), donate=True)
+        want, single_ms = [], []
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            single_ms.append((time.perf_counter() - t0) * 1e3)
+            dig = {}
+            for key, tree in (("params", state["params"]),
+                              ("m", state["opt"]["m"]),
+                              ("v", state["opt"]["v"])):
+                leaves = flatten(tree)[1]
+                dig[key] = [[_digest(fsdp._share(x, d, n, r))
+                             for x, d in zip(leaves, layout.dims)]
+                            for r in range(n)]
+            want.append({"loss": _digest(m["loss"].reshape(1)),
+                         "grad_norm": _digest(m["grad_norm"].reshape(1)),
+                         "loss_value": float(m["loss"]), "digests": dig})
+        del state, step
+    finally:
+        torch.use_deterministic_algorithms(False)
+    reset_peak(empty=True)
+    t0 = time.perf_counter()
+    ranks = launch(fsdp_rank, FSDP_MESH, "gloo", timeout_s=FSDP_WORLD_S,
+                   args=(n_layers,))
+    world_s = time.perf_counter() - t0
+    for r in ranks:
+        for t, (got, w) in enumerate(zip(r["steps"], want)):
+            where = f"fsdp rank {r['rank']} step {t}"
+            if got["loss"] != w["loss"] or got["grad_norm"] != w["grad_norm"]:
+                raise AssertionError(f"{where}: loss or grad norm differs "
+                                     f"from the single card's")
+            for key in ("params", "m", "v"):
+                if got["digests"][key] != w["digests"][key][r["rank"]]:
+                    bad = [j for j, (a, b) in enumerate(zip(
+                        got["digests"][key], w["digests"][key][r["rank"]]))
+                        if a != b]
+                    raise AssertionError(f"{where}: {key} shares differ from "
+                                         f"the single card's at leaves "
+                                         f"{bad[:8]}")
+        if r["backend"] != "gloo":
+            raise AssertionError(f"fsdp rank {r['rank']}: {r['backend']}")
+    sharded = sum(d is not None for d in layout.dims)
+    FSDP["world_s"] = world_s
+    FSDP["single_card_ms"] = single_ms
+    FSDP["ranks"] = [{k: r[k] for k in ("rank", "device", "resident_bytes",
+                                        "full_bytes", "peak_bytes")}
+                     | {"ms": [s["ms"] for s in r["steps"]],
+                        "collective_ms": [s["collective_ms"]
+                                          for s in r["steps"]]}
+                     for r in ranks]
+    log(f"fsdp[{FSDP_MESH}, minicpm-2b {cfg.n_layers} layers, {FSDP_STEPS} "
+        f"steps of {FSDP_B} x {FSDP_S}]: {sharded} of {len(layout.dims)} "
+        f"leaves sharded; every rank's shares of the parameters and both "
+        f"moments, its loss and its grad norm == the single card's "
+        f"n_microbatches={n} step, bitwise, after each step; losses "
+        f"{[w['loss_value'] for w in want]}; single card "
+        f"{[round(x, 1) for x in single_ms]} ms a step; world {world_s:.1f}s")
+    for r in FSDP["ranks"]:
+        log(f"fsdp rank {r['rank']} on {r['device']}: ms a step "
+            f"{[round(x, 1) for x in r['ms']]}, of it in collectives "
+            f"{[round(x, 1) for x in r['collective_ms']]}; resident "
+            f"{r['resident_bytes']} bytes of the unsharded state's "
+            f"{r['full_bytes']} (params + 2 moments); peak {r['peak_bytes']}")
+    log(f"fsdp: {smi_line()}")
+
+
 def _searchsorted_ms(acc, thr, sign, want, bench: Bench):
     """The library yardstick of the threshold kernel: ``torch.searchsorted``
     of each channel's values into its threshold row, which counts the
@@ -4757,7 +5594,9 @@ def main() -> int:
                        lambda: run_qwen2vl(args.layers, args.profile)),
                       ("sharded", lambda: run_sharded(args.layers)),
                       ("mobilenetv2", lambda: run_mobilenet(bench)),
-                      ("train", run_train)):
+                      ("train", run_train),
+                      ("long", lambda: run_long(args.layers, bench)),
+                      ("fsdp", lambda: run_fsdp(args.layers))):
         if phase in phases:
             t0 = time.perf_counter()
             fn()

@@ -2,7 +2,10 @@
 reference's boolean position mask (causal or, for whisper's encoder,
 bidirectional, and a sliding window on local layers), gemma-2's logit
 soft-cap before the mask and the ``NEG_INF`` fill; RoPE, Qwen2-VL's M-RoPE
-or no rotation (``rope_mode``); full-sequence prefill, single-token decode
+or no rotation (``rope_mode``); full-sequence prefill and training
+(``attention``: one score tensor up to 2 x ``kv_block`` tokens, past that
+the reference's online softmax over K/V blocks, ``blocked_attention``,
+with the reference's sharding constraint points), single-token decode
 (over a full-length cache or a rolling ring of a local layer) and the
 S-token speculative-verify block over a dense per-slot KV cache or, with a
 page ``table``, over shared page pools (``paged_gather`` /
@@ -18,10 +21,11 @@ holding ``n_kv / tp`` heads (the reference's ``_proj_qkv`` rule).
 
 Plain PyTorch ops throughout (the reference has no Pallas kernel here).
 Scores and the probability-value product accumulate in float32 on float32
-copies of K/V, the analogue of the reference's
-``preferred_element_type=float32``.  Decode writes the new K/V row into the
-cache IN PLACE (the reference returns an updated copy; the engine donates
-it, so the two are the same data flow) and returns the same tensors.
+copies of K/V (a block at a time in ``blocked_attention``), the analogue
+of the reference's ``preferred_element_type=float32``.  Decode writes the
+new K/V row into the cache IN PLACE (the reference returns an updated
+copy; the engine donates it, so the two are the same data flow) and
+returns the same tensors.
 """
 from __future__ import annotations
 
@@ -29,7 +33,9 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.dist.sharding import constrain
 from repro_torch.models.layers import (Params, init_linear, linear, rotate,
                                        stable_tanh)
 
@@ -287,20 +293,203 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, S, Hq, D)
 
 
+# Blocked attention is an online softmax over K/V blocks of ``kv_block``
+# keys, as the reference's scan, with the query positions in tiles of
+# ``_TILE_ROWS // G`` (G query heads a KV head): a unit is one (row, kv
+# head, query tile), ``_TILE_ROWS`` query-head rows.  Units go in groups
+# of ``_UNIT_BATCH`` (the last zero-padded), each group stepping through
+# its units' blocks as batched GEMMs of one shape ([_UNIT_BATCH, rows, D]
+# @ [_UNIT_BATCH, D, kv_block]), so a (row, head)'s bits do not depend on
+# the call's rows, heads or length on the card (the reason
+# ``scores_stable`` exists), and no (row, kv head) pair count is padded.
+# A block no query of a tile can see (above the causal diagonal, or
+# behind every query's window) is skipped for that tile; a unit whose
+# blocks run out before its group's keeps its state through
+# ``torch.where``.
+_TILE_ROWS = 2048
+_UNIT_BATCH = 16
+_FAR = 2 ** 30            # beyond any position, for the tiles' ranges
+
+
+def _q_block(G: int) -> int:
+    """Query positions a tile: ``_TILE_ROWS`` rows over G heads."""
+    return max(1, _TILE_ROWS // G)
+
+
+def _live_blocks(q_pos: torch.Tensor, k_pos: torch.Tensor, qb: int,
+                 kv_block: int, causal: bool, window: Optional[int]) -> list:
+    """Per row and query tile (``qb`` positions): the K/V blocks the tile
+    must visit, in order, each as (block, whether its mask can drop a key:
+    else every key of the block is visible to every query of the tile).
+    q_pos [B, S] the queries' positions, k_pos [B, nblk * kv_block] with
+    the reference's ``-10**9`` on padded keys.  One host read."""
+    B, S = q_pos.shape
+    nq = -(-S // qb)
+    spad = nq * qb - S
+    qmin = F.pad(q_pos, (0, spad), value=_FAR).reshape(B, nq, qb).amin(-1)
+    qmax = F.pad(q_pos, (0, spad), value=-_FAR).reshape(B, nq, qb).amax(-1)
+    kt = k_pos.reshape(B, -1, kv_block)
+    valid = kt >= 0
+    kstats = torch.stack([torch.where(valid, kt, _FAR).amin(-1),
+                          torch.where(valid, kt, -_FAR).amax(-1),
+                          valid.all(-1).to(kt.dtype)], -1)
+    flat = torch.cat([torch.stack([qmin, qmax], -1).flatten(),
+                      kstats.flatten()]).tolist()
+    qs = [[flat[(b * nq + i) * 2:(b * nq + i) * 2 + 2] for i in range(nq)]
+          for b in range(B)]
+    off, nblk = B * nq * 2, kt.shape[1]
+    ks = [[flat[off + (b * nblk + j) * 3:off + (b * nblk + j) * 3 + 3]
+           for j in range(nblk)] for b in range(B)]
+    out = []
+    for b in range(B):
+        row = []
+        for qlo, qhi in qs[b]:
+            blocks = []
+            for j, (kmin, kmax, full) in enumerate(ks[b]):
+                if (kmin == _FAR or (causal and kmin > qhi)
+                        or (window is not None and kmax <= qlo - window)):
+                    continue                 # no query of the tile sees it
+                open_ = (full and (not causal or kmax <= qlo)
+                         and (window is None or kmin > qhi - window))
+                blocks.append((j, not open_))
+            row.append(blocks)
+        out.append(row)
+    return out
+
+
+def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      q_pos: torch.Tensor, k_pos: torch.Tensor, *,
+                      causal: bool = True, window: Optional[int] = None,
+                      logit_softcap: Optional[float] = None,
+                      kv_block: int = 1024) -> torch.Tensor:
+    """q [B, S, Hq, D], k/v [B, T, Hkv, D] -> float32 [B, S, Hq, D]: GQA
+    by head grouping (no K/V repeat), an online softmax over K/V blocks of
+    ``kv_block`` keys (the last padded with key position ``-10**9``), the
+    running max, sum and accumulator in float32, the output ``acc /
+    max(l, 1e-30)``; the mask and ``NEG_INF`` as :func:`full_attention`'s.
+    K and V stay in their storage dtype: each block is cast to float32 as
+    it is read, never the whole sequence.  The scale is applied to q in
+    q's dtype, as the reference's.
+
+    Skipping a block that no query of a tile can see keeps every row that
+    sees at least one key bit for bit: before the row's first visible key
+    such a block would add p = 1 a key (``NEG_INF`` is finite), wiped by
+    the next ``corr = exp(-1e30 - m) = 0``; after it, it adds exact zeros
+    (up to the sign of an exact zero).  A row that sees no key at all
+    (never one of :func:`attention`'s) gets 0 where the reference gets
+    the mean of V."""
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    kb, qb, dev = kv_block, _q_block(G), q.device
+    nblk, nq = -(-T // kb), -(-S // qb)
+    R = qb * G                                 # query-head rows a unit
+    scale = torch.tensor(1.0 / math.sqrt(D), dtype=q.dtype)
+    qg = (q.reshape(B, S, Hkv, G, D) * scale).to(torch.float32)
+    spad, tpad = nq * qb - S, nblk * kb - T
+    # units u = (b * Hkv + h) * nq + i; index U is a zero dummy unit
+    U = B * Hkv * nq
+    qu = torch.cat([F.pad(qg, (0, 0, 0, 0, 0, 0, 0, spad))
+                    .permute(0, 2, 1, 3, 4).reshape(U, R, D),
+                    qg.new_zeros((1, R, D))])
+
+    def blocks_of(x):              # [B, T, Hkv, D] -> [B*Hkv*nblk + 1, kb, D]
+        xb = F.pad(x, (0, 0, 0, 0, 0, tpad)).reshape(
+            B, nblk, kb, Hkv, D).permute(0, 3, 1, 2, 4).reshape(-1, kb, D)
+        return torch.cat([xb, xb.new_zeros((1, kb, D))])
+    kblk, vblk = blocks_of(k), blocks_of(v)
+    qp = F.pad(q_pos.to(torch.int32), (0, spad), value=-_FAR)
+    kp = F.pad(k_pos.to(torch.int32), (0, tpad), value=-(10 ** 9))
+    live = _live_blocks(q_pos.to(torch.int32), kp, qb, kb, causal, window)
+    qpu = torch.cat([qp.reshape(B * nq, qb), qp.new_full((1, qb), -_FAR)])
+    kpu = torch.cat([kp.reshape(B * nblk, kb),
+                     kp.new_full((1, kb), -(10 ** 9))])
+    plan = [live[u // (Hkv * nq)][u % nq] for u in range(U)]
+    # groups of units with as many blocks as each other as can be: the
+    # units in the order of their block counts, _UNIT_BATCH at a time;
+    # each group's unit, K/V block, query-row and key-position indices go
+    # to the device in one copy
+    order = sorted(range(U), key=lambda u: (-len(plan[u]), u))
+    groups, index = [], []
+    for c in range(0, U, _UNIT_BATCH):
+        units = order[c:c + _UNIT_BATCH]
+        units = units + [U] * (_UNIT_BATCH - len(units))
+        steps = []
+        for t in range(max(len(plan[u]) for u in units if u < U)):
+            on = [u < U and len(plan[u]) > t for u in units]
+            js = [plan[u][t][0] if o else None for u, o in zip(units, on)]
+            steps.append((all(on), any(o and plan[u][t][1]
+                                       for u, o in zip(units, on))))
+            index.append([
+                [(u // nq) * nblk + j if o else B * Hkv * nblk
+                 for u, j, o in zip(units, js, on)],
+                [(u // (Hkv * nq)) * nblk + j if o else B * nblk
+                 for u, j, o in zip(units, js, on)],
+                [int(o) for o in on]])
+        groups.append((units, steps))
+    index = torch.tensor(index, dtype=torch.int64).reshape(-1, 3,
+                                                           _UNIT_BATCH)
+    index = index.to(dev)
+    rows = torch.tensor([[u if u < U else U for u in units]
+                         + [(u // (Hkv * nq)) * nq + u % nq if u < U
+                            else B * nq for u in units]
+                         for units, _ in groups],
+                        dtype=torch.int64).to(dev)
+    outs, n_step = [], 0
+    for g, (units, steps) in enumerate(groups):
+        qx = qu.index_select(0, rows[g, :_UNIT_BATCH])
+        qrow = qpu.index_select(0, rows[g, _UNIT_BATCH:])
+        m_run = qx.new_full((_UNIT_BATCH, R), NEG_INF)
+        l_run = qx.new_zeros((_UNIT_BATCH, R))
+        acc = qx.new_zeros((_UNIT_BATCH, R, D))
+        for every_on, masked in steps:
+            kidx, krow, on = index[n_step]
+            n_step += 1
+            s = torch.bmm(qx, kblk.index_select(0, kidx).to(torch.float32)
+                          .transpose(1, 2))      # [UB, R, kb]
+            if logit_softcap is not None:
+                s = _softcap_scores(s, logit_softcap)
+            if masked:
+                keep = _mask(qrow, kpu.index_select(0, krow), window,
+                             causal)             # [UB, qb, kb]
+                s = s.view(_UNIT_BATCH, qb, G, kb).masked_fill(
+                    ~keep[:, :, None], NEG_INF).view(_UNIT_BATCH, R, kb)
+            m_new = torch.maximum(m_run, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m_run - m_new)
+            l_new = l_run * corr + p.sum(-1)
+            pv = torch.bmm(p.to(v.dtype).to(torch.float32),
+                           vblk.index_select(0, kidx).to(torch.float32))
+            a_new = acc * corr[..., None] + pv
+            if not every_on:       # units out of blocks keep their state
+                live_u = on.bool()[:, None]
+                m_new = torch.where(live_u, m_new, m_run)
+                l_new = torch.where(live_u, l_new, l_run)
+                a_new = torch.where(live_u[..., None], a_new, acc)
+            m_run, l_run, acc = m_new, l_new, a_new
+        outs.append(acc / torch.clamp_min(l_run[..., None], 1e-30))
+    inverse = torch.empty(U, dtype=torch.int64)
+    inverse[torch.tensor(order)] = torch.arange(U)
+    out = torch.cat(outs).index_select(0, inverse.to(dev))
+    out = out.reshape(B, Hkv, nq * qb, G, D)[:, :, :S]
+    return out.permute(0, 2, 1, 3, 4).reshape(B, S, Hq, D)
+
+
 def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, *,
               n_heads: int, n_kv: int, head_dim: int, causal: bool = True,
               window: Optional[int] = None,
               logit_softcap: Optional[float] = None,
               rope_theta: float = 10000.0, rope_mode: str = "rope",
               mrope_sections: tuple = (), mrope_positions=None,
-              quant: str = "none", compute_dtype=torch.bfloat16,
-              return_kv: bool = False):
-    """Self-attention over a full sequence (prefill; ``causal=False`` for
-    whisper's encoder).  ``rope_mode`` "rope", "mrope" (at
-    ``mrope_positions`` [B, S, 3], ``positions`` in all three components
-    when None) or "none".  Unblocked: the score tensor is [B, S, H, S] (the
-    reference switches to a blocked scan above 2 * kv_block tokens, with
-    the same result up to float summation order)."""
+              kv_block: int = 1024, quant: str = "none",
+              compute_dtype=torch.bfloat16, return_kv: bool = False):
+    """Self-attention over a full sequence (train / prefill;
+    ``causal=False`` for whisper's encoder).  ``rope_mode`` "rope",
+    "mrope" (at ``mrope_positions`` [B, S, 3], ``positions`` in all three
+    components when None) or "none".  Up to ``2 * kv_block`` tokens the
+    scores are one [B, S, H, S] tensor (:func:`full_attention`); past
+    that the blocked online softmax (:func:`blocked_attention`), as the
+    reference switches."""
     B, S, _ = x.shape
     q = _proj_qkv(p, "wq", x, B, S, head_dim, quant, compute_dtype)
     k = _proj_qkv(p, "wk", x, B, S, head_dim, quant, compute_dtype)
@@ -309,9 +498,19 @@ def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, *,
                sections=mrope_sections, mrope_positions=mrope_positions)
     q = rotate(q, positions, **rot)
     k = rotate(k, positions, **rot)
-    out = full_attention(q, k, v, positions, positions, window,
-                         logit_softcap, causal)
-    y = _proj_out(p, out.to(compute_dtype), B, S, quant, compute_dtype)
+    q = constrain(q, "batch", None, "heads", None)
+    k = constrain(k, "batch", None, "kv_heads", None)
+    v = constrain(v, "batch", None, "kv_heads", None)
+    if S <= 2 * kv_block:
+        out = full_attention(q, k, v, positions, positions, window,
+                             logit_softcap, causal)
+    else:
+        out = blocked_attention(q, k, v, positions, positions,
+                                causal=causal, window=window,
+                                logit_softcap=logit_softcap,
+                                kv_block=kv_block)
+    out = constrain(out.to(compute_dtype), "batch", None, "heads", None)
+    y = _proj_out(p, out, B, S, quant, compute_dtype)
     if return_kv:
         return y, (k, v)
     return y

@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.configs import ModelConfig
 from repro_torch.core.device import resolve_device, seeded_generator
+from repro_torch.dist.sharding import constrain
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import (init_embedding, init_mlp, layer_norm,
                                        linear, mlp, nll)
@@ -153,9 +154,11 @@ def encode(params: dict, cfg: ModelConfig,
     for bp in params["enc_blocks"]:
         h = layer_norm(bp["ln1"], x)
         x = x + attn_lib.attention(bp["attn"], h, pos, causal=False,
-                                   rope_mode="none", **_attn_kw(cfg))
+                                   rope_mode="none", kv_block=cfg.kv_block,
+                                   **_attn_kw(cfg))
         h = layer_norm(bp["ln2"], x)
         x = x + mlp(bp["mlp"], h, cfg.quant, cd, kind="gelu")
+        x = constrain(x, "batch", "seq", None)
     return layer_norm(params["enc_ln"], x)
 
 
@@ -183,14 +186,17 @@ def dec_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     for bp in params["dec_blocks"]:
         h = layer_norm(bp["ln1"], x)
         y, (k, v) = attn_lib.attention(bp["self_attn"], h, pos,
-                                       rope_mode="none", return_kv=True, **kw)
+                                       rope_mode="none", kv_block=cfg.kv_block,
+                                       return_kv=True, **kw)
         x = x + y
         h = layer_norm(bp["ln_x"], x)
         x = x + attn_lib.cross_attention(bp["cross_attn"], h, enc_out, **kw)
         h = layer_norm(bp["ln2"], x)
         x = x + mlp(bp["mlp"], h, cfg.quant, cd, kind="gelu")
+        x = constrain(x, "batch", "seq", None)
         cache.append({"k": k.to(cd), "v": v.to(cd)})
-    logits = _head(params, cfg, layer_norm(params["dec_ln"], x))
+    logits = constrain(_head(params, cfg, layer_norm(params["dec_ln"], x)),
+                       "batch", "seq", "vocab")
     return (logits, cache) if return_cache else logits
 
 

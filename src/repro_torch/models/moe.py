@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.dist import tp as tp_lib
+from repro_torch.dist.sharding import constrain
 from repro_torch.models.layers import (Params, init_linear, init_mlp, linear,
                                        mlp)
 
@@ -196,6 +197,10 @@ def _dispatch_groups(p: Params, xf: torch.Tensor, cfg: MoEConfig, *,
     buf.index_put_((grp, flat_e, torch.where(keep, pos, C)),
                    xf[:, token_of].to(cd))
     a = buf[:, :, :C].transpose(0, 1).reshape(E, G * C, d)
+    # the reference constrains the flat (global) dispatch's buffers only
+    flat = cfg.dispatch != "grouped"
+    if flat:
+        a = constrain(a, "expert", "moe_capacity", None)
     # expert-parallel banks (``tp_exp``, inside the sharded engine's
     # context) hold this rank's E/tp experts: only they run, on their rows
     # of the buffer, and an all_gather over the expert axis rebuilds the
@@ -209,9 +214,13 @@ def _dispatch_groups(p: Params, xf: torch.Tensor, cfg: MoEConfig, *,
     h = expert_matmul(a, p["wi"], cd)
     g = expert_matmul(a, p["wg"], cd)
     h = F.silu(g.to(torch.float32)).to(cd) * h
+    if exp_axis is None and flat:
+        h = constrain(h, "expert", "moe_capacity", "expert_mlp")
     out = expert_matmul(h, p["wo"], cd)                        # [E, G*C, d]
     if exp_axis is not None:
         out = tp_lib.all_gather(out, exp_axis, dim=0)
+    elif flat:
+        out = constrain(out, "expert", "moe_capacity", None)
     out = out.reshape(E, G, C, d).transpose(0, 1)              # [G, E, C, d]
     safe = torch.where(keep, pos, C - 1)
     gathered = torch.where(keep[..., None], out[grp, flat_e, safe], 0)
@@ -281,4 +290,6 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: MoEConfig, *,
     y, aux = _dispatch_groups(
         p, groups, cfg, quant=quant, compute_dtype=compute_dtype,
         C=capacity(cfg, groups.shape[1], deterministic_capacity))
+    if cfg.dispatch == "grouped":
+        y = constrain(y, "batch", None, None)
     return y.reshape(B, S, d), torch.mean(aux)

@@ -57,6 +57,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs import BlockSpec, ModelConfig
 from repro_torch.core.device import resolve_device, seeded_generator
+from repro_torch.dist.sharding import constrain
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -278,7 +279,8 @@ def _block(bp: dict, spec: BlockSpec, cfg: ModelConfig, x: torch.Tensor,
         y, (sk, sv) = attn_lib.attention(
             shared["attn"], h, positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
             head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
-            rope_mode=cfg.rope_mode, return_kv=True, **kw)
+            rope_mode=cfg.rope_mode, kv_block=cfg.kv_block, return_kv=True,
+            **kw)
         x = _shared_mlp(shared, cfg, x + y)
         cache["shared_k"], cache["shared_v"] = sk.to(cd), sv.to(cd)
     h = _norm(bp["ln1"], x, cfg)
@@ -288,7 +290,8 @@ def _block(bp: dict, spec: BlockSpec, cfg: ModelConfig, x: torch.Tensor,
             head_dim=cfg.head_dim, window=_window(cfg, spec),
             logit_softcap=cfg.attn_softcap, rope_theta=cfg.rope_theta,
             rope_mode=cfg.rope_mode, mrope_sections=cfg.mrope_sections,
-            mrope_positions=mrope_positions, return_kv=True, **kw)
+            mrope_positions=mrope_positions, kv_block=cfg.kv_block,
+            return_kv=True, **kw)
         if cfg.gemma_norms:
             y = _norm(bp["post_attn_ln"], y, cfg)
         cache["k"], cache["v"] = k.to(cd), v.to(cd)
@@ -307,10 +310,10 @@ def _block(bp: dict, spec: BlockSpec, cfg: ModelConfig, x: torch.Tensor,
         h = _norm(bp["ln2"], x, cfg)
         h_prev = F.pad(h, (0, 0, 1, 0))[:, :-1]
         cache["xc"] = h[:, -1:].to(cd)
-        return x + ssm_lib.rwkv6_chanmix(bp["cmix"], h, h_prev, **kw), \
-            cache, None
+        x = x + ssm_lib.rwkv6_chanmix(bp["cmix"], h, h_prev, **kw)
+        return constrain(x, "batch", "seq", None), cache, None
     x, aux = _mlp_tail(bp, spec, cfg, x)
-    return x, cache, aux
+    return constrain(x, "batch", "seq", None), cache, aux
 
 
 def _remat_context(cfg: ModelConfig):
@@ -375,10 +378,12 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor = None,
     x = _embed(params, cfg, tokens, embeddings)
     B, S = x.shape[:2]
     positions = attn_lib.arange_positions(B, S, x.device)
+    x = constrain(x, "batch", "seq", None)
     x, total = _layers(params, cfg, x, positions, mrope_positions)
     x = _norm(params["final_norm"], x, cfg)
-    logits = _final_softcap(_lm_head(params, cfg, x.to(cfg.cdtype)), cfg)
-    return logits, total
+    logits = constrain(_lm_head(params, cfg, x.to(cfg.cdtype)), "batch",
+                       "seq", "vocab")
+    return _final_softcap(logits, cfg), total
 
 
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
@@ -414,6 +419,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor = None,
     x = _embed(params, cfg, tokens, embeddings)
     B, S = x.shape[:2]
     positions = attn_lib.arange_positions(B, S, x.device)
+    x = constrain(x, "batch", "seq", None)
     cache = []
     shared = params.get("shared_attn")
     for i, bp in enumerate(params["blocks"]):

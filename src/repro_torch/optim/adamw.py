@@ -77,8 +77,11 @@ def global_norm(tree) -> torch.Tensor:
     return _sqrt(torch.as_tensor(total, dtype=torch.float32))
 
 
-def _clip_scale(grads, max_norm: float):
-    gn = global_norm(grads)
+def _clip_scale(grads, max_norm: float, gn=None):
+    """(min(1, max_norm / norm), norm); ``gn`` is the norm when the caller
+    has it (a sharded step's, over the whole gradient)."""
+    if gn is None:
+        gn = global_norm(grads)
     return torch.clamp_max(_f32(max_norm, gn) / torch.clamp_min(gn, 1e-9),
                            1.0), gn
 
@@ -90,13 +93,16 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 def update(params, grads, opt_state: dict, lr: torch.Tensor,
-           cfg: AdamWConfig = AdamWConfig(), donate: bool = False):
+           cfg: AdamWConfig = AdamWConfig(), donate: bool = False,
+           grad_norm: torch.Tensor = None):
     """Returns (new_params, new_opt_state, grad_norm).  With ``donate`` the
     results live in the tensors of ``params`` and ``opt_state``, which
-    must not be read as the old values afterwards."""
+    must not be read as the old values afterwards.  ``grad_norm``, when
+    given, is the clip's norm in place of ``global_norm(grads)``: an FSDP
+    rank's ``grads`` are its share of a gradient whose norm is global."""
     # clipped leaf by leaf inside ``upd`` (the values clip_by_global_norm
     # gives, without a second copy of every gradient)
-    scale, gn = _clip_scale(grads, cfg.grad_clip)
+    scale, gn = _clip_scale(grads, cfg.grad_clip, grad_norm)
     step = opt_state["step"] + 1
     t = step.to(torch.float32)
     one = _f32(1.0, t)

@@ -118,6 +118,17 @@ def qat_project(params, model_cfg, donate: bool = False):
     return unflatten(params, out)
 
 
+def lr_schedule(tcfg: TrainConfig) -> Callable:
+    """The step -> learning-rate function ``tcfg`` names."""
+    if tcfg.schedule == "wsd":
+        return schedules.make(
+            "wsd", peak_lr=tcfg.peak_lr, warmup=tcfg.warmup,
+            stable=int(tcfg.total_steps * 0.8),
+            decay=int(tcfg.total_steps * 0.1))
+    return schedules.make("cosine", peak_lr=tcfg.peak_lr,
+                          warmup=tcfg.warmup, total=tcfg.total_steps)
+
+
 def make_train_step(model_cfg, tcfg: TrainConfig = TrainConfig(),
                     donate: bool = False):
     """``train_step(state, batch, mark=None) -> (new_state, metrics)``.
@@ -128,14 +139,7 @@ def make_train_step(model_cfg, tcfg: TrainConfig = TrainConfig(),
     ``loop.StepTimer`` times the two halves with it.  ``metrics`` are
     device tensors: ``loss``, ``grad_norm`` and ``lr``."""
     loss_fn = loss_for(model_cfg)
-    if tcfg.schedule == "wsd":
-        sched = schedules.make(
-            "wsd", peak_lr=tcfg.peak_lr, warmup=tcfg.warmup,
-            stable=int(tcfg.total_steps * 0.8),
-            decay=int(tcfg.total_steps * 0.1))
-    else:
-        sched = schedules.make("cosine", peak_lr=tcfg.peak_lr,
-                               warmup=tcfg.warmup, total=tcfg.total_steps)
+    sched = lr_schedule(tcfg)
 
     def train_step(state: dict, batch: dict,
                    mark: Optional[Callable] = None):
